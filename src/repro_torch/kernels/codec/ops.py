@@ -1,0 +1,69 @@
+"""Public codec ops: flatten each row, then the kernel or its plain version.
+
+Counterparts of ``repro.kernels.codec.ops``. Every op takes a tensor whose
+leading axis is the row (node) axis: row ``i`` is one payload, flattened and
+padded on its own, so one launch encodes every sending node's row. A CUDA
+tensor goes to the Hopper kernel (or raises); a CPU tensor to the plain
+version in :mod:`.ref`. There is no fallback between the two.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import ref
+from .quant_pack import dequantize_rows, quantize_rows
+from .topk_pack import topk_select_rows
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """(rows, ...) -> contiguous (rows, size) f32."""
+    return x.reshape(x.shape[0], -1).float().contiguous()
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"codec ops run on CUDA or CPU tensors, got {t.device}")
+
+
+def quantize_op(x: torch.Tensor, *, bits: int = 8, chunk: int = 1024
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize each row into wire buffers: codes int8 ``(rows, C, chunk)``
+    (8-bit) or nibble-packed uint8 ``(rows, C, chunk // 2)`` (4-bit), and f32
+    scales ``(rows, C)``."""
+    flat = _rows(x)
+    if _on_card(flat):
+        return quantize_rows(flat, bits, chunk)
+    return ref.quantize_rows(flat, bits, chunk)
+
+
+def dequantize_op(codes: torch.Tensor, scales: torch.Tensor, *, size: int,
+                  bits: int = 8, chunk: int = 1024) -> torch.Tensor:
+    """Inverse of :func:`quantize_op`: f32 ``(rows, size)``."""
+    if _on_card(codes):
+        return dequantize_rows(codes, scales, size, bits, chunk)
+    return ref.dequantize_rows(codes, scales, size, bits, chunk)
+
+
+def topk_select_op(x: torch.Tensor, *, k: int, block: int = 256
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-local top-k of each row: values f32 and indices i32, both
+    ``(rows, C, k)``."""
+    flat = _rows(x)
+    if _on_card(flat):
+        return topk_select_rows(flat, k, block)
+    return ref.topk_select_rows(flat, k, block)
+
+
+def topk_scatter(vals: torch.Tensor, idx: torch.Tensor, *, size: int,
+                 block: int) -> torch.Tensor:
+    """Decode packed (values, indices) back to dense f32 ``(rows, size)``
+    (a plain scatter, as the JAX package's jnp scatter outside Pallas)."""
+    rows, n_blocks, _ = vals.shape
+    dense = torch.zeros((rows, n_blocks, block), dtype=torch.float32, device=vals.device)
+    dense.scatter_(2, idx.long(), vals.float())
+    return dense.reshape(rows, -1)[:, :size]

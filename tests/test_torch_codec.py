@@ -1,0 +1,165 @@
+"""The port's codec path (plain versions, on the CPU) against the JAX package.
+
+Three references: the Pallas kernels through ``repro.kernels.codec.ops``
+(interpret mode off the TPU), ``topk_select_ref`` and
+``topk_select_blocks(interpret=True)`` for top-k, and the numpy host
+encoders ``_encode_leaf`` / ``_decode_leaf``. Codes, scales, values and
+indices must be bit-identical, with one stated exception: on the CPU, XLA
+turns the Pallas quantizer's ``absmax / qmax`` into a reciprocal multiply,
+so its scales may sit 1 ulp from the true divide that the numpy encoder and
+the port compute. The wire-byte model and the error bound must equal the
+JAX package's.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.compress import make_codec as jax_make_codec  # noqa: E402
+from repro.kernels.codec.ops import dequantize_op as jax_dequantize_op  # noqa: E402
+from repro.kernels.codec.ops import quantize_op as jax_quantize_op  # noqa: E402
+from repro.kernels.codec.ref import topk_select_ref as jax_topk_ref  # noqa: E402
+from repro.kernels.codec.topk_pack import topk_select_blocks  # noqa: E402
+from repro_torch.compress import make_codec  # noqa: E402
+from repro_torch.kernels.codec import ref  # noqa: E402
+from repro_torch.kernels.codec.ops import (  # noqa: E402
+    dequantize_op,
+    quantize_op,
+    topk_scatter,
+    topk_select_op,
+)
+
+SIZES = (1, 255, 1000, 1027, 3050, 4096)  # most not a multiple of chunk / block
+
+
+def _x(size, seed=0, ties=False):
+    rng = np.random.default_rng(seed + size)
+    x = rng.normal(size=size).astype(np.float32) * 3
+    if ties:  # exact .5 multiples of the scale and repeated magnitudes
+        x = (np.round(x * 4) / 4).astype(np.float32)
+        x[: size // 3] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("ties", (False, True))
+def test_quantize_matches_pallas_and_numpy(bits, size, ties):
+    x = _x(size, ties=ties)
+    codes, scales = quantize_op(torch.from_numpy(x)[None], bits=bits)
+    jc, js = jax_quantize_op(jnp.asarray(x), bits=bits)
+    # XLA rewrites the Pallas kernel's absmax / qmax (a constant divisor) into
+    # a multiply by the f32 reciprocal; the port keeps the true divide of the
+    # numpy encoder, so against the interpret path the scales agree to 1 ulp,
+    # and the codes agree wherever the scales do
+    np.testing.assert_array_max_ulp(scales[0].numpy(), np.asarray(js), maxulp=1)
+    same = scales[0].numpy() == np.asarray(js)
+    np.testing.assert_array_equal(codes[0].numpy()[same], np.asarray(jc)[same])
+    host = jax_make_codec(f"int{bits}")._encode_leaf(x)
+    np.testing.assert_array_equal(codes[0].numpy(), host["codes"].reshape(codes[0].shape))
+    np.testing.assert_array_equal(scales[0].numpy(), host["scales"])
+    # decode: Pallas dequantize, the numpy decoder, and exact requantization
+    out = dequantize_op(codes, scales, size=size, bits=bits)
+    np.testing.assert_array_equal(
+        out[0].numpy(), np.asarray(jax_dequantize_op(codes[0].numpy(), scales[0].numpy(),
+                                                     size=size, bits=bits)))
+    np.testing.assert_array_equal(out[0].numpy(),
+                                  jax_make_codec(f"int{bits}")._decode_leaf(host))
+    again = quantize_op(out, bits=bits)
+    np.testing.assert_array_equal(again[0].numpy(), codes.numpy())
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+def test_rows_are_encoded_on_their_own(bits):
+    """A leading node axis encodes each row as if it were alone (padding
+    per row, never over the concatenation)."""
+    xs = np.stack([_x(1027, seed=s) for s in range(3)])
+    xs[1] *= 100
+    codes, scales = quantize_op(torch.from_numpy(xs), bits=bits)
+    for i in range(3):
+        c1, s1 = quantize_op(torch.from_numpy(xs[i])[None], bits=bits)
+        np.testing.assert_array_equal(codes[i].numpy(), c1[0].numpy())
+        np.testing.assert_array_equal(scales[i].numpy(), s1[0].numpy())
+    vals, idx = topk_select_op(torch.from_numpy(xs), k=13)
+    for i in range(3):
+        v1, i1 = topk_select_op(torch.from_numpy(xs[i])[None], k=13)
+        np.testing.assert_array_equal(vals[i].numpy(), v1[0].numpy())
+        np.testing.assert_array_equal(idx[i].numpy(), i1[0].numpy())
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("ties", (False, True))
+def test_topk_matches_ref_pallas_and_numpy(size, ties):
+    codec = jax_make_codec("topk")
+    x = _x(size, ties=ties)
+    vals, idx = topk_select_op(torch.from_numpy(x)[None], k=codec.k, block=codec.block)
+    blocks = jnp.asarray(codec._blocked(x))
+    jv, ji = jax_topk_ref(blocks, codec.k)
+    np.testing.assert_array_equal(vals[0].numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(ji))
+    pv, pi = topk_select_blocks(blocks, k=codec.k, interpret=True)
+    np.testing.assert_array_equal(vals[0].numpy(), np.asarray(pv))
+    np.testing.assert_array_equal(idx[0].numpy(), np.asarray(pi))
+    host = codec._encode_leaf(x)
+    np.testing.assert_array_equal(vals[0].numpy(), host["values"])
+    np.testing.assert_array_equal(idx[0].numpy(), host["indices"])
+    dense = topk_scatter(vals, idx, size=size, block=codec.block)
+    np.testing.assert_array_equal(dense[0].numpy(), codec._decode_leaf(host))
+
+
+def test_topk_all_zero_block_selects_first_k():
+    vals, idx = ref.topk_select_ref(torch.zeros(2, 256), 13)
+    np.testing.assert_array_equal(idx.numpy(), np.tile(np.arange(13), (2, 1)))
+    assert not vals.any()
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_bf16_matches_numpy_encoder(size):
+    x = _x(size)
+    (wire,) = make_codec("bf16").encode(torch.from_numpy(x)[None])
+    bits = wire[0].view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(bits, jax_make_codec("bf16")._encode_leaf(x)["bits"])
+    back = make_codec("bf16").roundtrip(torch.from_numpy(x)[None])
+    np.testing.assert_array_equal(back[0].numpy(),
+                                  jax_make_codec("bf16")._decode_leaf(
+                                      jax_make_codec("bf16")._encode_leaf(x)))
+
+
+@pytest.mark.parametrize("name", ("fp32", "bf16", "int8", "int4", "topk"))
+def test_wire_model_matches_jax(name):
+    ours, theirs = make_codec(name), jax_make_codec(name)
+    for n in (0, 1, 7, 255, 256, 1023, 1024, 1025, 5_300_000, 180_910_080):
+        assert ours.wire_bytes(n) == theirs.wire_bytes(n)
+    for m in (0.0, 1.0, 3.7, 1e4):
+        assert ours.mean_atol(m) == theirs.mean_atol(m)
+    assert ours.name == theirs.name and ours.lossless == theirs.lossless
+
+
+@pytest.mark.parametrize("name", ("bf16", "int8", "int4", "topk"))
+def test_per_send_wire_matches_jax(name):
+    from repro.compress import per_send_wire_bytes as jb, per_send_wire_mb as jmb
+    from repro_torch.compress import per_send_wire_bytes as tb, per_send_wire_mb as tmb
+
+    for raw in (21.2e6, 14e6, 723.64032e6, 3.0):
+        assert tb(make_codec(name), raw) == jb(jax_make_codec(name), raw)
+    for mb, frac in ((21.2, 1.0), (14.0, 0.25), (723.64032, 1.0)):
+        assert tmb(make_codec(name), mb, frac) == jmb(jax_make_codec(name), mb, frac)
+    assert tmb(None, 21.2, 0.25) == jmb(None, 21.2, 0.25)
+
+
+@pytest.mark.parametrize("name", ("int8", "int4", "topk", "bf16"))
+def test_roundtrip_keeps_shape_and_dtype(name):
+    x = torch.from_numpy(np.stack([_x(3050, seed=s) for s in range(2)]).reshape(2, 50, 61))
+    out = make_codec(name).roundtrip(x)
+    assert out.shape == x.shape and out.dtype == x.dtype
+    bound = make_codec(name).mean_atol(float(x.abs().max()))
+    if bound is not None:
+        assert float((out - x).abs().max()) <= bound
+
+
+def test_codec_ops_reject_other_devices():
+    x = torch.zeros(1, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        quantize_op(x)
