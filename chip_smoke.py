@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's MOSGU gossip round on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round and
+the model serving path (prefill forward + cached decode).
 
     python3 chip_smoke.py
 
@@ -14,7 +15,14 @@ Phases, each fatal on failure (exit code 1, no result line):
              at (10, 10, 5.3 M). Quantize, dequantize and top-k must be
              bit-identical; the mix within rtol 1e-6 of max|x|. Prints each
              kernel's median time (CUDA events, L2 flushed before every
-             launch), its bound and the plain version's time.
+             launch), its bound and the plain version's time. Flash attention
+             at smollm-360m's prefill (4, 2048, 15 / 5 heads, 64) causal and
+             gemma2-2b's (1, 8192, 8 / 4, 256) with window 4096 and softcap 50,
+             in bf16 within 2e-2 of the plain version, and an f32 case within
+             2e-5 (the tolerances of tests/test_kernels.py; the sum order
+             differs); SDPA's time beside the causal case. The selective scan
+             at falcon-mamba-7b's (1, 2048, 8192, 16), x bf16, y f32, within
+             1e-4 of max|y| of the plain version.
 3. path    — the scenarios at full width through ``run_scenario``, with the
              launch counts set to 0 just before and read just after:
              paper_table3 (fp32), quantized_table3 (int8) and an int4
@@ -22,7 +30,20 @@ Phases, each fatal on failure (exit code 1, no result line):
              churn, 180.9 M f32 a node) and an int8 variant. Every round must
              report numerics_ok (None for top-k, which has no deterministic
              bound), finite outputs and the exact bytes on the wire; every
-             kernel must have launched.
+             gossip kernel must have launched.
+4. serve   — smollm-360m (32 layers, d 960) and falcon-mamba-7b (64 layers,
+             d 4096) at full width and depth in bf16, params from Model.init
+             on the card (seed 0), with the launch counts set to 0 just before
+             and read just after: three prefill forwards over (4, 2048) and
+             (2, 2048) tokens (the first a warm-up) and the serve loop at the
+             reference CLI's defaults (batch 4, prompt 32, gen 16, cache 128).
+             Every logit finite; flash_attention launched 32 and
+             selective_scan 64 times per forward. Prints prefill ms and tok/s,
+             decode ms/step and tok/s and peak memory, and the device time of
+             one decode step replayed as a CUDA graph. Then, in f32 at full
+             width and 4 layers, forward logits against teacher-forced decode
+             logits over a 256-token prompt, within 5e-2 (the bound of
+             tests/test_models.py).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the result line. Exits non-zero without a CUDA device, and when
@@ -40,9 +61,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data sheet: HBM3 rate and the f32 rate outside the tensor cores
+# H100 SXM data sheet: HBM3 rate, the f32 rate outside the tensor cores and
+# the dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+GOSSIP_KERNELS = ("quantize", "dequantize", "topk_select", "gossip_mix")
+MODEL_KERNELS = ("flash_attention", "selective_scan")
 
 
 def fail(msg: str) -> None:
@@ -59,9 +84,15 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def count_elements(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_elements(v) for v in tree.values())
+    return tree.numel()
 
 
 def main() -> int:
@@ -72,12 +103,21 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    import torch.nn.functional as F
+
     from repro_torch.compress import make_codec, per_send_wire_mb
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import KERNEL_NAMES, _build, launch_counts, reset_launches
+    from repro_torch.kernels.attention.ops import flash_attention_op
+    from repro_torch.kernels.attention.ref import attention_ref
     from repro_torch.kernels.codec import ref as codec_ref
     from repro_torch.kernels.codec.ops import dequantize_op, quantize_op, topk_select_op
     from repro_torch.kernels.mixing.ops import gossip_mix_op
     from repro_torch.kernels.mixing.ref import gossip_mix_ref
+    from repro_torch.kernels.scan.ops import selective_scan_op
+    from repro_torch.kernels.scan.ref import selective_scan_ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Batch, build_model
     from repro_torch.scenario import SCENARIOS, run_scenario
 
     dev = torch.device("cuda")
@@ -119,8 +159,8 @@ def main() -> int:
     results = {}
 
     def record(name, route_src, replaces, err, tol, ms, plain_ms, n_bytes, n_ops,
-               library_ms=None, shape=""):
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+               library_ms=None, shape="", ops_per_s=F32_OPS_PER_S):
+        b_ms, b_by = bound_ms(n_bytes, n_ops, ops_per_s)
         if not err <= tol:
             fail(f"{name}: max |kernel - plain| = {err} > {tol}")
         results.setdefault(name, dict(
@@ -182,7 +222,67 @@ def main() -> int:
            4 * buf.numel() + 4 * mixed.numel(), 2 * buf.numel(),
            library_ms=median_ms(lambda: torch.mean(buf, dim=1), 10, cold=False),
            shape=" (10, 10, 5.3 M)")
-    del buf, mixed, plain, flush  # freed to PyTorch's cache, which phase 3 reuses
+    del buf, mixed, plain
+
+    # flash attention: smollm-360m's causal prefill, gemma2-2b's local layer,
+    # and an f32 case
+    def visible_pairs(s, window):
+        return sum(min(q + 1, window) if window else q + 1 for q in range(s))
+
+    flash_cases = [  # b, s, h, kv, hd, window, softcap, dtype, tol, timed
+        (4, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, True),
+        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 2e-2, True),
+        (2, 1024, 6, 2, 64, 0, 0.0, torch.float32, 2e-5, False),
+    ]
+    for b, s, h, kv, hd, window, cap, dtype, tol, timed in flash_cases:
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=True, sliding_window=window, softcap=cap)
+        out = flash_attention_op(q, k, v, **kw)
+        plain = attention_ref(q, k, v, **kw)
+        err = float((out.float() - plain.float()).abs().max())
+        shape = f" ({b}, {s}, {h}/{kv}, {hd}) {str(dtype)[6:]} window {window} softcap {cap}"
+        if not timed:
+            if not err <= tol:
+                fail(f"flash_attention{shape}: max |kernel - plain| = {err} > {tol}")
+            print(f"[kernel] flash_attention{shape}: max_abs_err {err} (tol {tol}) on {card}")
+            continue
+        lib_ms = None
+        if window == 0 and cap == 0.0:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
+        record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/attention/flash.py:25", err, tol,
+               median_ms(lambda: flash_attention_op(q, k, v, **kw), 5),
+               median_ms(lambda: attention_ref(q, k, v, **kw), 3),
+               n_bytes, 4 * hd * b * h * visible_pairs(s, window), library_ms=lib_ms,
+               shape=shape, ops_per_s=BF16_OPS_PER_S)
+    del q, k, v, out, plain
+
+    # the selective scan at falcon-mamba-7b's width, as the Mamba1 block calls it
+    b, s, di, n = 1, 2048, 8192, 16
+    dt = F.softplus(torch.randn((b, s, di), generator=gen, device=dev))
+    Bm = torch.randn((b, s, n), generator=gen, device=dev)
+    Cm = torch.randn((b, s, n), generator=gen, device=dev)
+    xs = torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16)
+    A_log = torch.log(torch.randn((di, n), generator=gen, device=dev).abs() + 0.5)
+    Dp = torch.randn((di,), generator=gen, device=dev)
+    scan_args = (dt, Bm, Cm, xs, A_log, Dp)
+    y, h = selective_scan_op(*scan_args, out_dtype=torch.float32)
+    py, ph = selective_scan_ref(*scan_args, out_dtype=torch.float32)
+    err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
+    n_bytes = (4 + 2 + 4) * b * s * di + 2 * 4 * b * s * n + 4 * (di * n + di + b * di * n)
+    record("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
+           "src/repro/kernels/scan/mamba_scan.py:24", err,
+           1e-4 * max(1.0, float(py.abs().max())),
+           median_ms(lambda: selective_scan_op(*scan_args, out_dtype=torch.float32), 10),
+           median_ms(lambda: selective_scan_ref(*scan_args, out_dtype=torch.float32), 2),
+           n_bytes, 8 * b * s * di * n + 2 * b * s * di,
+           shape=f" ({b}, {s}, {di}, {n}) x bf16, y f32")
+    del dt, Bm, Cm, xs, A_log, Dp, y, h, py, ph, scan_args, flush
 
     # -- 3. the main path: scenario rounds at full width ------------------------
     base = SCENARIOS
@@ -217,11 +317,109 @@ def main() -> int:
             fail("quantized_table3 bytes_on_wire_mb != 478.86336")
     counts = launch_counts()
     print(f"[path] launches: {json.dumps(counts)}")
-    missing = [k for k in KERNEL_NAMES if counts[k] <= 0]
+    missing = [k for k in GOSSIP_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    for name in KERNEL_NAMES:
+    for name in GOSSIP_KERNELS:
         results[name]["launches"] = counts[name]
+    torch.cuda.empty_cache()
+
+    # -- 4. the serving path at full width and depth ------------------------------
+    serve_runs = [("smollm-360m", 4, "flash_attention"), ("falcon-mamba-7b", 2, "selective_scan")]
+    seq, n_prefill = 2048, 3
+    reset_launches()
+    forwards = {}
+    for arch, batch, _ in serve_runs:
+        cfg = get_arch(arch)
+        model = build_model(cfg, device="cuda")
+        g = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = model.init(g)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = count_elements(params)
+        tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        spans = []
+        with torch.inference_mode():
+            for _ in range(n_prefill):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = model.forward(params, Batch(tokens=tokens))
+                torch.cuda.synchronize()
+                spans.append(time.perf_counter() - t0)
+                if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+                    fail(f"{arch}: non-finite prefill logits")
+                del logits
+        forwards[arch] = n_prefill
+        prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+        prefill_ms = statistics.median(spans[1:]) * 1e3
+        print(f"[serve] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, {n_params / 1e9:.3f} B "
+              f"params bf16 (init {init_s:.1f} s); prefill ({batch}, {seq}): "
+              f"{prefill_ms:.3f} ms median of {n_prefill - 1} after a warm-up "
+              f"[{', '.join(f'{1e3 * t:.3f}' for t in spans)}], "
+              f"{batch * seq / prefill_ms * 1e3:.0f} tok/s, peak {prefill_peak:.2f} GB on {card}")
+        torch.cuda.reset_peak_memory_stats()
+        prompts = torch.randint(0, cfg.vocab, (4, 32), generator=g, device=dev)
+        res = serve(model, params, prompts, gen=16, cache_len=128)
+        if not bool(torch.isfinite(res.logits[..., :cfg.vocab]).all()):
+            fail(f"{arch}: non-finite decode logits")
+        if not bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
+            fail(f"{arch}: generated ids outside the vocab")
+        step_ms = 1e3 * res.seconds / res.steps
+        print(f"[serve] {arch}: serve loop batch 4, prompt 32, gen 16, cache 128: "
+              f"{res.steps} decode steps in {res.seconds:.3f} s, {step_ms:.3f} ms/step, "
+              f"{4 * res.steps / res.seconds:.1f} tok/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}")
+        # the device's own time for a decode step: the same step captured in a
+        # CUDA graph replays without the host's launch gaps
+        cache = model.init_cache(4, 128)
+        tok, pos = prompts[:, :1].clone(), torch.zeros(4, dtype=torch.long, device=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.inference_mode(), torch.cuda.stream(side):
+            for _ in range(2):
+                model.decode_step(params, tok, pos, cache)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(graph):
+            model.decode_step(params, tok, pos, cache)
+        graph_ms = median_ms(graph.replay, 20, cold=False)
+        print(f"[serve] {arch}: one decode step replayed as a CUDA graph: {graph_ms:.3f} ms "
+              f"on the device against {step_ms:.3f} ms eager (device idle ~"
+              f"{100 * (1 - graph_ms / step_ms):.1f}% of an eager step) on {card}")
+        del params, res, model, graph, cache
+        torch.cuda.empty_cache()
+    counts = launch_counts()
+    print(f"[serve] launches: {json.dumps(counts)}")
+    for arch, _, kernel in serve_runs:
+        want = get_arch(arch).n_layers * forwards[arch]
+        if counts[kernel] != want:
+            fail(f"{kernel}: {counts[kernel]} launches on the serving path, expected {want}")
+        results[kernel]["launches"] = counts[kernel]
+
+    # forward (kernels) against teacher-forced decode (cache path) in f32
+    for arch, _, _ in serve_runs:
+        cfg = get_arch(arch).replace(n_layers=4, dtype="float32")
+        model = build_model(cfg, device="cuda")
+        g = torch.Generator(device=dev).manual_seed(1)
+        params = model.init(g)
+        tokens = torch.randint(0, cfg.vocab, (2, 256), generator=g, device=dev)
+        with torch.inference_mode():
+            full, _ = model.forward(params, Batch(tokens=tokens))
+            cache = model.init_cache(2, 256)
+            err = 0.0
+            for t in range(256):
+                pos = torch.full((2,), t, dtype=torch.long, device=dev)
+                step, cache = model.decode_step(params, tokens[:, t:t + 1], pos, cache)
+                err = max(err, float((step[:, 0, :cfg.vocab] - full[:, t, :cfg.vocab])
+                                     .abs().max()))
+        if not err < 5e-2:
+            fail(f"{arch}: f32 forward vs teacher-forced decode max |err| {err} >= 5e-2")
+        print(f"[serve] {arch} f32, 4 layers, full width: forward vs teacher-forced decode "
+              f"over 256 tokens, max abs logit err {err:.3e} (bound 5e-2) on {card}")
+        del params, full, cache, model
+        torch.cuda.empty_cache()
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

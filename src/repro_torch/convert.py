@@ -31,8 +31,13 @@ def _to_tensor(a: Any, device: torch.device) -> torch.Tensor:
 def _to_array(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # numpy's bfloat16 type, as the JAX package's arrays carry
-
+        try:
+            import ml_dtypes  # numpy's bfloat16 type, which ships with JAX
+        except ImportError:
+            raise RuntimeError(
+                "to_numpy: a bfloat16 leaf crosses back as ml_dtypes.bfloat16, the "
+                "type JAX arrays carry; ml_dtypes is not installed here. Take "
+                "`.float()` of the leaf first, or compare as tensors") from None
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy().copy()
 
@@ -45,5 +50,9 @@ def from_numpy(tree: PyTree, device: DeviceLike = None) -> PyTree:
 
 
 def to_numpy(tree: PyTree) -> PyTree:
-    """Inverse of :func:`from_numpy`: host numpy arrays, same tree."""
+    """Inverse of :func:`from_numpy`: host numpy arrays, same tree.
+
+    bfloat16 leaves come back as ``ml_dtypes.bfloat16`` arrays, a package
+    that JAX brings: handing bf16 state back to the JAX package is a test's
+    job, and nothing on the card's path calls this."""
     return tree_map(_to_array, tree)

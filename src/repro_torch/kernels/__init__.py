@@ -10,7 +10,8 @@ run can show that its path went through the kernels.
 """
 from typing import Dict
 
-KERNEL_NAMES = ("quantize", "dequantize", "topk_select", "gossip_mix")
+KERNEL_NAMES = (
+    "quantize", "dequantize", "topk_select", "gossip_mix", "flash_attention", "selective_scan")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 

@@ -35,6 +35,7 @@ _lib: Optional[ctypes.CDLL] = None
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 SIGNATURES = {
     # x, codes, scales, rows, size, n_chunks, chunk, bits, stream
     "rt_quantize": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
@@ -44,6 +45,13 @@ SIGNATURES = {
     "rt_topk_select": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
     # buf, weights, out, batch, n, p, dtype (0 = f32, 1 = bf16), stream
     "rt_gossip_mix": [_P, _P, _P, _I64, _I32, _I64, _I32, _P],
+    # q, k, v, o, b, sq, skv, h, kvh, hd, (b, s, h) strides of q, k and v,
+    # causal, window, softcap, dtype (0 = f32, 1 = bf16), stream
+    "rt_flash_attention": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+                           *[_I64] * 9, _I32, _I32, _F32, _I32, _P],
+    # dt, B, C, x, A_log, D, y, h_last, b, s, di, n, x dtype, y dtype, stream
+    "rt_selective_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                          _I32, _I32, _P],
 }
 
 

@@ -1,0 +1,186 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+* The plain flash attention (``repro_torch.kernels.attention``) against the
+  Pallas kernel in interpret mode and the jnp oracle, on the cases of
+  ``tests/test_kernels.py`` plus GQA cases (the JAX side expands kv with
+  ``jnp.repeat``). Tolerances are those of ``tests/test_kernels.py``: 2e-5
+  in f32, 2e-2 in bf16 (the sum order differs).
+* ``models.attention.attention`` and ``decode_attention`` against
+  ``repro.models.attention`` on the same weights: within 1e-5 in f32.
+* Routing: self-attention over arange positions takes the flash op; a
+  prefix, other positions and cross-attention take the masked einsum.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.attention.flash import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.attention.ref import attention_ref as jax_attention_ref  # noqa: E402
+from repro.models import attention as jax_attn  # noqa: E402
+from repro_torch.kernels.attention.ops import flash_attention_op  # noqa: E402
+from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
+from repro_torch.models import attention as pt_attn  # noqa: E402
+
+CASES = [  # b, s, h, kv, hd, causal, window, softcap
+    (2, 256, 4, 4, 64, True, 0, 0.0),
+    (1, 512, 2, 2, 128, True, 0, 0.0),
+    (2, 256, 3, 3, 64, True, 128, 0.0),  # sliding window
+    (1, 256, 4, 4, 64, False, 0, 0.0),  # bidirectional (encoder)
+    (1, 256, 2, 2, 64, True, 0, 50.0),  # gemma2 softcap
+    (2, 384, 5, 5, 32, True, 256, 30.0),  # window + softcap, odd sizes
+    (2, 256, 6, 2, 64, True, 0, 0.0),  # GQA, 3 q heads per kv head (smollm's ratio)
+    (1, 256, 4, 2, 256, True, 128, 50.0),  # GQA at gemma2's head dim, window + softcap
+]
+
+
+def _qkv(b, s, h, kv, hd, seed=0):
+    g = np.random.default_rng(seed)
+    return (g.standard_normal((b, s, h, hd), dtype=np.float32),
+            g.standard_normal((b, s, kv, hd), dtype=np.float32),
+            g.standard_normal((b, s, kv, hd), dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,softcap", CASES)
+def test_plain_flash_matches_pallas_and_oracle(b, s, h, kv, hd, causal, window, softcap,
+                                               dtype, atol):
+    q, k, v = _qkv(b, s, h, kv, hd)
+    jd = jnp.dtype(dtype)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    jk, jv = jnp.repeat(jk, h // kv, axis=2), jnp.repeat(jv, h // kv, axis=2)
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    pallas = np.asarray(jax_flash(jq, jk, jv, interpret=True, **kw), np.float32)
+    oracle = np.asarray(jax_attention_ref(jq, jk, jv, **kw), np.float32)
+    td = getattr(torch, dtype)
+    # the same rounded inputs as the JAX side
+    tq, tk, tv = (torch.tensor(np.asarray(jnp.asarray(a, jd), np.float32)).to(td)
+                  for a in (q, k, v))
+    out = flash_attention_op(tq, tk, tv, **kw)
+    assert out.dtype == td and out.shape == (b, s, h, hd)
+    out = out.float().numpy()
+    np.testing.assert_allclose(out, pallas, atol=atol)
+    np.testing.assert_allclose(out, oracle, atol=atol)
+
+
+def test_plain_flash_takes_any_length():
+    """The kernel masks ragged tiles, so its plain version takes any s; at
+    s = 200 it equals the first 200 rows of a longer causal run."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 256, 4, 2, 64, seed=3))
+    full = attention_ref(q, k, v, causal=True)
+    part = attention_ref(q[:, :200], k[:, :200], v[:, :200], causal=True)
+    torch.testing.assert_close(part, full[:, :200], atol=1e-6, rtol=0)
+
+
+def _params(d, h, kv, hd, seed=1):
+    g = np.random.default_rng(seed)
+    shapes = {"wq": (d, h, hd), "wk": (d, kv, hd), "wv": (d, kv, hd), "wo": (h, hd, d)}
+    return {n: (g.standard_normal(sh) * 0.05).astype(np.float32) for n, sh in shapes.items()}
+
+
+def _both(p):
+    return ({n: jnp.asarray(a) for n, a in p.items()},
+            {n: torch.from_numpy(a) for n, a in p.items()})
+
+
+ATTN_CASES = [  # h, kv, causal, window, softcap, prefix_len, positions
+    (4, 2, True, 0, 0.0, 0, "arange"),
+    (4, 4, True, 16, 0.0, 0, "arange"),
+    (4, 2, True, 16, 30.0, 0, "arange"),
+    (4, 2, False, 0, 0.0, 0, "arange"),
+    (4, 2, True, 0, 0.0, 8, "arange"),  # vlm prefix: the einsum route
+    (4, 2, True, 16, 0.0, 8, "arange"),
+    (4, 2, True, 0, 0.0, 0, "offset"),  # positions 5..: the einsum route
+    (4, 2, True, 8, 50.0, 0, "offset"),
+]
+
+
+@pytest.mark.parametrize("h,kv,causal,window,softcap,prefix,pos", ATTN_CASES)
+def test_attention_matches_jax(monkeypatch, h, kv, causal, window, softcap, prefix, pos):
+    b, s, d, hd = 2, 40, 32, 16 * 2
+    p = _params(d, h, kv, hd)
+    x = np.random.default_rng(2).standard_normal((b, s, d)).astype(np.float32)
+    positions = np.broadcast_to(np.arange(s) + (5 if pos == "offset" else 0), (b, s))
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap, prefix_len=prefix)
+    jp, tp = _both(p)
+    want = np.asarray(jax_attn.attention(jp, jnp.asarray(x), jnp.asarray(positions), **kw))
+
+    calls = []
+    real = pt_attn.flash_attention_op
+    monkeypatch.setattr(pt_attn, "flash_attention_op",
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    got = pt_attn.attention(tp, torch.from_numpy(x), torch.from_numpy(positions.copy()), **kw)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    flash = pos == "arange" and prefix == 0
+    assert calls == ([dict(causal=causal, sliding_window=window, softcap=softcap)]
+                     if flash else [])
+
+
+def test_cross_attention_matches_jax(monkeypatch):
+    b, s, f, d, h, hd = 2, 12, 20, 32, 4, 16
+    p = _params(d, h, h, hd, seed=4)
+    g = np.random.default_rng(5)
+    x = g.standard_normal((b, s, d)).astype(np.float32)
+    kc = g.standard_normal((b, f, h, hd)).astype(np.float32)
+    vc = g.standard_normal((b, f, h, hd)).astype(np.float32)
+    positions = np.broadcast_to(np.arange(s), (b, s)).copy()
+    jp, tp = _both(p)
+    want = jax_attn.attention(jp, jnp.asarray(x), jnp.asarray(positions), causal=False,
+                              use_rope=False, kv_override=(jnp.asarray(kc), jnp.asarray(vc)),
+                              kv_positions=None)
+    monkeypatch.setattr(pt_attn, "flash_attention_op", None)  # must not be reached
+    got = pt_attn.attention(tp, torch.from_numpy(x), torch.from_numpy(positions), causal=False,
+                            use_rope=False,
+                            kv_override=(torch.from_numpy(kc), torch.from_numpy(vc)),
+                            kv_positions=None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("window,cache_len,positions", [
+    (0, 32, [0, 3]),
+    (0, 32, [31, 17]),
+    (8, 8, [2, 5]),  # ring not yet wrapped
+    (8, 8, [8, 21]),  # wrapped: every slot valid, slot = position % 8
+    (0, 16, [16, 3]),  # a slot past the cache is not written
+])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_decode_attention_matches_jax(window, cache_len, positions, softcap):
+    b, d, h, kv, hd = 2, 32, 4, 2, 16
+    p = _params(d, h, kv, hd, seed=6)
+    g = np.random.default_rng(7)
+    x = g.standard_normal((b, 1, d)).astype(np.float32)
+    cache = {n: g.standard_normal((b, cache_len, kv, hd)).astype(np.float32) for n in "kv"}
+    pos = np.asarray(positions, np.int32)
+    kw = dict(sliding_window=window, softcap=softcap)
+    jp, tp = _both(p)
+    want, want_c = jax_attn.decode_attention(
+        jp, jnp.asarray(x), jnp.asarray(pos), {n: jnp.asarray(a) for n, a in cache.items()}, **kw)
+    got, got_c = pt_attn.decode_attention(
+        tp, torch.from_numpy(x), torch.from_numpy(pos).long(),
+        {n: torch.from_numpy(a) for n, a in cache.items()}, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    written = np.zeros((b, cache_len), bool)
+    for i, t in enumerate(positions):
+        slot = t % cache_len if window else t
+        if slot < cache_len:
+            written[i, slot] = True
+    for n in "kv":
+        # untouched slots are copied exactly; the new entry differs by RoPE's rounding
+        np.testing.assert_array_equal(got_c[n].numpy()[~written], cache[n][~written])
+        np.testing.assert_allclose(got_c[n].numpy(), np.asarray(want_c[n]), atol=1e-6)
+
+
+def test_init_kv_cache_matches_jax():
+    want = jax_attn.init_kv_cache(2, 16, 3, 32, jnp.bfloat16)
+    got = pt_attn.init_kv_cache(2, 16, 3, 32, torch.bfloat16, device="cpu")
+    for n in "kv":
+        assert tuple(got[n].shape) == want[n].shape and got[n].dtype == torch.bfloat16
+        assert not got[n].any()
+
+
+def test_flash_op_rejects_other_devices():
+    q = torch.zeros(1, 4, 2, 32, device="meta")
+    with pytest.raises(ValueError):
+        flash_attention_op(q, q, q)

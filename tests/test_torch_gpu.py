@@ -129,3 +129,105 @@ def test_runner_proxy_on_card_matches_cpu(cuda):
             assert (ra.n_slots, ra.transmissions, ra.bytes_on_wire_mb, ra.numerics_ok) == \
                 (rb.n_slots, rb.transmissions, rb.bytes_on_wire_mb, rb.numerics_ok)
             assert ra.device_ms is not None and ra.device_ms > 0
+
+
+# -- model kernels: flash attention and the Mamba1 selective scan ------------------
+
+from repro_torch.dfl.collectives import tree_map  # noqa: E402
+from repro_torch.kernels.attention.ops import flash_attention_op  # noqa: E402
+from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.scan.ops import selective_scan_op  # noqa: E402
+from repro_torch.kernels.scan.ref import selective_scan_ref  # noqa: E402
+
+
+def _normal(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape, dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,softcap", [
+    (2, 256, 4, 4, 64, True, 0, 0.0),
+    (1, 200, 6, 2, 64, True, 0, 0.0),  # ragged tiles, GQA
+    (1, 77, 3, 1, 32, False, 0, 0.0),
+    (2, 384, 5, 5, 32, True, 256, 30.0),
+    (1, 320, 4, 2, 128, True, 100, 0.0),
+    (1, 300, 8, 4, 256, True, 128, 50.0),  # gemma2's head dim
+])
+def test_flash_kernel_matches_plain(cuda, dtype, atol, b, s, h, kv, hd, causal, window, softcap):
+    q = _normal((b, s, h, hd), 1).to(dtype)
+    k, v = _normal((b, s, kv, hd), 2).to(dtype), _normal((b, s, kv, hd), 3).to(dtype)
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    reset_launches()
+    out = flash_attention_op(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1 and out.dtype == dtype
+    want = attention_ref(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    assert float((out.float() - want.float()).abs().max()) <= atol
+
+
+def test_flash_kernel_reads_strided_heads(cuda):
+    """q, k and v as views into one fused (b, s, H + 2 KV, hd) projection."""
+    qkv = _normal((2, 130, 8 + 2 + 2, 64), 4).to(cuda)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    out = flash_attention_op(q, k, v, causal=True)
+    want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert float((out - want).abs().max()) <= 2e-5
+
+
+def test_flash_kernel_rejects_bad_inputs(cuda):
+    q = torch.zeros(1, 8, 4, 48, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_op(q, q, q)  # head dim 48
+    q = torch.zeros(1, 8, 4, 64, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_op(q, q[:, :, :3], q[:, :, :3])  # 3 kv heads for 4
+    with pytest.raises(ValueError):
+        flash_attention_op(q, q.half(), q.half())
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype,atol", [
+    (torch.float32, torch.float32, 1e-4), (torch.bfloat16, torch.float32, 1e-4),
+    (torch.bfloat16, torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,s,di,n", [(2, 64, 128, 16), (1, 95, 70, 8), (3, 33, 256, 4),
+                                      (1, 40, 48, 12), (2, 17, 64, 32)])
+def test_scan_kernel_matches_plain(cuda, x_dtype, y_dtype, atol, b, s, di, n):
+    g = np.random.default_rng(s + n)
+    dt = torch.from_numpy(np.log1p(np.exp(g.standard_normal((b, s, di)))).astype(np.float32))
+    Bm, Cm = _normal((b, s, n), 5), _normal((b, s, n), 6)
+    x = _normal((b, s, di), 7).to(x_dtype)
+    A_log = torch.from_numpy(np.log(np.abs(g.standard_normal((di, n))) + 0.5).astype(np.float32))
+    D = _normal((di,), 8)
+    args = [t.to(cuda) for t in (dt, Bm, Cm, x, A_log, D)]
+    reset_launches()
+    y, h = selective_scan_op(*args, out_dtype=y_dtype)
+    torch.cuda.synchronize()
+    assert LAUNCHES["selective_scan"] == 1 and y.dtype == y_dtype
+    want_y, want_h = selective_scan_ref(*args, out_dtype=y_dtype)
+    assert float((y.float() - want_y.float()).abs().max()) <= atol
+    assert float((h - want_h).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b", "falcon-mamba-7b"])
+def test_model_forward_on_card_matches_cpu(cuda, arch):
+    """The f32 smoke forward and a decode step through the kernels on the
+    card against the plain path on the CPU, on the same params."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Batch, build_model
+
+    cfg = get_arch(arch).smoke_variant()
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 160)))
+    reset_launches()
+    got, _ = card.forward(params_card, Batch(tokens=tokens.to(cuda)))
+    torch.cuda.synchronize()
+    kernel = "selective_scan" if cfg.family == "ssm" else "flash_attention"
+    assert LAUNCHES[kernel] == cfg.n_layers
+    want, _ = cpu.forward(params, Batch(tokens=tokens))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    cache = card.init_cache(2, 32)
+    step, _ = card.decode_step(params_card, tokens[:, :1].to(cuda),
+                               torch.zeros(2, dtype=torch.long, device=cuda), cache)
+    assert float((step[:, 0].cpu() - want[:, 0]).abs().max()) <= 5e-2
