@@ -7,7 +7,10 @@ the model serving path (prefill forward + cached decode).
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. build   — nvcc compiles ``src/repro_torch/csrc/*.cu`` for sm_90a; prints
-             the build time and the card's name and power limit.
+             the build time, ptxas's registers and spills for the
+             tensor-core flash kernel and the scan, the count of HGMMA
+             (wgmma) instructions in the flash object's SASS (cuobjdump),
+             and the card's name and power limit.
 2. kernels — each Hopper kernel at the main path's shapes against its plain
              PyTorch version on the same inputs: quantize / dequantize
              (int8, int4) on one EfficientNet-B0 payload (5.3 M f32), top-k
@@ -18,11 +21,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              launch), its bound and the plain version's time. Flash attention
              at smollm-360m's prefill (4, 2048, 15 / 5 heads, 64) causal and
              gemma2-2b's (1, 8192, 8 / 4, 256) with window 4096 and softcap 50,
-             in bf16 within 2e-2 of the plain version, and an f32 case within
-             2e-5 (the tolerances of tests/test_kernels.py; the sum order
-             differs); SDPA's time beside the causal case. The selective scan
-             at falcon-mamba-7b's (1, 2048, 8192, 16), x bf16, y f32, within
-             1e-4 of max|y| of the plain version.
+             in bf16 (the tensor-core kernel) within 2e-2 of the plain
+             version and within BF16_UNITS_TOL rounding units of the f32
+             attention (``attention.ref.rounding_units``: each element held
+             to the scale its bf16 roundings can reach), a bf16 case on views
+             into a fused qkv projection, gemma2's case with scores near the
+             cap (q scaled by 25, rounding units only), and an f32 case (the
+             SIMT kernel) within 2e-5 (the tolerances of tests/test_kernels.py;
+             the sum order differs); SDPA's time beside the causal case. The selective scan at falcon-mamba-7b's
+             (1, 2048, 8192, 16) and at its prefill batch (2, 2048, 8192, 16),
+             x bf16, y f32, within 1e-4 of max|y| of the plain version.
 3. path    — the scenarios at full width through ``run_scenario``, with the
              launch counts set to 0 just before and read just after:
              paper_table3 (fp32), quantized_table3 (int8) and an int4
@@ -89,6 +97,30 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def print_kernel_resources(build_dir: Path) -> None:
+    """ptxas's registers and spills for the redesigned kernels (from the
+    build log), and the HGMMA instructions in the flash object's SASS."""
+    log = (build_dir / "nvcc.log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and ("flash_tc_kernel" in line
+                                                   or "scan_kernel" in line):
+            name = line.split("'")[1]
+            kernel = "flash_tc_kernel" if "flash_tc" in name else "scan_kernel"
+            args = name.split(kernel, 1)[1].split("EEv")[0]
+            info = " | ".join(x.split(":", 1)[-1].strip() for x in log[i + 2:i + 4])
+            print(f"[build] ptxas {kernel} {args}: {info}")
+    objdump = Path("/usr/local/cuda/bin/cuobjdump")
+    if not objdump.is_file():
+        print("[build] SASS check: cuobjdump not in the toolkit, not run")
+        return
+    sass = subprocess.run([str(objdump), "--dump-sass", str(build_dir / "flash_attention.o")],
+                          capture_output=True, text=True, timeout=120).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"[build] SASS check: {n_hgmma} HGMMA instructions in flash_attention.o (cuobjdump)")
+    if n_hgmma == 0:
+        fail("the bf16 flash kernel issues no HGMMA")
+
+
 def count_elements(tree) -> int:
     if isinstance(tree, dict):
         return sum(count_elements(v) for v in tree.values())
@@ -109,7 +141,7 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import KERNEL_NAMES, _build, launch_counts, reset_launches
     from repro_torch.kernels.attention.ops import flash_attention_op
-    from repro_torch.kernels.attention.ref import attention_ref
+    from repro_torch.kernels.attention.ref import BF16_UNITS_TOL, attention_ref, rounding_units
     from repro_torch.kernels.codec import ref as codec_ref
     from repro_torch.kernels.codec.ops import dequantize_op, quantize_op, topk_select_op
     from repro_torch.kernels.mixing.ops import gossip_mix_op
@@ -131,6 +163,7 @@ def main() -> int:
     _build.lib()
     print(f"[build] nvcc {build_s:.1f} s for {len(_build.sources())} sources "
           f"(sm_90a) -> {_build.build_dir().relative_to(ROOT)}")
+    print_kernel_resources(_build.build_dir())
     print(f"[card] {smi}")
 
     # -- 2. kernels against their plain versions ------------------------------------
@@ -229,24 +262,42 @@ def main() -> int:
     def visible_pairs(s, window):
         return sum(min(q + 1, window) if window else q + 1 for q in range(s))
 
-    flash_cases = [  # b, s, h, kv, hd, window, softcap, dtype, tol, timed
-        (4, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, True),
-        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 2e-2, True),
-        (2, 1024, 6, 2, 64, 0, 0.0, torch.float32, 2e-5, False),
+    flash_cases = [  # b, s, h, kv, hd, window, softcap, dtype, tol, how
+        (4, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 2e-2, "timed"),
+        (2, 1024, 6, 2, 64, 0, 0.0, torch.float32, 2e-5, "checked"),
+        (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, "fused views"),
+        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, None, "near the cap"),
     ]
-    for b, s, h, kv, hd, window, cap, dtype, tol, timed in flash_cases:
-        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+    for b, s, h, kv, hd, window, cap, dtype, tol, how in flash_cases:
+        if how == "fused views":  # into one (b, s, H + 2 KV, hd) projection
+            qkv = torch.randn((b, s, h + 2 * kv, hd), generator=gen, device=dev).to(dtype)
+            q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+        else:
+            # near the cap, q x 25 makes the scores' std half the cap of 50
+            q_scale = 25.0 if how == "near the cap" else 1.0
+            q = (q_scale * torch.randn((b, s, h, hd), generator=gen, device=dev)).to(dtype)
+            k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
         kw = dict(causal=True, sliding_window=window, softcap=cap)
         out = flash_attention_op(q, k, v, **kw)
         plain = attention_ref(q, k, v, **kw)
         err = float((out.float() - plain.float()).abs().max())
         shape = f" ({b}, {s}, {h}/{kv}, {hd}) {str(dtype)[6:]} window {window} softcap {cap}"
-        if not timed:
-            if not err <= tol:
+        if how != "timed":
+            shape += f" {how}" if how != "checked" else ""
+        units = ""
+        if dtype == torch.bfloat16:
+            n_units = rounding_units(out, q, k, v, **kw)
+            if not n_units <= BF16_UNITS_TOL:
+                fail(f"flash_attention{shape}: {n_units} rounding units of the f32 attention "
+                     f"> {BF16_UNITS_TOL}")
+            units = f", {n_units:.3f} rounding units (tol {BF16_UNITS_TOL})"
+        if how != "timed":
+            if tol is not None and not err <= tol:
                 fail(f"flash_attention{shape}: max |kernel - plain| = {err} > {tol}")
-            print(f"[kernel] flash_attention{shape}: max_abs_err {err} (tol {tol}) on {card}")
+            abs_tol = "" if tol is None else f" (tol {tol})"
+            print(f"[kernel] flash_attention{shape}: max_abs_err {err}{abs_tol}{units} on {card}")
             continue
         lib_ms = None
         if window == 0 and cap == 0.0:
@@ -259,30 +310,33 @@ def main() -> int:
                median_ms(lambda: flash_attention_op(q, k, v, **kw), 5),
                median_ms(lambda: attention_ref(q, k, v, **kw), 3),
                n_bytes, 4 * hd * b * h * visible_pairs(s, window), library_ms=lib_ms,
-               shape=shape, ops_per_s=BF16_OPS_PER_S)
+               shape=shape + units, ops_per_s=BF16_OPS_PER_S)
     del q, k, v, out, plain
 
-    # the selective scan at falcon-mamba-7b's width, as the Mamba1 block calls it
-    b, s, di, n = 1, 2048, 8192, 16
-    dt = F.softplus(torch.randn((b, s, di), generator=gen, device=dev))
-    Bm = torch.randn((b, s, n), generator=gen, device=dev)
-    Cm = torch.randn((b, s, n), generator=gen, device=dev)
-    xs = torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16)
-    A_log = torch.log(torch.randn((di, n), generator=gen, device=dev).abs() + 0.5)
-    Dp = torch.randn((di,), generator=gen, device=dev)
-    scan_args = (dt, Bm, Cm, xs, A_log, Dp)
-    y, h = selective_scan_op(*scan_args, out_dtype=torch.float32)
-    py, ph = selective_scan_ref(*scan_args, out_dtype=torch.float32)
-    err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
-    n_bytes = (4 + 2 + 4) * b * s * di + 2 * 4 * b * s * n + 4 * (di * n + di + b * di * n)
-    record("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
-           "src/repro/kernels/scan/mamba_scan.py:24", err,
-           1e-4 * max(1.0, float(py.abs().max())),
-           median_ms(lambda: selective_scan_op(*scan_args, out_dtype=torch.float32), 10),
-           median_ms(lambda: selective_scan_ref(*scan_args, out_dtype=torch.float32), 2),
-           n_bytes, 8 * b * s * di * n + 2 * b * s * di,
-           shape=f" ({b}, {s}, {di}, {n}) x bf16, y f32")
-    del dt, Bm, Cm, xs, A_log, Dp, y, h, py, ph, scan_args, flush
+    # the selective scan at falcon-mamba-7b's width, as the Mamba1 block calls
+    # it: one sequence and the prefill's batch of two
+    for b in (1, 2):
+        s, di, n = 2048, 8192, 16
+        dt = F.softplus(torch.randn((b, s, di), generator=gen, device=dev))
+        Bm = torch.randn((b, s, n), generator=gen, device=dev)
+        Cm = torch.randn((b, s, n), generator=gen, device=dev)
+        xs = torch.randn((b, s, di), generator=gen, device=dev).to(torch.bfloat16)
+        A_log = torch.log(torch.randn((di, n), generator=gen, device=dev).abs() + 0.5)
+        Dp = torch.randn((di,), generator=gen, device=dev)
+        scan_args = (dt, Bm, Cm, xs, A_log, Dp)
+        y, h = selective_scan_op(*scan_args, out_dtype=torch.float32)
+        py, ph = selective_scan_ref(*scan_args, out_dtype=torch.float32)
+        err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
+        n_bytes = (4 + 2 + 4) * b * s * di + 2 * 4 * b * s * n + 4 * (di * n + di + b * di * n)
+        record("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
+               "src/repro/kernels/scan/mamba_scan.py:24", err,
+               1e-4 * max(1.0, float(py.abs().max())),
+               median_ms(lambda: selective_scan_op(*scan_args, out_dtype=torch.float32), 10),
+               median_ms(lambda: selective_scan_ref(*scan_args, out_dtype=torch.float32), 2),
+               n_bytes, 8 * b * s * di * n + 2 * b * s * di,
+               shape=f" ({b}, {s}, {di}, {n}) x bf16, y f32")
+        del dt, Bm, Cm, xs, A_log, Dp, y, h, py, ph, scan_args
+    del flush
 
     # -- 3. the main path: scenario rounds at full width ------------------------
     base = SCENARIOS

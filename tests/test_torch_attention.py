@@ -21,7 +21,11 @@ from repro.kernels.attention.flash import flash_attention as jax_flash  # noqa: 
 from repro.kernels.attention.ref import attention_ref as jax_attention_ref  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
 from repro_torch.kernels.attention.ops import flash_attention_op  # noqa: E402
-from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.attention.ref import (  # noqa: E402
+    BF16_UNITS_TOL,
+    attention_ref,
+    rounding_units,
+)
 from repro_torch.models import attention as pt_attn  # noqa: E402
 
 CASES = [  # b, s, h, kv, hd, causal, window, softcap
@@ -184,3 +188,45 @@ def test_flash_op_rejects_other_devices():
     q = torch.zeros(1, 4, 2, 32, device="meta")
     with pytest.raises(ValueError):
         flash_attention_op(q, q, q)
+
+
+def test_tma_layout_check_takes_aligned_views_and_rejects_misaligned():
+    """The bf16 wrapper's TMA rule (16-byte base, (b, s, h) strides in
+    multiples of 8 elements), rehearsed on CPU tensors: contiguous tensors and
+    a fused projection's views pass; a 2-byte offset or a head stride of 68
+    elements raises; an extent-1 dim's stride is not checked."""
+    from repro_torch.kernels.attention.flash import _check_tma_layout
+
+    qkv = torch.zeros(2, 130, 12, 64, dtype=torch.bfloat16)
+    _check_tma_layout(qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:])
+    _check_tma_layout(torch.zeros(1, 1, 1, 32, dtype=torch.bfloat16).as_strided(
+        (1, 1, 1, 32), (3, 5, 7, 1)))
+    flat = torch.zeros(8 * 4 * 64 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        _check_tma_layout(flat[1:1 + 8 * 4 * 64].view(1, 8, 4, 64))
+    with pytest.raises(ValueError):
+        _check_tma_layout(torch.zeros(1, 8, 4, 68, dtype=torch.bfloat16)[..., :64])
+
+
+
+@pytest.mark.parametrize("causal,window,softcap,q_scale", [
+    (True, 0, 0.0, 1.0), (True, 512, 50.0, 1.0), (True, 512, 50.0, 25.0), (False, 0, 0.0, 1.0)])
+def test_rounding_units_pass_rounding_and_catch_a_dropped_key_tile(causal, window, softcap,
+                                                                   q_scale):
+    """The measure that holds the bf16 kernel on the card, rehearsed on the
+    CPU: the f32 attention rounded to bf16 reads at most 1 unit; the same
+    attention with one 64-key tile dropped from the last 64 rows (the tile's
+    keys add to neither the sum nor the output, as when a kernel skips a
+    visible tile) reads far above BF16_UNITS_TOL."""
+    from repro_torch.kernels.attention.ref import _probs
+
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1024, 2, 1, 64, seed=5))
+    q, k, v = (q * q_scale).bfloat16(), k.bfloat16(), v.bfloat16()
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert rounding_units(exact.bfloat16(), q, k, v, **kw) <= 1.0
+    p, vf = _probs(q, k, v, causal, window, softcap)
+    p[:, :, 960:, 704:768] = 0.0  # inside every late row's window
+    p /= p.sum(-1, keepdim=True)
+    faulty = torch.einsum("bhqk,bkhd->bqhd", p, vf).bfloat16()
+    assert rounding_units(faulty, q, k, v, **kw) > 10 * BF16_UNITS_TOL

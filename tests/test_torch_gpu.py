@@ -135,7 +135,11 @@ def test_runner_proxy_on_card_matches_cpu(cuda):
 
 from repro_torch.dfl.collectives import tree_map  # noqa: E402
 from repro_torch.kernels.attention.ops import flash_attention_op  # noqa: E402
-from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.attention.ref import (  # noqa: E402
+    BF16_UNITS_TOL,
+    attention_ref,
+    rounding_units,
+)
 from repro_torch.kernels.scan.ops import selective_scan_op  # noqa: E402
 from repro_torch.kernels.scan.ref import selective_scan_ref  # noqa: E402
 
@@ -152,6 +156,13 @@ def _normal(shape, seed):
     (2, 384, 5, 5, 32, True, 256, 30.0),
     (1, 320, 4, 2, 128, True, 100, 0.0),
     (1, 300, 8, 4, 256, True, 128, 50.0),  # gemma2's head dim
+    (4, 2048, 15, 5, 64, True, 0, 0.0),  # smollm-360m's prefill: GQA 3:1
+    (1, 300, 4, 2, 128, True, 0, 0.0),  # three 128-key tiles, s % 128 != 0
+    (2, 333, 4, 4, 128, False, 0, 0.0),
+    (1, 700, 8, 4, 256, True, 150, 50.0),  # gemma2: window across 64-key tiles, softcap
+    (1, 1, 4, 2, 64, True, 0, 0.0),
+    (2, 1, 2, 1, 256, False, 0, 30.0),
+    (1, 129, 4, 1, 32, True, 64, 0.0),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, atol, b, s, h, kv, hd, causal, window, softcap):
     q = _normal((b, s, h, hd), 1).to(dtype)
@@ -163,15 +174,50 @@ def test_flash_kernel_matches_plain(cuda, dtype, atol, b, s, h, kv, hd, causal, 
     assert LAUNCHES["flash_attention"] == 1 and out.dtype == dtype
     want = attention_ref(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
     assert float((out.float() - want.float()).abs().max()) <= atol
+    if dtype == torch.bfloat16:  # and each element within its own rounding's reach
+        assert rounding_units(out, q.to(cuda), k.to(cuda), v.to(cuda), **kw) <= BF16_UNITS_TOL
 
 
-def test_flash_kernel_reads_strided_heads(cuda):
-    """q, k and v as views into one fused (b, s, H + 2 KV, hd) projection."""
-    qkv = _normal((2, 130, 8 + 2 + 2, 64), 4).to(cuda)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_flash_kernel_reads_strided_heads(cuda, dtype, atol):
+    """q, k and v as views into one fused (b, s, H + 2 KV, hd) projection (in
+    bf16, TMA reads them through their strides)."""
+    qkv = _normal((2, 130, 8 + 2 + 2, 64), 4).to(dtype).to(cuda)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     out = flash_attention_op(q, k, v, causal=True)
     want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
-    assert float((out - want).abs().max()) <= 2e-5
+    assert float((out.float() - want.float()).abs().max()) <= atol
+    if dtype == torch.bfloat16:
+        assert rounding_units(out, q, k, v, causal=True) <= BF16_UNITS_TOL
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window,softcap", [
+    (1, 700, 8, 4, 256, 150, 50.0),  # gemma2's local layer
+    (1, 1100, 8, 4, 256, 0, 50.0),
+    (2, 384, 5, 5, 32, 256, 30.0),
+    (1, 300, 6, 2, 64, 0, 30.0),
+])
+def test_flash_kernel_softcap_with_scores_near_the_cap(cuda, b, s, h, kv, hd, window, softcap):
+    """q scaled so the scores' std is half the cap: the softcap's tanh works
+    where it bends, and a tanh that errs by 2^-11 of its value moves the
+    logits by up to 0.02 (std-1 scores stay near s / c = 0.02, where no
+    such error shows)."""
+    q = (_normal((b, s, h, hd), 1) * (softcap / 2)).to(torch.bfloat16).to(cuda)
+    k = _normal((b, s, kv, hd), 2).to(torch.bfloat16).to(cuda)
+    v = _normal((b, s, kv, hd), 3).to(torch.bfloat16).to(cuda)
+    kw = dict(causal=True, sliding_window=window, softcap=softcap)
+    out = flash_attention_op(q, k, v, **kw)
+    assert rounding_units(out, q, k, v, **kw) <= BF16_UNITS_TOL
+
+
+def test_flash_kernel_rejects_misaligned_bf16_views(cuda):
+    base = torch.zeros(1, 8, 4, 64 + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        x = base.flatten()[1:1 + 8 * 4 * 64].view(1, 8, 4, 64)  # base 2 bytes off
+        flash_attention_op(x, x, x)
+    with pytest.raises(ValueError):
+        x = base[..., :64].as_strided((1, 8, 4, 64), (8 * 4 * 72, 4 * 72, 68, 1))
+        flash_attention_op(x, x, x)  # head stride of 136 bytes
 
 
 def test_flash_kernel_rejects_bad_inputs(cuda):
@@ -204,6 +250,31 @@ def test_scan_kernel_matches_plain(cuda, x_dtype, y_dtype, atol, b, s, di, n):
     assert LAUNCHES["selective_scan"] == 1 and y.dtype == y_dtype
     want_y, want_h = selective_scan_ref(*args, out_dtype=y_dtype)
     assert float((y.float() - want_y.float()).abs().max()) <= atol
+    assert float((h - want_h).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("x_dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,s,di,n", [
+    (1, 4100, 64, 16),  # 65 chunks of 64 steps, the last ragged
+    (2, 2048, 256, 16),  # falcon-mamba's prefill batch and length
+    (1, 1, 64, 16),
+    (2, 100, 40, 1), (2, 100, 40, 4), (2, 100, 40, 8), (2, 100, 40, 16), (2, 100, 40, 32),
+])
+def test_scan_kernel_long_and_every_state_size(cuda, x_dtype, b, s, di, n):
+    """Lengths across and inside the kernel's chunks and every state size,
+    y in f32 as the Mamba1 block asks for it (a bf16 y of these lengths
+    reaches |y| > 16, where one bf16 step is 0.125)."""
+    g = np.random.default_rng(s + n)
+    dt = torch.from_numpy(np.log1p(np.exp(g.standard_normal((b, s, di)))).astype(np.float32))
+    A_log = torch.from_numpy(np.log(np.abs(g.standard_normal((di, n))) + 0.5).astype(np.float32))
+    args = [t.to(cuda) for t in (dt, _normal((b, s, n), 5), _normal((b, s, n), 6),
+                                 _normal((b, s, di), 7).to(x_dtype), A_log, _normal((di,), 8))]
+    reset_launches()
+    y, h = selective_scan_op(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert LAUNCHES["selective_scan"] == 1
+    want_y, want_h = selective_scan_ref(*args, out_dtype=torch.float32)
+    assert float((y - want_y).abs().max()) <= 1e-4
     assert float((h - want_h).abs().max()) <= 1e-4
 
 

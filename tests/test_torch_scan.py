@@ -7,6 +7,9 @@
 * ``out_dtype=float32`` with a bf16 x: the Mamba1 block's call, whose y
   skips the bf16 rounding the TPU kernel applies (within 1e-4 of the f32
   oracle on the same rounded x).
+* The kernel's decomposition (``selective_scan_blocked``: chunks, per-thread
+  serial segments, a scan of (a, b) pairs carried across chunks) against the Pallas
+  kernel, the jnp oracle and the plain scan, with ragged lengths: 1e-4.
 * ``models.mamba``'s block, conv and decode step against
   ``repro.models.mamba`` on the same weights (the block's scan is the port's
   stand-in for ``chunked_selective_scan``): within 1e-5 in f32.
@@ -22,6 +25,7 @@ from repro.kernels.scan.mamba_scan import mamba_selective_scan  # noqa: E402
 from repro.kernels.scan.ref import selective_scan_ref as jax_scan_ref  # noqa: E402
 from repro.models import mamba as jax_mamba  # noqa: E402
 from repro_torch.kernels.scan.ops import selective_scan_op  # noqa: E402
+from repro_torch.kernels.scan.ref import selective_scan_blocked, selective_scan_ref  # noqa: E402
 from repro_torch.models import mamba as pt_mamba  # noqa: E402
 
 
@@ -70,6 +74,26 @@ def test_plain_scan_writes_f32_y_for_bf16_x():
                           jnp.asarray(a["D"]))
     np.testing.assert_allclose(y.numpy(), np.asarray(ry), atol=1e-4)
     np.testing.assert_allclose(h.numpy(), np.asarray(rh), atol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,di,n,items,segments", [
+    (2, 96, 64, 8, 5, 4),  # 20-step chunks: 5, the last ragged
+    (1, 75, 16, 16, 16, 4),  # the kernel's geometry: two 64-step chunks, ragged
+    (2, 300, 8, 4, 16, 4),  # five chunks
+    (1, 1, 8, 32, 16, 4),
+    (3, 64, 24, 1, 3, 3),
+])
+def test_blocked_scan_decomposition_matches_jax(b, s, di, n, items, segments):
+    a = _inputs(b, s, di, n, seed=s)
+    j = [jnp.asarray(a[k]) for k in ("dt", "Bm", "Cm", "x", "A_log", "D")]
+    t = [torch.from_numpy(a[k]) for k in ("dt", "Bm", "Cm", "x", "A_log", "D")]
+    y, h = selective_scan_blocked(*t, items=items, segments=segments)
+    wants = [jax_scan_ref(*j), selective_scan_ref(*t)]
+    if s % 32 == 0:
+        wants.append(mamba_selective_scan(*j, block_d=di // 2, chunk=32, interpret=True))
+    for want_y, want_h in wants:
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y, np.float32), atol=1e-4)
+        np.testing.assert_allclose(h.numpy(), np.asarray(want_h, np.float32), atol=1e-4)
 
 
 D_MODEL, D_INNER, N, RANK, WIDTH = 32, 64, 16, 2, 4
