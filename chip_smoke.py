@@ -12,13 +12,19 @@ Phases, each fatal on failure (exit code 1, no result line):
              (wgmma) instructions in the flash object's SASS (cuobjdump),
              and the card's name and power limit.
 2. kernels — each Hopper kernel at the main path's shapes against its plain
-             PyTorch version on the same inputs: quantize / dequantize
-             (int8, int4) on one EfficientNet-B0 payload (5.3 M f32), top-k
-             on one MobileNetV2 payload (3.5 M f32, k = 13), the FedAvg mix
+             PyTorch version on the same inputs. Quantize / dequantize (int8,
+             int4) and top-k (k = 13) at every (rows, size) that phase 3
+             launches them with, found by a dry run of its scenarios at the
+             proxy size on the card (rows = a step's senders; size = the
+             scenario's payload: EfficientNet-B0's 5.3 M f32, MobileNetV2's
+             3.5 M, smollm-360m's 180.9 M for mesh_smoke int8); the FedAvg mix
              at (10, 10, 5.3 M). Quantize, dequantize and top-k must be
              bit-identical; the mix within rtol 1e-6 of max|x|. Prints each
              kernel's median time (CUDA events, L2 flushed before every
-             launch), its bound and the plain version's time. Flash attention
+             launch by a write; for the codec kernels also from an L2 flushed
+             by a read, with no dirty lines), its bound and the plain
+             version's time; torch.topk on the |x| blocks beside top-k as a
+             diagnostic. Flash attention
              at smollm-360m's prefill (4, 2048, 15 / 5 heads, 64) causal and
              gemma2-2b's (1, 8192, 8 / 4, 256) with window 4096 and softcap 50,
              in bf16 (the tensor-core kernel) within 2e-2 of the plain
@@ -38,7 +44,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              churn, 180.9 M f32 a node) and an int8 variant. Every round must
              report numerics_ok (None for top-k, which has no deterministic
              bound), finite outputs and the exact bytes on the wire; every
-             gossip kernel must have launched.
+             gossip kernel must have launched, and every shape a codec
+             kernel launched with must have been timed in phase 2. Prints
+             each gossip kernel's launches by shape and each codec kernel's
+             loss, the sum over shapes of launches x (time - bound).
 4. serve   — smollm-360m (32 layers, d 960) and falcon-mamba-7b (64 layers,
              d 4096) at full width and depth in bf16, params from Model.init
              on the card (seed 0), with the launch counts set to 0 just before
@@ -53,8 +62,9 @@ Phases, each fatal on failure (exit code 1, no result line):
              logits over a 256-token prompt, within 5e-2 (the bound of
              tests/test_models.py).
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and the result line. Exits non-zero without a CUDA device, and when
+Then the card's name and power limit, one JSON line with every kernel's
+numbers (the codec kernels' also by shape, with their loss), and the result
+line. Exits non-zero without a CUDA device, and when
 run from a directory that holds nothing of the repository but this file.
 """
 from __future__ import annotations
@@ -64,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -75,6 +86,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 GOSSIP_KERNELS = ("quantize", "dequantize", "topk_select", "gossip_mix")
+CODEC_KERNELS = ("quantize", "dequantize", "topk_select")
 MODEL_KERNELS = ("flash_attention", "selective_scan")
 
 
@@ -137,9 +149,10 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch.compress import make_codec, per_send_wire_mb
+    from repro_torch.compress import per_send_wire_mb
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import KERNEL_NAMES, _build, launch_counts, reset_launches
+    from repro_torch.kernels import (KERNEL_NAMES, _build, launch_counts, launch_shapes,
+                                     reset_launches)
     from repro_torch.kernels.attention.ops import flash_attention_op
     from repro_torch.kernels.attention.ref import BF16_UNITS_TOL, attention_ref, rounding_units
     from repro_torch.kernels.codec import ref as codec_ref
@@ -169,12 +182,16 @@ def main() -> int:
     # -- 2. kernels against their plain versions ------------------------------------
     flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
 
-    def median_ms(fn, iters, cold=True):
+    def median_ms(fn, iters, cold=True, clean=False):
+        """cold: the L2 flushed before each launch, by writing (dirty lines
+        stay, as a gossip step leaves them) or, with clean, by reading."""
         fn()
         torch.cuda.synchronize()
         spans = []
         for _ in range(iters):
-            if cold:
+            if clean:
+                flush.sum()
+            elif cold:
                 flush.zero_()
             torch.cuda._sleep(2_000_000)  # the card stays busy while the host enqueues
             start = torch.cuda.Event(enable_timing=True)
@@ -188,59 +205,105 @@ def main() -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     b0 = int(round(21.2e6 / 4))   # EfficientNet-B0 payload, f32 elements
-    v2 = int(round(14.0e6 / 4))   # MobileNetV2 payload
     results = {}
 
     def record(name, route_src, replaces, err, tol, ms, plain_ms, n_bytes, n_ops,
-               library_ms=None, shape="", ops_per_s=F32_OPS_PER_S):
+               library_ms=None, shape="", ops_per_s=F32_OPS_PER_S, key=None, clean_ms=None):
         b_ms, b_by = bound_ms(n_bytes, n_ops, ops_per_s)
         if not err <= tol:
             fail(f"{name}: max |kernel - plain| = {err} > {tol}")
-        results.setdefault(name, dict(
+        entry = results.setdefault(name, dict(
             name=name, route="cuda", source=route_src, replaces=replaces,
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=library_ms))
+        if key is not None:  # one of the main path's launch shapes
+            entry.setdefault("shapes", []).append(dict(
+                shape=list(key), launches=0, ms=ms, bound_ms=b_ms, plain_ms=plain_ms,
+                clean_l2_ms=clean_ms))
         lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
-        print(f"[kernel] {name}{shape}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}), "
+        clean = "" if clean_ms is None else f" ({clean_ms:.4f} ms from a clean L2)"
+        print(f"[kernel] {name}{shape}: {ms:.4f} ms{clean} (bound {b_ms:.4f} ms by {b_by}), "
               f"plain {plain_ms:.4f} ms{lib}; max_abs_err {err} (tol {tol}) on {card}")
 
-    x = torch.randn((1, b0), generator=gen, device=dev) * 3
-    for bits in (8, 4):
+    # the codec kernels at every shape the main path (phase 3) gives them: a
+    # dry run of its scenarios at the proxy size on the card yields each
+    # launch's rows (the plan's senders in a step, whatever the payload), and
+    # the scenario's payload its size
+    base = SCENARIOS
+    runs = [base["paper_table3"], base["quantized_table3"],
+            base["quantized_table3"].replace(name="quantized_table3_int4", codec="int4"),
+            base["topk_sweep"], base["mesh_smoke"],
+            base["mesh_smoke"].replace(name="mesh_smoke_int8", codec="int8")]
+    path_shapes = {name: Counter() for name in CODEC_KERNELS}
+    for spec in runs:
+        reset_launches()
+        run_scenario(spec, device="cuda", seed=1, proxy_elems=4)
+        elems = int(round(spec.payload_mb * 1e6 / 4))
+        for name in CODEC_KERNELS:
+            for key, n in launch_shapes()[name].items():
+                path_shapes[name][(key[0], elems, *key[2:])] += n
+    for name in CODEC_KERNELS:
+        print(f"[kernel] {name}: the main path's launch shapes "
+              f"{sorted(path_shapes[name].items())} (dry run at the proxy size)")
+
+    def by_size(key):  # the single-row shapes first, int8 before int4
+        return key[0], key[1], -key[2]
+
+    for rows, size, bits in sorted(path_shapes["quantize"], key=by_size):
+        x = torch.randn((rows, size), generator=gen, device=dev) * 3
+        iters = 50 if x.numel() < 5e7 else 10
         codes, scales = quantize_op(x, bits=bits)
         pc, ps = codec_ref.quantize_rows(x, bits, 1024)
         if not (torch.equal(codes, pc) and torch.equal(scales, ps)):
-            fail(f"quantize int{bits}: codes/scales differ from the plain version")
+            fail(f"quantize int{bits} ({rows}, {size}): codes/scales differ from the plain "
+                 "version")
         c = scales.shape[1]
-        q_bytes = 4 * b0 + codes.numel() + 4 * c
+        q_bytes = 4 * x.numel() + codes.numel() + 4 * scales.numel()
+        shape = f" int{bits} ({rows}, {c}x1024)"
         record("quantize", "src/repro_torch/csrc/quant_pack.cu",
                "src/repro/kernels/codec/quant_pack.py:19", 0.0, 0.0,
-               median_ms(lambda: quantize_op(x, bits=bits), 50),
-               median_ms(lambda: codec_ref.quantize_rows(x, bits, 1024), 20),
-               q_bytes, 5 * b0, shape=f" int{bits} (1, {c}x1024)")
-        out = dequantize_op(codes, scales, size=b0, bits=bits)
-        plain = codec_ref.dequantize_rows(codes, scales, b0, bits, 1024)
+               median_ms(lambda: quantize_op(x, bits=bits), iters),
+               median_ms(lambda: codec_ref.quantize_rows(x, bits, 1024), iters // 5),
+               q_bytes, 5 * x.numel(), shape=shape, key=(rows, size, bits),
+               clean_ms=median_ms(lambda: quantize_op(x, bits=bits), iters, clean=True))
+        del pc, ps
+        out = dequantize_op(codes, scales, size=size, bits=bits)
+        plain = codec_ref.dequantize_rows(codes, scales, size, bits, 1024)
         if not torch.equal(out, plain):
-            fail(f"dequantize int{bits}: output differs from the plain version")
+            fail(f"dequantize int{bits} ({rows}, {size}): output differs from the plain version")
+        del out, plain
         record("dequantize", "src/repro_torch/csrc/quant_pack.cu",
                "src/repro/kernels/codec/quant_pack.py:28", 0.0, 0.0,
-               median_ms(lambda: dequantize_op(codes, scales, size=b0, bits=bits), 50),
-               median_ms(lambda: codec_ref.dequantize_rows(codes, scales, b0, bits, 1024), 20),
-               q_bytes, b0, shape=f" int{bits} (1, {c}x1024)")
+               median_ms(lambda: dequantize_op(codes, scales, size=size, bits=bits), iters),
+               median_ms(lambda: codec_ref.dequantize_rows(codes, scales, size, bits, 1024),
+                         iters // 5),
+               q_bytes, x.numel(), shape=shape, key=(rows, size, bits),
+               clean_ms=median_ms(lambda: dequantize_op(codes, scales, size=size, bits=bits),
+                                  iters, clean=True))
+        del x, codes, scales
 
-    xt = torch.randn((1, v2), generator=gen, device=dev)
-    codec = make_codec("topk")
-    vals, idx = topk_select_op(xt, k=codec.k, block=codec.block)
-    pv, pi = codec_ref.topk_select_rows(xt, codec.k, codec.block)
-    if not (torch.equal(vals, pv) and torch.equal(idx, pi)):
-        fail("topk_select: values/indices differ from the plain version")
-    c = vals.shape[1]
-    record("topk_select", "src/repro_torch/csrc/topk_pack.cu",
-           "src/repro/kernels/codec/topk_pack.py:28", 0.0, 0.0,
-           median_ms(lambda: topk_select_op(xt, k=codec.k, block=codec.block), 50),
-           median_ms(lambda: codec_ref.topk_select_rows(xt, codec.k, codec.block), 10),
-           4 * v2 + 8 * codec.k * c, codec.k * c * codec.block,
-           shape=f" ({c}x{codec.block}, k={codec.k})")
-    del x, xt, codes, scales, out, plain, vals, idx, pv, pi
+    for rows, size, block, k in sorted(path_shapes["topk_select"]):
+        xt = torch.randn((rows, size), generator=gen, device=dev)
+        vals, idx = topk_select_op(xt, k=k, block=block)
+        pv, pi = codec_ref.topk_select_rows(xt, k, block)
+        if not (torch.equal(vals, pv) and torch.equal(idx, pi)):
+            fail(f"topk_select ({rows}, {size}): values/indices differ from the plain version")
+        c = vals.shape[1]
+        shape = f" ({rows}, {c}x{block}, k={k})"
+        # torch.topk on the |x| blocks computes part of the function (no
+        # signed values, no index order): printed, never the library column
+        blocks = codec_ref.chunked(xt, block)
+        part_ms = median_ms(lambda: torch.topk(blocks.abs(), k, dim=1), 20)
+        print(f"[kernel] topk_select{shape}: torch.topk on the |x| blocks {part_ms:.4f} ms "
+              f"(values only, unordered; a diagnostic) on {card}")
+        record("topk_select", "src/repro_torch/csrc/topk_pack.cu",
+               "src/repro/kernels/codec/topk_pack.py:28", 0.0, 0.0,
+               median_ms(lambda: topk_select_op(xt, k=k, block=block), 50),
+               median_ms(lambda: codec_ref.topk_select_rows(xt, k, block), 10),
+               4 * xt.numel() + 8 * vals.numel(), k * c * rows * block,
+               shape=shape, key=(rows, size, block, k),
+               clean_ms=median_ms(lambda: topk_select_op(xt, k=k, block=block), 50, clean=True))
+        del xt, vals, idx, pv, pi, blocks
 
     buf = torch.randn((10, 10, b0), generator=gen, device=dev)
     w = torch.full((10,), 0.1, device=dev)
@@ -339,11 +402,6 @@ def main() -> int:
     del flush
 
     # -- 3. the main path: scenario rounds at full width ------------------------
-    base = SCENARIOS
-    runs = [base["paper_table3"], base["quantized_table3"],
-            base["quantized_table3"].replace(name="quantized_table3_int4", codec="int4"),
-            base["topk_sweep"], base["mesh_smoke"],
-            base["mesh_smoke"].replace(name="mesh_smoke_int8", codec="int8")]
     reset_launches()
     for spec in runs:
         torch.cuda.reset_peak_memory_stats()
@@ -369,13 +427,31 @@ def main() -> int:
               f"peak {peak_gb:.2f} GB")
         if spec.name == "quantized_table3" and run.rounds[0].bytes_on_wire_mb != 478.86336:
             fail("quantized_table3 bytes_on_wire_mb != 478.86336")
-    counts = launch_counts()
+    counts, shapes = launch_counts(), launch_shapes()
     print(f"[path] launches: {json.dumps(counts)}")
     missing = [k for k in GOSSIP_KERNELS if counts[k] <= 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     for name in GOSSIP_KERNELS:
         results[name]["launches"] = counts[name]
+        hist = ", ".join(f"{key} x {n}" for key, n in
+                         sorted(shapes[name].items(), key=lambda kv: -kv[1]))
+        print(f"[path] {name} launches by shape: {hist}")
+    # each codec kernel's loss: launches x (time - bound), summed over shapes
+    for name in CODEC_KERNELS:
+        timed = {tuple(row["shape"]): row for row in results[name]["shapes"]}
+        untimed = sorted(set(shapes[name]) - set(timed))
+        if untimed:
+            fail(f"{name}: shapes launched on the main path but not timed: {untimed}")
+        for key, row in timed.items():
+            row["launches"] = shapes[name].get(key, 0)
+            row["loss_ms"] = row["launches"] * (row["ms"] - row["bound_ms"])
+            print(f"[path] {name} {key}: {row['launches']} launches x ({row['ms']:.4f} - "
+                  f"{row['bound_ms']:.4f} ms) = {row['loss_ms']:.4f} ms")
+        loss = sum(r["loss_ms"] for r in timed.values())
+        results[name]["loss_ms"] = loss
+        print(f"[path] {name}: loss sum over shapes of launches x (ms - bound_ms) = "
+              f"{loss:.4f} ms on {card}")
     torch.cuda.empty_cache()
 
     # -- 4. the serving path at full width and depth ------------------------------

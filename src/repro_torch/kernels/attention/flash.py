@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, lib
 
 _ENTRY = {torch.float32: "rt_flash_attention_f32", torch.bfloat16: "rt_flash_attention_bf16"}
@@ -69,6 +69,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 int(causal), int(sliding_window), float(softcap),
                 torch.cuda.current_stream(q.device).cuda_stream)
-        LAUNCHES["flash_attention"] += 1
+        count_launch("flash_attention", (b, s_q, s_kv, h, kvh, hd))
         check(status, "flash_attention")
     return out

@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, lib
 
 
@@ -50,7 +50,7 @@ def quantize_rows(flat: torch.Tensor, bits: int, chunk: int
         with torch.cuda.device(flat.device):
             status = lib().rt_quantize(flat.data_ptr(), codes.data_ptr(), scales.data_ptr(),
                                        rows, size, n_chunks, chunk, bits, _stream(flat))
-        LAUNCHES["quantize"] += 1
+        count_launch("quantize", (rows, size, bits))
         check(status, "quantize")
     return codes, scales
 
@@ -71,6 +71,6 @@ def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor, size: int,
         with torch.cuda.device(codes.device):
             status = lib().rt_dequantize(codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
                                          rows, size, n_chunks, chunk, bits, _stream(codes))
-        LAUNCHES["dequantize"] += 1
+        count_launch("dequantize", (rows, size, bits))
         check(status, "dequantize")
     return out

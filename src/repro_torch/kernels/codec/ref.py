@@ -41,6 +41,42 @@ def topk_select_ref(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
     return torch.gather(xf, 1, idx), idx.to(torch.int32)
 
 
+def topk_select_threshold(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top-k kernel's threshold select, step for step, in PyTorch: the
+    same function as :func:`topk_select_ref` (``block % 32 == 0``).
+
+    Keys are the bits of |x|; lane ``l`` of the kernel's warp holds columns
+    ``j * 32 + l``. T, the k-th largest key, lies between the smallest lane
+    maximum (for k <= 32; else 0) and the largest key, and shares the bits
+    above the highest one where those two differ. A bitwise search fixes the
+    rest, stopping where exactly k keys lie at or above its candidate. Keys
+    above T are taken, then the lowest-index keys equal to T.
+    """
+    xf = x.float().contiguous()
+    c, block = xf.shape
+    key = (xf.view(torch.int32) & 0x7FFFFFFF).long()
+    lane_max = key.view(c, block // 32, 32).amax(dim=1)
+    hi = lane_max.amax(dim=1)
+    lb = lane_max.amin(dim=1) if k <= 32 else torch.zeros_like(hi)
+    top = torch.full_like(hi, -1)  # the highest bit where lb and hi differ
+    for bit in range(31):
+        top = torch.where(((lb ^ hi) >> bit) & 1 == 1, bit, top)
+    lo = torch.where(top < 0, hi, lb & ~((2 << top.clamp(min=0)) - 1))
+    exact = torch.zeros_like(hi, dtype=torch.bool)
+    for bit in range(30, -1, -1):
+        cand = lo | (1 << bit)
+        n = (key >= cand[:, None]).sum(dim=1)
+        take = (bit <= top) & ~exact & (n >= k)
+        lo = torch.where(take, cand, lo)
+        exact |= take & (n == k)
+    eq = key == lo[:, None]
+    need = k - (key > lo[:, None]).sum(dim=1, keepdim=True)
+    ties = (torch.cumsum(eq.long(), dim=1) - 1 < need) & eq
+    sel = torch.where(exact[:, None], key >= lo[:, None], (key > lo[:, None]) | ties)
+    idx = sel.nonzero()[:, 1].view(c, k)
+    return torch.gather(xf, 1, idx), idx.to(torch.int32)
+
+
 def chunked(flat: torch.Tensor, chunk: int) -> torch.Tensor:
     """(rows, size) -> (rows * C, chunk), each row zero-padded on its own."""
     rows, size = flat.shape

@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, lib
 from .quant_pack import _require_cuda, _stream
 
@@ -35,6 +35,6 @@ def topk_select_rows(flat: torch.Tensor, k: int, block: int
         with torch.cuda.device(flat.device):
             status = lib().rt_topk_select(flat.data_ptr(), vals.data_ptr(), idx.data_ptr(),
                                           rows, size, n_blocks, block, k, _stream(flat))
-        LAUNCHES["topk_select"] += 1
+        count_launch("topk_select", (rows, size, block, k))
         check(status, "topk_select")
     return vals, idx

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -36,6 +36,6 @@ def gossip_mix(buffer: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
                 buffer.data_ptr(), w.data_ptr(), out.data_ptr(), batch, n, p,
                 _DTYPES[buffer.dtype],
                 torch.cuda.current_stream(buffer.device).cuda_stream)
-        LAUNCHES["gossip_mix"] += 1
+        count_launch("gossip_mix", (batch, n, p))
         check(status, "gossip_mix")
     return out

@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import LAUNCHES
+from .. import count_launch
 from .._build import check, lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +56,6 @@ def mamba_selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                 A_log.data_ptr(), D.data_ptr(), y.data_ptr(), h.data_ptr(),
                 b, s, di, n, _DTYPES[x.dtype], _DTYPES[out_dtype],
                 torch.cuda.current_stream(x.device).cuda_stream)
-        LAUNCHES["selective_scan"] += 1
+        count_launch("selective_scan", (b, s, di, n))
         check(status, "selective_scan")
     return y, h

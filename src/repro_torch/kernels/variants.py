@@ -1,15 +1,16 @@
-"""Edited copies of the model kernels beside the shipped ones, on the card:
+"""Edited copies of the kernels beside the shipped ones, on the card:
 planted faults (does the check catch them?) and design variants (what does
 a choice cost?).
 
-    PYTHONPATH=src python -m repro_torch.kernels.variants [--source NAME=FILE ...]
+    PYTHONPATH=src python -m repro_torch.kernels.variants [--only FILE ...] [--source NAME=FILE ...]
 
 Each variant is a shipped ``csrc`` file with textual edits (each edit must
 match exactly once, or the run fails). All variants build at once, one nvcc
 each with the shipped flags, into their own libraries under
 ``build/repro_torch/variants/``, and are called through the same C entry
 point as the shipped kernel. ``--source NAME=FILE`` adds a whole file as one
-more variant of the shipped file of the same name (an earlier revision, say).
+more variant of the shipped file of the same name (an earlier revision, say);
+``--only FILE`` keeps the variants and cases of that source file alone.
 
 Prints ptxas's registers and spills for each variant's kernels, then for
 each case the shipped kernel first and last (so drift shows) and every
@@ -17,7 +18,14 @@ variant between: the median time (CUDA events, L2 flushed before each
 launch) and the error against the plain version. Flash attention reads its
 largest absolute error against ``attention_ref`` (bf16) and its rounding
 units against the f32 attention (``ref.rounding_units``, held to
-``BF16_UNITS_TOL``); the scan its largest error over max|y|. Needs one card.
+``BF16_UNITS_TOL``); the scan its largest error over max|y|. Top-k,
+quantize and dequantize must be bit-identical to the plain versions in
+``codec/ref.py``: on random data at the payload shapes of the gossip path,
+and on data built to hit the tie rules (equal magnitudes at the k-th place;
+x / scale on exact .5 ties, see :func:`half_ties`). A whole ``--source``
+codec file also runs whole gossip rounds (``topk_sweep`` for top-k,
+``quantized_table3`` for the quantizer, 12 rounds each) with its kernels in
+place of the shipped ones, shipped / it / it / shipped. Needs one card.
 """
 from __future__ import annotations
 
@@ -28,7 +36,10 @@ import subprocess
 import sys
 from dataclasses import dataclass
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
 
 from . import _build
 
@@ -42,6 +53,34 @@ class Variant:
     edits: Tuple[Tuple[str, str], ...] = ()
     text: str = ""                        # a whole file instead of edits
 
+# top-k's other design, inserted ahead of the threshold select (which then
+# never runs): k rounds of an argmax in two warp reductions, the largest
+# remaining key (ties to the lowest index) taken each round; an unselected
+# key is |x|'s bits + 1, a taken one 0
+ARGMAX_SELECT = """  if (k > 0) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) key[j] += 1u;
+    for (int t = 0; t < k; ++t) {
+      unsigned best = key[0];
+      int bj = 0;
+#pragma unroll
+      for (int j = 1; j < V; ++j) {
+        if (key[j] > best) {  // strict: the lowest j among equal keys
+          best = key[j];
+          bj = j;
+        }
+      }
+      const unsigned m = __reduce_max_sync(kFull, best);
+      const unsigned cand = best == m ? (unsigned)(bj * 32 + lane) : kFull;
+      const unsigned w = __reduce_min_sync(kFull, cand);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (cand == w && j == bj) key[j] = 0u;
+    }
+    pack<V>(v, [&](int j) { return key[j] == 0u; }, out_v, out_i, lane);
+    return;
+  }
+"""
 
 VARIANTS = (
     # planted faults: each must fail the check where it applies
@@ -67,9 +106,74 @@ VARIANTS = (
     Variant("scan: 4 channels x 8 segments a warp", "selective_scan.cu",
             (("constexpr int kCh = 8;", "constexpr int kCh = 4;"),
              ("constexpr int kSegs = 4;", "constexpr int kSegs = 8;"))),
+    # the gossip wire's codecs
+    Variant("fault: top-k ties at T taken from the higher index", "topk_pack.cu",
+            (("const int need = k - (int)count_ge<V>(key, lo + 1u);",
+              "const int need = k - (int)count_ge<V>(key, lo + 1u);\n"
+              "    const int n_eq = (int)count_ge<V>(key, lo) - (k - need);"),
+             ("const int rank = ties + __popc(be & below);",
+              "const int rank = n_eq - 1 - ties - __popc(be & below);"))),
+    Variant("top-k: k rounds of a two-redux argmax", "topk_pack.cu",
+            (("  unsigned lane_max = key[0];", ARGMAX_SELECT + "  unsigned lane_max = key[0];"),)),
+    Variant("top-k: threshold search from bit 30 (no lane-max bracket)", "topk_pack.cu",
+            (("const unsigned lb = k <= 32 ? __reduce_min_sync(kFull, lane_max) : 0u;",
+              "const unsigned lb = 0u;"),)),
+    Variant("top-k: at most 32 registers (64 warps an SM)", "topk_pack.cu",
+            (("__launch_bounds__(kWarps * 32)\ntopk_kernel",
+              "__launch_bounds__(kWarps * 32, 8)\ntopk_kernel"),)),
+    Variant("top-k: 4 warps a CTA", "topk_pack.cu",
+            (("constexpr int kWarps = 8;", "constexpr int kWarps = 4;"),)),
+    # ablations: a part of the work skipped where the compiler cannot see it
+    # never runs, so its time shows what that part costs (they fail the check)
+    Variant("ablation: top-k loads only (no search, no pack)", "topk_pack.cu",
+            (("  unsigned lane_max = key[0];",
+              "  unsigned acc = 0;\n"
+              "  for (int j = 0; j < V; ++j) acc |= key[j];\n"
+              "  if (k <= 1024) {\n"
+              "    if (acc == 0x7fffffffu) out_v[0] = 0.f;\n"
+              "    return;\n"
+              "  }\n"
+              "  unsigned lane_max = key[0];"),)),
+    Variant("ablation: top-k search, no pack", "topk_pack.cu",
+            (("  if (exact) {",
+              "  if (k <= 1024) {\n"
+              "    if (lo == 0xffffffffu) out_v[0] = 0.f;\n"
+              "    return;\n"
+              "  }\n"
+              "  if (exact) {"),)),
+    Variant("ablation: quantize absmax only (no codes)", "quant_pack.cu",
+            (("  if (lane == 0) *scale_out = scale;",
+              "  if (lane == 0) *scale_out = scale;\n  if (chunk > 0) return;"),)),
+    Variant("fault: quantize by x * (1 / scale)", "quant_pack.cu",
+            (("const float r = rintf(x / scale);", "const float r = rintf(x * (1.f / scale));"),)),
+    Variant("quantize: 16 warps a CTA", "quant_pack.cu",
+            (("constexpr int kQuantWarps = 8;", "constexpr int kQuantWarps = 16;"),)),
+    Variant("quantize: 4 float4 a lane (a 1024-element chunk read twice)", "quant_pack.cu",
+            (("constexpr int kVecs = 8;", "constexpr int kVecs = 4;"),)),
+    Variant("quantize: at most 51 registers (5 CTAs, 40 warps an SM)", "quant_pack.cu",
+            (("__launch_bounds__(kQuantWarps * 32)", "__launch_bounds__(kQuantWarps * 32, 5)"),)),
 )
 
-KERNELS = {"flash_attention.cu": "flash_tc_kernel", "selective_scan.cu": "scan_kernel"}
+KERNELS = {"flash_attention.cu": "flash_tc_kernel", "selective_scan.cu": "scan_kernel",
+           "topk_pack.cu": "topk_kernel", "quant_pack.cu": "quantize_kernel"}
+# ptxas lines to print where a kernel has many instantiations: top-k at block 256
+PTXAS_ARGS = {"topk_pack.cu": "ILi8E"}
+
+
+def half_ties(rows: int, n_chunks: int, chunk: int, bits: int, seed: int = 0) -> np.ndarray:
+    """(rows, n_chunks * chunk) f32 for the quantizer's tie rule: each
+    chunk's absmax is one element, and the others are fl((n + 0.5) * scale)
+    for integers n, so x / scale lands on an exact .5 tie under the true
+    divide for ~9 in 10 of them; a reciprocal multiply moves ~1 in 8 of
+    those off the tie, and the code rounds the other way."""
+    qmax = 2 ** (bits - 1) - 1
+    g = np.random.default_rng(seed)
+    absmax = g.uniform(0.5, 8.0, size=(rows * n_chunks, 1)).astype(np.float32)
+    scale = absmax / np.float32(qmax)
+    n = g.integers(-qmax, qmax, size=(rows * n_chunks, chunk)).astype(np.float32) + 0.5
+    x = (n.astype(np.float32) * scale).astype(np.float32)
+    x[:, 0] = absmax[:, 0]
+    return x.reshape(rows, n_chunks * chunk)
 
 
 def variant_text(v: Variant) -> str:
@@ -107,6 +211,8 @@ def build_all(variants: Sequence[Variant]) -> Dict[str, Path]:
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and KERNELS[v.source] in line:
                 name = line.split("'")[1].split(KERNELS[v.source], 1)[1].split("EEv")[0]
+                if not name.startswith(PTXAS_ARGS.get(v.source, "")):
+                    continue
                 info = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
                 print(f"[ptxas] {v.name}: {KERNELS[v.source]} {name}: {info}")
         libs[v.name] = lib
@@ -124,12 +230,15 @@ def main(argv: List[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", action="append", default=[], metavar="NAME=FILE",
                     help="a whole source file as one more variant")
+    ap.add_argument("--only", action="append", default=[], metavar="FILE",
+                    choices=sorted(KERNELS), help="run this source file's variants only")
     args = ap.parse_args(argv)
 
     import torch
     import torch.nn.functional as F
 
     from .attention.ref import BF16_UNITS_TOL, attention_ref, rounding_units
+    from .codec import ref as codec_ref
     from .scan.ref import selective_scan_ref
 
     if not torch.cuda.is_available():
@@ -142,18 +251,25 @@ def main(argv: List[str] | None = None) -> int:
         if file.name not in KERNELS:
             raise SystemExit(f"--source {spec}: the file must be one of {list(KERNELS)}")
         variants.append(Variant(name, file.name, text=file.read_text()))
+    only = set(args.only or KERNELS)
+    variants = [v for v in variants if v.source in only]
     libs = build_all(variants)
     _build.lib()
     shipped = _build.build_dir() / _build.LIB_NAME
     dev = torch.device("cuda")
     flush = torch.empty(128 * 2 ** 20, device=dev)  # 512 MB, above the 50 MB L2
 
-    def median_ms(fn: Callable[[], int], iters: int = 10) -> float:
+    def median_ms(fn: Callable[[], int], iters: int = 10, clean: bool = False) -> float:
+        """clean: flush the L2 by reading, not writing, so the kernel finds no
+        dirty lines there to write back."""
         fn()
         torch.cuda.synchronize()
         spans = []
         for _ in range(iters):
-            flush.zero_()
+            if clean:
+                flush.sum()
+            else:
+                flush.zero_()
             torch.cuda._sleep(2_000_000)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -175,7 +291,8 @@ def main(argv: List[str] | None = None) -> int:
         (1, 8192, 8, 4, 256, 4096, 50.0, 1.0),
         (1, 8192, 8, 4, 256, 4096, 50.0, 25.0),  # scores reach the cap
     ]
-    for b, s, h, kv, hd, window, cap, q_scale in flash_cases:
+    for b, s, h, kv, hd, window, cap, q_scale in (
+            flash_cases if "flash_attention.cu" in only else []):
         q = (q_scale * torch.randn((b, s, h, hd), generator=gen, device=dev)).bfloat16()
         k = torch.randn((b, s, kv, hd), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, s, kv, hd), generator=gen, device=dev).bfloat16()
@@ -207,7 +324,7 @@ def main(argv: List[str] | None = None) -> int:
                   f"(tol 2e-2), {units:.2f} rounding units (tol {BF16_UNITS_TOL}): {verdict}")
         del q, k, v, plain
 
-    for b in (1, 2):
+    for b in ((1, 2) if "selective_scan.cu" in only else ()):
         s, di, n = 2048, 8192, 16
         dt = F.softplus(torch.randn((b, s, di), generator=gen, device=dev))
         Bm = torch.randn((b, s, n), generator=gen, device=dev)
@@ -235,6 +352,122 @@ def main(argv: List[str] | None = None) -> int:
             print(f"[scan] ({b}, {s}, {di}, {n}) x bf16, y f32: {name}: "
                   f"{median_ms(call):.4f} ms, max err / max|y| {rel:.2e} (tol 1e-4)")
         del dt, Bm, Cm, xs, A_log, Dp, py, ph
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def verdict(same: bool, n_diff: int, what: str) -> str:
+        return "bit-identical: passes" if same else f"FAILS ({n_diff} {what} differ)"
+
+    ties = torch.from_numpy(np.round(np.random.default_rng(1).normal(size=(4, 70_001)) * 12)
+                            .astype(np.float32) / 4)
+    ties[:, :23_000] = 0  # values on a 0.25 grid, a third of each row 0
+    topk_cases = [("MobileNetV2 (1, 3.5 M)", torch.randn((1, 3_500_000), generator=gen,
+                                                        device=dev) * 3),
+                  ("the path's 3-row step (3, 3.5 M)", torch.randn((3, 3_500_000),
+                                                                  generator=gen, device=dev)),
+                  ("ties at the k-th place (4, 70 001)", ties.to(dev)),
+                  ("one block (1, 256): the launch's fixed cost", torch.randn((1, 256),
+                                                                           device=dev))]
+    for label, x in (topk_cases if "topk_pack.cu" in only else []):
+        k, block = 13, 256
+        rows, size = x.shape
+        nb = -(-size // block)
+        want_v, want_i = codec_ref.topk_select_rows(x, k, block)
+        lib_ms = median_ms(lambda: torch.topk(codec_ref.chunked(x, block).abs(), k, dim=1))
+        print(f"[topk] {label}, k {k}, block {block}: torch.topk on |x| blocks (values "
+              f"only, no index order; a diagnostic) {lib_ms:.4f} ms")
+        for name, path in runs("topk_pack.cu"):
+            fn = entry(path, "rt_topk_select")
+            # filled, so a variant that leaves an output unwritten cannot pass
+            vals = torch.full((rows, nb, k), float("nan"), device=dev)
+            idx = torch.full((rows, nb, k), -1, dtype=torch.int32, device=dev)
+
+            def call(fn=fn, vals=vals, idx=idx):
+                return fn(x.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, size, nb,
+                          block, k, stream)
+
+            status = call()
+            torch.cuda.synchronize()
+            if status != 0:
+                raise RuntimeError(f"{name}: launch returned CUDA error {status}")
+            same = torch.equal(vals, want_v) and torch.equal(idx, want_i)
+            clean = f" ({median_ms(call, 20, clean=True):.4f} ms from a clean L2)" \
+                if name == "shipped" else ""
+            print(f"[topk] {label}: {name}: {median_ms(call, 20):.4f} ms{clean}, "
+                  f"{verdict(same, int((idx != want_i).sum()), 'indices')}")
+
+    b0 = 5_300_000
+    for bits in ((8, 4) if "quant_pack.cu" in only else ()):
+        chunk = 1024
+        quant_cases = [("EfficientNet-B0 (1, 5.3 M)", torch.randn((1, b0), generator=gen,
+                                                                 device=dev) * 3),
+                       ("the path's 2-row step (2, 5.3 M)", torch.randn(
+                           (2, b0), generator=gen, device=dev) * 3),
+                       ("x / scale on exact .5 ties (8, 64 chunks)",
+                        torch.from_numpy(half_ties(8, 64, chunk, bits)).to(dev)),
+                       ("one chunk (1, 1024): the launch's fixed cost",
+                        torch.randn((1, chunk), device=dev))]
+        for label, x in quant_cases:
+            rows, size = x.shape
+            nc = -(-size // chunk)
+            want_c, want_s = codec_ref.quantize_rows(x, bits, chunk)
+            want_out = codec_ref.dequantize_rows(want_c, want_s, size, bits, chunk)
+            for name, path in runs("quant_pack.cu"):
+                quant, dequant = entry(path, "rt_quantize"), entry(path, "rt_dequantize")
+                codes, scales = torch.full_like(want_c, 99), torch.full_like(want_s, -1.0)
+                out = torch.full_like(x, float("nan"))
+
+                def q_call(fn=quant, codes=codes, scales=scales):
+                    return fn(x.data_ptr(), codes.data_ptr(), scales.data_ptr(), rows, size,
+                              nc, chunk, bits, stream)
+
+                def d_call(fn=dequant, out=out):
+                    return fn(want_c.data_ptr(), want_s.data_ptr(), out.data_ptr(), rows, size,
+                              nc, chunk, bits, stream)
+
+                status = q_call() or d_call()
+                torch.cuda.synchronize()
+                if status != 0:
+                    raise RuntimeError(f"{name}: launch returned CUDA error {status}")
+                same = torch.equal(codes, want_c) and torch.equal(scales, want_s)
+                deq_same = torch.equal(out, want_out)
+                clean = (f" ({median_ms(q_call, 20, clean=True):.4f} / "
+                         f"{median_ms(d_call, 20, clean=True):.4f} ms from a clean L2)"
+                         if name == "shipped" else "")
+                print(f"[quant] int{bits} {label}: {name}: quantize {median_ms(q_call, 20):.4f} "
+                      f"ms, {verdict(same, int((codes != want_c).sum()), 'codes')}; dequantize "
+                      f"{median_ms(d_call, 20):.4f} ms, "
+                      f"{verdict(deq_same, int((out != want_out).sum()), 'values')}{clean}")
+
+    # whole gossip rounds with a --source file's codec kernels in place of the
+    # shipped ones (the rest of the path as shipped), alternated
+    round_cases = {"topk_pack.cu": ("topk_sweep", ("rt_topk_select",)),
+                   "quant_pack.cu": ("quantized_table3", ("rt_quantize", "rt_dequantize"))}
+    whole = [v for v in variants if v.text and v.source in round_cases]
+    if whole:
+        from ..scenario import SCENARIOS, run_scenario
+
+        shipped_lib = _build.lib()
+
+        def steady_rounds_ms(scenario: str, swap: Dict[str, Callable]) -> float:
+            """Median device time of rounds 1-11 of 12 (round 0 warms up)."""
+            proxy = SimpleNamespace(**{n: getattr(shipped_lib, n)
+                                       for n in (*_build.SIGNATURES, "rt_error_string")})
+            proxy.__dict__.update(swap)
+            _build._lib = proxy
+            try:
+                run = run_scenario(SCENARIOS[scenario].replace(rounds=12), device="cuda",
+                                   seed=1)
+            finally:
+                _build._lib = shipped_lib
+            return statistics.median(r.device_ms for r in run.rounds[1:])
+
+        for v in whole:
+            scenario, names = round_cases[v.source]
+            swap = {n: entry(libs[v.name], n) for n in names}
+            times = [steady_rounds_ms(scenario, s) for s in ({}, swap, swap, {})]
+            print(f"[rounds] {scenario}, median of 11 steady rounds: shipped {times[0]:.3f}, "
+                  f"{v.name} {times[1]:.3f}, {times[2]:.3f}, shipped {times[3]:.3f} ms")
     return 0
 
 

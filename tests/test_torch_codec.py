@@ -109,6 +109,41 @@ def test_topk_matches_ref_pallas_and_numpy(size, ties):
     np.testing.assert_array_equal(dense[0].numpy(), codec._decode_leaf(host))
 
 
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("ties", (False, True))
+def test_topk_threshold_model_matches_ref_and_pallas(size, ties):
+    """The CUDA kernel's threshold decomposition, run in PyTorch, against
+    ``lax.top_k`` and the Pallas kernel in interpret mode."""
+    codec = jax_make_codec("topk")
+    blocks = codec._blocked(_x(size, ties=ties))
+    vals, idx = ref.topk_select_threshold(torch.from_numpy(np.asarray(blocks)), codec.k)
+    jv, ji = jax_topk_ref(jnp.asarray(blocks), codec.k)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    pv, pi = topk_select_blocks(jnp.asarray(blocks), k=codec.k, interpret=True)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(pv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(pi))
+
+
+@pytest.mark.parametrize("block", (32, 96, 256, 512, 1024))
+@pytest.mark.parametrize("k", (1, 13, 33, "block"))
+def test_topk_threshold_model_every_block_and_k(block, k):
+    """Both ends of the search (the lane-max bracket for k <= 32, a search
+    from 0 above), exact stops and ties at T, zero and infinite blocks."""
+    k = min(block, 33) if k == 33 else block if k == "block" else k
+    rng = np.random.default_rng(block + k)
+    x = np.round(rng.normal(size=(12, block)) * 8).astype(np.float32) / 4
+    x[:4] = rng.normal(size=(4, block)) * 3  # distinct magnitudes: exact stops
+    x[4] = 0.0
+    x[5, ::2] = -0.0
+    x[6, :3] = [np.inf, -np.inf, np.inf]
+    x[7] = -2.5
+    vals, idx = ref.topk_select_threshold(torch.from_numpy(x), k)
+    jv, ji = jax_topk_ref(jnp.asarray(x), k)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+
+
 def test_topk_all_zero_block_selects_first_k():
     vals, idx = ref.topk_select_ref(torch.zeros(2, 256), 13)
     np.testing.assert_array_equal(idx.numpy(), np.tile(np.arange(13), (2, 1)))

@@ -23,6 +23,7 @@ from repro_torch.kernels.codec.ops import (  # noqa: E402
 )
 from repro_torch.kernels.mixing.ops import gossip_mix_op  # noqa: E402
 from repro_torch.kernels.mixing.ref import gossip_mix_ref  # noqa: E402
+from repro_torch.kernels.variants import half_ties  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -88,6 +89,102 @@ def test_topk_kernel_rejects_bad_blocks(cuda):
     for block, k in ((48, 4), (2048, 4), (256, 0), (32, 33)):
         with pytest.raises(ValueError):
             topk_select_op(x, k=k, block=block)
+
+
+def _offset_rows(x, cuda, offset):
+    """``x`` copied to the card as a contiguous (rows, size) view starting
+    ``offset`` floats into a larger buffer (offset 1: not 16-byte aligned)."""
+    base = torch.zeros(x.numel() + offset, device=cuda)
+    view = base[offset:].view(x.shape)
+    view.copy_(x.to(cuda))
+    return view
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+@pytest.mark.parametrize("chunk", (4, 64, 1020, 1024, 4096, 8192))
+@pytest.mark.parametrize("offset", (0, 1))
+def test_quantize_kernel_every_chunk_size(cuda, bits, chunk, offset):
+    """Chunks that fit a lane's registers (up to 1024) and chunks the warp
+    loops over, on aligned and unaligned rows, sizes not a multiple of 4."""
+    x = _x(3, 3 * chunk + 3, seed=chunk + bits)
+    view = _offset_rows(x, cuda, offset)
+    assert (view.data_ptr() % 16 == 0) == (offset == 0)
+    codes, scales = quantize_op(view, bits=bits, chunk=chunk)
+    want_c, want_s = ref.quantize_rows(x, bits, chunk)
+    assert torch.equal(codes.cpu(), want_c) and torch.equal(scales.cpu(), want_s)
+    x4 = _x(2, 4 * chunk, seed=chunk)  # size % 4 == 0: float4 loads where aligned
+    codes, scales = quantize_op(_offset_rows(x4, cuda, offset), bits=bits, chunk=chunk)
+    want_c, want_s = ref.quantize_rows(x4, bits, chunk)
+    assert torch.equal(codes.cpu(), want_c) and torch.equal(scales.cpu(), want_s)
+    out = dequantize_op(codes, scales, size=4 * chunk, bits=bits, chunk=chunk)
+    assert torch.equal(out.cpu(), ref.dequantize_rows(want_c, want_s, 4 * chunk, bits, chunk))
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+@pytest.mark.parametrize("chunk", (1024, 4096))
+def test_quantize_kernel_rounds_exact_half_ties_to_even(cuda, bits, chunk):
+    """x / scale on exact .5 ties: only a true divide and round half to even
+    give the plain version's codes (a reciprocal multiply fails here)."""
+    x = torch.from_numpy(half_ties(4, 16, chunk, bits, seed=chunk))
+    codes, scales = quantize_op(x.to(cuda), bits=bits, chunk=chunk)
+    want_c, want_s = ref.quantize_rows(x, bits, chunk)
+    assert torch.equal(codes.cpu(), want_c) and torch.equal(scales.cpu(), want_s)
+
+
+def _topk_matches_plain(x, cuda, k, block):
+    vals, idx = topk_select_op(x.to(cuda), k=k, block=block)
+    want_v, want_i = ref.topk_select_rows(x, k, block)
+    assert torch.equal(idx.cpu(), want_i) and torch.equal(vals.cpu(), want_v)
+    # signs, and -0.0 against +0.0, survive the pack
+    assert torch.equal(torch.signbit(vals.cpu()), torch.signbit(want_v))
+
+
+@pytest.mark.parametrize("block", (32, 96, 256, 512, 1024))
+@pytest.mark.parametrize("k", (1, 13, "block"))
+@pytest.mark.parametrize("ties", (False, True))
+def test_topk_kernel_every_block_and_k(cuda, block, k, ties):
+    k = block if k == "block" else k
+    _topk_matches_plain(_x(3, 4 * block + 5, seed=block + k, ties=ties), cuda, k, block)
+
+
+@pytest.mark.parametrize("where", ("lane", "across lanes", "both", "contiguous"))
+@pytest.mark.parametrize("k", (1, 13, 40))
+def test_topk_kernel_ties_at_the_kth_place(cuda, where, k):
+    """Equal magnitudes (some negative) straddle the k-th place: within one
+    lane (lane l holds indices j * 32 + l), across lanes (one j, every third
+    lane), both, or 8 consecutive indices; the lowest indices among them are
+    taken."""
+    g = np.random.default_rng(k)
+    x = g.uniform(-1, 1, size=(8, 256)).astype(np.float32)
+    lane = [j * 32 + 5 for j in range(8)]
+    across = [3 * 32 + l for l in range(0, 32, 3)]
+    spots = {"lane": lane, "across lanes": across, "both": lane + across,
+             "contiguous": list(range(40, 48))}[where]
+    above = k - 1 - len(spots) // 2  # the tie straddles the k-th place
+    for r in range(8):
+        big = g.permutation([i for i in range(256) if i not in spots])[:max(above, 0)]
+        x[r, big] = g.uniform(5, 9, size=len(big))
+        x[r, spots] = np.where(g.random(len(spots)) < 0.5, -2.5, 2.5)
+    _topk_matches_plain(torch.from_numpy(x), cuda, k, 256)
+
+
+def test_topk_kernel_zero_blocks_signed_zeros_and_inf(cuda):
+    x = np.random.default_rng(0).normal(size=(6, 1000)).astype(np.float32)
+    x[0] = 0.0  # all-zero blocks select 0..k-1
+    x[1] = -0.0
+    x[2, ::2] = -0.0
+    x[2, 1::2] = 0.0
+    x[3, [3, 70, 300, 301]] = [np.inf, -np.inf, np.inf, -np.inf]  # fewer than k
+    x[4, :40] = -np.inf  # more than k in the first block
+    x[5, 256:512] = np.inf
+    x[5, 600:] = 0.0
+    for k in (1, 13, 200):
+        _topk_matches_plain(torch.from_numpy(x), cuda, k, 256)
+
+
+def test_topk_kernel_rows_not_a_multiple_of_the_block(cuda):
+    for rows, size in ((3, 3_500_001), (4, 257), (5, 31)):
+        _topk_matches_plain(_x(rows, size, seed=size), cuda, 13, 256)
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
