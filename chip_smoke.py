@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round and
-the model serving path (prefill forward + cached decode).
+"""Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round,
+the model serving path (prefill forward + cached decode) and the DFL
+training step (4 stacked nodes, forward, the flash-attention backward, the
+optimizer and a gossip round).
 
     python3 chip_smoke.py
 
@@ -8,7 +10,9 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. build   — nvcc compiles ``src/repro_torch/csrc/*.cu`` for sm_90a; prints
              the build time, ptxas's registers and spills for the
-             tensor-core flash kernel and the scan, the count of HGMMA
+             tensor-core flash kernel, the two passes of the flash backward
+             at the shapes phase 2 runs (hd 64: tensor cores in bf16, SIMT
+             in f32; SIMT bf16 at hd 256) and the scan, the count of HGMMA
              (wgmma) instructions in the flash object's SASS (cuobjdump),
              and the card's name and power limit.
 2. kernels — each Hopper kernel at the main path's shapes against its plain
@@ -37,6 +41,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              the sum order differs); SDPA's time beside the causal case. The selective scan at falcon-mamba-7b's
              (1, 2048, 8192, 16) and at its prefill batch (2, 2048, 8192, 16),
              x bf16, y f32, within 1e-4 of max|y| of the plain version.
+             The flash forward with and without its LSE output at smollm's
+             prefill shape and at its training batch of 2 (bit-identical
+             outputs, both timed), and the flash
+             backward against ``attention_bwd_ref`` at smollm-360m's
+             training shape (2, 2048, 15 / 5, 64) causal in bf16 and f32 and
+             gemma2-2b's (1, 8192, 8 / 4, 256) with window 4096 and softcap
+             50 in bf16: each of dQ, dK and dV within BWD_F32_TOL (f32) or
+             BWD_BF16_TOL (bf16) of its max |g|, two runs bit-identical;
+             its time, its bound and the backward of SDPA (autograd,
+             causal, GQA) beside it.
 3. path    — the scenarios at full width through ``run_scenario``, with the
              launch counts set to 0 just before and read just after:
              paper_table3 (fp32), quantized_table3 (int8) and an int4
@@ -61,6 +75,25 @@ Phases, each fatal on failure (exit code 1, no result line):
              width and 4 layers, forward logits against teacher-forced decode
              logits over a 256-token prompt, within 5e-2 (the bound of
              tests/test_models.py).
+5. train   — smollm-360m at full width and depth (32 layers, d 960, 15 / 5
+             heads, vocab 49152, bf16 params, AdamW with fp32 masters), N = 4
+             nodes stacked on the card, DataConfig(seq_len=2048,
+             batch_per_node=2, n_nodes=4, seed=0), lr 1e-3, warmup 0, no
+             remat; the launch counts set to 0 just before each run and read
+             just after: tree_allreduce for 3 steps on one fixed batch (the
+             first a warm-up; the third loss below the first; after every
+             step each node's masters within the runner's mean tolerance of
+             the nodes' FedAvg), dissemination with the int8 codec for 2
+             steps, dissemination with top-k and error feedback for 2 steps
+             (codec_ef must change). Every loss and grad norm finite; every
+             step launches flash_attention and flash_attention_bwd 32 x N
+             times; every gossip kernel launches in the codec runs. Prints
+             each step's time by host clock, synchronized, split into the
+             nodes' forward + backward, the optimizer and the gossip, with
+             tokens/s, the losses and the peak memory. Then, in f32 at 4
+             layers and full width, every leaf's training gradient through
+             the kernels within 1e-3 of its max |g| of the gradient through
+             the plain versions on the card.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers (the codec kernels' also by shape, with their loss), and the result
@@ -70,6 +103,7 @@ run from a directory that holds nothing of the repository but this file.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -113,12 +147,15 @@ def print_kernel_resources(build_dir: Path) -> None:
     """ptxas's registers and spills for the redesigned kernels (from the
     build log), and the HGMMA instructions in the flash object's SASS."""
     log = (build_dir / "nvcc.log").read_text().splitlines()
+    kernels = ("flash_tc_kernel", "scan_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_mma_kernel",
+               "bwd_dq_kernel", "bwd_dkdv_kernel")
     for i, line in enumerate(log):
-        if "Compiling entry function" in line and ("flash_tc_kernel" in line
-                                                   or "scan_kernel" in line):
+        if "Compiling entry function" in line and any(k in line for k in kernels):
             name = line.split("'")[1]
-            kernel = "flash_tc_kernel" if "flash_tc" in name else "scan_kernel"
+            kernel = next(k for k in kernels if k in name)
             args = name.split(kernel, 1)[1].split("EEv")[0]
+            if kernel.startswith("bwd_") and not args.startswith(("ILi64E", "ILi256E13")):
+                continue  # the backward as phase 2 runs it (hd 64; SIMT bf16 at hd 256)
             info = " | ".join(x.split(":", 1)[-1].strip() for x in log[i + 2:i + 4])
             print(f"[build] ptxas {kernel} {args}: {info}")
     objdump = Path("/usr/local/cuda/bin/cuobjdump")
@@ -153,16 +190,23 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import (KERNEL_NAMES, _build, launch_counts, launch_shapes,
                                      reset_launches)
+    from repro_torch.kernels.attention.flash import flash_attention, flash_attention_bwd
     from repro_torch.kernels.attention.ops import flash_attention_op
-    from repro_torch.kernels.attention.ref import BF16_UNITS_TOL, attention_ref, rounding_units
+    from repro_torch.kernels.attention.ref import (BF16_UNITS_TOL, BWD_BF16_TOL, BWD_F32_TOL,
+                                                   attention_bwd_ref, attention_lse_ref,
+                                                   attention_ref, rounding_units)
     from repro_torch.kernels.codec import ref as codec_ref
     from repro_torch.kernels.codec.ops import dequantize_op, quantize_op, topk_select_op
     from repro_torch.kernels.mixing.ops import gossip_mix_op
     from repro_torch.kernels.mixing.ref import gossip_mix_ref
     from repro_torch.kernels.scan.ops import selective_scan_op
     from repro_torch.kernels.scan.ref import selective_scan_ref
+    from repro_torch.data import DataConfig, FederatedData
+    from repro_torch.dfl.trainer import DFLConfig, DFLTrainer
     from repro_torch.launch.serve import serve
     from repro_torch.models import Batch, build_model
+    from repro_torch.models import attention as attn_model
+    from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.scenario import SCENARIOS, run_scenario
 
     dev = torch.device("cuda")
@@ -210,7 +254,7 @@ def main() -> int:
     def record(name, route_src, replaces, err, tol, ms, plain_ms, n_bytes, n_ops,
                library_ms=None, shape="", ops_per_s=F32_OPS_PER_S, key=None, clean_ms=None):
         b_ms, b_by = bound_ms(n_bytes, n_ops, ops_per_s)
-        if not err <= tol:
+        if tol is not None and not err <= tol:  # None: the caller held it
             fail(f"{name}: max |kernel - plain| = {err} > {tol}")
         entry = results.setdefault(name, dict(
             name=name, route="cuda", source=route_src, replaces=replaces,
@@ -222,8 +266,9 @@ def main() -> int:
                 clean_l2_ms=clean_ms))
         lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
         clean = "" if clean_ms is None else f" ({clean_ms:.4f} ms from a clean L2)"
+        tol_s = "" if tol is None else f" (tol {tol})"
         print(f"[kernel] {name}{shape}: {ms:.4f} ms{clean} (bound {b_ms:.4f} ms by {b_by}), "
-              f"plain {plain_ms:.4f} ms{lib}; max_abs_err {err} (tol {tol}) on {card}")
+              f"plain {plain_ms:.4f} ms{lib}; max_abs_err {err}{tol_s} on {card}")
 
     # the codec kernels at every shape the main path (phase 3) gives them: a
     # dry run of its scenarios at the proxy size on the card yields each
@@ -375,6 +420,80 @@ def main() -> int:
                n_bytes, 4 * hd * b * h * visible_pairs(s, window), library_ms=lib_ms,
                shape=shape + units, ops_per_s=BF16_OPS_PER_S)
     del q, k, v, out, plain
+
+    # the forward's LSE output: bit-identical outputs with and without it, at
+    # smollm-360m's prefill batch and at its training batch of 2
+    for b in (4, 2):
+        q = torch.randn((b, 2048, 15, 64), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, 2048, 5, 64), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, 2048, 5, 64), generator=gen, device=dev).bfloat16()
+        out = flash_attention(q, k, v, causal=True)
+        out_lse, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        if not torch.equal(out, out_lse):
+            fail("flash_attention: the output with an LSE differs from the output without one")
+        _, want_lse = attention_lse_ref(q, k, v, causal=True)
+        lse_err = float((lse - want_lse).abs().max())
+        if not lse_err <= 1e-4 * float(want_lse.abs().max()):
+            fail(f"flash_attention: LSE off the plain version's by {lse_err}")
+        no_lse_ms = median_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+        lse_ms = median_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True), 10)
+        b_ms, _ = bound_ms(0, 4 * 64 * b * 15 * visible_pairs(2048, 0), BF16_OPS_PER_S)
+        print(f"[kernel] flash_attention ({b}, 2048, 15/5, 64) bf16 causal: {no_lse_ms:.4f} ms "
+              f"without the LSE, {lse_ms:.4f} ms with it (bound {b_ms:.4f} ms; outputs "
+              f"bit-identical; LSE max abs err {lse_err:.3e}) on {card}")
+        del q, k, v, out, out_lse, lse, want_lse
+
+    # the flash backward at smollm-360m's training shape (bf16, f32) and at
+    # gemma2-2b's local layer, against attention_bwd_ref
+    bwd_cases = [  # b, s, h, kv, hd, window, softcap, dtype
+        (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16),
+        (2, 2048, 15, 5, 64, 0, 0.0, torch.float32),
+        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16),
+    ]
+    for b, s, h, kv, hd, window, cap, dtype in bwd_cases:
+        q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+        do = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=True, sliding_window=window, softcap=cap)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+        shape = f" ({b}, {s}, {h}/{kv}, {hd}) {str(dtype)[6:]} window {window} softcap {cap}"
+        errs = []
+        for name, g1, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.equal(g1, g2):
+                fail(f"flash_attention_bwd{shape}: two runs give different {name}")
+            err, scale = float((g1.float() - w.float()).abs().max()), float(w.float().abs().max())
+            if not err <= tol * scale:
+                fail(f"flash_attention_bwd{shape}: {name} max |kernel - plain| = {err} > "
+                     f"{tol} x max|{name}| = {tol * scale}")
+            errs.append(f"{name} {err:.3e} ({err / scale:.2e} of max|g|)")
+        print(f"[kernel] flash_attention_bwd{shape}: {', '.join(errs)} (tol {tol} of max|g|), "
+              f"two runs bit-identical on {card}")
+        lib_ms = None
+        if window == 0 and cap == 0.0:
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib_ms = median_ms(lambda: torch.autograd.grad(sd, (qt, kt, vt), dot,
+                                                           retain_graph=True), 5)
+            del qt, kt, vt, sd, dot
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, lse, do, *got))
+        record("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+               # no TPU kernel: XLA differentiates the JAX package's einsum attention
+               "src/repro/models/attention.py:48",
+               max(float((g1.float() - w.float()).abs().max()) for g1, w in zip(got, want)),
+               None,
+               median_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw), 5),
+               median_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, **kw), 3),
+               n_bytes, 10 * hd * b * h * visible_pairs(s, window), library_ms=lib_ms,
+               shape=shape, ops_per_s=BF16_OPS_PER_S if dtype == torch.bfloat16
+               else F32_OPS_PER_S)
+        del q, k, v, do, out, lse, got, again, want
+    torch.cuda.empty_cache()
 
     # the selective scan at falcon-mamba-7b's width, as the Mamba1 block calls
     # it: one sequence and the prefill's batch of two
@@ -550,6 +669,111 @@ def main() -> int:
               f"over 256 tokens, max abs logit err {err:.3e} (bound 5e-2) on {card}")
         del params, full, cache, model
         torch.cuda.empty_cache()
+
+    # -- 5. the training path: smollm-360m, 4 stacked nodes -------------------------
+    cfg = get_arch("smollm-360m").replace(remat=False)
+    n_nodes, bpn, seq = 4, 2, 2048
+    model = build_model(cfg, device="cuda")
+    data = FederatedData(DataConfig(vocab=cfg.vocab, seq_len=seq, batch_per_node=bpn,
+                                    n_nodes=n_nodes, seed=0))
+    tok, lab = data.global_batch()
+    batch = Batch(tokens=torch.from_numpy(tok).long().to(dev),
+                  labels=torch.from_numpy(lab).long().to(dev))
+    params0 = model.init(torch.Generator(device=dev).manual_seed(0))
+    per_step = cfg.n_layers * n_nodes
+    train_runs = [("tree_allreduce", "", 3), ("dissemination", "int8", 2),
+                  ("dissemination", "topk", 2)]
+    train_launches = Counter()
+    for mode, codec, steps in train_runs:
+        trainer = DFLTrainer(model, n_nodes, DFLConfig(gossip_mode=mode, codec=codec, lr=1e-3,
+                                                       warmup=0), device="cuda", timed=True)
+        state = trainer.state_from_params(params0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = f"{mode}{'+' + codec if codec else ''}"
+        losses = []
+        reset_launches()
+        for i in range(steps):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            state, m = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = launch_counts()
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            losses.append(loss)
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                fail(f"train {run} step {i}: loss {loss}, grad_norm {gnorm}")
+            for kernel in ("flash_attention", "flash_attention_bwd"):
+                n = after[kernel] - before[kernel]
+                if n != per_step:
+                    fail(f"train {run} step {i}: {kernel} launched {n} times, expected "
+                         f"{per_step} (32 layers x {n_nodes} nodes)")
+            if mode == "tree_allreduce":  # every node holds the FedAvg of the masters
+                worst = 0.0
+                for leaf in tree_leaves(state.opt_state["master"]):
+                    mean = leaf.double().mean(dim=0)
+                    ok = all(torch.allclose(leaf[j].double(), mean, rtol=1e-5, atol=1e-5)
+                             for j in range(n_nodes))
+                    worst = max(worst, float((leaf.double() - mean).abs().max()))
+                    if not ok:
+                        fail(f"train {run} step {i}: a node's masters are off the FedAvg")
+                fedavg = f", masters within {worst:.2e} of the FedAvg"
+            else:
+                fedavg = ""
+            t = m["times"]
+            print(f"[train] {run} step {i}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
+                  f"{wall * 1e3:.1f} ms (nodes' fwd+bwd {t['fwd_bwd'] * 1e3:.1f}, optimizer "
+                  f"{t['optimizer'] * 1e3:.1f}, gossip {t['gossip'] * 1e3:.1f}), "
+                  f"{n_nodes * bpn * seq / wall:.0f} tok/s{fedavg} on {card}")
+        counts = launch_counts()
+        train_launches.update(counts)
+        print(f"[train] {run}: losses {[round(x, 4) for x in losses]}, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {json.dumps(counts)}")
+        want = {"": (), "int8": ("quantize", "dequantize", "gossip_mix"),
+                "topk": ("topk_select", "gossip_mix")}[codec]
+        missing = [k for k in want if counts[k] <= 0]
+        if missing:
+            fail(f"train {run}: gossip kernels never launched: {missing}")
+        if mode == "tree_allreduce" and not losses[2] < losses[0]:
+            fail(f"train {run}: the third loss {losses[2]} is not below the first {losses[0]}")
+        if codec == "topk" and not any(float(x.abs().max()) > 0
+                                       for x in tree_leaves(state.opt_state["codec_ef"])):
+            fail(f"train {run}: codec_ef never changed")
+        del trainer, state, m
+        torch.cuda.empty_cache()
+    for kernel in ("flash_attention", "flash_attention_bwd"):
+        results[kernel]["launches"] += train_launches[kernel]
+    del params0, model, batch
+
+    # gradients through the kernels against the plain versions on the card
+    cfg = get_arch("smollm-360m").replace(n_layers=4, dtype="float32", remat=False)
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    leaves = tree_leaves(params)
+    for x in leaves:
+        x.requires_grad_(True)
+    tok, lab = data.global_batch()
+    b2 = Batch(tokens=torch.from_numpy(tok[:bpn]).long().to(dev),
+               labels=torch.from_numpy(lab[:bpn]).long().to(dev))
+    got = torch.autograd.grad(model.train_loss(params, b2), leaves)
+    attn_model.flash_attention_op = attention_ref  # the plain route, autograd's own backward
+    try:
+        want = torch.autograd.grad(model.train_loss(params, b2), leaves)
+    finally:
+        attn_model.flash_attention_op = flash_attention_op
+    worst = 0.0
+    for g1, g2 in zip(got, want):
+        rel = float((g1 - g2).abs().max()) / max(float(g2.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= 1e-3:
+            fail(f"train gradients: a leaf through the kernels is {rel:.2e} of its max|g| off "
+                 "the plain versions' (bound 1e-3)")
+    print(f"[train] f32, 4 layers, full width, (2, 2048) tokens: every leaf's gradient "
+          f"through the kernels within {worst:.3e} of its max|g| of the plain versions' "
+          f"(bound 1e-3) on {card}")
+    del params, leaves, got, want, model
+    torch.cuda.empty_cache()
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

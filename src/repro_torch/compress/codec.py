@@ -37,6 +37,7 @@ class Codec:
 
     name: str = "abstract"
     lossless: bool = False
+    error_feedback: bool = False  # the trainer carries a residual for it (sparsifiers)
 
     def wire_bytes(self, n_elements: int) -> int:
         """Exact bytes on the wire for ``n_elements`` float32 values."""
@@ -144,6 +145,8 @@ class TopKCodec(Codec):
     """Keep the top ``k = max(1, round(fraction·block))`` entries by
     magnitude of every ``block`` consecutive values, sent as (f32 value,
     i32 index) pairs. Re-encoding a decoded payload is exact."""
+
+    error_feedback = True
 
     def __init__(self, fraction: float = 0.05, block: int = 256) -> None:
         if not (0.0 < fraction <= 1.0):

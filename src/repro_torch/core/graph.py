@@ -10,7 +10,7 @@ from __future__ import annotations
 import heapq
 from collections import deque
 from dataclasses import dataclass
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -85,6 +85,22 @@ class Graph:
             adj[u, v] = adj[v, u] = c
         return cls(adj)
 
+    @classmethod
+    def from_cost_reports(cls, n: int, reports: Dict[int, Dict[int, float]]) -> "Graph":
+        """Build from per-node directed cost reports (the moderator's view):
+        ``reports[u][v]`` is node u's measured cost to v; the two directions
+        are averaged when both are present (paper III-A)."""
+        adj = np.zeros((n, n))
+        for u, costs in reports.items():
+            for v, c in costs.items():
+                if u == v:
+                    continue
+                if adj[v, u] > 0:  # other direction already reported
+                    adj[u, v] = adj[v, u] = (adj[v, u] + c) / 2.0
+                else:
+                    adj[u, v] = adj[v, u] = c
+        return cls(adj)
+
 
 def mst_prim(g: Graph, root: int = 0) -> Graph:
     """Prim's algorithm with a binary heap (the paper's choice, III-B)."""
@@ -148,6 +164,30 @@ def color_graph(g: Graph, algorithm: str = "bfs") -> np.ndarray:
     if algorithm != "bfs":
         raise ValueError(f"the port implements the 'bfs' coloring only, got {algorithm!r}")
     return color_bfs(g)
+
+
+def slot_length_s(ping_max_ms: float, model_size_mb: float, ping_size_bytes: float) -> float:
+    """Paper formula: slot = ping_max x M_size x 1000 / ping_size (seconds),
+    ping_max in ms, the model size in MB, the ping payload in bytes."""
+    if ping_size_bytes <= 0:
+        raise ValueError("ping payload size must be positive")
+    return ping_max_ms * model_size_mb * 1000.0 / ping_size_bytes
+
+
+def slot_length_for_colors(g: Graph, colors: np.ndarray, model_size_mb: float,
+                           ping_size_bytes: float = 64.0) -> float:
+    """The moderator's slot: the max over colors of the largest ping any
+    node of that color has to a neighbour (the ping model only; the
+    underlay-aware slot of the JAX package is not on the port's path)."""
+    per_node_max = np.zeros(g.n)
+    for u in range(g.n):
+        per_node_max[u] = max((g.adj[u, v] for v in g.neighbors(u)), default=0.0)
+    ping_max = 0.0
+    for c in np.unique(colors):
+        grp = per_node_max[colors == c]
+        if grp.size:
+            ping_max = max(ping_max, float(grp.max()))
+    return slot_length_s(ping_max, model_size_mb, ping_size_bytes)
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,11 @@
 // Semantics as the TPU kernel: s = (q . k) * hd^-0.5, then the tanh softcap
 // when softcap > 0, then the causal (k <= q) and sliding-window (k > q -
 // window) masks; m, l and the accumulator are carried in f32 and the output
-// is acc / max(l, 1e-20). Masked scores get p = 0 outright, so a tile whose
+// is acc / max(l, 1e-20). With a non-null `lse` the epilogue also writes each
+// row's log-sum-exp of the (softcapped, masked) scores, m + log(max(l,
+// 1e-20)) in natural units, (b, H, sq) f32, which the backward kernel
+// (flash_attention_bwd.cu) recomputes P from; a null `lse` writes nothing
+// more. Masked scores get p = 0 outright, so a tile whose
 // keys a row cannot see adds nothing to that row. Only the key tiles a q
 // tile can see are visited (none past the causal diagonal, none wholly below
 // the window); rows past sq and keys past skv are masked, so any sequence
@@ -87,6 +91,7 @@ struct Args {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // (b, H, sq), or null
   int sq, skv, h, kvh;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   int causal, window;
@@ -222,6 +227,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
     const int qi = q0 + ty + 16 * r;
     if (qi >= a.sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(bi * a.h + hq) * a.sq + qi] = m[r] + logf(fmaxf(l[r], 1e-20f));
     float* row = a.o + ((bi * a.sq + qi) * a.h + hq) * HD;
 #pragma unroll
     for (int c = 0; c < DC; ++c) row[tx + 16 * c] = acc[r][c] * inv;
@@ -281,6 +288,7 @@ struct Tile {
 
 struct TcArgs {
   __nv_bfloat16* o;
+  float* lse;             // (b, H, sq) in natural units, or null
   int sq, skv, h, kvh;
   int causal, window;
   int softcap;            // whether to apply c tanh(s / c)
@@ -697,6 +705,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       const int qi = row0 + 8 * r;
       if (qi >= a.sq) continue;
       const float inv = 1.f / fmaxf(l[r], 1e-20f);
+      // m is in base-2 units: LSE = ln 2 (m + log2 l)
+      if (a.lse != nullptr && cq == 0)
+        a.lse[((long long)bi * a.h + hq) * a.sq + qi] =
+            0.6931471805599453f * (m[r] + log2f(fmaxf(l[r], 1e-20f)));
       __nv_bfloat16* out = a.o + (((long long)bi * a.sq + qi) * a.h + hq) * HD + cq;
 #pragma unroll
       for (int j = 0; j < NSLAB; ++j)
@@ -785,9 +797,9 @@ bool bad_sizes(int b, int h, int kvh, int window) {
 }  // namespace
 
 // hd in {32, 64, 128, 256}; kvh divides h; b and h at most 65535 (grid.z,
-// grid.y). Strides in elements.
+// grid.y). Strides in elements. `lse` (b, h, sq) f32 or null.
 extern "C" int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                                      int b, int sq, int skv, int h, int kvh, int hd,
+                                      void* lse, int b, int sq, int skv, int h, int kvh, int hd,
                                       long long q_sb, long long q_ss, long long q_sh,
                                       long long k_sb, long long k_ss, long long k_sh,
                                       long long v_sb, long long v_ss, long long v_sh,
@@ -795,8 +807,8 @@ extern "C" int rt_flash_attention_f32(const void* q, const void* k, const void* 
   if (b <= 0 || sq <= 0 || skv <= 0) return 0;
   if (bad_sizes(b, h, kvh, window)) return (int)cudaErrorInvalidValue;
   Args a{static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-         static_cast<float*>(o), sq, skv, h, kvh, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
-         v_sh, causal, window, softcap, 1.0f / sqrtf((float)hd)};
+         static_cast<float*>(o), static_cast<float*>(lse), sq, skv, h, kvh, q_sb, q_ss, q_sh,
+         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, window, softcap, 1.0f / sqrtf((float)hd)};
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {
     case 32: return launch_f32<32>(a, b, s);
@@ -810,7 +822,7 @@ extern "C" int rt_flash_attention_f32(const void* q, const void* k, const void* 
 // The same for bf16 q, k, v and o; besides, q, k and v 16-byte aligned with
 // strides that are multiples of 8 elements (TMA's rule).
 extern "C" int rt_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                                       int b, int sq, int skv, int h, int kvh, int hd,
+                                       void* lse, int b, int sq, int skv, int h, int kvh, int hd,
                                        long long q_sb, long long q_ss, long long q_sh,
                                        long long k_sb, long long k_ss, long long k_sh,
                                        long long v_sb, long long v_ss, long long v_sh,
@@ -818,8 +830,9 @@ extern "C" int rt_flash_attention_bf16(const void* q, const void* k, const void*
   if (b <= 0 || sq <= 0 || skv <= 0) return 0;
   if (bad_sizes(b, h, kvh, window)) return (int)cudaErrorInvalidValue;
   const float log2e = 1.4426950408889634f, scale = 1.0f / sqrtf((float)hd);
-  TcArgs a{static_cast<__nv_bfloat16*>(o), sq, skv, h, kvh, causal, window, softcap > 0.f,
-           softcap > 0.f ? scale / softcap : scale * log2e, softcap * log2e};
+  TcArgs a{static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), sq, skv, h, kvh, causal,
+           window, softcap > 0.f, softcap > 0.f ? scale / softcap : scale * log2e,
+           softcap * log2e};
   const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = (cudaStream_t)stream;
   switch (hd) {

@@ -1,2 +1,3 @@
 """Decentralized-FL device side of the port: the gossip collectives on
-stacked node replicas and their churn-masked plans."""
+stacked node replicas, their churn-masked plans, the DFL trainer and the
+session around it."""

@@ -45,12 +45,17 @@ SIGNATURES = {
     "rt_topk_select": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
     # buf, weights, out, batch, n, p, dtype (0 = f32, 1 = bf16), stream
     "rt_gossip_mix": [_P, _P, _P, _I64, _I32, _I64, _I32, _P],
-    # q, k, v, o, b, sq, skv, h, kvh, hd, (b, s, h) strides of q, k and v,
-    # causal, window, softcap, stream: f32 (SIMT) and bf16 (tensor cores)
-    "rt_flash_attention_f32": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+    # q, k, v, o, lse (or null), b, sq, skv, h, kvh, hd, (b, s, h) strides of
+    # q, k and v, causal, window, softcap, stream: f32 (SIMT) and bf16
+    # (tensor cores)
+    "rt_flash_attention_f32": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
                                *[_I64] * 9, _I32, _I32, _F32, _P],
-    "rt_flash_attention_bf16": [_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
+    "rt_flash_attention_bf16": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
                                 *[_I64] * 9, _I32, _I32, _F32, _P],
+    # q, k, v, o, lse, dO, D scratch, dq, dk, dv, GQA scratch (or null), b, sq,
+    # skv, h, kvh, hd, causal, window, softcap, dtype (0 = f32, 1 = bf16), stream
+    "rt_flash_attention_bwd": [*[_P] * 11, _I32, _I32, _I32, _I32, _I32, _I32,
+                               _I32, _I32, _F32, _I32, _P],
     # dt, B, C, x, A_log, D, y, h_last, b, s, di, n, x dtype, y dtype, stream
     "rt_selective_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                           _I32, _I32, _P],

@@ -18,7 +18,10 @@ variant between: the median time (CUDA events, L2 flushed before each
 launch) and the error against the plain version. Flash attention reads its
 largest absolute error against ``attention_ref`` (bf16) and its rounding
 units against the f32 attention (``ref.rounding_units``, held to
-``BF16_UNITS_TOL``); the scan its largest error over max|y|. Top-k,
+``BF16_UNITS_TOL``); the flash backward each of dQ, dK and dV's largest
+error over its max |g| (against ``attention_bwd_ref`` at the plain LSE,
+held to ``BWD_BF16_TOL`` / ``BWD_F32_TOL``); the scan its largest error over
+max|y|. Top-k,
 quantize and dequantize must be bit-identical to the plain versions in
 ``codec/ref.py``: on random data at the payload shapes of the gossip path,
 and on data built to hit the tie rules (equal magnitudes at the k-th place;
@@ -106,6 +109,80 @@ VARIANTS = (
     Variant("scan: 4 channels x 8 segments a warp", "selective_scan.cu",
             (("constexpr int kCh = 8;", "constexpr int kCh = 4;"),
              ("constexpr int kSegs = 4;", "constexpr int kSegs = 8;"))),
+    # the flash backward: planted faults, from the row a tile's largest P
+    # sits in to one near zero, to set the bf16 tolerance between them
+    Variant("fault: backward, the diagonal query tile skipped in dK, dV (8+ tiles)",
+            "flash_attention_bwd.cu",
+            (("    for (int q0 = (q_lo / kBQ) * kBQ; q0 < q_hi; q0 += kBQ) {",
+              "    for (int q0 = (q_lo / kBQ) * kBQ + (q_hi - q_lo >= 8 * kBQ ? kBQ : 0); "
+              "q0 < q_hi;\n         q0 += kBQ) {"),)),
+    Variant("fault: backward, the last query tile skipped in dK, dV (8+ tiles)",
+            "flash_attention_bwd.cu",
+            (("    for (int q0 = (q_lo / kBQ) * kBQ; q0 < q_hi; q0 += kBQ) {",
+              "    for (int q0 = (q_lo / kBQ) * kBQ;\n"
+              "         q0 < q_hi && (q_hi - q_lo < 8 * kBQ || q0 + kBQ < q_hi); q0 += kBQ) {"),)),
+    Variant("fault: backward, dQ's middle key tile skipped (8+ tiles)", "flash_attention_bwd.cu",
+            (("    __syncthreads();  // the previous tile's sK, sV and sdX are no longer read",
+              "    if (hi - lo >= 8 * BK && k0 == (lo / BK + (hi - 1) / BK) / 2 * BK) continue;\n"
+              "    __syncthreads();  // the previous tile's sK, sV and sdX are no longer read"),)),
+    Variant("fault: backward, tensor cores, the diagonal query tile skipped in dK, dV "
+            "(8+ tiles)", "flash_attention_bwd.cu",
+            (("    const bf16* tQ = sQ + st * kMT * LDS;",
+              "    if (t == t0 && t_end - t0 >= 8) {\n"
+              "      __syncthreads();\n"
+              "      continue;\n"
+              "    }\n"
+              "    const bf16* tQ = sQ + st * kMT * LDS;"),)),
+    Variant("fault: backward, tensor cores, the last query tile skipped in dK, dV (8+ tiles)",
+            "flash_attention_bwd.cu",
+            (("    const bf16* tQ = sQ + st * kMT * LDS;",
+              "    if (t == t_end - 1 && t_end - t0 >= 8) {\n"
+              "      __syncthreads();\n"
+              "      continue;\n"
+              "    }\n"
+              "    const bf16* tQ = sQ + st * kMT * LDS;"),)),
+    Variant("fault: backward, tensor cores, dQ's middle key tile skipped (8+ tiles)",
+            "flash_attention_bwd.cu",
+            (("    const bf16* tK = sK + st * kMT * LDS;",
+              "    if (t == (t0 + t_end - 1) / 2 && t_end - t0 >= 8) {\n"
+              "      __syncthreads();\n"
+              "      continue;\n"
+              "    }\n"
+              "    const bf16* tK = sK + st * kMT * LDS;"),)),
+    Variant("backward: SIMT for bf16 at every head dim (the first backward)",
+            "flash_attention_bwd.cu",
+            (("    case 32: return launch_mma<32>(a, b, stream);\n"
+              "    case 64: return launch_mma<64>(a, b, stream);\n"
+              "    case 128: return launch_mma<128>(a, b, stream);",
+              "    case 32: return launch<32, bf16>(a, b, stream);\n"
+              "    case 64: return launch<64, bf16>(a, b, stream);\n"
+              "    case 128: return launch<128, bf16>(a, b, stream);"),)),
+    Variant("ablation: backward, tensor cores, pass 1 (D, dQ) only", "flash_attention_bwd.cu",
+            (("  bwd_dkdv_mma_kernel<HD>\n      <<<",
+              "  if (a.sq < 0) bwd_dkdv_mma_kernel<HD>\n      <<<"),)),
+    Variant("ablation: backward, tensor cores, pass 2 (dK, dV) only", "flash_attention_bwd.cu",
+            (("  bwd_dq_mma_kernel<HD><<<", "  if (a.sq < 0) bwd_dq_mma_kernel<HD><<<"),)),
+    Variant("backward: P by an accurate expf on the tensor cores too", "flash_attention_bwd.cu",
+            (('    asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(e) : "f"((t - lse) * 1.4426950408889634f));',
+              "    e = expf(t - lse);"),)),
+    Variant("backward: every tensor-core tile masked (no clear-tile path)", "flash_attention_bwd.cu",
+            (("  return q0 + kMT <= a.sq && k0 + kMT <= a.skv && (!a.causal || k0 + kMT - 1 <= q0) &&",
+              "  return a.sq < 0 && k0 + kMT <= a.skv && (!a.causal || k0 + kMT - 1 <= q0) &&"),)),
+    Variant("fault: backward, tensor cores, the diagonal tile taken as clear",
+            "flash_attention_bwd.cu",
+            (("(!a.causal || k0 + kMT - 1 <= q0) &&", "(!a.causal || k0 <= q0) &&"),)),
+    Variant("ablation: backward, no mask (every pair visible)", "flash_attention_bwd.cu",
+            (("  return qi < a.sq && kj < a.skv && (!a.causal || kj <= qi) &&\n"
+              "         (a.window == 0 || kj > qi - a.window);",
+              "  return a.sq > 0;"),)),
+    Variant("ablation: backward, no elementwise work (P = S, dX = dP)", "flash_attention_bwd.cu",
+            (("  float t = qk * a.scale;\n  if (a.softcap > 0.f)",
+              "  if (a.sq > 0) {\n    p = qk;\n    dx = dp;\n    return;\n  }\n"
+              "  float t = qk * a.scale;\n  if (a.softcap > 0.f)"),)),
+    Variant("fault: backward, the window's mask one key too wide", "flash_attention_bwd.cu",
+            (("(a.window == 0 || kj > qi - a.window);", "(a.window == 0 || kj >= qi - a.window);"),)),
+    Variant("fault: backward, the softcap's chain factor dropped", "flash_attention_bwd.cu",
+            (("    dx *= 1.f - th * th;", "    dx *= 1.f + 0.f * th;"),)),
     # the gossip wire's codecs
     Variant("fault: top-k ties at T taken from the higher index", "topk_pack.cu",
             (("const int need = k - (int)count_ge<V>(key, lo + 1u);",
@@ -155,9 +232,11 @@ VARIANTS = (
 )
 
 KERNELS = {"flash_attention.cu": "flash_tc_kernel", "selective_scan.cu": "scan_kernel",
-           "topk_pack.cu": "topk_kernel", "quant_pack.cu": "quantize_kernel"}
-# ptxas lines to print where a kernel has many instantiations: top-k at block 256
-PTXAS_ARGS = {"topk_pack.cu": "ILi8E"}
+           "topk_pack.cu": "topk_kernel", "quant_pack.cu": "quantize_kernel",
+           "flash_attention_bwd.cu": "bwd_dkdv_mma_kernel"}
+# ptxas lines to print where a kernel has many instantiations: top-k at block
+# 256, the flash backward's tensor-core dK / dV pass at hd 64
+PTXAS_ARGS = {"topk_pack.cu": "ILi8E", "flash_attention_bwd.cu": "ILi64E"}
 
 
 def half_ties(rows: int, n_chunks: int, chunk: int, bits: int, seed: int = 0) -> np.ndarray:
@@ -237,7 +316,8 @@ def main(argv: List[str] | None = None) -> int:
     import torch
     import torch.nn.functional as F
 
-    from .attention.ref import BF16_UNITS_TOL, attention_ref, rounding_units
+    from .attention.ref import (BF16_UNITS_TOL, BWD_BF16_TOL, BWD_F32_TOL, attention_bwd_ref,
+                                attention_lse_ref, attention_ref, rounding_units)
     from .codec import ref as codec_ref
     from .scan.ref import selective_scan_ref
 
@@ -309,7 +389,7 @@ def main(argv: List[str] | None = None) -> int:
             out = torch.empty_like(q)
 
             def call(fn=fn, out=out):
-                return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
                           b, s, s, h, kv, hd, *q.stride()[:3], *k.stride()[:3],
                           *v.stride()[:3], 1, window, cap, torch.cuda.current_stream().cuda_stream)
 
@@ -323,6 +403,51 @@ def main(argv: List[str] | None = None) -> int:
             print(f"[flash] {case}: {name}: {median_ms(call):.4f} ms, max abs err {err:.5f} "
                   f"(tol 2e-2), {units:.2f} rounding units (tol {BF16_UNITS_TOL}): {verdict}")
         del q, k, v, plain
+
+    bwd_cases = [  # b, s, h, kv, hd, window, softcap, dtype, q scale
+        (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 1.0),
+        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 1.0),
+        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 25.0),  # scores near the cap
+        (2, 2048, 15, 5, 64, 0, 0.0, torch.float32, 1.0),
+    ]
+    for b, s, h, kv, hd, window, cap, dtype, q_scale in (
+            bwd_cases if "flash_attention_bwd.cu" in only else []):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev) for shape in (
+            (b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
+        q, k, v, do = (q * q_scale).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype)
+        kw = dict(causal=True, sliding_window=window, softcap=cap)
+        out, lse = attention_lse_ref(q, k, v, **kw)
+        out = out.contiguous()  # the C entry point reads o contiguous
+        want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        scales = [float(w.float().abs().max()) for w in want]
+        tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+        case = (f"({b}, {s}, {h}/{kv}, {hd}) {str(dtype)[6:]} causal window {window} "
+                f"softcap {cap} q x{q_scale}")
+        for name, path in runs("flash_attention_bwd.cu"):
+            fn = entry(path, "rt_flash_attention_bwd")
+            # filled, so a variant that leaves a gradient unwritten cannot pass
+            grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+            dd = torch.empty((b, h, s), device=dev)
+            ws = torch.empty((2, b, s, h, hd), device=dev)
+
+            def call(fn=fn, grads=grads, dd=dd, ws=ws):
+                return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          lse.data_ptr(), do.data_ptr(), dd.data_ptr(),
+                          *[g.data_ptr() for g in grads], ws.data_ptr(), b, s, s, h, kv, hd, 1,
+                          window, cap,
+                          0 if dtype == torch.float32 else 1,
+                          torch.cuda.current_stream().cuda_stream)
+
+            status = call()
+            torch.cuda.synchronize()
+            if status != 0:
+                raise RuntimeError(f"{name}: launch returned CUDA error {status}")
+            rel = [float((g.float() - w.float()).abs().nan_to_num(float("inf")).max()) / sc
+                   for g, w, sc in zip(grads, want, scales)]
+            verdict = "passes" if max(rel) <= tol else "FAILS"
+            print(f"[flash bwd] {case}: {name}: {median_ms(call, 5):.4f} ms, max err / max|g| "
+                  f"dq {rel[0]:.2e}, dk {rel[1]:.2e}, dv {rel[2]:.2e} (tol {tol}): {verdict}")
+        del q, k, v, do, out, lse, want
 
     for b in ((1, 2) if "selective_scan.cu" in only else ()):
         s, di, n = 2048, 8192, 16

@@ -11,6 +11,13 @@ dense layer (``attention.attention``), the selective scan in every Mamba1
 layer (``mamba.mamba1_forward``). Decode is plain PyTorch, as in the JAX
 package.
 
+``train_loss`` is differentiable: flash attention is an autograd Function
+whose backward is the backward kernel on the card (its plain version on
+the CPU); the selective scan has no backward kernel yet and raises on the
+card when a gradient is asked of it (ROADMAP B6b). With ``cfg.remat`` each
+layer of a differentiated forward runs under ``torch.utils.checkpoint``, as
+``jax.checkpoint`` wraps each layer there (its forward then runs twice).
+
 Families
   dense : llama-style GQA decoder (smollm, granite), gemma2 (alternating
           local/global layers with softcaps), and the long-context
@@ -24,6 +31,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
@@ -146,10 +154,23 @@ class Model:
             sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
         return x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
 
+    def _layer_fn(self, fn):
+        """``fn`` under per-layer remat when the config asks for it and
+        autograd records the forward."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return fn
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+    def _mamba_block(self, block: Params, x: torch.Tensor) -> torch.Tensor:
+        return x + mamba_lib.mamba1_forward(block["body"], rms_norm(x, block["ln"]),
+                                            self.cfg.ssm_state, self.cfg.dt_rank)
+
     def forward(self, params: Params, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits over the full sequence (b, s, padded vocab) f32,
         moe aux loss = 0)."""
         cfg = self.cfg
+        dense_block = self._layer_fn(self._dense_block)
+        mamba_block = self._layer_fn(self._mamba_block)
         tokens = batch.tokens
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         x = embed(params["embed"], tokens).to(self.dtype)
@@ -158,18 +179,16 @@ class Model:
 
         if cfg.family == "dense" and cfg.alt_local_global:
             for i in range(cfg.n_layers // 2):
-                x = self._dense_block(_layer(params["local_blocks"], i), x, positions,
-                                      cfg.sliding_window)
-                x = self._dense_block(_layer(params["global_blocks"], i), x, positions, 0)
+                x = dense_block(_layer(params["local_blocks"], i), x, positions,
+                                cfg.sliding_window)
+                x = dense_block(_layer(params["global_blocks"], i), x, positions, 0)
         elif cfg.family == "dense":
             window = self.layer_window(local=True) if self.long_context else 0
             for i in range(cfg.n_layers):
-                x = self._dense_block(_layer(params["blocks"], i), x, positions, window)
+                x = dense_block(_layer(params["blocks"], i), x, positions, window)
         else:
             for i in range(cfg.n_layers):
-                block = _layer(params["blocks"], i)
-                x = x + mamba_lib.mamba1_forward(block["body"], rms_norm(x, block["ln"]),
-                                                 cfg.ssm_state, cfg.dt_rank)
+                x = mamba_block(_layer(params["blocks"], i), x)
 
         x = rms_norm(x, params["final_norm"])
         logits = logits_from_embedding(params["embed"], x, cfg.vocab, cfg.final_logit_softcap)

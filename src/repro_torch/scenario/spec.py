@@ -86,14 +86,16 @@ class ScenarioSpec:
 
 
 def applicable_churn(churn: Sequence[ChurnEvent], round_idx: int,
-                     members: Sequence[int]) -> List[ChurnEvent]:
+                     members: Sequence[int], n_limit: Optional[int] = None
+                     ) -> List[ChurnEvent]:
     """This round's feasible churn events, evaluated in order against the
     evolving membership: a leave must keep at least 2 healthy nodes, a
-    rejoin must name an absent node."""
+    rejoin must name an absent node, and ``n_limit`` (a session's node
+    count) bounds the node ids."""
     current = set(members)
     applied: List[ChurnEvent] = []
     for ev in churn:
-        if ev.round != round_idx:
+        if ev.round != round_idx or (n_limit is not None and not 0 <= ev.node < n_limit):
             continue
         if ev.action == "leave" and ev.node in current and len(current) > 2:
             current.discard(ev.node)

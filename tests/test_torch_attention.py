@@ -230,3 +230,90 @@ def test_rounding_units_pass_rounding_and_catch_a_dropped_key_tile(causal, windo
     p /= p.sum(-1, keepdim=True)
     faulty = torch.einsum("bhqk,bkhd->bqhd", p, vf).bfloat16()
     assert rounding_units(faulty, q, k, v, **kw) > 10 * BF16_UNITS_TOL
+
+
+# -- the backward: attention_bwd_ref and the autograd Function (P3) -------------
+
+from repro_torch.kernels.attention.ops import FlashAttention  # noqa: E402
+from repro_torch.kernels.attention.ref import (  # noqa: E402
+    attention_bwd_ref,
+    attention_lse_ref,
+)
+
+BWD_CASES = [  # b, s, h, kv, hd, causal, window, softcap
+    (2, 96, 4, 4, 32, True, 0, 0.0),
+    (1, 128, 6, 2, 64, True, 0, 0.0),  # GQA 3:1 (smollm's ratio)
+    (2, 100, 3, 3, 32, True, 40, 0.0),  # sliding window
+    (1, 90, 2, 2, 64, True, 0, 30.0),  # softcap
+    (1, 120, 4, 2, 32, True, 48, 50.0),  # GQA, window and softcap (gemma2's local layer)
+    (1, 80, 4, 1, 32, False, 0, 0.0),  # bidirectional, one kv head
+]
+
+
+def _grads_close(got, want, rel):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w, dtype=np.float64)
+        g = g.detach().double().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        assert g.shape == w.shape, name
+        err, scale = float(np.abs(g - w).max()), float(np.abs(w).max())
+        assert err <= rel * scale, f"{name}: {err} > {rel} x {scale}"
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,softcap", BWD_CASES)
+def test_attention_bwd_ref_matches_autograd_and_jax_vjp(b, s, h, kv, hd, causal, window,
+                                                        softcap):
+    """attention_bwd_ref, step by step, against autograd of attention_ref and
+    against jax.vjp of the JAX package's einsum attention (kv expanded with
+    jnp.repeat, so its dK and dV sum over each kv head's query heads):
+    within 1e-5 of each gradient's max |g| in f32."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, s, h, kv, hd, seed=7))
+    do = torch.from_numpy(np.random.default_rng(8).standard_normal((b, s, h, hd),
+                                                                   dtype=np.float32))
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    out, lse = attention_lse_ref(q, k, v, **kw)
+    assert float((out - attention_ref(q, k, v, **kw)).abs().max()) <= 1e-6
+    got = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(attention_ref(*leaves, **kw), leaves, do)
+    _grads_close(got, auto, 1e-5)
+    g = h // kv
+
+    def jax_attention(jq, jk, jv):
+        return jax_attention_ref(jq, jnp.repeat(jk, g, axis=2), jnp.repeat(jv, g, axis=2), **kw)
+
+    _, vjp = jax.vjp(jax_attention, *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    _grads_close(got, vjp(jnp.asarray(do.numpy())), 1e-5)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,softcap", BWD_CASES[1::2])
+def test_flash_op_is_the_autograd_function_on_cpu(b, s, h, kv, hd, causal, window, softcap):
+    """P3, on the CPU: with a gradient to take the op goes through
+    FlashAttention (forward with the LSE, backward attention_bwd_ref) and
+    its gradients equal autograd's of attention_ref; without one it returns
+    attention_ref's output with no graph."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in _qkv(b, s, h, kv, hd, seed=9))
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    out = flash_attention_op(q, k, v, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert out.grad_fn.__class__.__qualname__.startswith(FlashAttention.__name__)
+    want_out = attention_ref(q, k, v, **kw)
+    assert float((out - want_out).abs().max()) <= 1e-6
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(want_out, (q, k, v), do)
+    _grads_close(got, want, 1e-5)
+    with torch.no_grad():
+        assert flash_attention_op(q, k, v, **kw).grad_fn is None
+    plain = flash_attention_op(q.detach(), k.detach(), v.detach(), **kw)
+    assert plain.grad_fn is None and torch.equal(plain, want_out.detach())
+
+
+def test_lse_ref_is_the_logsumexp_of_the_masked_scores():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 2, 1, 32, seed=3))
+    _, lse = attention_lse_ref(q, k, v, causal=True, sliding_window=16, softcap=20.0)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k.expand(1, 64, 2, 32)) / 32 ** 0.5
+    s = 20.0 * torch.tanh(s / 20.0)
+    i = torch.arange(64)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - 16)
+    want = torch.logsumexp(s.masked_fill(~mask, -float("inf")), dim=-1)
+    assert float((lse - want).abs().max()) <= 1e-5

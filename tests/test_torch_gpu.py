@@ -399,3 +399,120 @@ def test_model_forward_on_card_matches_cpu(cuda, arch):
     step, _ = card.decode_step(params_card, tokens[:, :1].to(cuda),
                                torch.zeros(2, dtype=torch.long, device=cuda), cache)
     assert float((step[:, 0].cpu() - want[:, 0]).abs().max()) <= 5e-2
+
+
+# -- the flash-attention backward and training through the kernels ----------------
+
+from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.attention.flash import flash_attention, flash_attention_bwd  # noqa: E402
+from repro_torch.kernels.attention.ref import (  # noqa: E402
+    BWD_BF16_TOL,
+    BWD_F32_TOL,
+    attention_bwd_ref,
+    attention_lse_ref,
+)
+
+BWD_CASES = [  # b, s, h, kv, hd, causal, window, softcap
+    (2, 256, 4, 4, 64, True, 0, 0.0),
+    (1, 200, 6, 2, 64, True, 0, 0.0),  # ragged tiles, GQA 3:1
+    (1, 77, 3, 1, 32, False, 0, 0.0),
+    (2, 384, 5, 5, 32, True, 256, 30.0),
+    (1, 320, 4, 2, 128, True, 100, 0.0),
+    (1, 300, 8, 4, 256, True, 128, 50.0),  # gemma2's head dim, window and softcap
+    (2, 333, 4, 4, 128, False, 0, 0.0),
+    (1, 700, 8, 4, 256, True, 150, 50.0),
+    (1, 3, 4, 2, 64, True, 0, 0.0),  # row 0 sees one key: its dQ is exactly 0
+    (1, 129, 4, 1, 32, True, 64, 0.0),
+    (2, 1024, 15, 5, 64, True, 0, 0.0),  # smollm-360m's heads
+]
+
+
+def _bwd_inputs(cuda, dtype, b, s, h, kv, hd, causal, window, softcap):
+    q = _normal((b, s, h, hd), 11).to(dtype).to(cuda)
+    k = _normal((b, s, kv, hd), 12).to(dtype).to(cuda)
+    v = _normal((b, s, kv, hd), 13).to(dtype).to(cuda)
+    do = _normal((b, s, h, hd), 14).to(dtype).to(cuda)
+    kw = dict(causal=causal, sliding_window=window, softcap=softcap)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    return q, k, v, out, lse, do, kw
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,softcap", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, s, h, kv, hd, causal, window, softcap):
+    """dQ, dK and dV within BWD_F32_TOL (f32) or BWD_BF16_TOL (bf16) of each
+    gradient's max |g|, against attention_bwd_ref on the same inputs; two
+    runs bit-identical (no atomics)."""
+    q, k, v, out, lse, do, kw = _bwd_inputs(cuda, dtype, b, s, h, kv, hd, causal, window,
+                                            softcap)
+    reset_launches()
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention_bwd"] == 2
+    want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.equal(g, a), f"d{name} differs between two runs"
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * max(scale, 1e-30), name
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window,softcap", BWD_CASES[:8])
+def test_flash_forward_lse_and_unchanged_without_it(cuda, dtype, b, s, h, kv, hd, causal,
+                                                    window, softcap):
+    """With a null LSE pointer the output is bit-identical to the output
+    with one; the LSE within 1e-4 of the plain version's."""
+    q, k, v, out, lse, _, kw = _bwd_inputs(cuda, dtype, b, s, h, kv, hd, causal, window,
+                                           softcap)
+    plain_out = flash_attention(q, k, v, **kw)
+    assert torch.equal(plain_out, out)
+    _, want = attention_lse_ref(q, k, v, **kw)
+    assert float((lse - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+def test_autograd_reaches_q_k_v_projections_through_the_kernels(cuda):
+    """P3: on the card, gradients of wq, wk and wv come through the
+    backward kernel and equal those of the plain attention."""
+    from repro_torch.models import attention as pt_attn
+
+    g = torch.Generator().manual_seed(0)
+    params = pt_attn.init_attention(g, 128, 4, 2, 32, torch.float32)
+    params = {n: w.to(cuda).requires_grad_() for n, w in params.items()}
+    x = _normal((2, 96, 128), 5).to(cuda)
+    pos = torch.arange(96, device=cuda).expand(2, 96)
+    reset_launches()
+    loss = pt_attn.attention(params, x, pos, causal=True).square().sum()
+    grads = torch.autograd.grad(loss, [params[n] for n in ("wq", "wk", "wv", "wo")])
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    assert launch_counts()["flash_attention_bwd"] == 1
+    cpu = {n: w.detach().cpu().requires_grad_() for n, w in params.items()}
+    # the same attention through the masked einsum route, differentiated by autograd
+    q = pt_attn.apply_rope(pt_attn.project_heads(x.cpu(), cpu["wq"]), pos.cpu())
+    k = pt_attn.apply_rope(pt_attn.project_heads(x.cpu(), cpu["wk"]), pos.cpu())
+    v = pt_attn.project_heads(x.cpu(), cpu["wv"])
+    mask = torch.ones(96, 96, dtype=torch.bool).tril().expand(2, 96, 96)
+    o = pt_attn._attend_masked(q, pt_attn._expand_kv(k, 4), pt_attn._expand_kv(v, 4), mask, 0.0)
+    ref_loss = pt_attn.merge_heads(o, cpu["wo"]).square().sum()
+    want = torch.autograd.grad(ref_loss, [cpu[n] for n in ("wq", "wk", "wv", "wo")])
+    for got_g, want_g in zip(grads, want):
+        assert float(got_g.abs().max()) > 0
+        assert float((got_g.cpu() - want_g).abs().max()) <= 1e-4 * float(want_g.abs().max())
+
+
+def test_scan_raises_where_autograd_needs_its_gradient(cuda):
+    """P3: the scan kernel has no backward; asked for one it raises instead
+    of returning a y with no graph. Without a gradient it runs."""
+    b, s, di, n = 1, 16, 32, 4
+    args = [_normal((b, s, di), 1).abs().to(cuda), _normal((b, s, n), 2).to(cuda),
+            _normal((b, s, n), 3).to(cuda), _normal((b, s, di), 4).to(cuda),
+            _normal((di, n), 5).to(cuda), _normal((di,), 6).to(cuda)]
+    args[3].requires_grad_()
+    with pytest.raises(NotImplementedError, match="B6b"):
+        selective_scan_op(*args, out_dtype=torch.float32)
+    with torch.no_grad():
+        y, _ = selective_scan_op(*args, out_dtype=torch.float32)
+    assert y.grad_fn is None and bool(torch.isfinite(y).all())
