@@ -11,10 +11,11 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. build   — nvcc compiles ``src/repro_torch/csrc/*.cu`` for sm_90a; prints
              the build time, ptxas's registers and spills for the
              tensor-core flash kernel, the two passes of the flash backward
-             at the shapes phase 2 runs (hd 64: tensor cores in bf16, SIMT
-             in f32; SIMT bf16 at hd 256) and the scan, the count of HGMMA
-             (wgmma) instructions in the flash object's SASS (cuobjdump),
-             and the card's name and power limit.
+             (the tensor-core ones at hd 64 and 256, the SIMT ones in f32 at
+             hd 64) and the scan, the count of HGMMA (wgmma) instructions in
+             the SASS of the forward's and the backward's objects
+             (cuobjdump; none in either is a failure), and the card's name
+             and power limit.
 2. kernels — each Hopper kernel at the main path's shapes against its plain
              PyTorch version on the same inputs. Quantize / dequantize (int8,
              int4) and top-k (k = 13) at every (rows, size) that phase 3
@@ -45,9 +46,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              prefill shape and at its training batch of 2 (bit-identical
              outputs, both timed), and the flash
              backward against ``attention_bwd_ref`` at smollm-360m's
-             training shape (2, 2048, 15 / 5, 64) causal in bf16 and f32 and
+             training shape (2, 2048, 15 / 5, 64) causal in bf16 and f32,
              gemma2-2b's (1, 8192, 8 / 4, 256) with window 4096 and softcap
-             50 in bf16: each of dQ, dK and dV within BWD_F32_TOL (f32) or
+             50 in bf16 and an hd-128 case (2, 2048, 16 / 8, 128) causal in
+             bf16: each of dQ, dK and dV within BWD_F32_TOL (f32) or
              BWD_BF16_TOL (bf16) of its max |g|, two runs bit-identical;
              its time, its bound and the backward of SDPA (autograd,
              causal, GQA) beside it.
@@ -80,12 +82,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              nodes stacked on the card, DataConfig(seq_len=2048,
              batch_per_node=2, n_nodes=4, seed=0), lr 1e-3, warmup 0, no
              remat; the launch counts set to 0 just before each run and read
-             just after: tree_allreduce for 3 steps on one fixed batch (the
-             first a warm-up; the third loss below the first; after every
-             step each node's masters within the runner's mean tolerance of
-             the nodes' FedAvg), dissemination with the int8 codec for 2
-             steps, dissemination with top-k and error feedback for 2 steps
-             (codec_ef must change). Every loss and grad norm finite; every
+             just after: dissemination with the int8 codec for 2 steps,
+             dissemination with top-k and error feedback for 2 steps
+             (codec_ef must change), then tree_allreduce for 4 steps on one
+             fixed batch (the first a warm-up; the third loss below the
+             first; after every step each node's masters within the
+             runner's mean tolerance of the nodes' FedAvg; the fourth, the
+             last of the phase, under torch.profiler, its device time
+             printed by group — flash forward, flash backward, GEMMs,
+             elementwise / other, optimizer, gossip — with the device's
+             idle share of the step). Every loss and grad norm finite; every
              step launches flash_attention and flash_attention_bwd 32 x N
              times; every gossip kernel launches in the codec runs. Prints
              each step's time by host clock, synchronized, split into the
@@ -102,8 +108,10 @@ run from a directory that holds nothing of the repository but this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -145,29 +153,108 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
 
 def print_kernel_resources(build_dir: Path) -> None:
     """ptxas's registers and spills for the redesigned kernels (from the
-    build log), and the HGMMA instructions in the flash object's SASS."""
+    build log), and the HGMMA instructions in the two flash objects' SASS."""
     log = (build_dir / "nvcc.log").read_text().splitlines()
-    kernels = ("flash_tc_kernel", "scan_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_mma_kernel",
-               "bwd_dq_kernel", "bwd_dkdv_kernel")
+    kernels = ("flash_tc_kernel", "scan_kernel", "bwd_tc_kernel", "bwd_d_kernel", "bwd_dq_kernel",
+               "bwd_dkdv_kernel")
     for i, line in enumerate(log):
         if "Compiling entry function" in line and any(k in line for k in kernels):
             name = line.split("'")[1]
             kernel = next(k for k in kernels if k in name)
             args = name.split(kernel, 1)[1].split("EEv")[0]
-            if kernel.startswith("bwd_") and not args.startswith(("ILi64E", "ILi256E13")):
-                continue  # the backward as phase 2 runs it (hd 64; SIMT bf16 at hd 256)
+            # the backward as phase 2 runs it: the tensor-core passes at hd 64
+            # and 256, the SIMT ones in f32 at hd 64
+            if kernel.startswith("bwd_") and args not in ("ILi64E", "ILi256E", "ILi64Ef"):
+                continue
             info = " | ".join(x.split(":", 1)[-1].strip() for x in log[i + 2:i + 4])
             print(f"[build] ptxas {kernel} {args}: {info}")
     objdump = Path("/usr/local/cuda/bin/cuobjdump")
     if not objdump.is_file():
         print("[build] SASS check: cuobjdump not in the toolkit, not run")
         return
-    sass = subprocess.run([str(objdump), "--dump-sass", str(build_dir / "flash_attention.o")],
-                          capture_output=True, text=True, timeout=120).stdout
-    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"[build] SASS check: {n_hgmma} HGMMA instructions in flash_attention.o (cuobjdump)")
-    if n_hgmma == 0:
-        fail("the bf16 flash kernel issues no HGMMA")
+    for obj in ("flash_attention.o", "flash_attention_bwd.o"):
+        sass = subprocess.run([str(objdump), "--dump-sass", str(build_dir / obj)],
+                              capture_output=True, text=True, timeout=120).stdout
+        n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        print(f"[build] SASS check: {n_hgmma} HGMMA instructions in {obj} (cuobjdump)")
+        if n_hgmma == 0:
+            fail(f"the bf16 kernels of {obj} issue no HGMMA")
+
+
+# device-time groups of a profiled training step, by kernel name
+STEP_GROUPS = ("flash forward", "flash backward", "GEMMs", "elementwise/other", "optimizer",
+               "gossip")
+
+
+def kernel_group(name: str) -> str:
+    n = name.lower()
+    if "bwd_tc_kernel" in n or "bwd_d_kernel" in n:
+        return "flash backward"
+    if "flash" in n:
+        return "flash forward"
+    if re.search(r"gemm|xmma|nvjet|cutlass|cublas", n):
+        return "GEMMs"
+    return "elementwise/other"
+
+
+def profile_step(trainer, state, batch):
+    """One train step under torch.profiler, its three phases labelled; the
+    trainer (timed) synchronizes between them, so each phase's device work
+    lies inside its span. Returns the step's state and metrics, the device
+    ms by group (the optimizer's and the gossip's kernels by the phase that
+    ran them, the rest by name), kernel counts by group, the device's busy
+    ms (the union of its kernels' spans) and the step's span in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def labelled(name, fn):
+        def run(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return run
+
+    opt = trainer.opt
+    trainer.grads = labelled("phase:fwd_bwd", trainer.grads)
+    trainer.gossip = labelled("phase:gossip", trainer.gossip)
+    trainer.opt = dataclasses.replace(opt, update=labelled("phase:optimizer", opt.update))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, m = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        del trainer.grads, trainer.gossip
+        trainer.opt = opt
+    events = prof.events()
+    spans = {e.name: (e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith("phase:") and e.device_type == DeviceType.CPU}
+    if len(spans) != 3:
+        fail(f"profiled step: phases found {sorted(spans)}")
+    # the device's kernels, memcpys and memsets; the record_function ranges
+    # also appear on the device's timeline (user annotations) and are not work
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation and not e.name.startswith("phase:")]
+    ms, count = Counter(), Counter()
+    # the trainer synchronizes after each phase, so a phase's device work
+    # ends before the next phase's host span begins: a kernel belongs to the
+    # phase whose host span began last before it started
+    opt_start, gossip_start = spans["phase:optimizer"][0], spans["phase:gossip"][0]
+    lo = spans["phase:fwd_bwd"][0]
+    hi = max([spans["phase:gossip"][1]] + [e.time_range.end for e in device])
+    intervals = []
+    for e in device:
+        start, end = e.time_range.start, e.time_range.end
+        group = ("gossip" if start >= gossip_start else "optimizer" if start >= opt_start
+                 else kernel_group(e.name))
+        ms[group] += (end - start) / 1e3
+        count[group] += 1
+        intervals.append((max(start, lo), min(end, hi)))
+    busy, edge = 0.0, lo
+    for start, end in sorted(intervals):
+        if end > edge:
+            busy += end - max(start, edge)
+            edge = end
+    return state, m, ms, count, busy / 1e3, (hi - lo) / 1e3
 
 
 def count_elements(tree) -> int:
@@ -443,12 +530,13 @@ def main() -> int:
               f"bit-identical; LSE max abs err {lse_err:.3e}) on {card}")
         del q, k, v, out, out_lse, lse, want_lse
 
-    # the flash backward at smollm-360m's training shape (bf16, f32) and at
-    # gemma2-2b's local layer, against attention_bwd_ref
+    # the flash backward at smollm-360m's training shape (bf16, f32), at
+    # gemma2-2b's local layer and at hd 128, against attention_bwd_ref
     bwd_cases = [  # b, s, h, kv, hd, window, softcap, dtype
         (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16),
         (2, 2048, 15, 5, 64, 0, 0.0, torch.float32),
         (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16),
+        (2, 2048, 16, 8, 128, 0, 0.0, torch.bfloat16),  # hd 128, GQA 2:1
     ]
     for b, s, h, kv, hd, window, cap, dtype in bwd_cases:
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
@@ -681,8 +769,10 @@ def main() -> int:
                   labels=torch.from_numpy(lab).long().to(dev))
     params0 = model.init(torch.Generator(device=dev).manual_seed(0))
     per_step = cfg.n_layers * n_nodes
-    train_runs = [("tree_allreduce", "", 3), ("dissemination", "int8", 2),
-                  ("dissemination", "topk", 2)]
+    # the tree run's fourth step runs under torch.profiler; the tree run
+    # comes last, so no other step follows a profiled one
+    train_runs = [("dissemination", "int8", 2), ("dissemination", "topk", 2),
+                  ("tree_allreduce", "", 4)]
     train_launches = Counter()
     for mode, codec, steps in train_runs:
         trainer = DFLTrainer(model, n_nodes, DFLConfig(gossip_mode=mode, codec=codec, lr=1e-3,
@@ -691,17 +781,22 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         run = f"{mode}{'+' + codec if codec else ''}"
-        losses = []
+        losses, walls = [], []
         reset_launches()
         for i in range(steps):
             before = launch_counts()
+            profiled = mode == "tree_allreduce" and i == 3
             t0 = time.perf_counter()
-            state, m = trainer.train_step(state, batch)
+            if profiled:
+                state, m, dev_ms, n_kernels, busy_ms, span_ms = profile_step(trainer, state, batch)
+            else:
+                state, m = trainer.train_step(state, batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             after = launch_counts()
             loss, gnorm = float(m["loss"]), float(m["grad_norm"])
             losses.append(loss)
+            walls.append(wall)
             if not (math.isfinite(loss) and math.isfinite(gnorm)):
                 fail(f"train {run} step {i}: loss {loss}, grad_norm {gnorm}")
             for kernel in ("flash_attention", "flash_attention_bwd"):
@@ -721,6 +816,21 @@ def main() -> int:
                 fedavg = f", masters within {worst:.2e} of the FedAvg"
             else:
                 fedavg = ""
+            if profiled:  # ROADMAP Queue B item 0: where a steady step's device time goes
+                if n_kernels["flash backward"] != 2 * per_step or n_kernels["GEMMs"] == 0:
+                    fail(f"profiled step: {dict(n_kernels)} kernels by group; expected "
+                         f"{2 * per_step} of the flash backward (D and the fused passes a "
+                         "launch) and GEMMs")
+                split = ", ".join(f"{g} {dev_ms[g]:.3f} ms ({n_kernels[g]} kernels)"
+                                  for g in STEP_GROUPS)
+                # the profiler slows the host's issue, so the idle share is
+                # also read against the unprofiled step before
+                steady_ms = 1e3 * walls[-2]
+                print(f"[train] {run} step {i} under torch.profiler, device time by group: "
+                      f"{split}; device busy {busy_ms:.3f} ms of the profiled step's "
+                      f"{span_ms:.3f} ms (idle {100 * (1 - busy_ms / span_ms):.1f}%) and of "
+                      f"step {i - 1}'s {steady_ms:.1f} ms unprofiled (idle "
+                      f"{100 * (1 - busy_ms / steady_ms):.1f}%) on {card}")
             t = m["times"]
             print(f"[train] {run} step {i}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
                   f"{wall * 1e3:.1f} ms (nodes' fwd+bwd {t['fwd_bwd'] * 1e3:.1f}, optimizer "

@@ -25,53 +25,62 @@
 // 0.60 ms at the 67 TFLOP/s f32 rate; the inputs and outputs are 47 MB
 // (0.014 ms at 3.35 TB/s).
 //
-// Design: two launches from one entry point (three on the tensor cores under
-// GQA, below), no atomics (two runs give identical gradients):
-//   1. dQ: one block per (64 query rows, query head, batch). It computes D
-//      for its rows (written to a scratch (b, H, sq) for pass 2), then streams
-//      the key tiles its rows can see (none past the causal diagonal, none
-//      wholly below the window) through shared memory, recomputes S and dP on
-//      the tile, and accumulates dQ in registers.
+// Design: two passes, no atomics (two runs give identical gradients):
+//   1. dQ: one block per (64 query rows, query head, batch). It streams the
+//      key tiles its rows can see (none past the causal diagonal, none wholly
+//      below the window), recomputes S and dP on the tile, and accumulates
+//      dQ.
 //   2. dK and dV: one block per (64-key tile, kv head, batch). It holds its K
-//      and V tile in shared memory, streams the query tiles of every query
-//      head in the group that can see it, and accumulates dK and dV in
-//      registers.
-// Causal query tiles launch longest first in pass 1; in pass 2 the first key
-// tiles, which the most queries see, are the first blocks anyway.
+//      and V tile, streams the query tiles of every query head in the group
+//      that can see it, and accumulates dK and dV over the whole group (GQA
+//      takes no scratch and no reduction).
+// Seven products a visible pair (S and dP in both passes) against the
+// minimum five: the price of determinism without a cross-block sum of dQ.
+// Both read D = rowsum(dO o O) from a scratch (b, H, sq), which a first
+// launch writes on the tensor-core path and pass 1 on the SIMT path.
 //
-// bf16 at hd <= 128 (smollm's training path): the tensor cores through
-// mma.sync m16n8k16 (bf16 in, f32 sums), 4 warps a block, each owning 16 of
-// the tile's 64 rows. The tiles sit in shared memory as bf16 rows padded by
-// 16 bytes (conflict-free fragment loads); the streamed ones (K and V in
-// pass 1, Q, dO, LSE and D in pass 2) arrive by cp.async into two stages,
-// the next tile's copies in flight while the current one is computed. S and
-// dP come out of the products in the accumulator layout, which is the
-// A-operand layout of the next product once rounded to bf16 (P and dX never
-// leave registers); tiles wholly inside the visible region skip the per-pair
-// mask, and P's exponential is ex2.approx. Every other fragment comes from
-// shared memory by ldmatrix.x4 (one A fragment or
-// the B fragments of two n-blocks an instruction); the B operand of dQ +=
-// dX K, dV += P^T dO and dK += dX^T Q reads its tile down the rows through
-// ldmatrix's transpose. Pass 2 takes one block per (key tile, query head,
-// batch), so a key tile's work does not run serially over its H / KV query
-// heads; under GQA each block writes its head's share of dK and dV to an
-// f32 scratch, and a third launch sums the shares in head order.
+// bf16 (the training type): the tensor cores through wgmma, fed by TMA, both
+// passes in one grid (after the D launch): the dK / dV blocks first, key
+// tiles that the most queries see first, then the dQ blocks, longest first,
+// so each pass's tail of short blocks runs beside the other's work (one grid
+// took 19% less time than two launches at smollm's shape). A block is one
+// consumer warpgroup (4 warps, the 64 rows of the block's tile) and one
+// producer warp, one thread of which issues every copy: the block's own
+// tiles (Q and dO, or K and V) once, then the streamed pair through a ring of
+// stages, each completed on its "full" mbarrier and released on its "empty"
+// one, in the forward's 128-byte swizzle (64-byte at hd 32; the helpers are
+// shared with the forward in hopper.cuh); the dK / dV pass's producer lanes
+// also stage each query tile's LSE and D. The dQ pass computes S = Q K^T and
+// dP = dO V^T with both operands in shared memory (K-major), turns them into
+// dX in registers (P's exponential ex2.approx, the softcap through
+// tanh.approx and its chain factor; only tiles that cross the diagonal, the
+// window's edge or a ragged end evaluate the per-pair mask), rounds it to
+// bf16 in the accumulator layout, which is the A-operand layout of the next
+// product, and issues dQ += dX K with K read MN-major through the transpose
+// bit. The dK / dV pass computes S^T = K Q^T and dP^T = V dO^T, so its
+// fragments are keys x queries and LSE and D index the columns; then dV +=
+// P^T dO and dK += dX^T Q, dO and Q read MN-major. Both loops are
+// software-pipelined: step i + 1's S and dP are issued right behind step i's
+// update products, so the tensor cores run them while the warpgroup comes
+// round to wait. At hd 256 a tile's dQ, or its dK and dV, split over two
+// blocks of 128 columns that each recompute S and dP over the full head dim:
+// 128 columns of dK and dV are 128 f32 registers a thread, as many as one
+// warpgroup holds beside S and dP.
 //
-// f32, and bf16 at hd 256: SIMT f32 arithmetic, 256 threads a block. Thread
-// (ty, tx) of a 16 x 16 block owns score rows ty + 16 r and columns tx + 16 c
-// of a tile; the accumulators' rows ty + 16 r and head-dim columns tx + 16 c.
-// Shared-memory rows are padded to hd + 1 floats, so the column reads of a
-// warp fall in distinct banks. Key tiles are 64 keys, 32 at hd 256 (there 64
-// query rows of Q and dO plus a K and a V tile take 201 KB of shared memory
-// in pass 1 and 210 KB in pass 2).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// f32, used by the parity checks: SIMT f32 arithmetic, 256 threads a block.
+// Thread (ty, tx) of a 16 x 16 block owns score rows ty + 16 r and columns
+// tx + 16 c of a tile; the accumulators' rows ty + 16 r and head-dim columns
+// tx + 16 c. Shared-memory rows are padded to hd + 1 floats, so the column
+// reads of a warp fall in distinct banks. Key tiles are 64 keys, 32 at hd
+// 256 (there 64 query rows of Q and dO plus a K and a V tile take 201 KB of
+// shared memory in pass 1 and 210 KB in pass 2).
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kThreads = 256;  // 16 row groups x 16 column groups
 constexpr int kBQ = 64;        // query rows per tile
@@ -103,7 +112,6 @@ struct BwdArgs {
   int sq, skv, h, kvh;
   int causal, window;
   float softcap, scale;
-  float* ws;  // tensor-core pass 2 under GQA: per-query-head dK and dV, 2 x (b, skv, H, hd) f32
 };
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -111,26 +119,21 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162
 __device__ __forceinline__ void st(float* p, float x) { *p = x; }
 __device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-template <typename T>
-__device__ __forceinline__ bool visible(const BwdArgs<T>& a, int qi, int kj) {
+// Whether query qi sees key kj (both paths' argument structs).
+template <typename A>
+__device__ __forceinline__ bool visible(const A& a, int qi, int kj) {
   return qi < a.sq && kj < a.skv && (!a.causal || kj <= qi) &&
          (a.window == 0 || kj > qi - a.window);
 }
 
 // P and dX of one pair from the raw product q . k, dP = dO . v, the row's
-// LSE and D. With Approx the exponential is ex2.approx (2^-22 of its value),
-// for the tensor-core passes, which round P and dX to bf16 next.
-template <bool Approx, typename T>
+// LSE and D.
+template <typename T>
 __device__ __forceinline__ void pair_grads(const BwdArgs<T>& a, bool vis, float qk, float dp,
                                            float lse, float d, float& p, float& dx) {
   float t = qk * a.scale;
   if (a.softcap > 0.f) t = a.softcap * tanhf(t / a.softcap);
-  float e;
-  if (Approx)
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"((t - lse) * 1.4426950408889634f));
-  else
-    e = expf(t - lse);
-  p = vis ? e : 0.f;
+  p = vis ? expf(t - lse) : 0.f;
   dx = p * (dp - d);
   if (a.softcap > 0.f) {
     const float th = t / a.softcap;
@@ -248,7 +251,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(BwdArgs<T> a) {
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
         float p, dx;
-        pair_grads<false>(a, visible(a, q0 + ty + 16 * r, k0 + tx + 16 * c), s[r][c], dp[r][c],
+        pair_grads(a, visible(a, q0 + ty + 16 * r, k0 + tx + 16 * c), s[r][c], dp[r][c],
                           lse[r], dd[r], p, dx);
         sdX[(ty + 16 * r) * PS + tx + 16 * c] = dx;
       }
@@ -362,7 +365,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(BwdArgs<T> a) {
 #pragma unroll
         for (int c = 0; c < KC; ++c) {
           float p, dx;
-          pair_grads<false>(a, visible(a, q0 + i, k0 + tx + 16 * c), s[r][c], dp[r][c], sL[i],
+          pair_grads(a, visible(a, q0 + i, k0 + tx + 16 * c), s[r][c], dp[r][c], sL[i],
                             sD[i], p, dx);
           sP[i * PS + tx + 16 * c] = p;
           sdX[i * PS + tx + 16 * c] = dx;
@@ -406,431 +409,6 @@ __global__ void __launch_bounds__(kThreads) bwd_dkdv_kernel(BwdArgs<T> a) {
   }
 }
 
-// ------------------------------------------- bf16 at hd <= 128: mma.sync
-
-constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of a 64-row tile each
-constexpr int kMT = 64;           // query rows (pass 1) or keys (pass 2) per tile
-
-template <int HD>
-struct MmaTile {
-  static constexpr int LDS = HD + 8;  // bf16 row stride in shared memory: 16 bytes of pad
-  static constexpr int KS = HD / 16;  // k-steps of 16 over the head dim
-  static constexpr int NH = HD / 8;   // n-blocks of 8 over the head dim
-  // the block's two fixed tiles and two stages of the two streamed ones
-  static constexpr size_t SMEM = sizeof(__nv_bfloat16) * 6 * kMT * LDS;
-};
-
-typedef __nv_bfloat16 bf16;
-
-// D (16 x 8, f32) += A (16 x 16) B (16 x 8), bf16 operands. Thread t of the
-// warp, g = t / 4, c = 2 (t % 4): A's registers hold (row g, cols c, c + 1),
-// (g + 8, c..), (g, c + 8..), (g + 8, c + 8..); B's (k c, c + 1; n g) and
-// (k c + 8, c + 9; n g); D's (row g, cols c, c + 1) and (g + 8, c, c + 1).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
-// row l % 8 of matrix l / 8; register i holds matrix i's fragment: (row g,
-// cols c, c + 1), or with .trans (rows c, c + 1; col g).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// cp.async: 16 (or 4) bytes from global to shared memory without passing
-// through registers; with `in` false nothing is read and zeros are written.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` of this thread's committed copy groups are in
-// flight.
-__device__ __forceinline__ void cp_async_wait(bool pending) {
-  if (pending)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// 64 rows of a head slice into a bf16 tile of shared memory, 16 bytes a
-// thread by cp.async, zeros past `limit`.
-template <int HD>
-__device__ __forceinline__ void load_bf16_tile(bf16* dst, const bf16* src, long long row_stride,
-                                               int r0, int limit) {
-  constexpr int V = HD / 8;
-  for (int i = threadIdx.x; i < kMT * V; i += kMmaThreads) {
-    const int r = i / V, col = (i % V) * 8;
-    const bool in = r0 + r < limit;
-    cp_async16(dst + r * MmaTile<HD>::LDS + col, in ? src + (r0 + r) * row_stride + col : src,
-               in);
-  }
-}
-
-// S = X Y^T and dP = Z W^T over the head dim for the warp's 16 rows of X and
-// Z (row offset r) against the 64 rows of Y and W: 8 n-blocks of 8. One
-// ldmatrix.x4 gives an A fragment (16 rows x 16 columns) or the B fragments
-// of two n-blocks.
-template <int HD>
-__device__ __forceinline__ void scores(float (&s)[8][4], float (&dp)[8][4], const bf16* x,
-                                       const bf16* z, const bf16* y, const bf16* w, int r,
-                                       int lane) {
-  constexpr int LDS = MmaTile<HD>::LDS;
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-  // A: matrices (rows 0-7, cols 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-  const int a_off = (r + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8;
-  // B of n-blocks nb, nb + 1: (rows 0-7, k 0-7), (0-7, k 8-15), (8-15, 0-7), (8-15, 8-15)
-  const int b_off = ((lane & 7) + (lane >> 4) * 8) * LDS + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    uint32_t ax[4], az[4];
-    ldmatrix_x4(ax, x + a_off + ks * 16);
-    ldmatrix_x4(az, z + a_off + ks * 16);
-#pragma unroll
-    for (int nb = 0; nb < 8; nb += 2) {
-      uint32_t by[4], bw[4];
-      ldmatrix_x4(by, y + nb * 8 * LDS + b_off + ks * 16);
-      ldmatrix_x4(bw, w + nb * 8 * LDS + b_off + ks * 16);
-      mma16816(s[nb], ax, by[0], by[1]);
-      mma16816(s[nb + 1], ax, by[2], by[3]);
-      mma16816(dp[nb], az, bw[0], bw[1]);
-      mma16816(dp[nb + 1], az, bw[2], bw[3]);
-    }
-  }
-}
-
-// acc (16 x HD) += A B over 64 rows of k: A from the fragments `f` (16 x 64,
-// the C layout of `scores`, rounded to bf16), B the 64 x HD tile `b` read
-// down its rows (ldmatrix .trans: two n-blocks an instruction).
-template <int HD>
-__device__ __forceinline__ void accumulate(float (&acc)[HD / 8][4], const float (&f)[8][4],
-                                           const bf16* b, int lane) {
-  constexpr int LDS = MmaTile<HD>::LDS;
-  // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-  const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * LDS + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack2f(f[2 * kk][0], f[2 * kk][1]), pack2f(f[2 * kk][2], f[2 * kk][3]),
-                           pack2f(f[2 * kk + 1][0], f[2 * kk + 1][1]),
-                           pack2f(f[2 * kk + 1][2], f[2 * kk + 1][3])};
-#pragma unroll
-    for (int nb = 0; nb < HD / 8; nb += 2) {
-      uint32_t bm[4];
-      ldmatrix_x4_trans(bm, b + kk * 16 * LDS + nb * 8 + b_off);
-      mma16816(acc[nb], a, bm[0], bm[1]);
-      mma16816(acc[nb + 1], a, bm[2], bm[3]);
-    }
-  }
-}
-
-// Whether every (query, key) pair of a 64 x 64 tile is visible: such a tile
-// (all but the diagonal and window-edge ones) skips the per-pair mask.
-__device__ __forceinline__ bool clear_tile(const BwdArgs<bf16>& a, int q0, int k0) {
-  return q0 + kMT <= a.sq && k0 + kMT <= a.skv && (!a.causal || k0 + kMT - 1 <= q0) &&
-         (a.window == 0 || k0 > q0 + kMT - 1 - a.window);
-}
-
-// dX in place of the scores of the warp's 16 query rows (pass 1); Clear
-// drops the mask.
-template <bool Clear>
-__device__ __forceinline__ void dq_tile_grads(const BwdArgs<bf16>& a, float (&s)[8][4],
-                                              const float (&dp)[8][4], int qr, int k0,
-                                              const float (&lse)[2], const float (&dd)[2], int c) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int h = e >> 1;
-      const bool vis = Clear || visible(a, qr + 8 * h, k0 + nb * 8 + c + (e & 1));
-      float p;
-      pair_grads<true>(a, vis, s[nb][e], dp[nb][e], lse[h], dd[h], p, s[nb][e]);
-    }
-}
-
-// P in place of the scores and dX in place of dP for the warp's 16 keys
-// (pass 2), the 64 queries' LSE and D from `lse` and `dd`; Clear drops the
-// mask.
-template <bool Clear>
-__device__ __forceinline__ void dkdv_tile_grads(const BwdArgs<bf16>& a, float (&s)[8][4],
-                                                float (&dp)[8][4], int q0, int kr,
-                                                const float* lse, const float* dd, int c) {
-#pragma unroll
-  for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = nb * 8 + c + (e & 1);
-      const bool vis = Clear || visible(a, q0 + i, kr + 8 * (e >> 1));
-      pair_grads<true>(a, vis, s[nb][e], dp[nb][e], lse[i], dd[i], s[nb][e], dp[nb][e]);
-    }
-}
-
-// Pass 1 on the tensor cores: D and dQ for 64 query rows of one head, a warp
-// per 16 rows.
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dq_mma_kernel(BwdArgs<bf16> a) {
-  constexpr int LDS = MmaTile<HD>::LDS, NH = MmaTile<HD>::NH;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(mma_smem);
-  bf16* sdO = sQ + kMT * LDS;
-  bf16* sK = sdO + kMT * LDS;   // two stages of K, then two of V
-  bf16* sV = sK + 2 * kMT * LDS;
-  __shared__ float sL[kMT], sD[kMT];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
-  const int q_tile = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = q_tile * kMT, hq = blockIdx.y;
-  const long long bi = blockIdx.z;
-  const int hk = hq / (a.h / a.kvh);
-  const long long q_rs = (long long)a.h * HD, k_rs = (long long)a.kvh * HD;
-  const long long q_off = bi * a.sq * q_rs + (long long)hq * HD;
-  const long long k_off = bi * a.skv * k_rs + (long long)hk * HD;
-  const long long row_off = (bi * a.h + hq) * a.sq;
-
-  // the keys this q tile can see: tiles [t0, t_end), each streamed into one
-  // of two stages while the other's is computed
-  const int q_last = min(q0 + kMT, a.sq) - 1;
-  const int hi = a.causal ? min(a.skv, q_last + 1) : a.skv;
-  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
-  const int t0 = lo / kMT, t_end = hi > lo ? (hi + kMT - 1) / kMT : t0;
-  auto issue = [&](int t) {
-    const int st = (t - t0) & 1;
-    load_bf16_tile<HD>(sK + st * kMT * LDS, a.k + k_off, k_rs, t * kMT, a.skv);
-    load_bf16_tile<HD>(sV + st * kMT * LDS, a.v + k_off, k_rs, t * kMT, a.skv);
-    cp_async_commit();
-  };
-  load_bf16_tile<HD>(sQ, a.q + q_off, q_rs, q0, a.sq);
-  load_bf16_tile<HD>(sdO, a.dout + q_off, q_rs, q0, a.sq);
-  if (t0 < t_end)
-    issue(t0);  // with Q and dO in its group
-  else
-    cp_async_commit();
-  for (int r = warp; r < kMT; r += kMmaThreads / 32) {  // D = rowsum(dO o O)
-    const int qi = q0 + r;
-    float acc = 0.f;
-    if (qi < a.sq) {
-      const bf16* o = a.o + q_off + qi * q_rs;
-      const bf16* gr = a.dout + q_off + qi * q_rs;
-      for (int d = lane; d < HD; d += 32) acc = fmaf(ld(gr + d), ld(o + d), acc);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      sD[r] = acc;
-      sL[r] = qi < a.sq ? a.lse[row_off + qi] : 0.f;
-      if (qi < a.sq) a.dd[row_off + qi] = acc;
-    }
-  }
-  __syncthreads();
-
-  const int r0 = 16 * warp;  // the warp's rows: r0 + g and r0 + g + 8
-  const float lse[2] = {sL[r0 + g], sL[r0 + g + 8]}, dd[2] = {sD[r0 + g], sD[r0 + g + 8]};
-  float dq[NH][4];
-#pragma unroll
-  for (int nb = 0; nb < NH; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nb][e] = 0.f;
-
-  for (int t = t0; t < t_end; ++t) {
-    const int k0 = t * kMT, st = (t - t0) & 1;
-    if (t + 1 < t_end) issue(t + 1);  // into the stage tile t - 1 used
-    cp_async_wait(t + 1 < t_end);
-    __syncthreads();  // tile t has landed for every thread
-    const bf16* tK = sK + st * kMT * LDS;
-    float s[8][4], dp[8][4];
-    scores<HD>(s, dp, sQ, sdO, tK, sV + st * kMT * LDS, r0, lane);
-    if (clear_tile(a, q0, k0))
-      dq_tile_grads<true>(a, s, dp, q0 + r0 + g, k0, lse, dd, c);
-    else
-      dq_tile_grads<false>(a, s, dp, q0 + r0 + g, k0, lse, dd, c);
-    accumulate<HD>(dq, s, tK, lane);
-    __syncthreads();  // the stage is free for tile t + 2
-  }
-  cp_async_wait(false);  // no copy outlives the block
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int qi = q0 + r0 + g + 8 * h;
-    if (qi >= a.sq) continue;
-    bf16* row = a.dq + q_off + qi * q_rs;
-#pragma unroll
-    for (int nb = 0; nb < NH; ++nb)
-      *reinterpret_cast<uint32_t*>(row + nb * 8 + c) =
-          pack2f(dq[nb][2 * h] * a.scale, dq[nb][2 * h + 1] * a.scale);
-  }
-}
-
-// Pass 2 on the tensor cores: dK and dV for 64 keys of one kv head from one
-// of its query heads, a warp per 16 keys. Without GQA that is dK and dV; with
-// it the head's share goes to the scratch `ws` in f32, and
-// bwd_group_sum_kernel sums the group's shares in head order.
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) bwd_dkdv_mma_kernel(BwdArgs<bf16> a) {
-  constexpr int LDS = MmaTile<HD>::LDS, NH = MmaTile<HD>::NH;
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  bf16* sK = reinterpret_cast<bf16*>(mma_smem);
-  bf16* sV = sK + kMT * LDS;
-  bf16* sQ = sV + kMT * LDS;     // two stages of Q, then two of dO
-  bf16* sdO = sQ + 2 * kMT * LDS;
-  __shared__ float sL[2][kMT], sD[2][kMT];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = 2 * (lane % 4);
-  const int k0 = blockIdx.x * kMT, hq = blockIdx.y;
-  const long long bi = blockIdx.z;
-  const int hk = hq / (a.h / a.kvh);
-  const long long q_rs = (long long)a.h * HD, k_rs = (long long)a.kvh * HD;
-  const long long k_off = bi * a.skv * k_rs + (long long)hk * HD;
-  const long long q_off = bi * a.sq * q_rs + (long long)hq * HD;
-  const long long row_off = (bi * a.h + hq) * a.sq;
-  // the queries that can see this key tile: tiles [t0, t_end), each streamed
-  // into one of two stages while the other's is computed
-  const int k_last = min(k0 + kMT, a.skv) - 1;
-  const int q_lo = a.causal ? k0 : 0;
-  const int q_hi = a.window > 0 ? min(a.sq, k_last + a.window) : a.sq;
-  const int t0 = q_lo / kMT, t_end = q_hi > q_lo ? (q_hi + kMT - 1) / kMT : t0;
-  auto issue = [&](int t) {
-    const int st = (t - t0) & 1, q0 = t * kMT;
-    load_bf16_tile<HD>(sQ + st * kMT * LDS, a.q + q_off, q_rs, q0, a.sq);
-    load_bf16_tile<HD>(sdO + st * kMT * LDS, a.dout + q_off, q_rs, q0, a.sq);
-    if (threadIdx.x < 2 * kMT) {  // LSE and D of the tile's rows
-      const int j = threadIdx.x % kMT;
-      const bool in = q0 + j < a.sq;
-      const float* src = threadIdx.x < kMT ? a.lse : a.dd;
-      cp_async4((threadIdx.x < kMT ? sL[st] : sD[st]) + j, in ? src + row_off + q0 + j : src, in);
-    }
-    cp_async_commit();
-  };
-  load_bf16_tile<HD>(sK, a.k + k_off, k_rs, k0, a.skv);
-  load_bf16_tile<HD>(sV, a.v + k_off, k_rs, k0, a.skv);
-  if (t0 < t_end)
-    issue(t0);  // with K and V in its group
-  else
-    cp_async_commit();
-  const int r0 = 16 * warp;  // the warp's keys: r0 + g and r0 + g + 8
-  float dk[NH][4], dv[NH][4];
-#pragma unroll
-  for (int nb = 0; nb < NH; ++nb)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nb][e] = dv[nb][e] = 0.f;
-
-  for (int t = t0; t < t_end; ++t) {
-    const int q0 = t * kMT, st = (t - t0) & 1;
-    if (t + 1 < t_end) issue(t + 1);  // into the stage tile t - 1 used
-    cp_async_wait(t + 1 < t_end);
-    __syncthreads();  // tile t has landed for every thread
-    const bf16* tQ = sQ + st * kMT * LDS;
-    const bf16* tdO = sdO + st * kMT * LDS;
-    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 64 queries
-    float s[8][4], dp[8][4];
-    scores<HD>(s, dp, sK, sV, tQ, tdO, r0, lane);
-    if (clear_tile(a, q0, k0))
-      dkdv_tile_grads<true>(a, s, dp, q0, k0 + r0 + g, sL[st], sD[st], c);
-    else
-      dkdv_tile_grads<false>(a, s, dp, q0, k0 + r0 + g, sL[st], sD[st], c);
-    accumulate<HD>(dv, s, tdO, lane);  // dV += P^T dO
-    accumulate<HD>(dk, dp, tQ, lane);  // dK += dX^T Q
-    __syncthreads();  // the stage is free for tile t + 2
-  }
-  cp_async_wait(false);  // no copy outlives the block
-
-  const bool direct = a.h == a.kvh;
-  const long long ws_half = (long long)gridDim.z * a.skv * q_rs;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int kj = k0 + r0 + g + 8 * h;
-    if (kj >= a.skv) continue;
-    if (direct) {
-      bf16* krow = a.dk + k_off + kj * k_rs;
-      bf16* vrow = a.dv + k_off + kj * k_rs;
-#pragma unroll
-      for (int nb = 0; nb < NH; ++nb) {
-        *reinterpret_cast<uint32_t*>(krow + nb * 8 + c) =
-            pack2f(dk[nb][2 * h] * a.scale, dk[nb][2 * h + 1] * a.scale);
-        *reinterpret_cast<uint32_t*>(vrow + nb * 8 + c) =
-            pack2f(dv[nb][2 * h], dv[nb][2 * h + 1]);
-      }
-    } else {
-      float* wrow = a.ws + (bi * a.skv + kj) * q_rs + (long long)hq * HD;
-#pragma unroll
-      for (int nb = 0; nb < NH; ++nb) {
-        *reinterpret_cast<float2*>(wrow + nb * 8 + c) =
-            make_float2(dk[nb][2 * h] * a.scale, dk[nb][2 * h + 1] * a.scale);
-        *reinterpret_cast<float2*>(wrow + ws_half + nb * 8 + c) =
-            make_float2(dv[nb][2 * h], dv[nb][2 * h + 1]);
-      }
-    }
-  }
-}
-
-// Under GQA: dK and dV of each kv head, the sum in head order of its query
-// heads' shares in `ws` (deterministic), rounded to bf16.
-__global__ void __launch_bounds__(256) bwd_group_sum_kernel(BwdArgs<bf16> a, int hd,
-                                                            long long n_out) {
-  const int group = a.h / a.kvh;
-  const long long ws_half = n_out * group;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n_out;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / hd;  // (b, s, kv head)
-    const int d = (int)(i % hd), hk = (int)(row % a.kvh);
-    const float* w = a.ws + ((row / a.kvh) * a.h + (long long)hk * group) * hd + d;
-    float sk = 0.f, sv = 0.f;
-    for (int gi = 0; gi < group; ++gi) {
-      sk += w[gi * hd];
-      sv += w[ws_half + gi * hd];
-    }
-    a.dk[i] = __float2bfloat16(sk);
-    a.dv[i] = __float2bfloat16(sv);
-  }
-}
-
-// Opt a kernel in to `bytes` of dynamic shared memory, once per device.
-template <typename Kernel>
-cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<uint32_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint32_t bit = 1u << (dev & 31);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 template <int HD, typename T>
 int launch(const BwdArgs<T>& a, int b, cudaStream_t stream) {
   using B = Bwd<HD>;
@@ -848,29 +426,530 @@ int launch(const BwdArgs<T>& a, int b, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------ bf16: wgmma fed by TMA
+
+constexpr int kTcThreads = 160;  // one consumer warpgroup (threads 0-127), one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
 template <int HD>
-int launch_mma(const BwdArgs<bf16>& a, int b, cudaStream_t stream) {
-  constexpr size_t bytes = MmaTile<HD>::SMEM;
-  static std::atomic<uint32_t> dq_set{0}, dkv_set{0};
-  cudaError_t err = opt_in_smem(bwd_dq_mma_kernel<HD>, (int)bytes, dq_set);
+struct TcTile {
+  static constexpr int SLAB = HD < 64 ? HD : 64;  // head-dim columns per swizzled slab
+  static constexpr int ROW = SLAB * 2;            // bytes in one slab row: 128 (64 at hd 32)
+  static constexpr int NSLAB = HD / SLAB;
+  static constexpr uint64_t SWIZZLE = ROW == 128 ? 1 : 2;  // wgmma layout: 128 B or 64 B
+  // gradient columns one block accumulates: at hd 256 a tile's dQ (or dK and
+  // dV) splits over two blocks of 128 columns, each recomputing S and dP
+  static constexpr int COLS = HD < 128 ? HD : 128;
+  static constexpr int SPLIT = HD / COLS;
+  static constexpr int CSLAB = COLS / SLAB;
+  // queries a dK / dV step streams: 32 at hd 64, which keeps the kernel at
+  // 144 registers (2 blocks an SM: with 5 warps a block, a quadrant of the
+  // register file holds 3 warps of at most 168 registers), 64 above (32 took
+  // 12-20% longer at hd 128 and 256)
+  static constexpr int BM = HD <= 64 ? 32 : 64;
+  static constexpr int BN = 64;     // keys a dQ step streams
+  // depth of the streamed ring: a stage is released half a step late (the
+  // pipelined loops), so 3 where shared memory allows
+  static constexpr int STAGES = HD <= 128 ? 3 : 2;
+  static constexpr int FIX = 64 * HD * 2;  // a block's own 64-row tile of Q, dO or K, V
+  static constexpr int Q_STEP = BM * HD * 2, K_STEP = BN * HD * 2;
+  // 1 KB of slack to align the tiles to the 1 KB swizzle atom, the two fixed
+  // tiles, the ring of two streamed tiles, and 1 + 2 x STAGES mbarriers
+  static constexpr int BARS = 8 * (1 + 2 * STAGES);
+  static constexpr int DQ_SMEM = 1024 + 2 * FIX + 2 * STAGES * K_STEP + BARS;
+  static constexpr int DKV_SMEM = 1024 + 2 * FIX + 2 * STAGES * Q_STEP + BARS;
+};
+
+struct TcArgs {
+  const __nv_bfloat16* o;     // o and dO: the D launch reads them
+  const __nv_bfloat16* dout;
+  const float* lse;           // (b, H, sq), natural units
+  float* dd;                  // D, (b, H, sq): written by the D launch, read by both passes
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int b, sq, skv, h, kvh;
+  int causal, window;
+  int softcap;       // whether t = c tanh(x / c)
+  float pre, post;   // base-2 logit: post tanh(pre s) with the softcap, else pre s
+  float scale;       // hd^-0.5
+};
+
+// P and dX of one pair: P = 2^(t - LSE log2 e) with t the base-2 logit
+// (softcapped), dX = P (dP - D), times the softcap's chain factor 1 - tanh^2.
+// Reads the raw score s = q . k and dP and writes neither (the pipelined
+// loops keep product registers out of the elementwise code's writes).
+__device__ __forceinline__ float tc_grads(const TcArgs& a, float s, float dp, float lse2, float d,
+                                          float& p) {
+  float chain = 1.f;
+  if (a.softcap) {
+    const float th = tanh_approx(a.pre * s);
+    p = exp2_approx(fmaf(a.post, th, -lse2));
+    chain = fmaf(-th, th, 1.f);
+  } else {
+    p = exp2_approx(fmaf(s, a.pre, -lse2));
+  }
+  return p * (dp - d) * chain;
+}
+
+// X = A B^T over the head dim, both K-major in shared memory: A a 64-row
+// tile, B a tile of N rows; one commit group.
+template <int HD, int N>
+__device__ __forceinline__ void issue_ss(float (&x)[N / 2], uint64_t a, uint64_t b) {
+  using T = TcTile<HD>;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int slab = kk * 16 / T::SLAB, off = (kk * 16 % T::SLAB) * 2;
+    Mma<N>::ss(x, desc_at(a, slab * 64 * T::ROW + off), desc_at(b, slab * N * T::ROW + off),
+               kk > 0);
+  }
+  wg_commit();
+}
+
+// acc += A B over K rows: A from registers (K / 16 steps), B a K-row tile
+// read MN-major (the transpose bit) from `b`, at its slabs from `slab0` on.
+template <int HD, int K>
+__device__ __forceinline__ void issue_rs(float (&acc)[TcTile<HD>::CSLAB][TcTile<HD>::SLAB / 2],
+                                         const uint32_t (&a)[K / 16][4], uint64_t b, int slab0) {
+  using T = TcTile<HD>;
+#pragma unroll
+  for (int j = 0; j < T::CSLAB; ++j)
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk)
+      Mma<T::SLAB>::rs(acc[j], a[kk], desc_at(b, (slab0 + j) * K * T::ROW + kk * 16 * T::ROW));
+}
+
+// Zero an accumulator, pinned where it stands: the compiler would otherwise
+// sink the zeroing to the first product, inside the pipeline of products
+// already in flight, and ptxas then serializes every wgmma of the kernel.
+template <int HD>
+__device__ __forceinline__ void zero(float (&acc)[TcTile<HD>::CSLAB][TcTile<HD>::SLAB / 2]) {
+#pragma unroll
+  for (int j = 0; j < TcTile<HD>::CSLAB; ++j) {
+#pragma unroll
+    for (int e = 0; e < TcTile<HD>::SLAB / 2; ++e) acc[j][e] = 0.f;
+    pin(acc[j]);
+  }
+}
+
+// Rows r and r + 8 of a 64-row accumulator block (the thread's rows) to bf16
+// rows of `out` (row stride `rs` elements), times `mul`, columns from `col0`.
+template <int HD>
+__device__ __forceinline__ void store_rows(
+    __nv_bfloat16* out, long long rs, int r, int limit,
+    const float (&acc)[TcTile<HD>::CSLAB][TcTile<HD>::SLAB / 2], float mul, int cq) {
+  using T = TcTile<HD>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= limit) continue;
+    __nv_bfloat16* row = out + (long long)(r + 8 * h) * rs + cq;
+#pragma unroll
+    for (int j = 0; j < T::CSLAB; ++j)
+#pragma unroll
+      for (int c = 0; c < T::SLAB / 8; ++c)
+        *reinterpret_cast<uint32_t*>(row + j * T::SLAB + 8 * c) =
+            pack_bf16(acc[j][4 * c + 2 * h] * mul, acc[j][4 * c + 2 * h + 1] * mul);
+  }
+}
+
+// Whether a tile's elementwise pass evaluates the per-pair mask, as a type,
+// so each of the two passes is compiled apart.
+template <bool M>
+struct Mask {
+  static constexpr bool value = M;
+};
+
+// The fixed tiles' barrier, then each stage's "full" barrier (`arrivals`
+// arrive on it) and its "empty" one.
+__device__ __forceinline__ void init_barriers(uint32_t fix_full, uint32_t full, uint32_t empty,
+                                              int stages, int arrivals) {
+  if (threadIdx.x == 0) {
+    mbar_init(fix_full, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + 8 * st, arrivals);
+      mbar_init(empty + 8 * st, 128);  // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// D = rowsum(dO o O) of every query row, (b, H, sq): HD / 8 threads a row,
+// 16 bytes of o and of dO each. Both passes' blocks read it.
+template <int HD>
+__global__ void __launch_bounds__(256) bwd_d_kernel(TcArgs a) {
+  constexpr int L = HD / 8;  // threads a row
+  const long long t = blockIdx.x * 256ll + threadIdx.x, row = t / L;  // (batch, query, head)
+  const bool in = row < (long long)a.b * a.sq * a.h;
+  float acc = 0.f;
+  if (in) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(a.o + t * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(a.dout + t * 8);
+    const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float2 of = __bfloat1622float2(op[x]), gf = __bfloat1622float2(gp[x]);
+      acc = fmaf(of.x, gf.x, fmaf(of.y, gf.y, acc));
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (in && t % L == 0) {
+    const long long hq = row % a.h, qi = row / a.h % a.sq, bi = row / a.h / a.sq;
+    a.dd[(bi * a.h + hq) * a.sq + qi] = acc;
+  }
+}
+
+// The dQ pass: dQ for 64 query rows of one head (the columns of one split),
+// streaming the key tiles the rows can see; `block` counts the pass's
+// blocks.
+template <int HD>
+__device__ __forceinline__ void dq_block(const CUtensorMap& tq, const CUtensorMap& tdo,
+                                         const CUtensorMap& tk, const CUtensorMap& tv,
+                                         const TcArgs& a, int block) {
+  using T = TcTile<HD>;
+  constexpr int BN = T::BN, ROW = T::ROW, SLAB = T::SLAB, S = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sdO = sQ + T::FIX, sK = sdO + T::FIX, sV = sK + S * T::K_STEP;
+  const uint32_t fix_full = sV + S * T::K_STEP, full = fix_full + 8, empty = full + 8 * S;
+
+  // block -> (q tile, split, head, batch), the q tile slowest; causal q
+  // tiles in reverse, so the longest start first
+  const int per = T::SPLIT * a.h * a.b, n_qt = (a.sq + 63) / 64;
+  int rest = block % per;
+  const int q_tile = a.causal ? n_qt - 1 - block / per : block / per;
+  const int split = rest % T::SPLIT;
+  rest /= T::SPLIT;
+  const int hq = rest % a.h, bi = rest / a.h, hk = hq / (a.h / a.kvh), q0 = q_tile * 64;
+  // the key tiles these rows can see: [t_lo, t_hi)
+  const int q_last = min(q0 + 64, a.sq) - 1;
+  const int hi = a.causal ? min(a.skv, q_last + 1) : a.skv;
+  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int t_lo = lo / BN, t_hi = hi > lo ? (hi + BN - 1) / BN : t_lo;
+
+  init_barriers(fix_full, full, empty, S, 1);
+  if (threadIdx.x >= 128) {  // producer warp: one thread issues every copy
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(fix_full, 2 * T::FIX);
+      for (int j = 0; j < T::NSLAB; ++j) {
+        tma_load(sQ + j * 64 * ROW, &tq, fix_full, j * SLAB, hq, q0, bi);
+        tma_load(sdO + j * 64 * ROW, &tdo, fix_full, j * SLAB, hq, q0, bi);
+      }
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo, st = i % S, avail = ((i / S) & 1) ^ 1;
+        mbar_wait(empty + 8 * st, avail);
+        mbar_expect_tx(full + 8 * st, 2 * T::K_STEP);
+        for (int j = 0; j < T::NSLAB; ++j) {
+          tma_load(sK + st * T::K_STEP + j * BN * ROW, &tk, full + 8 * st, j * SLAB, hk, t * BN,
+                   bi);
+          tma_load(sV + st * T::K_STEP + j * BN * ROW, &tv, full + 8 * st, j * SLAB, hk, t * BN,
+                   bi);
+        }
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, lane = tid % 32, cq = 2 * (lane % 4);
+  const int r0 = 16 * (tid / 32) + lane / 4;  // the thread's rows of the tile: r0, r0 + 8
+  const long long row_off = ((long long)bi * a.h + hq) * a.sq;
+  float lse2[2], dr[2];  // the thread's rows' LSE (base 2) and D
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + r0 + 8 * h;
+    dr[h] = qi < a.sq ? a.dd[row_off + qi] : 0.f;
+    lse2[h] = qi < a.sq ? a.lse[row_off + qi] * kLog2e : 0.f;
+  }
+  float dq[T::CSLAB][SLAB / 2];
+  zero<HD>(dq);
+  // Q, dO and K, V K-major (the leading offset is unused under a swizzle); K
+  // also MN-major as dQ += dX K's B operand
+  const uint64_t dQa = smem_desc(sQ, 16, 8 * ROW, T::SWIZZLE);
+  const uint64_t ddOa = smem_desc(sdO, 16, 8 * ROW, T::SWIZZLE);
+  const uint64_t dKb = smem_desc(sK, 16, 8 * ROW, T::SWIZZLE);
+  const uint64_t dVb = smem_desc(sV, 16, 8 * ROW, T::SWIZZLE);
+  const uint64_t dKt = smem_desc(sK, 8 * ROW, 8 * ROW, T::SWIZZLE);
+
+  // Software-pipelined over the key tiles: tile i + 1's S and dP are issued
+  // right behind tile i's dQ product, so the tensor cores run them while
+  // this warpgroup comes round to wait for them; tile i's stage is released
+  // once its dQ product has landed, at the top of step i + 1.
+  const int n_iter = t_hi - t_lo;
+  float s[BN / 2], dp[BN / 2];  // S = Q K^T and dP = dO V^T
+  uint32_t x[BN / 16][4];       // dX, the A operand of dQ += dX K
+  mbar_wait(fix_full, 0);
+  if (n_iter > 0) mbar_wait(full, 0);
+  issue_ss<HD, BN>(s, dQa, dKb);
+  issue_ss<HD, BN>(dp, ddOa, dVb);
+  for (int i = 0; i < n_iter; ++i) {
+    const int st = i % S, k0 = (t_lo + i) * BN;
+    // S and dP have landed, and tile i - 1's dQ product before them
+    wg_wait();
+    pin(s);
+    pin(dp);
+    if (i > 0) {
+      pin(x);
+      mbar_arrive(empty + 8 * ((i - 1) % S));
+    }
+    // only tiles that cross the diagonal, the window's edge, sq or skv
+    // evaluate the mask
+    const bool clear = q0 + 64 <= a.sq && k0 + BN <= a.skv && (!a.causal || k0 + BN - 1 <= q0) &&
+                       (a.window == 0 || k0 > q0 + 63 - a.window);
+    // dX rounded to bf16 in the A-operand layout; the mask a compile-time
+    // choice, so a clear tile carries none of it
+    auto grads = [&](auto masked) {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int h4 = 0; h4 < 4; ++h4) {
+          float v2[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 8 * kk + 2 * h4 + c, h = h4 & 1;
+            float pr;
+            v2[c] = tc_grads(a, s[e], dp[e], lse2[h], dr[h], pr);
+            if (decltype(masked)::value &&
+                !visible(a, q0 + r0 + 8 * h, k0 + 8 * (e >> 2) + cq + c))
+              v2[c] = 0.f;
+          }
+          x[kk][h4] = pack_bf16(v2[0], v2[1]);
+        }
+    };
+    if (clear)
+      grads(Mask<false>());
+    else
+      grads(Mask<true>());
+    wg_fence();
+    issue_rs<HD, BN>(dq, x, desc_at(dKt, st * T::K_STEP), split * T::CSLAB);
+    wg_commit();
+    // issued on every path (after the last step, on a stale stage, and
+    // never read), so the product pipeline has one shape for ptxas
+    const int nst = (i + 1) % S;
+    if (i + 1 < n_iter) mbar_wait(full + 8 * nst, ((i + 1) / S) & 1);
+    issue_ss<HD, BN>(s, dQa, desc_at(dKb, nst * T::K_STEP));
+    issue_ss<HD, BN>(dp, ddOa, desc_at(dVb, nst * T::K_STEP));
+  }
+  wg_wait();
+#pragma unroll
+  for (int j = 0; j < T::CSLAB; ++j) pin(dq[j]);
+  if (n_iter > 0) {
+    pin(x);
+    mbar_arrive(empty + 8 * ((n_iter - 1) % S));
+  }
+  const long long rs = (long long)a.h * HD;
+  store_rows<HD>(a.dq + ((long long)bi * a.sq + q0) * rs + (long long)hq * HD + split * T::COLS,
+                 rs, r0, a.sq - q0, dq, a.scale, cq);
+}
+
+// The dK / dV pass: dK and dV for 64 keys of one kv head (the columns of one
+// split), streaming the query tiles that see them, head after head of the
+// kv head's group, so the group's sum stays in registers.
+template <int HD>
+__device__ __forceinline__ void dkdv_block(const CUtensorMap& tk, const CUtensorMap& tv,
+                                           const CUtensorMap& tq, const CUtensorMap& tdo,
+                                           const TcArgs& a, int block) {
+  using T = TcTile<HD>;
+  constexpr int BM = T::BM, ROW = T::ROW, SLAB = T::SLAB, S = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  // each stage's LSE (base 2) and D of its BM queries, which the producer
+  // warp's lanes store beside the TMA copies
+  __shared__ float sLD[S][2][BM];
+  const uint32_t sK = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sV = sK + T::FIX, sQ = sV + T::FIX, sdO = sQ + S * T::Q_STEP;
+  const uint32_t fix_full = sdO + S * T::Q_STEP, full = fix_full + 8, empty = full + 8 * S;
+
+  // block -> (key tile, split, kv head, batch), the key tile slowest: under
+  // causal the first key tiles, which the most queries see, start first
+  const int per = T::SPLIT * a.kvh * a.b;
+  int rest = block % per;
+  const int k0 = block / per * 64;
+  const int split = rest % T::SPLIT;
+  rest /= T::SPLIT;
+  const int hk = rest % a.kvh, bi = rest / a.kvh, group = a.h / a.kvh;
+  // the query tiles that see these keys: [t_lo, t_hi), for each query head
+  const int k_last = min(k0 + 64, a.skv) - 1;
+  const int q_lo = a.causal ? k0 : 0;
+  const int q_hi = a.window > 0 ? min(a.sq, k_last + a.window) : a.sq;
+  const int t_lo = q_lo / BM, t_hi = q_hi > q_lo ? (q_hi + BM - 1) / BM : t_lo;
+
+  // a stage is full once its copies have landed and the 32 producer lanes
+  // have stored its LSE and D
+  init_barriers(fix_full, full, empty, S, 1 + 32);
+  if (threadIdx.x >= 128) {  // producer warp
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      mbar_expect_tx(fix_full, 2 * T::FIX);
+      for (int j = 0; j < T::NSLAB; ++j) {
+        tma_load(sK + j * 64 * ROW, &tk, fix_full, j * SLAB, hk, k0, bi);
+        tma_load(sV + j * 64 * ROW, &tv, fix_full, j * SLAB, hk, k0, bi);
+      }
+    }
+    int i = 0;
+    for (int g = 0; g < group; ++g) {
+      const int hq = hk * group + g;
+      const long long row_off = ((long long)bi * a.h + hq) * a.sq;
+      for (int t = t_lo; t < t_hi; ++t, ++i) {
+        const int st = i % S, avail = ((i / S) & 1) ^ 1;
+        mbar_wait(empty + 8 * st, avail);
+        if (lane == 0) {
+          mbar_expect_tx(full + 8 * st, 2 * T::Q_STEP);
+          for (int j = 0; j < T::NSLAB; ++j) {
+            tma_load(sQ + st * T::Q_STEP + j * BM * ROW, &tq, full + 8 * st, j * SLAB, hq,
+                     t * BM, bi);
+            tma_load(sdO + st * T::Q_STEP + j * BM * ROW, &tdo, full + 8 * st, j * SLAB, hq,
+                     t * BM, bi);
+          }
+        }
+        for (int c = lane; c < BM; c += 32) {
+          const int qi = t * BM + c;
+          const bool in = qi < a.sq;
+          sLD[st][0][c] = in ? a.lse[row_off + qi] * kLog2e : 0.f;
+          sLD[st][1][c] = in ? a.dd[row_off + qi] : 0.f;
+        }
+        mbar_arrive(full + 8 * st);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x, lane = tid % 32, cq = 2 * (lane % 4);
+  const int r0 = 16 * (tid / 32) + lane / 4;  // the thread's keys of the tile: r0, r0 + 8
+  float dk[T::CSLAB][SLAB / 2], dv[T::CSLAB][SLAB / 2];
+  zero<HD>(dk);
+  zero<HD>(dv);
+  // K, V and Q, dO K-major for S^T = K Q^T and dP^T = V dO^T; Q and dO also
+  // MN-major as the B operands of dK += dX^T Q and dV += P^T dO
+  const uint64_t dKa = smem_desc(sK, 16, 8 * ROW, T::SWIZZLE);
+  const uint64_t dVa = smem_desc(sV, 16, 8 * ROW, T::SWIZZLE);
+  const uint64_t dQb = smem_desc(sQ, 16, 8 * ROW, T::SWIZZLE);
+  const uint64_t ddOb = smem_desc(sdO, 16, 8 * ROW, T::SWIZZLE);
+  const uint64_t dQt = smem_desc(sQ, 8 * ROW, 8 * ROW, T::SWIZZLE);
+  const uint64_t ddOt = smem_desc(sdO, 8 * ROW, 8 * ROW, T::SWIZZLE);
+
+  // Software-pipelined over the (query head, query tile) steps, as the dQ
+  // pass: step i + 1's S^T and dP^T are issued right behind step i's dV and
+  // dK products.
+  const int n_t = t_hi - t_lo, n_iter = group * n_t;
+  float s[BM / 2], dp[BM / 2];  // S^T and dP^T: keys x queries
+  uint32_t p[BM / 16][4], x[BM / 16][4];  // P^T and dX^T, the A operands
+  mbar_wait(fix_full, 0);
+  if (n_iter > 0) mbar_wait(full, 0);
+  issue_ss<HD, BM>(s, dKa, dQb);
+  issue_ss<HD, BM>(dp, dVa, ddOb);
+  for (int i = 0; i < n_iter; ++i) {
+    const int st = i % S, q0 = (t_lo + i % n_t) * BM;
+    const float* lse2 = sLD[st][0];
+    const float* dcol = sLD[st][1];
+    const bool clear = q0 + BM <= a.sq && k0 + 64 <= a.skv && (!a.causal || k0 + 63 <= q0) &&
+                       (a.window == 0 || k0 > q0 + BM - 1 - a.window);
+    // S^T and dP^T have landed, and step i - 1's products before them
+    wg_wait();
+    pin(s);
+    pin(dp);
+    if (i > 0) {
+      pin(p);
+      pin(x);
+      mbar_arrive(empty + 8 * ((i - 1) % S));
+    }
+    // P^T and dX^T rounded to bf16 in the A-operand layout (the mask a
+    // compile-time choice, so a clear tile carries none of it)
+    auto grads = [&](auto masked) {
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+        for (int h4 = 0; h4 < 4; ++h4) {
+          float p2[2], x2[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 8 * kk + 2 * h4 + c, col = 8 * (e >> 2) + cq + c;
+            x2[c] = tc_grads(a, s[e], dp[e], lse2[col], dcol[col], p2[c]);
+            if (decltype(masked)::value &&
+                !visible(a, q0 + col, k0 + r0 + 8 * (h4 & 1)))
+              p2[c] = x2[c] = 0.f;
+          }
+          p[kk][h4] = pack_bf16(p2[0], p2[1]);
+          x[kk][h4] = pack_bf16(x2[0], x2[1]);
+        }
+    };
+    if (clear)
+      grads(Mask<false>());
+    else
+      grads(Mask<true>());
+    wg_fence();
+    issue_rs<HD, BM>(dv, p, desc_at(ddOt, st * T::Q_STEP), split * T::CSLAB);
+    wg_commit();
+    wg_fence();
+    issue_rs<HD, BM>(dk, x, desc_at(dQt, st * T::Q_STEP), split * T::CSLAB);
+    wg_commit();
+    const int nst = (i + 1) % S;  // issued on every path, as in the dQ pass
+    if (i + 1 < n_iter) mbar_wait(full + 8 * nst, ((i + 1) / S) & 1);
+    issue_ss<HD, BM>(s, dKa, desc_at(dQb, nst * T::Q_STEP));
+    issue_ss<HD, BM>(dp, dVa, desc_at(ddOb, nst * T::Q_STEP));
+  }
+  wg_wait();
+#pragma unroll
+  for (int j = 0; j < T::CSLAB; ++j) {
+    pin(dk[j]);
+    pin(dv[j]);
+  }
+  if (n_iter > 0) {
+    pin(p);
+    pin(x);
+    mbar_arrive(empty + 8 * ((n_iter - 1) % S));
+  }
+  const long long rs = (long long)a.kvh * HD;
+  const long long off = ((long long)bi * a.skv + k0) * rs + (long long)hk * HD + split * T::COLS;
+  store_rows<HD>(a.dk + off, rs, r0, a.skv - k0, dk, a.scale, cq);
+  store_rows<HD>(a.dv + off, rs, r0, a.skv - k0, dv, 1.f, cq);
+}
+
+// Both passes in one grid: the dK / dV blocks first (longest first), then
+// the dQ blocks, so each pass's tail of short blocks runs beside the other's
+// work.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tq_bm, const __grid_constant__ CUtensorMap tdo_bm,
+              TcArgs a, int n_dkdv) {
+  if ((int)blockIdx.x < n_dkdv)
+    dkdv_block<HD>(tk, tv, tq_bm, tdo_bm, a, blockIdx.x);
+  else
+    dq_block<HD>(tq, tdo, tk, tv, a, blockIdx.x - n_dkdv);
+}
+
+// D, then both passes in one grid, on the stream.
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const TcArgs& a, cudaStream_t stream) {
+  using T = TcTile<HD>;
+  const long long qs = (long long)a.h * HD, ks = (long long)a.kvh * HD;
+  CUtensorMap q64, do64, qbm, dobm, k64, v64;
+  if (!make_map(&q64, q, HD, a.h, a.sq, a.b, HD, qs, qs * a.sq, T::SLAB, 64) ||
+      !make_map(&do64, a.dout, HD, a.h, a.sq, a.b, HD, qs, qs * a.sq, T::SLAB, 64) ||
+      !make_map(&qbm, q, HD, a.h, a.sq, a.b, HD, qs, qs * a.sq, T::SLAB, T::BM) ||
+      !make_map(&dobm, a.dout, HD, a.h, a.sq, a.b, HD, qs, qs * a.sq, T::SLAB, T::BM) ||
+      !make_map(&k64, k, HD, a.kvh, a.skv, a.b, HD, ks, ks * a.skv, T::SLAB, 64) ||
+      !make_map(&v64, v, HD, a.kvh, a.skv, a.b, HD, ks, ks * a.skv, T::SLAB, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int smem = T::DQ_SMEM > T::DKV_SMEM ? T::DQ_SMEM : T::DKV_SMEM;
+  static std::atomic<uint32_t> smem_set{0};
+  cudaError_t err = opt_in_smem(bwd_tc_kernel<HD>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  err = opt_in_smem(bwd_dkdv_mma_kernel<HD>, (int)bytes, dkv_set);
-  if (err != cudaSuccess) return (int)err;
-  bwd_dq_mma_kernel<HD><<<dim3((a.sq + kMT - 1) / kMT, a.h, b), kMmaThreads, bytes, stream>>>(a);
+  const long long threads = (long long)a.b * a.sq * a.h * (HD / 8);
+  bwd_d_kernel<HD><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkdv_mma_kernel<HD>
-      <<<dim3((a.skv + kMT - 1) / kMT, a.h, b), kMmaThreads, bytes, stream>>>(a);
-  if (a.h == a.kvh) return (int)cudaGetLastError();
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long n_out = (long long)b * a.skv * a.kvh * HD;
-  const int blocks = (int)((n_out + 255) / 256 < 4096 ? (n_out + 255) / 256 : 4096);
-  bwd_group_sum_kernel<<<blocks, 256, 0, stream>>>(a, HD, n_out);
+  const int n_dkdv = (a.skv + 63) / 64 * T::SPLIT * a.kvh * a.b;
+  const int n_dq = (a.sq + 63) / 64 * T::SPLIT * a.h * a.b;
+  bwd_tc_kernel<HD><<<n_dkdv + n_dq, kTcThreads, smem, stream>>>(q64, do64, k64, v64, qbm, dobm,
+                                                                 a, n_dkdv);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const BwdArgs<float>& a, int b, int hd, cudaStream_t stream) {
+int dispatch_f32(const BwdArgs<float>& a, int b, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<32, float>(a, b, stream);
     case 64: return launch<64, float>(a, b, stream);
@@ -880,55 +959,52 @@ int dispatch(const BwdArgs<float>& a, int b, int hd, cudaStream_t stream) {
   }
 }
 
-// bf16 takes the tensor cores at hd <= 128, the SIMT kernels at hd 256
-// (where 16 keys' dK and dV of a warp would not fit its registers)
-int dispatch(const BwdArgs<bf16>& a, int b, int hd, cudaStream_t stream) {
+int dispatch_bf16(const void* q, const void* k, const void* v, const TcArgs& a, int hd,
+                  cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_mma<32>(a, b, stream);
-    case 64: return launch_mma<64>(a, b, stream);
-    case 128: return launch_mma<128>(a, b, stream);
-    case 256: return launch<256, bf16>(a, b, stream);
+    case 32: return launch_tc<32>(q, k, v, a, stream);
+    case 64: return launch_tc<64>(q, k, v, a, stream);
+    case 128: return launch_tc<128>(q, k, v, a, stream);
+    case 256: return launch_tc<256>(q, k, v, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-template <typename T>
-BwdArgs<T> make_args(const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, const void* lse, void* dd, void* dq, void* dk, void* dv,
-                     void* ws, int sq, int skv, int h, int kvh, int hd, int causal, int window,
-                     float softcap) {
-  return BwdArgs<T>{static_cast<const T*>(q),    static_cast<const T*>(k),
-                    static_cast<const T*>(v),    static_cast<const T*>(o),
-                    static_cast<const T*>(dout), static_cast<const float*>(lse),
-                    static_cast<float*>(dd),     static_cast<T*>(dq),
-                    static_cast<T*>(dk),         static_cast<T*>(dv),
-                    sq, skv, h, kvh, causal, window, softcap, 1.0f / sqrtf((float)hd),
-                    static_cast<float*>(ws)};
 }
 
 }  // namespace
 
 // q, o, dout, dq (b, sq, h, hd); k, v, dk, dv (b, skv, kvh, hd); lse and the
-// scratch dd (b, h, sq) f32; all contiguous. The scratch ws, 2 x (b, skv, h,
-// hd) f32, is read only for bf16 at hd <= 128 with kvh < h (null otherwise).
-// dtype 0 = f32, 1 = bf16; hd in {32, 64, 128, 256}; kvh divides h; b and h
-// at most 65535.
+// scratch dd (b, h, sq) f32; all contiguous, 16-byte aligned. dtype 0 = f32,
+// 1 = bf16; hd in {32, 64, 128, 256}; kvh divides h; b and h at most 65535.
+// `ws` is unused: it keeps the signature of the earlier kernels, so the
+// variants harness can load either file through one entry point.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* dd, void* dq,
                                       void* dk, void* dv, void* ws, int b, int sq, int skv, int h,
                                       int kvh, int hd, int causal, int window, float softcap,
                                       int dtype, void* stream) {
+  (void)ws;
   if (b <= 0 || sq <= 0 || skv <= 0) return 0;
   if (h <= 0 || kvh <= 0 || h % kvh || h > 65535 || b > 65535 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch(make_args<float>(q, k, v, o, dout, lse, dd, dq, dk, dv, ws, sq, skv, h, kvh,
-                                     hd, causal, window, softcap),
-                    b, hd, s);
-  if (dtype == 1)
-    return dispatch(make_args<__nv_bfloat16>(q, k, v, o, dout, lse, dd, dq, dk, dv, ws, sq, skv,
-                                             h, kvh, hd, causal, window, softcap),
-                    b, hd, s);
+  const float scale = 1.0f / sqrtf((float)hd);
+  if (dtype == 0) {
+    const BwdArgs<float> a{static_cast<const float*>(q),    static_cast<const float*>(k),
+                           static_cast<const float*>(v),    static_cast<const float*>(o),
+                           static_cast<const float*>(dout), static_cast<const float*>(lse),
+                           static_cast<float*>(dd),         static_cast<float*>(dq),
+                           static_cast<float*>(dk),         static_cast<float*>(dv),
+                           sq, skv, h, kvh, causal, window, softcap, scale};
+    return dispatch_f32(a, b, hd, s);
+  }
+  if (dtype == 1) {
+    const TcArgs a{static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+                   static_cast<const float*>(lse), static_cast<float*>(dd),
+                   static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), b, sq, skv, h, kvh, causal, window,
+                   softcap > 0.f, softcap > 0.f ? scale / softcap : scale * kLog2e,
+                   softcap * kLog2e, scale};
+    return dispatch_bf16(q, k, v, a, hd, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -16,9 +16,12 @@ nodes differ only by what a lossy gossip wire leaves. Here:
 1. node i takes ``train_loss`` and its gradient at its own parameters on its
    own ``batch_per_node`` rows (in ``FederatedData.global_batch``'s node
    order), with ``cfg.microbatches`` accumulated in f32 within those rows;
-2. the step's gradient is the mean over nodes (accumulated in f32, then in
-   the parameters' dtype, as the reference's gradients are), its loss the
-   mean of the nodes' losses;
+2. the step's loss and gradient are the reference's: the global batch's
+   cross-entropy over its count of labels >= 0 (per microbatch slice of the
+   global batch, then averaged over the slices), so node i weighs by its
+   share of the valid labels, 1 / N only when the nodes hold equal counts
+   (P4); the gradient accumulates in f32, then in the parameters' dtype, as
+   the reference's gradients are;
 3. ``clip_by_global_norm`` clips that mean (one norm, ``grad_norm``), and the
    optimizer updates every node's parameters and masters with it;
 4. gossip runs through :func:`gossip_exchange` on the masters when they
@@ -126,12 +129,23 @@ class DFLTrainer:
                           step=torch.zeros((), dtype=torch.int32, device=self.device))
 
     # -- gradients ---------------------------------------------------------------
-    def node_grads(self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor
-                   ) -> Tuple[torch.Tensor, PyTree]:
-        """(loss, grads) of one node at its own ``params`` (no node axis) on
-        its own rows; grads in the parameters' dtype. With
-        ``cfg.microbatches`` > 1 dividing the rows, the microbatches'
-        gradients average in f32, as the reference accumulates them."""
+    def _own_parts(self, rows: int) -> List[Tuple[slice, float]]:
+        """A node's rows alone: ``cfg.microbatches`` equal parts of weight
+        1 / mb where they divide the rows, else one part of weight 1."""
+        mb = max(int(self.cfg.microbatches), 1)
+        if mb > 1 and rows % mb == 0:
+            step = rows // mb
+            return [(slice(j * step, (j + 1) * step), 1.0 / mb) for j in range(mb)]
+        return [(slice(0, rows), 1.0)]
+
+    def _weighted_grads(self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor,
+                        parts: List[Tuple[slice, Any]], acc: Optional[List[torch.Tensor]]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], PyTree]:
+        """``train_loss`` on each part of the rows at ``params`` (no node
+        axis), weighted: returns sum_p w_p loss_p, the rows' own mean loss
+        (each part's weighted by its count of labels >= 0), and the gradients
+        sum_p w_p grad loss_p added in f32 into ``acc`` (one tensor a leaf,
+        made when None), with the live tree that maps them back."""
         leaves: List[torch.Tensor] = []
 
         def leaf(t: torch.Tensor) -> torch.Tensor:
@@ -140,50 +154,92 @@ class DFLTrainer:
             return t
 
         live = tree_map(leaf, params)
-
-        def unflatten(flat):
-            it = iter(flat)
-            return tree_map(lambda _: next(it), live)
-
-        mb = max(int(self.cfg.microbatches), 1)
-        rows = tokens.shape[0]
-        if mb > 1 and rows % mb == 0:
-            step = rows // mb
-            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in leaves]
-            for j in range(mb):
-                part = slice(j * step, (j + 1) * step)
-                l = self.model.train_loss(live, Batch(tokens=tokens[part], labels=labels[part]))
-                g = torch.autograd.grad(l, leaves)
+        zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        loss, own, count = zero, zero, zero
+        for rows, w in parts:
+            lab = labels[rows]
+            l = self.model.train_loss(live, Batch(tokens=tokens[rows], labels=lab))
+            g = torch.autograd.grad(l, leaves)
+            if acc is None:  # (the gradients are ours: scaled in place)
+                acc = [x.float().mul_(w) for x in g]
+            else:
                 for a, x in zip(acc, g):
-                    a.add_(x.float() / mb)
-                loss = loss + l.detach() / mb
-            return loss, unflatten([a.to(t.dtype) for a, t in zip(acc, leaves)])
-        loss = self.model.train_loss(live, Batch(tokens=tokens, labels=labels))
-        return loss.detach(), unflatten(torch.autograd.grad(loss, leaves))
+                    a.add_(x.float().mul_(w))
+            del g
+            c = (lab >= 0).sum()
+            loss = loss + l.detach() * w
+            own = own + l.detach() * c
+            count = count + c
+        return loss, own / count.clamp(min=1), acc, live
+
+    def node_grads(self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor
+                   ) -> Tuple[torch.Tensor, PyTree]:
+        """(loss, grads) of one node at its own ``params`` (no node axis) on
+        its own rows; grads in the parameters' dtype. With
+        ``cfg.microbatches`` > 1 dividing the rows, the microbatches'
+        gradients average in f32, as the reference accumulates them."""
+        loss, _, acc, live = self._weighted_grads(params, tokens, labels,
+                                                  self._own_parts(tokens.shape[0]), None)
+        it = iter(acc)
+        return loss, tree_map(lambda t: next(it).to(t.dtype), live)
+
+    def row_weights(self, labels: torch.Tensor) -> torch.Tensor:
+        """(G,) f32 on the labels' device: the weight of each global row's
+        summed cross-entropy in the reference's loss (P4). The reference
+        splits the global batch into ``mb`` contiguous slices where
+        ``cfg.microbatches`` = mb > 1 divides its G rows (else one slice),
+        takes each slice's CE over its own count C_j of labels >= 0, and
+        averages the slices: a row of slice j weighs 1 / (mb max(C_j, 1))."""
+        g_rows = labels.shape[0]
+        mb = self._slices(g_rows)
+        counts = (labels >= 0).reshape(mb, -1).sum(dim=1).float()
+        return (1.0 / (mb * counts.clamp(min=1.0))).repeat_interleave(g_rows // mb)
+
+    def _slices(self, g_rows: int) -> int:
+        mb = max(int(self.cfg.microbatches), 1)
+        return mb if mb > 1 and g_rows % mb == 0 else 1
+
+    def _node_parts(self, i: int, bpn: int, g_rows: int) -> List[slice]:
+        """Node i's rows (global indices), cut where a reference slice ends
+        and, where ``cfg.microbatches`` divides ``bpn``, into the node's own
+        microbatches (which then lie inside one slice each)."""
+        lo, hi = i * bpn, (i + 1) * bpn
+        cuts = {lo, hi}
+        mb = self._slices(g_rows)
+        if mb > 1:
+            cuts |= {r for r in range(0, g_rows, g_rows // mb) if lo < r < hi}
+            if bpn % mb == 0:
+                cuts |= set(range(lo, hi, bpn // mb))
+        cuts = sorted(cuts)
+        return [slice(a, b) for a, b in zip(cuts[:-1], cuts[1:])]
 
     def grads(self, params: PyTree, batch: Batch) -> Tuple[torch.Tensor, PyTree, List[float]]:
-        """(mean loss, mean gradient over nodes, each node's loss): node i at
-        its row of ``params`` on rows [i·bpn, (i+1)·bpn) of the batch."""
+        """(the step's loss, its gradient, each node's own mean loss): node i
+        at its row of ``params`` on rows [i·bpn, (i+1)·bpn) of the batch.
+
+        The reference differentiates the global batch's masked-mean loss, so
+        node i's share weighs by its count of valid labels, not 1 / N (P4):
+        each part of its rows (see :meth:`_node_parts`) takes the weight
+        c_p / (mb max(C_j, 1)) of :meth:`row_weights`, c_p the part's count
+        of labels >= 0. The weights stay on the device; with equal counts
+        they are 1 / (N mb), the plain mean over nodes."""
         n = self.n_nodes
         tokens = batch.tokens.to(self.device)
         labels = batch.labels.to(self.device)
-        if tokens.shape[0] % n:
-            raise ValueError(f"a batch of {tokens.shape[0]} rows does not split over {n} nodes")
-        bpn = tokens.shape[0] // n
-        acc, losses = None, []
+        g_rows = tokens.shape[0]
+        if g_rows % n:
+            raise ValueError(f"a batch of {g_rows} rows does not split over {n} nodes")
+        bpn = g_rows // n
+        row_w = self.row_weights(labels) * (labels >= 0).sum(dim=1)
+        acc, loss, losses = None, None, []
         for i in range(n):
-            rows = slice(i * bpn, (i + 1) * bpn)
-            loss, g = self.node_grads(tree_map(lambda t: t[i], params), tokens[rows],
-                                      labels[rows])
-            if acc is None:
-                acc = tree_map(lambda x: x.float(), g)
-            else:
-                tree_map(lambda a, x: a.add_(x.float()), acc, g)
-            losses.append(loss)
-            del g
-        mean = tree_map(lambda a, p: (a / n).to(p.dtype), acc, params)
-        loss = torch.stack(losses).mean()
+            parts = [(rows, row_w[rows].sum()) for rows in self._node_parts(i, bpn, g_rows)]
+            l, own, acc, _ = self._weighted_grads(tree_map(lambda t: t[i], params), tokens,
+                                                  labels, parts, acc)
+            loss = l if loss is None else loss + l
+            losses.append(own)
+        it = iter(acc)
+        mean = tree_map(lambda p: next(it).to(p.dtype), params)
         return loss, mean, [float(x) for x in losses]
 
     # -- the step -------------------------------------------------------------

@@ -5,7 +5,8 @@ Every ``csrc/*.cu`` has a plain C interface (pointers, sizes, the stream; an
 PyTorch's headers and a build takes seconds. The sources compile in
 parallel, one ``nvcc`` each, for ``sm_90a`` (Hopper), then link into one
 shared library under ``build/repro_torch/<hash>/`` at the repository root,
-keyed on a hash of the sources and flags. The build runs on first use; a
+keyed on a hash of the sources, the headers they share (``csrc/*.cuh``) and
+the flags. The build runs on first use; a
 failed build raises.
 
 No ``--use_fast_math``: the quantizer divides with a true IEEE divide and
@@ -52,8 +53,9 @@ SIGNATURES = {
                                *[_I64] * 9, _I32, _I32, _F32, _P],
     "rt_flash_attention_bf16": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32,
                                 *[_I64] * 9, _I32, _I32, _F32, _P],
-    # q, k, v, o, lse, dO, D scratch, dq, dk, dv, GQA scratch (or null), b, sq,
-    # skv, h, kvh, hd, causal, window, softcap, dtype (0 = f32, 1 = bf16), stream
+    # q, k, v, o, lse, dO, D scratch, dq, dk, dv, an unused pointer (the
+    # earlier kernels' GQA scratch), b, sq, skv, h, kvh, hd, causal, window,
+    # softcap, dtype (0 = f32, 1 = bf16), stream
     "rt_flash_attention_bwd": [*[_P] * 11, _I32, _I32, _I32, _I32, _I32, _I32,
                                _I32, _I32, _F32, _I32, _P],
     # dt, B, C, x, A_log, D, y, h_last, b, s, di, n, x dtype, y dtype, stream
@@ -77,9 +79,13 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build_dir() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + COMPILE_FLAGS).encode())
@@ -99,7 +105,7 @@ def build() -> float:
     procs = []
     for src in sources():
         obj = out_dir / (src.stem + ".o")
-        cmd = [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     logs, failed = [], []

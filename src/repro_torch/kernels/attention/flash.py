@@ -11,10 +11,11 @@ whose strides are multiples of 8 elements; any other bf16 layout raises.
 With ``return_lse`` the forward also writes each row's log-sum-exp.
 
 :func:`flash_attention_bwd` binds ``csrc/flash_attention_bwd.cu``: dQ, dK
-and dV from q, k, v, the output, its LSE and dO. The JAX package has no
-backward kernel (its trainer differentiates einsum attention); bound by
-operations, the source states the bound and the design. CUDA tensors only:
-:mod:`.ops` dispatches.
+and dV from q, k, v, the output, its LSE and dO, in two launches (dQ, then
+dK and dV); bf16 runs on the tensor cores (wgmma fed by TMA), f32 on SIMT
+kernels. The JAX package has no backward kernel (its trainer differentiates
+einsum attention); bound by operations, the source states the bound and the
+design. CUDA tensors only: :mod:`.ops` dispatches.
 """
 from __future__ import annotations
 
@@ -111,8 +112,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32 \
             or any(t.device != q.device for t in (o, lse, do)):
         raise ValueError("flash_attention_bwd: o and do in q's dtype, lse f32, all on q's device")
-    # contiguous, from a 16-byte-aligned base (the tensor-core passes load
-    # 16 bytes a thread)
+    # contiguous, from a 16-byte-aligned base (TMA's rule, and the dQ pass
+    # reads o and dO 16 bytes a thread)
     q, k, v, o, lse, do = (t.contiguous() if t.is_contiguous() and t.data_ptr() % 16 == 0
                            else t.clone(memory_format=torch.contiguous_format)
                            for t in (q, k, v, o, lse, do))
@@ -120,16 +121,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if not (q.numel() and s_kv):
         return dq.zero_(), dk.zero_(), dv.zero_()
     dd = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)  # D, pass 1 -> 2
-    # the tensor-core pass 2 under GQA: each query head's dK and dV, summed
-    # over the group by a third launch
-    ws = (torch.empty((2, b, s_kv, h, hd), dtype=torch.float32, device=q.device)
-          if q.dtype == torch.bfloat16 and hd <= 128 and kvh < h else None)
     with torch.cuda.device(q.device):
         status = lib().rt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr(), dd.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            None if ws is None else ws.data_ptr(), b, s_q, s_kv, h, kvh, hd, int(causal),
-            int(sliding_window), float(softcap), 0 if q.dtype == torch.float32 else 1,
+            None, b, s_q, s_kv, h, kvh, hd, int(causal), int(sliding_window), float(softcap),
+            0 if q.dtype == torch.float32 else 1,
             torch.cuda.current_stream(q.device).cuda_stream)
     count_launch("flash_attention_bwd", (b, s_q, s_kv, h, kvh, hd))
     check(status, "flash_attention_bwd")

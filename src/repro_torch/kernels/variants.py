@@ -3,6 +3,7 @@ planted faults (does the check catch them?) and design variants (what does
 a choice cost?).
 
     PYTHONPATH=src python -m repro_torch.kernels.variants [--only FILE ...] [--source NAME=FILE ...]
+        [--sources-only]
 
 Each variant is a shipped ``csrc`` file with textual edits (each edit must
 match exactly once, or the run fails). All variants build at once, one nvcc
@@ -10,7 +11,8 @@ each with the shipped flags, into their own libraries under
 ``build/repro_torch/variants/``, and are called through the same C entry
 point as the shipped kernel. ``--source NAME=FILE`` adds a whole file as one
 more variant of the shipped file of the same name (an earlier revision, say);
-``--only FILE`` keeps the variants and cases of that source file alone.
+``--only FILE`` keeps the variants and cases of that source file alone, and
+``--sources-only`` runs the ``--source`` files without the edited variants.
 
 Prints ptxas's registers and spills for each variant's kernels, then for
 each case the shipped kernel first and last (so drift shows) and every
@@ -85,6 +87,81 @@ ARGMAX_SELECT = """  if (k > 0) {
   }
 """
 
+# the backward's tensor-core products, where a planted fault zeroes one
+# step's A operand (the step's tile then adds nothing; the pipeline runs on)
+BWD_DV = "    wg_fence();\n    issue_rs<HD, BM>(dv, p, "
+BWD_DK = "    wg_fence();\n    issue_rs<HD, BM>(dk, x, "
+BWD_DQ = "    wg_fence();\n    issue_rs<HD, BN>(dq, x, "
+
+
+def bwd_skip(cond: str, operand: str, k: str, indent: str = "    ") -> str:
+    return (f"{indent}if ({cond})\n{indent}  for (int kk = 0; kk < {k} / 16; ++kk)\n"
+            f"{indent}    for (int h4 = 0; h4 < 4; ++h4) {operand}[kk][h4] = 0u;\n")
+
+
+# GQA's other design for the dK / dV pass: a block per (key tile, query
+# head), each writing its head's share of dK and dV to an f32 scratch
+# (b, skv, H, hd) x 2, and a third launch summing each kv head's shares in
+# head order (deterministic), as the earlier mma.sync kernel did
+BWD_GROUP_SUM = """// the group's shares in the scratch, summed in head order
+__global__ void __launch_bounds__(256) group_sum_kernel(TcArgs a, int hd, long long n_out) {
+  const int group = a.h / a.kvh;
+  const long long half = n_out * group;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n_out;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / hd;  // (b, s, kv head)
+    const int d = (int)(i % hd), hk = (int)(row % a.kvh);
+    const float* w = a.ws + ((row / a.kvh) * a.h + (long long)hk * group) * hd + d;
+    float sk = 0.f, sv = 0.f;
+    for (int gi = 0; gi < group; ++gi) {
+      sk += w[gi * hd];
+      sv += w[half + gi * hd];
+    }
+    a.dk[i] = __float2bfloat16(sk);
+    a.dv[i] = __float2bfloat16(sv);
+  }
+}
+
+"""
+BWD_SPLIT_HEADS = (
+    ("  float scale;       // hd^-0.5\n};", "  float scale;       // hd^-0.5\n  float* ws;\n};"),
+    ("softcap * kLog2e, scale};", "softcap * kLog2e, scale, static_cast<float*>(ws)};"),
+    ("  const int per = T::SPLIT * a.kvh * a.b;", "  const int per = T::SPLIT * a.h * a.b;"),
+    ("  const int hk = rest % a.kvh, bi = rest / a.kvh, group = a.h / a.kvh;",
+     "  const int hq0 = rest % a.h, bi = rest / a.h, hk = hq0 / (a.h / a.kvh), group = 1;"),
+    ("      const int hq = hk * group + g;\n      const long long row_off",
+     "      const int hq = hq0 + g;\n      const long long row_off"),
+    ("  store_rows<HD>(a.dk + off, rs, r0, a.skv - k0, dk, a.scale, cq);\n"
+     "  store_rows<HD>(a.dv + off, rs, r0, a.skv - k0, dv, 1.f, cq);\n",
+     "  (void)off;\n"
+     "  const long long half = (long long)a.b * a.skv * a.h * HD;\n"
+     "  for (int hh = 0; hh < 2; ++hh) {\n"
+     "    const int kj = k0 + r0 + 8 * hh;\n"
+     "    if (kj >= a.skv) continue;\n"
+     "    float* w = a.ws + (((long long)bi * a.skv + kj) * a.h + hq0) * HD + split * T::COLS\n"
+     "               + cq;\n"
+     "    for (int j = 0; j < T::CSLAB; ++j)\n"
+     "      for (int c = 0; c < SLAB / 8; ++c) {\n"
+     "        const int col = j * SLAB + 8 * c;\n"
+     "        w[col] = dk[j][4 * c + 2 * hh] * a.scale;\n"
+     "        w[col + 1] = dk[j][4 * c + 2 * hh + 1] * a.scale;\n"
+     "        w[half + col] = dv[j][4 * c + 2 * hh];\n"
+     "        w[half + col + 1] = dv[j][4 * c + 2 * hh + 1];\n"
+     "      }\n"
+     "  }\n"),
+    ("// Both passes in one grid: the dK / dV",
+     BWD_GROUP_SUM + "// Both passes in one grid: the dK / dV"),
+    ("  const int n_dkdv = (a.skv + 63) / 64 * T::SPLIT * a.kvh * a.b;",
+     "  const int n_dkdv = (a.skv + 63) / 64 * T::SPLIT * a.h * a.b;"),
+    ("                                                                 a, n_dkdv);\n"
+     "  return (int)cudaGetLastError();",
+     "                                                                 a, n_dkdv);\n"
+     "  const long long n_out = (long long)a.b * a.skv * a.kvh * HD;\n"
+     "  const int blocks = (int)((n_out + 255) / 256 < 4096 ? (n_out + 255) / 256 : 4096);\n"
+     "  group_sum_kernel<<<blocks, 256, 0, stream>>>(a, HD, n_out);\n"
+     "  return (int)cudaGetLastError();"),
+)
+
 VARIANTS = (
     # planted faults: each must fail the check where it applies
     Variant("fault: the middle key tile of a range of 8 or more skipped", "flash_attention.cu",
@@ -110,79 +187,91 @@ VARIANTS = (
             (("constexpr int kCh = 8;", "constexpr int kCh = 4;"),
              ("constexpr int kSegs = 4;", "constexpr int kSegs = 8;"))),
     # the flash backward: planted faults, from the row a tile's largest P
-    # sits in to one near zero, to set the bf16 tolerance between them
-    Variant("fault: backward, the diagonal query tile skipped in dK, dV (8+ tiles)",
+    # sits in to one near zero, to set the bf16 tolerance between them (the
+    # SIMT ones apply to the f32 cases)
+    Variant("fault: backward, SIMT, the diagonal query tile skipped in dK, dV (8+ tiles)",
             "flash_attention_bwd.cu",
             (("    for (int q0 = (q_lo / kBQ) * kBQ; q0 < q_hi; q0 += kBQ) {",
               "    for (int q0 = (q_lo / kBQ) * kBQ + (q_hi - q_lo >= 8 * kBQ ? kBQ : 0); "
               "q0 < q_hi;\n         q0 += kBQ) {"),)),
-    Variant("fault: backward, the last query tile skipped in dK, dV (8+ tiles)",
+    Variant("fault: backward, SIMT, the last query tile skipped in dK, dV (8+ tiles)",
             "flash_attention_bwd.cu",
             (("    for (int q0 = (q_lo / kBQ) * kBQ; q0 < q_hi; q0 += kBQ) {",
               "    for (int q0 = (q_lo / kBQ) * kBQ;\n"
               "         q0 < q_hi && (q_hi - q_lo < 8 * kBQ || q0 + kBQ < q_hi); q0 += kBQ) {"),)),
-    Variant("fault: backward, dQ's middle key tile skipped (8+ tiles)", "flash_attention_bwd.cu",
+    Variant("fault: backward, SIMT, dQ's middle key tile skipped (8+ tiles)",
+            "flash_attention_bwd.cu",
             (("    __syncthreads();  // the previous tile's sK, sV and sdX are no longer read",
               "    if (hi - lo >= 8 * BK && k0 == (lo / BK + (hi - 1) / BK) / 2 * BK) continue;\n"
               "    __syncthreads();  // the previous tile's sK, sV and sdX are no longer read"),)),
-    Variant("fault: backward, tensor cores, the diagonal query tile skipped in dK, dV "
-            "(8+ tiles)", "flash_attention_bwd.cu",
-            (("    const bf16* tQ = sQ + st * kMT * LDS;",
-              "    if (t == t0 && t_end - t0 >= 8) {\n"
-              "      __syncthreads();\n"
-              "      continue;\n"
-              "    }\n"
-              "    const bf16* tQ = sQ + st * kMT * LDS;"),)),
-    Variant("fault: backward, tensor cores, the last query tile skipped in dK, dV (8+ tiles)",
+    Variant("fault: backward, the diagonal query tile skipped in dK, dV (8+ tiles)",
             "flash_attention_bwd.cu",
-            (("    const bf16* tQ = sQ + st * kMT * LDS;",
-              "    if (t == t_end - 1 && t_end - t0 >= 8) {\n"
-              "      __syncthreads();\n"
-              "      continue;\n"
-              "    }\n"
-              "    const bf16* tQ = sQ + st * kMT * LDS;"),)),
-    Variant("fault: backward, tensor cores, dQ's middle key tile skipped (8+ tiles)",
+            ((BWD_DV, bwd_skip("i % n_t == 0 && n_t >= 8", "p", "BM") + BWD_DV),
+             (BWD_DK, bwd_skip("i % n_t == 0 && n_t >= 8", "x", "BM") + BWD_DK))),
+    Variant("fault: backward, the last query tile skipped in dK, dV (8+ tiles)",
             "flash_attention_bwd.cu",
-            (("    const bf16* tK = sK + st * kMT * LDS;",
-              "    if (t == (t0 + t_end - 1) / 2 && t_end - t0 >= 8) {\n"
-              "      __syncthreads();\n"
-              "      continue;\n"
-              "    }\n"
-              "    const bf16* tK = sK + st * kMT * LDS;"),)),
-    Variant("backward: SIMT for bf16 at every head dim (the first backward)",
+            ((BWD_DV, bwd_skip("i % n_t == n_t - 1 && n_t >= 8", "p", "BM") + BWD_DV),
+             (BWD_DK, bwd_skip("i % n_t == n_t - 1 && n_t >= 8", "x", "BM") + BWD_DK))),
+    Variant("fault: backward, dQ's middle key tile skipped (8+ tiles)", "flash_attention_bwd.cu",
+            ((BWD_DQ, bwd_skip("n_iter >= 8 && i == (n_iter - 1) / 2", "x", "BN") + BWD_DQ),)),
+    Variant("fault: backward, the diagonal tile taken as clear", "flash_attention_bwd.cu",
+            (("(!a.causal || k0 + BN - 1 <= q0)", "(!a.causal || k0 <= q0)"),
+             ("(!a.causal || k0 + 63 <= q0)", "(!a.causal || k0 <= q0)"))),
+    Variant("fault: backward, the window's mask one key too wide", "flash_attention_bwd.cu",
+            (("(a.window == 0 || kj > qi - a.window);", "(a.window == 0 || kj >= qi - a.window);"),)),
+    Variant("fault: backward, the softcap's chain factor dropped", "flash_attention_bwd.cu",
+            (("    chain = fmaf(-th, th, 1.f);", "    chain = fmaf(0.f * th, th, 1.f);"),
+             ("    dx *= 1.f - th * th;", "    dx *= 1.f + 0.f * th;"))),
+    # design choices
+    Variant("backward: 64 queries a dK / dV step at hd 64 too", "flash_attention_bwd.cu",
+            (("static constexpr int BM = HD <= 64 ? 32 : 64;", "static constexpr int BM = 64;"),)),
+    Variant("backward: 32 queries a dK / dV step at every head dim", "flash_attention_bwd.cu",
+            (("static constexpr int BM = HD <= 64 ? 32 : 64;", "static constexpr int BM = 32;"),)),
+    Variant("backward: a ring of 2 stages at every head dim", "flash_attention_bwd.cu",
+            (("static constexpr int STAGES = HD <= 128 ? 3 : 2;", "static constexpr int STAGES = 2;"),)),
+    Variant("backward: a ring of 2 stages at hd 128", "flash_attention_bwd.cu",
+            (("static constexpr int STAGES = HD <= 128 ? 3 : 2;",
+              "static constexpr int STAGES = HD <= 64 ? 3 : 2;"),)),
+    Variant("backward: both passes held to 200 registers (2 blocks an SM at every head dim)",
             "flash_attention_bwd.cu",
-            (("    case 32: return launch_mma<32>(a, b, stream);\n"
-              "    case 64: return launch_mma<64>(a, b, stream);\n"
-              "    case 128: return launch_mma<128>(a, b, stream);",
-              "    case 32: return launch<32, bf16>(a, b, stream);\n"
-              "    case 64: return launch<64, bf16>(a, b, stream);\n"
-              "    case 128: return launch<128, bf16>(a, b, stream);"),)),
-    Variant("ablation: backward, tensor cores, pass 1 (D, dQ) only", "flash_attention_bwd.cu",
-            (("  bwd_dkdv_mma_kernel<HD>\n      <<<",
-              "  if (a.sq < 0) bwd_dkdv_mma_kernel<HD>\n      <<<"),)),
-    Variant("ablation: backward, tensor cores, pass 2 (dK, dV) only", "flash_attention_bwd.cu",
-            (("  bwd_dq_mma_kernel<HD><<<", "  if (a.sq < 0) bwd_dq_mma_kernel<HD><<<"),)),
-    Variant("backward: P by an accurate expf on the tensor cores too", "flash_attention_bwd.cu",
-            (('    asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(e) : "f"((t - lse) * 1.4426950408889634f));',
-              "    e = expf(t - lse);"),)),
-    Variant("backward: every tensor-core tile masked (no clear-tile path)", "flash_attention_bwd.cu",
-            (("  return q0 + kMT <= a.sq && k0 + kMT <= a.skv && (!a.causal || k0 + kMT - 1 <= q0) &&",
-              "  return a.sq < 0 && k0 + kMT <= a.skv && (!a.causal || k0 + kMT - 1 <= q0) &&"),)),
-    Variant("fault: backward, tensor cores, the diagonal tile taken as clear",
-            "flash_attention_bwd.cu",
-            (("(!a.causal || k0 + kMT - 1 <= q0) &&", "(!a.causal || k0 <= q0) &&"),)),
+            (("__launch_bounds__(kTcThreads, 1)\nbwd_tc_kernel",
+              "__launch_bounds__(kTcThreads, 2)\nbwd_tc_kernel"),)),
+    Variant("backward: the two passes as two launches (dQ, then dK / dV)", "flash_attention_bwd.cu",
+            (("  bwd_tc_kernel<HD><<<n_dkdv + n_dq, kTcThreads, smem, stream>>>(q64, do64, k64, v64, "
+              "qbm, dobm,\n                                                                 a, n_dkdv);",
+              "  bwd_tc_kernel<HD><<<n_dq, kTcThreads, smem, stream>>>(q64, do64, k64, v64, qbm, "
+              "dobm, a, 0);\n  bwd_tc_kernel<HD><<<n_dkdv, kTcThreads, smem, stream>>>(q64, do64, "
+              "k64, v64, qbm, dobm, a,\n                                                          "
+              "n_dkdv);"),)),
+    Variant("backward: GQA split over query heads, f32 scratch summed by a third launch",
+            "flash_attention_bwd.cu", BWD_SPLIT_HEADS),
+    Variant("backward: P by an accurate expf", "flash_attention_bwd.cu",
+            (("    p = exp2_approx(fmaf(a.post, th, -lse2));",
+              "    p = expf(fmaf(a.post, th, -lse2) * 0.6931471805599453f);"),
+             ("    p = exp2_approx(fmaf(s, a.pre, -lse2));",
+              "    p = expf(fmaf(s, a.pre, -lse2) * 0.6931471805599453f);"))),
+    Variant("backward: every tile masked (no clear-tile path)", "flash_attention_bwd.cu",
+            (("const bool clear = q0 + 64 <= a.sq &&", "const bool clear = a.sq < 0 &&"),
+             ("const bool clear = q0 + BM <= a.sq &&", "const bool clear = a.sq < 0 &&"))),
+    # ablations: a part of the work skipped where the compiler cannot see it
+    # never runs, so its time shows what that part costs (they fail the check)
+    Variant("ablation: backward, D alone", "flash_attention_bwd.cu",
+            (("  bwd_tc_kernel<HD><<<n_dkdv + n_dq,",
+              "  if (a.sq < 0) bwd_tc_kernel<HD><<<n_dkdv + n_dq,"),)),
+    Variant("ablation: backward, D and the dQ pass only", "flash_attention_bwd.cu",
+            (("    dkdv_block<HD>(tk, tv, tq_bm, tdo_bm, a, blockIdx.x);",
+              "    {\n      if (a.sq < 0) dkdv_block<HD>(tk, tv, tq_bm, tdo_bm, a, blockIdx.x);\n    }"),)),
+    Variant("ablation: backward, D and the dK / dV pass only", "flash_attention_bwd.cu",
+            (("    dq_block<HD>(tq, tdo, tk, tv, a, blockIdx.x - n_dkdv);",
+              "    {\n      if (a.sq < 0) dq_block<HD>(tq, tdo, tk, tv, a, blockIdx.x - n_dkdv);\n    }"),)),
     Variant("ablation: backward, no mask (every pair visible)", "flash_attention_bwd.cu",
             (("  return qi < a.sq && kj < a.skv && (!a.causal || kj <= qi) &&\n"
               "         (a.window == 0 || kj > qi - a.window);",
               "  return a.sq > 0;"),)),
     Variant("ablation: backward, no elementwise work (P = S, dX = dP)", "flash_attention_bwd.cu",
-            (("  float t = qk * a.scale;\n  if (a.softcap > 0.f)",
-              "  if (a.sq > 0) {\n    p = qk;\n    dx = dp;\n    return;\n  }\n"
-              "  float t = qk * a.scale;\n  if (a.softcap > 0.f)"),)),
-    Variant("fault: backward, the window's mask one key too wide", "flash_attention_bwd.cu",
-            (("(a.window == 0 || kj > qi - a.window);", "(a.window == 0 || kj >= qi - a.window);"),)),
-    Variant("fault: backward, the softcap's chain factor dropped", "flash_attention_bwd.cu",
-            (("    dx *= 1.f - th * th;", "    dx *= 1.f + 0.f * th;"),)),
+            (("                                          float& p) {\n",
+              "                                          float& p) {\n  if (a.sq > 0) {\n"
+              "    p = s;\n    return dp;\n  }\n"),)),
     # the gossip wire's codecs
     Variant("fault: top-k ties at T taken from the higher index", "topk_pack.cu",
             (("const int need = k - (int)count_ge<V>(key, lo + 1u);",
@@ -231,11 +320,11 @@ VARIANTS = (
             (("__launch_bounds__(kQuantWarps * 32)", "__launch_bounds__(kQuantWarps * 32, 5)"),)),
 )
 
-KERNELS = {"flash_attention.cu": "flash_tc_kernel", "selective_scan.cu": "scan_kernel",
-           "topk_pack.cu": "topk_kernel", "quant_pack.cu": "quantize_kernel",
-           "flash_attention_bwd.cu": "bwd_dkdv_mma_kernel"}
+KERNELS = {"flash_attention.cu": ("flash_tc_kernel",), "selective_scan.cu": ("scan_kernel",),
+           "topk_pack.cu": ("topk_kernel",), "quant_pack.cu": ("quantize_kernel",),
+           "flash_attention_bwd.cu": ("bwd_tc_kernel",)}
 # ptxas lines to print where a kernel has many instantiations: top-k at block
-# 256, the flash backward's tensor-core dK / dV pass at hd 64
+# 256, the flash backward's tensor-core passes (one kernel) at hd 64
 PTXAS_ARGS = {"topk_pack.cu": "ILi8E", "flash_attention_bwd.cu": "ILi64E"}
 
 
@@ -277,8 +366,9 @@ def build_all(variants: Sequence[Variant]) -> Dict[str, Path]:
         src = out / v.source
         src.write_text(variant_text(v))
         lib = out / f"lib_v{i}.so"
-        cmd = [nvcc, *_build.ARCH_FLAGS, *_build.COMPILE_FLAGS, "-shared", "-o", str(lib),
-               str(src)]
+        # the copy includes the shipped headers (csrc/*.cuh)
+        cmd = [nvcc, *_build.ARCH_FLAGS, *_build.COMPILE_FLAGS, "-I", str(_build.CSRC),
+               "-shared", "-o", str(lib), str(src)]
         procs.append((v, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.STDOUT, text=True)))
     libs = {}
@@ -287,13 +377,17 @@ def build_all(variants: Sequence[Variant]) -> Dict[str, Path]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {v.name}:\n{log[-4000:]}")
         lines = log.splitlines()
+        serialized = sum("C7515" in line or "C7512" in line for line in lines)
+        if serialized:
+            print(f"[ptxas] {v.name}: wgmma serialized in {serialized} kernel(s) (C7512 / C7515)")
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and KERNELS[v.source] in line:
-                name = line.split("'")[1].split(KERNELS[v.source], 1)[1].split("EEv")[0]
+            kernel = next((k for k in KERNELS[v.source] if k in line), None)
+            if "Compiling entry function" in line and kernel is not None:
+                name = line.split("'")[1].split(kernel, 1)[1].split("EEv")[0]
                 if not name.startswith(PTXAS_ARGS.get(v.source, "")):
                     continue
                 info = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
-                print(f"[ptxas] {v.name}: {KERNELS[v.source]} {name}: {info}")
+                print(f"[ptxas] {v.name}: {kernel} {name}: {info}")
         libs[v.name] = lib
     return libs
 
@@ -311,6 +405,8 @@ def main(argv: List[str] | None = None) -> int:
                     help="a whole source file as one more variant")
     ap.add_argument("--only", action="append", default=[], metavar="FILE",
                     choices=sorted(KERNELS), help="run this source file's variants only")
+    ap.add_argument("--sources-only", action="store_true",
+                    help="run the --source files beside the shipped kernels, no edited variants")
     args = ap.parse_args(argv)
 
     import torch
@@ -324,7 +420,7 @@ def main(argv: List[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("variants: needs a CUDA device", file=sys.stderr)
         return 1
-    variants = list(VARIANTS)
+    variants = [] if args.sources_only else list(VARIANTS)
     for spec in args.source:
         name, _, path = spec.partition("=")
         file = Path(path)
@@ -384,6 +480,7 @@ def main(argv: List[str] | None = None) -> int:
             sdpa = median_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
             print(f"[flash] {case}: SDPA {sdpa:.4f} ms")
+        first = None  # the shipped kernel's output, which a whole --source file matches or not
         for name, path in runs("flash_attention.cu"):
             fn = entry(path, "rt_flash_attention_bf16")
             out = torch.empty_like(q)
@@ -400,12 +497,17 @@ def main(argv: List[str] | None = None) -> int:
             err = float((out.float() - plain).abs().max())
             units = rounding_units(out, q, k, v, **kw)
             verdict = "passes" if err <= 2e-2 and units <= BF16_UNITS_TOL else "FAILS"
+            if first is None:
+                first = out
+            same = "bit-identical to the shipped output" if torch.equal(out, first) else "differs"
             print(f"[flash] {case}: {name}: {median_ms(call):.4f} ms, max abs err {err:.5f} "
-                  f"(tol 2e-2), {units:.2f} rounding units (tol {BF16_UNITS_TOL}): {verdict}")
+                  f"(tol 2e-2), {units:.2f} rounding units (tol {BF16_UNITS_TOL}): {verdict}; "
+                  f"{same}")
         del q, k, v, plain
 
     bwd_cases = [  # b, s, h, kv, hd, window, softcap, dtype, q scale
         (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 1.0),
+        (2, 2048, 16, 8, 128, 0, 0.0, torch.bfloat16, 1.0),
         (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 1.0),
         (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 25.0),  # scores near the cap
         (2, 2048, 15, 5, 64, 0, 0.0, torch.float32, 1.0),

@@ -424,6 +424,11 @@ BWD_CASES = [  # b, s, h, kv, hd, causal, window, softcap
     (1, 3, 4, 2, 64, True, 0, 0.0),  # row 0 sees one key: its dQ is exactly 0
     (1, 129, 4, 1, 32, True, 64, 0.0),
     (2, 1024, 15, 5, 64, True, 0, 0.0),  # smollm-360m's heads
+    (1, 1000, 8, 2, 128, True, 0, 0.0),  # GQA 4:1, a length no tile divides
+    (1, 1000, 6, 2, 256, True, 300, 50.0),  # GQA 3:1 at gemma2's head dim
+    (2, 200, 12, 3, 32, True, 0, 0.0),
+    (1, 1000, 8, 8, 64, True, 77, 0.0),  # the window's edge inside a tile
+    (1, 256, 4, 1, 128, False, 0, 30.0),
 ]
 
 
@@ -457,6 +462,49 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, s, h, kv, hd, causal, wi
         assert torch.equal(g, a), f"d{name} differs between two runs"
         scale = float(w.float().abs().max())
         assert float((g.float() - w.float()).abs().max()) <= tol * max(scale, 1e-30), name
+
+
+def _check_bwd(q, k, v, do, kw):
+    """The backward kernel against attention_bwd_ref at the forward kernel's
+    output and LSE: each gradient within its dtype's tolerance of its max
+    |g|, two runs bit-identical."""
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    tol = BWD_F32_TOL if q.dtype == torch.float32 else BWD_BF16_TOL
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), f"d{name} differs between two runs"
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * max(scale, 1e-30), name
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("s_q,s_kv", [(200, 333), (333, 200)])
+@pytest.mark.parametrize("hd,causal,window,softcap", [
+    (64, True, 0, 0.0), (64, False, 0, 0.0), (256, True, 100, 50.0), (128, False, 0, 0.0)])
+def test_flash_bwd_kernel_more_keys_or_queries(cuda, dtype, s_q, s_kv, hd, causal, window,
+                                               softcap):
+    """s_q != s_kv (the mask compares positions as the forward does: key j
+    visible to query i where j <= i and j > i - window), GQA 3:1."""
+    q = _normal((1, s_q, 6, hd), 21).to(dtype).to(cuda)
+    k = _normal((1, s_kv, 2, hd), 22).to(dtype).to(cuda)
+    v = _normal((1, s_kv, 2, hd), 23).to(dtype).to(cuda)
+    do = _normal((1, s_q, 6, hd), 24).to(dtype).to(cuda)
+    _check_bwd(q, k, v, do, dict(causal=causal, sliding_window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("hd,kv", [(64, 1), (256, 2)])
+def test_flash_bwd_kernel_scores_near_the_cap(cuda, dtype, hd, kv):
+    """q x 25 puts the scores' spread at half the cap of 50, where the
+    softcap's chain factor 1 - tanh^2 is far from 1."""
+    q = (25 * _normal((1, 640, 4, hd), 31)).to(dtype).to(cuda)
+    k = _normal((1, 640, kv, hd), 32).to(dtype).to(cuda)
+    v = _normal((1, 640, kv, hd), 33).to(dtype).to(cuda)
+    do = _normal((1, 640, 4, hd), 34).to(dtype).to(cuda)
+    _check_bwd(q, k, v, do, dict(causal=True, sliding_window=256, softcap=50.0))
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))

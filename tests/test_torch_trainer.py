@@ -286,6 +286,123 @@ def test_adam_moments_equal_across_nodes_r9(jax_ref):
     assert abs(diff - ref["r9/node_grad_diff"]) <= 1e-3 * ref["r9/node_grad_diff"]
 
 
+# -- P4: uneven counts of valid labels over the nodes ---------------------------------
+
+# node 0's rows keep 4 valid labels each, node 1's second row loses 20, node
+# 2 has none, node 3 keeps all: the reference's masked mean over the global
+# batch (or over each microbatch slice of it) weighs the nodes by their
+# counts, not by 1 / N
+JAX_P4 = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import jax, jax.numpy as jnp
+    from jax.sharding import AxisType
+    from repro.checkpoint import save_pytree
+    from repro.configs import get_arch
+    from repro.data import DataConfig, FederatedData
+    from repro.dfl import DFLConfig, DFLTrainer
+    from repro.models import Batch, build_model
+
+    out_dir, n, bpn, s, lr = sys.argv[1], 4, 2, 32, 1e-3
+    mesh = jax.make_mesh((n, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    base = get_arch("smollm-360m").smoke_variant()
+    tok, lab = FederatedData(DataConfig(vocab=base.vocab, seq_len=s, batch_per_node=bpn,
+                                        n_nodes=n, seed=4)).global_batch()
+    lab = np.array(lab)
+    lab[0:2, 4:] = -1
+    lab[3, :20] = -1
+    lab[4:6] = -1
+    res = {"tokens": tok, "labels": lab}
+    for mb in (1, 2):
+        model = build_model(base.replace(microbatches=mb))
+        tr = DFLTrainer(model, mesh, DFLConfig(gossip_mode="tree_allreduce", lr=lr, warmup=0))
+        state = tr.init_state(jax.random.PRNGKey(0))
+        if mb == 1:
+            save_pytree(f"{out_dir}/init_params", jax.device_get(state.params))
+        batch = Batch(tokens=jnp.asarray(tok), labels=jnp.asarray(lab))
+        step = tr.jitted_train_step(jax.eval_shape(lambda: state), jax.eval_shape(lambda: batch))
+        state, m = step(state, batch)
+        res[f"mb{mb}/loss"] = float(m["loss"])
+        res[f"mb{mb}/grad_norm"] = float(m["grad_norm"])
+        save_pytree(f"{out_dir}/mb{mb}_m", jax.device_get(state.opt_state["m"]))
+    np.savez(f"{out_dir}/ref.npz", **{k: np.asarray(v) for k, v in res.items()})
+""")
+
+
+@pytest.fixture(scope="module")
+def jax_p4(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_p4")
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    proc = subprocess.run([sys.executable, "-c", JAX_P4, str(out)], capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return out, dict(np.load(out / "ref.npz"))
+
+
+@pytest.mark.parametrize("mb", (1, 2))
+def test_uneven_label_counts_weigh_nodes_as_the_reference_p4(jax_p4, mb):
+    """P4: with the nodes' counts of labels >= 0 uneven (one node has none),
+    one step's loss, grad norm and first moment (0.1 x the clipped
+    gradient) match the JAX DFLTrainer's, with one microbatch and with two
+    (whose slices of the global batch each span two nodes); the tolerances
+    of test_one_step_matches_jax_trainer."""
+    out, ref = jax_p4
+    cfg, _ = _smoke()
+    model = build_model(cfg.replace(microbatches=mb), device="cpu")
+    like = _like(model)
+    init = restore_pytree(str(out / "init_params.npz"), like)
+    trainer = DFLTrainer(model, N, DFLConfig(gossip_mode="tree_allreduce", lr=LR, warmup=0),
+                         device="cpu")
+    opt = trainer.opt.init(init)
+    state = train_state_from_numpy(
+        tree_map(lambda t: t.numpy(), init), tree_map(lambda t: t.numpy(), opt), 0, N,
+        device="cpu")
+    batch = Batch(tokens=torch.from_numpy(ref["tokens"]).long(),
+                  labels=torch.from_numpy(ref["labels"]).long())
+    assert int((batch.labels[4:6] >= 0).sum()) == 0  # node 2 holds no valid label
+    state, m = trainer.train_step(state, batch)
+    want = ref[f"mb{mb}/loss"]
+    assert abs(float(m["loss"]) - want) <= 1e-5 * abs(want)
+    want = ref[f"mb{mb}/grad_norm"]
+    assert abs(float(m["grad_norm"]) - want) <= 1e-4 * want
+    jax_m = restore_pytree(str(out / f"mb{mb}_m.npz"), like)
+    for (name, got), (_, w) in zip(_leaves(state.opt_state["m"]), _leaves(jax_m)):
+        assert float((got - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+def test_row_weights_follow_the_reference_slices_p4():
+    """Each row's weight is 1 / (mb max(C_j, 1)) for the microbatch slice j
+    of the global batch that holds it, and no part of a node's rows
+    straddles two slices."""
+    cfg, _ = _smoke()
+    labels = torch.full((8, 5), 3)
+    labels[0:2, 2:] = -1  # rows hold 2, 2, 5, 5, 0, 0, 5, 5 valid labels
+    labels[4:6] = -1
+    for mb, want in ((1, [1 / 24] * 8), (2, [1 / 28] * 4 + [1 / 20] * 4),
+                     (4, [1 / 16] * 2 + [1 / 40] * 2 + [1 / 4] * 2 + [1 / 40] * 2),
+                     (3, [1 / 24] * 8)):  # 3 does not divide 8 rows: one slice
+        trainer = DFLTrainer(build_model(cfg.replace(microbatches=mb), device="cpu"), N,
+                             device="cpu")
+        assert torch.allclose(trainer.row_weights(labels), torch.tensor(want), rtol=1e-6,
+                              atol=0), mb
+        size = 8 // trainer._slices(8)
+        for i in range(N):
+            parts = trainer._node_parts(i, 2, 8)
+            assert parts[0].start == 2 * i and parts[-1].stop == 2 * i + 2
+            assert all(a.stop == b.start for a, b in zip(parts[:-1], parts[1:]))
+            for p in parts:
+                assert len({r // size for r in range(p.start, p.stop)}) == 1, (mb, i, p)
+    # 2-row nodes: 4 slices of 2 rows coincide with the nodes, 2 give each node
+    # its own 2 microbatches, 8 cut every row apart
+    for mb, want in ((4, [slice(2, 4)]), (2, [slice(2, 3), slice(3, 4)]),
+                     (8, [slice(2, 3), slice(3, 4)])):
+        trainer = DFLTrainer(build_model(cfg.replace(microbatches=mb), device="cpu"), N,
+                             device="cpu")
+        assert trainer._node_parts(1, 2, 8) == want, mb
+
+
 # -- the port alone ---------------------------------------------------------------
 
 def _data_batch(cfg, seq=S, seed=0):
