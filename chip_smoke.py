@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round,
 the model serving path (prefill forward + cached decode) and the DFL
 training step (4 stacked nodes, forward, the flash-attention backward, the
-optimizer and a gossip round).
+optimizer and a gossip round), for the dense, ssm and moe families.
 
     python3 chip_smoke.py
 
@@ -39,17 +39,22 @@ Phases, each fatal on failure (exit code 1, no result line):
              into a fused qkv projection, gemma2's case with scores near the
              cap (q scaled by 25, rounding units only), and an f32 case (the
              SIMT kernel) within 2e-5 (the tolerances of tests/test_kernels.py;
-             the sum order differs); SDPA's time beside the causal case. The selective scan at falcon-mamba-7b's
+             the sum order differs); SDPA's time beside the causal case; and
+             at the moe configs' prefill shapes, qwen3-moe-30b-a3b's (2, 2048,
+             32 / 4, 128) and arctic-480b's (1, 2048, 56 / 8, 128), causal bf16,
+             timed beside SDPA. The selective scan at falcon-mamba-7b's
              (1, 2048, 8192, 16) and at its prefill batch (2, 2048, 8192, 16),
              x bf16, y f32, within 1e-4 of max|y| of the plain version.
              The flash forward with and without its LSE output at smollm's
              prefill shape and at its training batch of 2 (bit-identical
-             outputs, both timed), and the flash
+             outputs, both timed, and aten's flash attention, which also
+             returns the LSE, timed beside them), and the flash
              backward against ``attention_bwd_ref`` at smollm-360m's
              training shape (2, 2048, 15 / 5, 64) causal in bf16 and f32,
              gemma2-2b's (1, 8192, 8 / 4, 256) with window 4096 and softcap
-             50 in bf16 and an hd-128 case (2, 2048, 16 / 8, 128) causal in
-             bf16: each of dQ, dK and dV within BWD_F32_TOL (f32) or
+             50 in bf16, an hd-128 case (2, 2048, 16 / 8, 128) causal in
+             bf16 and qwen3-moe's training shape (1, 2048, 32 / 4, 128)
+             causal in bf16: each of dQ, dK and dV within BWD_F32_TOL (f32) or
              BWD_BF16_TOL (bf16) of its max |g|, two runs bit-identical;
              its time, its bound and the backward of SDPA (autograd,
              causal, GQA) beside it.
@@ -64,19 +69,24 @@ Phases, each fatal on failure (exit code 1, no result line):
              kernel launched with must have been timed in phase 2. Prints
              each gossip kernel's launches by shape and each codec kernel's
              loss, the sum over shapes of launches x (time - bound).
-4. serve   — smollm-360m (32 layers, d 960) and falcon-mamba-7b (64 layers,
-             d 4096) at full width and depth in bf16, params from Model.init
-             on the card (seed 0), with the launch counts set to 0 just before
-             and read just after: three prefill forwards over (4, 2048) and
-             (2, 2048) tokens (the first a warm-up) and the serve loop at the
-             reference CLI's defaults (batch 4, prompt 32, gen 16, cache 128).
-             Every logit finite; flash_attention launched 32 and
-             selective_scan 64 times per forward. Prints prefill ms and tok/s,
-             decode ms/step and tok/s and peak memory, and the device time of
-             one decode step replayed as a CUDA graph. Then, in f32 at full
-             width and 4 layers, forward logits against teacher-forced decode
-             logits over a 256-token prompt, within 5e-2 (the bound of
-             tests/test_models.py).
+4. serve   — smollm-360m (32 layers, d 960), falcon-mamba-7b (64 layers,
+             d 4096) and qwen3-moe-30b-a3b (48 layers, d 2048, 128 experts,
+             60.4 GB) at full width and depth, and arctic-480b at full width
+             and 1 of its 35 layers (26.8 GB of experts), in bf16, params
+             from Model.init on the card (seed 0; stacked leaves filled in
+             place), with the launch counts set to 0 just before and read
+             just after: three prefill forwards over (4, 2048), (2, 2048),
+             (2, 2048) and (1, 2048) tokens (the first a warm-up), then the
+             serve loop at the reference CLI's defaults (batch 4, prompt 32,
+             gen 16, cache 128) or, for arctic, 8 decode steps. Every logit
+             finite; flash_attention launched once a dense or moe layer and
+             selective_scan once a Mamba1 layer per forward. Prints prefill ms
+             and tok/s, decode ms/step and tok/s and peak memory, and the
+             device time of one decode step replayed as a CUDA graph (not
+             arctic). Then, in f32 at full width, 4 layers (2 for qwen3-moe,
+             capacity factor 100 as tests/test_models.py decodes moe archs),
+             forward logits against teacher-forced decode logits over a
+             256-token prompt, within 5e-2 (the bound of tests/test_models.py).
 5. train   — smollm-360m at full width and depth (32 layers, d 960, 15 / 5
              heads, vocab 49152, bf16 params, AdamW with fp32 masters), N = 4
              nodes stacked on the card, DataConfig(seq_len=2048,
@@ -88,7 +98,7 @@ Phases, each fatal on failure (exit code 1, no result line):
              fixed batch (the first a warm-up; the third loss below the
              first; after every step each node's masters within the
              runner's mean tolerance of the nodes' FedAvg; the fourth, the
-             last of the phase, under torch.profiler, its device time
+             last of the run, under torch.profiler, its device time
              printed by group — flash forward, flash backward, GEMMs,
              elementwise / other, optimizer, gossip — with the device's
              idle share of the step). Every loss and grad norm finite; every
@@ -99,7 +109,14 @@ Phases, each fatal on failure (exit code 1, no result line):
              tokens/s, the losses and the peak memory. Then, in f32 at 4
              layers and full width, every leaf's training gradient through
              the kernels within 1e-3 of its max |g| of the gradient through
-             the plain versions on the card.
+             the plain versions on the card. The same for qwen3-moe-30b-a3b
+             at full width and 1 of its 48 layers, batch_per_node=1, AdamW
+             with fp32 masters and bf16 moments: int8 dissemination for 2
+             steps, then tree_allreduce for 4 (the fourth profiled); a step
+             launches the flash forward twice a layer a node (the routing
+             pass of the global-batch aux loss, then the differentiated
+             pass) and the backward once, and both passes must route alike;
+             the f32 gradient check at 1 layer over (1, 2048) tokens.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers (the codec kernels' also by shape, with their loss), and the result
@@ -289,6 +306,7 @@ def main() -> int:
     from repro_torch.kernels.scan.ops import selective_scan_op
     from repro_torch.kernels.scan.ref import selective_scan_ref
     from repro_torch.data import DataConfig, FederatedData
+    from repro_torch.dfl.collectives import tree_map
     from repro_torch.dfl.trainer import DFLConfig, DFLTrainer
     from repro_torch.launch.serve import serve
     from repro_torch.models import Batch, build_model
@@ -460,6 +478,9 @@ def main() -> int:
     flash_cases = [  # b, s, h, kv, hd, window, softcap, dtype, tol, how
         (4, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
         (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 2e-2, "timed"),
+        (2, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # qwen3-moe's prefill
+        (1, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # qwen3-moe's training
+        (1, 2048, 56, 8, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # arctic's
         (2, 1024, 6, 2, 64, 0, 0.0, torch.float32, 2e-5, "checked"),
         (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, "fused views"),
         (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, None, "near the cap"),
@@ -525,10 +546,47 @@ def main() -> int:
         no_lse_ms = median_ms(lambda: flash_attention(q, k, v, causal=True), 10)
         lse_ms = median_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True), 10)
         b_ms, _ = bound_ms(0, 4 * 64 * b * 15 * visible_pairs(2048, 0), BF16_OPS_PER_S)
+        # the library calls that compute the same pair (output and LSE), kv
+        # heads repeated to 15 (they take no GQA), and SDPA's own dispatch,
+        # which returns no LSE
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k.repeat_interleave(3, dim=2),
+                                                  v.repeat_interleave(3, dim=2)))
+        aten = torch.ops.aten
+        lse_calls = {
+            "flash": lambda: aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True),
+            "efficient": lambda: aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, None, True, 0.0, True),
+            "cudnn": lambda: aten._scaled_dot_product_cudnn_attention(
+                qt, kt, vt, None, True, 0.0, True),
+        }
+        libs = []
+        for lib_name, call in lse_calls.items():
+            try:
+                lib_out, lib_lse = call()[:2]
+            except (AttributeError, NotImplementedError, RuntimeError, TypeError) as e:
+                print(f"[kernel] flash_attention ({b}, 2048, 15/5, 64): aten "
+                      f"_scaled_dot_product_{lib_name}_attention not run here: "
+                      f"{str(e).splitlines()[0][:160]}")
+                continue
+            lib_lse = lib_lse.reshape(b, 15, -1)[:, :, :2048]
+            lib_err = max(float((lib_out.transpose(1, 2).float() - out_lse.float()).abs().max()),
+                          float((lib_lse.float() - lse).abs().max()))
+            libs.append((median_ms(call, 10), lib_name, lib_err))
+            del lib_out, lib_lse
+        sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True), 10)
+        if not libs:
+            fail("flash_attention: no aten attention call with an LSE ran")
+        lib_s = ", ".join(f"{n} {ms:.4f} ms (max abs diff to the kernel's {e:.3e})"
+                          for ms, n, e in libs)
+        fastest = min(libs)
         print(f"[kernel] flash_attention ({b}, 2048, 15/5, 64) bf16 causal: {no_lse_ms:.4f} ms "
               f"without the LSE, {lse_ms:.4f} ms with it (bound {b_ms:.4f} ms; outputs "
-              f"bit-identical; LSE max abs err {lse_err:.3e}) on {card}")
-        del q, k, v, out, out_lse, lse, want_lse
+              f"bit-identical; LSE max abs err {lse_err:.3e}); aten "
+              f"_scaled_dot_product_*_attention with its LSE: {lib_s}; fastest {fastest[1]} "
+              f"{fastest[0]:.4f} ms; SDPA (no LSE) {sdpa_ms:.4f} ms on {card}")
+        del q, k, v, out, out_lse, lse, want_lse, qt, kt, vt
 
     # the flash backward at smollm-360m's training shape (bf16, f32), at
     # gemma2-2b's local layer and at hd 128, against attention_bwd_ref
@@ -537,6 +595,7 @@ def main() -> int:
         (2, 2048, 15, 5, 64, 0, 0.0, torch.float32),
         (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16),
         (2, 2048, 16, 8, 128, 0, 0.0, torch.bfloat16),  # hd 128, GQA 2:1
+        (1, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16),  # qwen3-moe's training shape
     ]
     for b, s, h, kv, hd, window, cap, dtype in bwd_cases:
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
@@ -661,22 +720,34 @@ def main() -> int:
               f"{loss:.4f} ms on {card}")
     torch.cuda.empty_cache()
 
-    # -- 4. the serving path at full width and depth ------------------------------
-    serve_runs = [("smollm-360m", 4, "flash_attention"), ("falcon-mamba-7b", 2, "selective_scan")]
+    # -- 4. the serving path at full width ----------------------------------------
+    # (arch, layers (0: all), prefill batch, kernel, decode): the CLI's serve
+    # loop and a CUDA-graph step, or that many decode steps. arctic-480b runs
+    # 1 of its 35 layers: one layer's experts are 26.8 GB in bf16
+    serve_runs = [("smollm-360m", 0, 4, "flash_attention", "cli"),
+                  ("falcon-mamba-7b", 0, 2, "selective_scan", "cli"),
+                  ("qwen3-moe-30b-a3b", 0, 2, "flash_attention", "cli"),
+                  ("arctic-480b", 1, 1, "flash_attention", 8)]
     seq, n_prefill = 2048, 3
     reset_launches()
-    forwards = {}
-    for arch, batch, _ in serve_runs:
-        cfg = get_arch(arch)
+    serve_launches = Counter()
+    for arch, layers, batch, kernel, decode in serve_runs:
+        full = get_arch(arch)
+        cfg = full.replace(n_layers=layers) if layers else full
+        depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full.n_layers
+                 else f"{cfg.n_layers} of {full.n_layers} layers")
         model = build_model(cfg, device="cuda")
         g = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = model.init(g)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
         n_params = count_elements(params)
         tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
         torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()[kernel]
         spans = []
         with torch.inference_mode():
             for _ in range(n_prefill):
@@ -688,56 +759,69 @@ def main() -> int:
                 if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
                     fail(f"{arch}: non-finite prefill logits")
                 del logits
-        forwards[arch] = n_prefill
+        n = launch_counts()[kernel] - before
+        if n != cfg.n_layers * n_prefill:
+            fail(f"{arch}: {kernel} launched {n} times in {n_prefill} forwards, expected "
+                 f"{cfg.n_layers} a forward")
+        serve_launches[kernel] += n
         prefill_peak = torch.cuda.max_memory_allocated() / 1e9
         prefill_ms = statistics.median(spans[1:]) * 1e3
-        print(f"[serve] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, {n_params / 1e9:.3f} B "
-              f"params bf16 (init {init_s:.1f} s); prefill ({batch}, {seq}): "
+        print(f"[serve] {arch}: {depth}, d {cfg.d_model}, {n_params / 1e9:.3f} B params bf16 "
+              f"(init {init_s:.1f} s, peak {init_peak:.2f} GB); prefill ({batch}, {seq}): "
               f"{prefill_ms:.3f} ms median of {n_prefill - 1} after a warm-up "
               f"[{', '.join(f'{1e3 * t:.3f}' for t in spans)}], "
-              f"{batch * seq / prefill_ms * 1e3:.0f} tok/s, peak {prefill_peak:.2f} GB on {card}")
+              f"{batch * seq / prefill_ms * 1e3:.0f} tok/s, {cfg.n_layers} {kernel} launches a "
+              f"forward, peak {prefill_peak:.2f} GB on {card}")
         torch.cuda.reset_peak_memory_stats()
-        prompts = torch.randint(0, cfg.vocab, (4, 32), generator=g, device=dev)
-        res = serve(model, params, prompts, gen=16, cache_len=128)
+        # the reference CLI's defaults (batch 4, prompt 32, gen 16, cache 128),
+        # or a 4-token prompt and as many generated tokens as make `decode` steps
+        b_dec, prompt_len, gen = (4, 32, 16) if decode == "cli" else (batch, 4, decode - 3)
+        prompts = torch.randint(0, cfg.vocab, (b_dec, prompt_len), generator=g, device=dev)
+        res = serve(model, params, prompts, gen=gen, cache_len=128)
         if not bool(torch.isfinite(res.logits[..., :cfg.vocab]).all()):
             fail(f"{arch}: non-finite decode logits")
         if not bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
             fail(f"{arch}: generated ids outside the vocab")
         step_ms = 1e3 * res.seconds / res.steps
-        print(f"[serve] {arch}: serve loop batch 4, prompt 32, gen 16, cache 128: "
-              f"{res.steps} decode steps in {res.seconds:.3f} s, {step_ms:.3f} ms/step, "
-              f"{4 * res.steps / res.seconds:.1f} tok/s, peak "
+        print(f"[serve] {arch}: serve loop batch {b_dec}, prompt {prompt_len}, gen {gen}, "
+              f"cache 128: {res.steps} decode steps in {res.seconds:.3f} s, {step_ms:.3f} "
+              f"ms/step, {b_dec * res.steps / res.seconds:.1f} tok/s, peak "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB on {card}")
-        # the device's own time for a decode step: the same step captured in a
-        # CUDA graph replays without the host's launch gaps
-        cache = model.init_cache(4, 128)
-        tok, pos = prompts[:, :1].clone(), torch.zeros(4, dtype=torch.long, device=dev)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.inference_mode(), torch.cuda.stream(side):
-            for _ in range(2):
+        if decode == "cli":
+            # the device's own time for a decode step: the same step captured
+            # in a CUDA graph replays without the host's launch gaps
+            cache = model.init_cache(4, 128)
+            tok, pos = prompts[:, :1].clone(), torch.zeros(4, dtype=torch.long, device=dev)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.inference_mode(), torch.cuda.stream(side):
+                for _ in range(2):
+                    model.decode_step(params, tok, pos, cache)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.inference_mode(), torch.cuda.graph(graph):
                 model.decode_step(params, tok, pos, cache)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(graph):
-            model.decode_step(params, tok, pos, cache)
-        graph_ms = median_ms(graph.replay, 20, cold=False)
-        print(f"[serve] {arch}: one decode step replayed as a CUDA graph: {graph_ms:.3f} ms "
-              f"on the device against {step_ms:.3f} ms eager (device idle ~"
-              f"{100 * (1 - graph_ms / step_ms):.1f}% of an eager step) on {card}")
-        del params, res, model, graph, cache
+            graph_ms = median_ms(graph.replay, 20, cold=False)
+            print(f"[serve] {arch}: one decode step replayed as a CUDA graph: {graph_ms:.3f} "
+                  f"ms on the device against {step_ms:.3f} ms eager (device idle ~"
+                  f"{100 * (1 - graph_ms / step_ms):.1f}% of an eager step) on {card}")
+            del graph, cache
+        del params, res, model
         torch.cuda.empty_cache()
     counts = launch_counts()
     print(f"[serve] launches: {json.dumps(counts)}")
-    for arch, _, kernel in serve_runs:
-        want = get_arch(arch).n_layers * forwards[arch]
+    for kernel, want in serve_launches.items():
         if counts[kernel] != want:
             fail(f"{kernel}: {counts[kernel]} launches on the serving path, expected {want}")
         results[kernel]["launches"] = counts[kernel]
 
-    # forward (kernels) against teacher-forced decode (cache path) in f32
-    for arch, _, _ in serve_runs:
-        cfg = get_arch(arch).replace(n_layers=4, dtype="float32")
+    # forward (kernels) against teacher-forced decode (cache path) in f32;
+    # qwen3-moe with capacity 100 tokens an expert, as tests/test_models.py
+    # decodes moe archs: no drops, so both paths route every token alike
+    f32_checks = [("smollm-360m", dict(n_layers=4)), ("falcon-mamba-7b", dict(n_layers=4)),
+                  ("qwen3-moe-30b-a3b", dict(n_layers=2, moe_capacity_factor=100.0))]
+    for arch, cut in f32_checks:
+        cfg = get_arch(arch).replace(dtype="float32", **cut)
         model = build_model(cfg, device="cuda")
         g = torch.Generator(device=dev).manual_seed(1)
         params = model.init(g)
@@ -753,137 +837,192 @@ def main() -> int:
                                      .abs().max()))
         if not err < 5e-2:
             fail(f"{arch}: f32 forward vs teacher-forced decode max |err| {err} >= 5e-2")
-        print(f"[serve] {arch} f32, 4 layers, full width: forward vs teacher-forced decode "
-              f"over 256 tokens, max abs logit err {err:.3e} (bound 5e-2) on {card}")
+        print(f"[serve] {arch} f32, {cfg.n_layers} layers, full width: forward vs "
+              f"teacher-forced decode over 256 tokens, max abs logit err {err:.3e} (bound "
+              f"5e-2) on {card}")
         del params, full, cache, model
         torch.cuda.empty_cache()
 
-    # -- 5. the training path: smollm-360m, 4 stacked nodes -------------------------
-    cfg = get_arch("smollm-360m").replace(remat=False)
-    n_nodes, bpn, seq = 4, 2, 2048
-    model = build_model(cfg, device="cuda")
-    data = FederatedData(DataConfig(vocab=cfg.vocab, seq_len=seq, batch_per_node=bpn,
-                                    n_nodes=n_nodes, seed=0))
-    tok, lab = data.global_batch()
-    batch = Batch(tokens=torch.from_numpy(tok).long().to(dev),
-                  labels=torch.from_numpy(lab).long().to(dev))
-    params0 = model.init(torch.Generator(device=dev).manual_seed(0))
-    per_step = cfg.n_layers * n_nodes
-    # the tree run's fourth step runs under torch.profiler; the tree run
-    # comes last, so no other step follows a profiled one
-    train_runs = [("dissemination", "int8", 2), ("dissemination", "topk", 2),
-                  ("tree_allreduce", "", 4)]
-    train_launches = Counter()
-    for mode, codec, steps in train_runs:
-        trainer = DFLTrainer(model, n_nodes, DFLConfig(gossip_mode=mode, codec=codec, lr=1e-3,
-                                                       warmup=0), device="cuda", timed=True)
-        state = trainer.state_from_params(params0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        run = f"{mode}{'+' + codec if codec else ''}"
-        losses, walls = [], []
-        reset_launches()
-        for i in range(steps):
-            before = launch_counts()
-            profiled = mode == "tree_allreduce" and i == 3
-            t0 = time.perf_counter()
-            if profiled:
-                state, m, dev_ms, n_kernels, busy_ms, span_ms = profile_step(trainer, state, batch)
-            else:
-                state, m = trainer.train_step(state, batch)
+    # -- 5. the training path: 4 stacked nodes -------------------------------------
+    def train_path(cfg, bpn, train_runs):
+        """The train runs of one config, 4 nodes x (bpn, 2048), the launch
+        counts set to 0 just before each run and read just after; returns the
+        data whose batches the gradient check reads."""
+        n_nodes, seq = 4, 2048
+        model = build_model(cfg, device="cuda")
+        data = FederatedData(DataConfig(vocab=cfg.vocab, seq_len=seq, batch_per_node=bpn,
+                                        n_nodes=n_nodes, seed=0))
+        tok, lab = data.global_batch()
+        batch = Batch(tokens=torch.from_numpy(tok).long().to(dev),
+                      labels=torch.from_numpy(lab).long().to(dev))
+        params0 = model.init(torch.Generator(device=dev).manual_seed(0))
+        per_step = cfg.n_layers * n_nodes
+        # a moe step routes every node's rows once without a graph first
+        # (DFLTrainer.aux_coefs): one more forward launch a layer a node
+        fwd_per_step = per_step * (2 if cfg.family == "moe" else 1)
+        train_launches = Counter()
+        for mode, codec, steps in train_runs:
+            trainer = DFLTrainer(model, n_nodes, DFLConfig(gossip_mode=mode, codec=codec,
+                                                           lr=1e-3, warmup=0),
+                                 device="cuda", timed=True)
+            state = trainer.state_from_params(params0)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            after = launch_counts()
-            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            losses.append(loss)
-            walls.append(wall)
-            if not (math.isfinite(loss) and math.isfinite(gnorm)):
-                fail(f"train {run} step {i}: loss {loss}, grad_norm {gnorm}")
-            for kernel in ("flash_attention", "flash_attention_bwd"):
-                n = after[kernel] - before[kernel]
-                if n != per_step:
-                    fail(f"train {run} step {i}: {kernel} launched {n} times, expected "
-                         f"{per_step} (32 layers x {n_nodes} nodes)")
-            if mode == "tree_allreduce":  # every node holds the FedAvg of the masters
-                worst = 0.0
-                for leaf in tree_leaves(state.opt_state["master"]):
-                    mean = leaf.double().mean(dim=0)
-                    ok = all(torch.allclose(leaf[j].double(), mean, rtol=1e-5, atol=1e-5)
-                             for j in range(n_nodes))
-                    worst = max(worst, float((leaf.double() - mean).abs().max()))
-                    if not ok:
-                        fail(f"train {run} step {i}: a node's masters are off the FedAvg")
-                fedavg = f", masters within {worst:.2e} of the FedAvg"
-            else:
-                fedavg = ""
-            if profiled:  # ROADMAP Queue B item 0: where a steady step's device time goes
-                if n_kernels["flash backward"] != 2 * per_step or n_kernels["GEMMs"] == 0:
-                    fail(f"profiled step: {dict(n_kernels)} kernels by group; expected "
-                         f"{2 * per_step} of the flash backward (D and the fused passes a "
-                         "launch) and GEMMs")
-                split = ", ".join(f"{g} {dev_ms[g]:.3f} ms ({n_kernels[g]} kernels)"
-                                  for g in STEP_GROUPS)
-                # the profiler slows the host's issue, so the idle share is
-                # also read against the unprofiled step before
-                steady_ms = 1e3 * walls[-2]
-                print(f"[train] {run} step {i} under torch.profiler, device time by group: "
-                      f"{split}; device busy {busy_ms:.3f} ms of the profiled step's "
-                      f"{span_ms:.3f} ms (idle {100 * (1 - busy_ms / span_ms):.1f}%) and of "
-                      f"step {i - 1}'s {steady_ms:.1f} ms unprofiled (idle "
-                      f"{100 * (1 - busy_ms / steady_ms):.1f}%) on {card}")
-            t = m["times"]
-            print(f"[train] {run} step {i}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
-                  f"{wall * 1e3:.1f} ms (nodes' fwd+bwd {t['fwd_bwd'] * 1e3:.1f}, optimizer "
-                  f"{t['optimizer'] * 1e3:.1f}, gossip {t['gossip'] * 1e3:.1f}), "
-                  f"{n_nodes * bpn * seq / wall:.0f} tok/s{fedavg} on {card}")
-        counts = launch_counts()
-        train_launches.update(counts)
-        print(f"[train] {run}: losses {[round(x, 4) for x in losses]}, peak "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches {json.dumps(counts)}")
-        want = {"": (), "int8": ("quantize", "dequantize", "gossip_mix"),
-                "topk": ("topk_select", "gossip_mix")}[codec]
-        missing = [k for k in want if counts[k] <= 0]
-        if missing:
-            fail(f"train {run}: gossip kernels never launched: {missing}")
-        if mode == "tree_allreduce" and not losses[2] < losses[0]:
-            fail(f"train {run}: the third loss {losses[2]} is not below the first {losses[0]}")
-        if codec == "topk" and not any(float(x.abs().max()) > 0
-                                       for x in tree_leaves(state.opt_state["codec_ef"])):
-            fail(f"train {run}: codec_ef never changed")
-        del trainer, state, m
+            torch.cuda.reset_peak_memory_stats()
+            run = f"{cfg.name} {mode}{'+' + codec if codec else ''}"
+            losses, walls = [], []
+            reset_launches()
+            for i in range(steps):
+                before = launch_counts()
+                profiled = mode == "tree_allreduce" and i == 3
+                t0 = time.perf_counter()
+                if profiled:
+                    state, m, dev_ms, n_kernels, busy_ms, span_ms = profile_step(trainer, state,
+                                                                                 batch)
+                else:
+                    state, m = trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                after = launch_counts()
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                losses.append(loss)
+                walls.append(wall)
+                if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                    fail(f"train {run} step {i}: loss {loss}, grad_norm {gnorm}")
+                for kernel, want in (("flash_attention", fwd_per_step),
+                                     ("flash_attention_bwd", per_step)):
+                    n = after[kernel] - before[kernel]
+                    if n != want:
+                        fail(f"train {run} step {i}: {kernel} launched {n} times, expected "
+                             f"{want} ({cfg.n_layers} layers x {n_nodes} nodes"
+                             f"{' x 2 passes' if want != per_step else ''})")
+                routed = ""
+                if cfg.family == "moe":  # the routing pass and the differentiated one
+                    mismatch = float(m["route_mismatch"])
+                    if mismatch != 0.0:
+                        fail(f"train {run} step {i}: the routing pass's f counts differ from "
+                             f"the differentiated pass's by {mismatch}")
+                    routed = ", both passes routed alike"
+                if mode == "tree_allreduce":  # every node holds the FedAvg of the masters
+                    worst = 0.0
+                    for leaf in tree_leaves(state.opt_state["master"]):
+                        # in f64 a chunk at a time: qwen3-moe's embedding is 311 M a node
+                        for chunk in leaf.reshape(n_nodes, -1).split(1 << 24, dim=1):
+                            chunk = chunk.double()
+                            mean = chunk.mean(dim=0)
+                            ok = all(torch.allclose(chunk[j], mean, rtol=1e-5, atol=1e-5)
+                                     for j in range(n_nodes))
+                            worst = max(worst, float((chunk - mean).abs().max()))
+                            if not ok:
+                                fail(f"train {run} step {i}: a node's masters are off the "
+                                     "FedAvg")
+                    fedavg = f", masters within {worst:.2e} of the FedAvg"
+                else:
+                    fedavg = ""
+                if profiled:  # where a steady step's device time goes
+                    if (n_kernels["flash backward"] != 2 * per_step
+                            or n_kernels["flash forward"] != fwd_per_step
+                            or n_kernels["GEMMs"] == 0):
+                        fail(f"profiled step: {dict(n_kernels)} kernels by group; expected "
+                             f"{2 * per_step} of the flash backward (D and the fused passes a "
+                             f"launch), {fwd_per_step} of the forward and GEMMs")
+                    split = ", ".join(f"{g} {dev_ms[g]:.3f} ms ({n_kernels[g]} kernels)"
+                                      for g in STEP_GROUPS)
+                    # the profiler slows the host's issue, so the idle share is
+                    # also read against the unprofiled step before
+                    steady_ms = 1e3 * walls[-2]
+                    print(f"[train] {run} step {i} under torch.profiler, device time by group: "
+                          f"{split}; device busy {busy_ms:.3f} ms of the profiled step's "
+                          f"{span_ms:.3f} ms (idle {100 * (1 - busy_ms / span_ms):.1f}%) and of "
+                          f"step {i - 1}'s {steady_ms:.1f} ms unprofiled (idle "
+                          f"{100 * (1 - busy_ms / steady_ms):.1f}%) on {card}")
+                t = m["times"]
+                print(f"[train] {run} step {i}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
+                      f"{wall * 1e3:.1f} ms (nodes' fwd+bwd {t['fwd_bwd'] * 1e3:.1f}, optimizer "
+                      f"{t['optimizer'] * 1e3:.1f}, gossip {t['gossip'] * 1e3:.1f}), "
+                      f"{n_nodes * bpn * seq / wall:.0f} tok/s{fedavg}{routed} on {card}")
+            counts = launch_counts()
+            train_launches.update(counts)
+            print(f"[train] {run}: losses {[round(x, 4) for x in losses]}, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
+                  f"{json.dumps(counts)}")
+            want = {"": (), "int8": ("quantize", "dequantize", "gossip_mix"),
+                    "topk": ("topk_select", "gossip_mix")}[codec]
+            missing = [k for k in want if counts[k] <= 0]
+            if missing:
+                fail(f"train {run}: gossip kernels never launched: {missing}")
+            if mode == "tree_allreduce" and not losses[2] < losses[0]:
+                fail(f"train {run}: the third loss {losses[2]} is not below the first "
+                     f"{losses[0]}")
+            if codec == "topk" and not any(float(x.abs().max()) > 0
+                                           for x in tree_leaves(state.opt_state["codec_ef"])):
+                fail(f"train {run}: codec_ef never changed")
+            del trainer, state, m
+            torch.cuda.empty_cache()
+        for kernel in ("flash_attention", "flash_attention_bwd"):
+            results[kernel]["launches"] += train_launches[kernel]
+        if cfg.family == "moe":  # what the global-batch aux loss costs a step
+            trainer = DFLTrainer(model, n_nodes, device="cuda")
+            stacked = tree_map(lambda t: t.expand(n_nodes, *t.shape), params0)
+            spans = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.aux_coefs(stacked, batch.tokens)
+                torch.cuda.synchronize()
+                spans.append(1e3 * (time.perf_counter() - t0))
+            print(f"[train] {cfg.name}: the routing pass alone (DFLTrainer.aux_coefs: "
+                  f"{n_nodes} nodes' layers without logits or a graph) "
+                  f"{statistics.median(spans[1:]):.3f} ms median of 3 after a warm-up "
+                  f"[{', '.join(f'{t:.3f}' for t in spans)}] on {card}")
+            del trainer, stacked
+        del params0, model, batch
         torch.cuda.empty_cache()
-    for kernel in ("flash_attention", "flash_attention_bwd"):
-        results[kernel]["launches"] += train_launches[kernel]
-    del params0, model, batch
+        return data
 
-    # gradients through the kernels against the plain versions on the card
-    cfg = get_arch("smollm-360m").replace(n_layers=4, dtype="float32", remat=False)
-    model = build_model(cfg, device="cuda")
-    params = model.init(torch.Generator(device=dev).manual_seed(2))
-    leaves = tree_leaves(params)
-    for x in leaves:
-        x.requires_grad_(True)
-    tok, lab = data.global_batch()
-    b2 = Batch(tokens=torch.from_numpy(tok[:bpn]).long().to(dev),
-               labels=torch.from_numpy(lab[:bpn]).long().to(dev))
-    got = torch.autograd.grad(model.train_loss(params, b2), leaves)
-    attn_model.flash_attention_op = attention_ref  # the plain route, autograd's own backward
-    try:
-        want = torch.autograd.grad(model.train_loss(params, b2), leaves)
-    finally:
-        attn_model.flash_attention_op = flash_attention_op
-    worst = 0.0
-    for g1, g2 in zip(got, want):
-        rel = float((g1 - g2).abs().max()) / max(float(g2.abs().max()), 1e-30)
-        worst = max(worst, rel)
-        if not rel <= 1e-3:
-            fail(f"train gradients: a leaf through the kernels is {rel:.2e} of its max|g| off "
-                 "the plain versions' (bound 1e-3)")
-    print(f"[train] f32, 4 layers, full width, (2, 2048) tokens: every leaf's gradient "
-          f"through the kernels within {worst:.3e} of its max|g| of the plain versions' "
-          f"(bound 1e-3) on {card}")
-    del params, leaves, got, want, model
-    torch.cuda.empty_cache()
+    def grad_check(cfg, data, rows):
+        """Every leaf's f32 training gradient through the kernels against the
+        gradient through the plain versions on the card, within 1e-3 of its
+        max |g|."""
+        model = build_model(cfg, device="cuda")
+        params = model.init(torch.Generator(device=dev).manual_seed(2))
+        leaves = tree_leaves(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        tok, lab = data.global_batch()
+        b2 = Batch(tokens=torch.from_numpy(tok[:rows]).long().to(dev),
+                   labels=torch.from_numpy(lab[:rows]).long().to(dev))
+        got = torch.autograd.grad(model.train_loss(params, b2), leaves)
+        attn_model.flash_attention_op = attention_ref  # the plain route, autograd's own backward
+        try:
+            want = torch.autograd.grad(model.train_loss(params, b2), leaves)
+        finally:
+            attn_model.flash_attention_op = flash_attention_op
+        worst = 0.0
+        for g1, g2 in zip(got, want):
+            rel = float((g1 - g2).abs().max()) / max(float(g2.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= 1e-3:
+                fail(f"train gradients ({cfg.name}): a leaf through the kernels is {rel:.2e} "
+                     "of its max|g| off the plain versions' (bound 1e-3)")
+        print(f"[train] {cfg.name} f32, {cfg.n_layers} layers, full width, ({rows}, 2048) "
+              f"tokens: every leaf's gradient through the kernels within {worst:.3e} of its "
+              f"max|g| of the plain versions' (bound 1e-3) on {card}")
+        del params, leaves, got, want, model
+        torch.cuda.empty_cache()
+
+    # smollm-360m at full width and depth, (2, 2048) a node; the tree run's
+    # fourth step runs under torch.profiler, and the tree run comes last, so
+    # no other step follows a profiled one
+    cfg = get_arch("smollm-360m").replace(remat=False)
+    data = train_path(cfg, 2, [("dissemination", "int8", 2), ("dissemination", "topk", 2),
+                               ("tree_allreduce", "", 4)])
+    grad_check(cfg.replace(n_layers=4, dtype="float32"), data, 2)
+    # qwen3-moe-30b-a3b at full width and 1 of its 48 layers, (1, 2048) a node:
+    # 0.934 B params a node, fp32 masters and bf16 moments (its config); no
+    # top-k run, whose f32 residual would add 15 GB
+    cfg = get_arch("qwen3-moe-30b-a3b").replace(n_layers=1, remat=False)
+    data = train_path(cfg, 1, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)])
+    grad_check(cfg.replace(dtype="float32"), data, 1)
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

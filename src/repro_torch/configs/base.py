@@ -1,10 +1,10 @@
 """Architecture configs of the port: ``ArchConfig``, the input shapes and the
 registry (``repro.configs.base`` without the ``jax.ShapeDtypeStruct`` specs).
 
-The registry holds the four architectures whose families the port runs:
-smollm-360m, granite-3-2b and gemma2-2b (dense) and falcon-mamba-7b (ssm).
-Asking for any other raises ``KeyError``; ROADMAP Queue A lists what comes
-next.
+The registry holds the six architectures whose families the port runs:
+smollm-360m, granite-3-2b and gemma2-2b (dense), falcon-mamba-7b (ssm) and
+qwen3-moe-30b-a3b and arctic-480b (moe). Asking for any other raises
+``KeyError``; ROADMAP Queue A lists what comes next.
 """
 from __future__ import annotations
 
@@ -183,4 +183,11 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     _LOADED = True
-    from . import falcon_mamba_7b, gemma2_2b, granite_3_2b, smollm_360m  # noqa: F401
+    from . import (  # noqa: F401
+        arctic_480b,
+        falcon_mamba_7b,
+        gemma2_2b,
+        granite_3_2b,
+        qwen3_moe_30b_a3b,
+        smollm_360m,
+    )

@@ -21,7 +21,10 @@ nodes differ only by what a lossy gossip wire leaves. Here:
    global batch, then averaged over the slices), so node i weighs by its
    share of the valid labels, 1 / N only when the nodes hold equal counts
    (P4); the gradient accumulates in f32, then in the parameters' dtype, as
-   the reference's gradients are;
+   the reference's gradients are. A moe model's aux loss is the reference's
+   too, taken over each slice of the global batch (whichever nodes hold its
+   rows), not over each node's rows: a routing pass first counts every
+   part's top-k choices without a graph (see :meth:`DFLTrainer.grads`);
 3. ``clip_by_global_norm`` clips that mean (one norm, ``grad_norm``), and the
    optimizer updates every node's parameters and masters with it;
 4. gossip runs through :func:`gossip_exchange` on the masters when they
@@ -43,7 +46,8 @@ import torch
 
 from .. import DeviceLike, resolve_device
 from ..compress import make_codec
-from ..models.model import Batch, Model
+from ..models.layers import cross_entropy_loss
+from ..models.model import MOE_AUX_WEIGHT, Batch, Model
 from ..optim.optimizers import Optimizer, clip_by_global_norm, make_optimizer
 from .collectives import GossipPlan, gossip_exchange, tree_map
 
@@ -87,7 +91,12 @@ def _sync(dev: torch.device) -> float:
 class DFLTrainer:
     """One DFL step on ``n_nodes`` stacked replicas. With ``timed`` the step
     synchronizes the device between its phases and reports each phase's
-    seconds by host clock in ``metrics["times"]``."""
+    seconds by host clock in ``metrics["times"]``. A step consumes its input
+    state, as the reference's jitted step donates it (``donate_argnums=(0,)``):
+    once the optimizer has read them, the input ``TrainState``'s params and
+    opt_state are set to None, so the old and new states do not both live
+    through the gossip round (the caller must not read a stepped state
+    again)."""
 
     def __init__(self, model: Model, n_nodes: int, dfl: Optional[DFLConfig] = None,
                  optimizer: Optional[Optimizer] = None, device: DeviceLike = None,
@@ -139,13 +148,20 @@ class DFLTrainer:
         return [(slice(0, rows), 1.0)]
 
     def _weighted_grads(self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor,
-                        parts: List[Tuple[slice, Any]], acc: Optional[List[torch.Tensor]]
-                        ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], PyTree]:
-        """``train_loss`` on each part of the rows at ``params`` (no node
-        axis), weighted: returns sum_p w_p loss_p, the rows' own mean loss
-        (each part's weighted by its count of labels >= 0), and the gradients
-        sum_p w_p grad loss_p added in f32 into ``acc`` (one tensor a leaf,
-        made when None), with the live tree that maps them back."""
+                        parts: List[Tuple[slice, Any, Optional[torch.Tensor]]],
+                        acc: Optional[List[torch.Tensor]]
+                        ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], PyTree,
+                                   List[torch.Tensor]]:
+        """Each part (rows, w, coef) of the rows at ``params`` (no node
+        axis) adds its objective's gradient in f32 into ``acc`` (one tensor a
+        leaf, made when None). Without ``coef`` the objective is w
+        ``train_loss`` (differentiated, then scaled by w); with ``coef``, an
+        (n_layers, n_experts) tensor, it is w CE + sum coef * P, P the
+        layers' router probabilities summed over the part's tokens (the
+        part's share of the global aux loss). Returns the objectives' sum,
+        the rows' own mean ``train_loss`` (each part's weighted by its count
+        of labels >= 0), ``acc``, the live tree that maps it back and, for
+        the parts with ``coef``, their (n_layers, n_experts) f counts."""
         leaves: List[torch.Tensor] = []
 
         def leaf(t: torch.Tensor) -> torch.Tensor:
@@ -155,22 +171,35 @@ class DFLTrainer:
 
         live = tree_map(leaf, params)
         zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        loss, own, count = zero, zero, zero
-        for rows, w in parts:
+        loss, own, count, f_counts = zero, zero, zero, []
+        for rows, w, coef in parts:
             lab = labels[rows]
-            l = self.model.train_loss(live, Batch(tokens=tokens[rows], labels=lab))
-            g = torch.autograd.grad(l, leaves)
+            batch = Batch(tokens=tokens[rows], labels=lab)
+            if coef is None:
+                l = self.model.train_loss(live, batch)
+                g = torch.autograd.grad(l, leaves)
+                objective, scale = l.detach() * w, w
+            else:
+                stats: List[Any] = []
+                logits, aux = self.model.forward(live, batch, stats)
+                ce = cross_entropy_loss(logits, lab)
+                del logits
+                objective = ce * w + (coef * torch.stack([st.p for st in stats])).sum()
+                g = torch.autograd.grad(objective, leaves)
+                l = ce + MOE_AUX_WEIGHT * aux
+                objective, scale = objective.detach(), None
+                f_counts.append(torch.stack([st.f for st in stats]))
             if acc is None:  # (the gradients are ours: scaled in place)
-                acc = [x.float().mul_(w) for x in g]
+                acc = [x.float() if scale is None else x.float().mul_(scale) for x in g]
             else:
                 for a, x in zip(acc, g):
-                    a.add_(x.float().mul_(w))
+                    a.add_(x.float() if scale is None else x.float().mul_(scale))
             del g
             c = (lab >= 0).sum()
-            loss = loss + l.detach() * w
+            loss = loss + objective
             own = own + l.detach() * c
             count = count + c
-        return loss, own / count.clamp(min=1), acc, live
+        return loss, own / count.clamp(min=1), acc, live, f_counts
 
     def node_grads(self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor
                    ) -> Tuple[torch.Tensor, PyTree]:
@@ -178,8 +207,8 @@ class DFLTrainer:
         its own rows; grads in the parameters' dtype. With
         ``cfg.microbatches`` > 1 dividing the rows, the microbatches'
         gradients average in f32, as the reference accumulates them."""
-        loss, _, acc, live = self._weighted_grads(params, tokens, labels,
-                                                  self._own_parts(tokens.shape[0]), None)
+        parts = [(rows, w, None) for rows, w in self._own_parts(tokens.shape[0])]
+        loss, _, acc, live, _ = self._weighted_grads(params, tokens, labels, parts, None)
         it = iter(acc)
         return loss, tree_map(lambda t: next(it).to(t.dtype), live)
 
@@ -213,16 +242,55 @@ class DFLTrainer:
         cuts = sorted(cuts)
         return [slice(a, b) for a, b in zip(cuts[:-1], cuts[1:])]
 
-    def grads(self, params: PyTree, batch: Batch) -> Tuple[torch.Tensor, PyTree, List[float]]:
-        """(the step's loss, its gradient, each node's own mean loss): node i
-        at its row of ``params`` on rows [i·bpn, (i+1)·bpn) of the batch.
+    def aux_coefs(self, params: PyTree, tokens: torch.Tensor
+                  ) -> Tuple[List[List[torch.Tensor]], List[List[torch.Tensor]]]:
+        """The routing pass of a moe step. The reference's aux loss of
+        microbatch slice j is e sum_l,e f_l,e P_l,e / (k L) with f and P the
+        means over the slice's T_j tokens, whichever nodes hold them; f
+        carries no gradient, so the aux splits exactly over the parts p of a
+        slice. Part p's share of the step's loss is sum_l,e coef_l,e Psum_p,
+        with Psum_p its tokens' router probabilities summed and coef =
+        0.01 e F_j / (mb L k T_j^2), F_j the slice's f counts: known only
+        once every part of the slice is routed. So each node first routes
+        its parts under ``no_grad`` (:meth:`Model.route_counts`, no logits).
+        Returns each node's per-part coef and per-part f counts, the parts
+        of :meth:`_node_parts`."""
+        cfg = self.cfg
+        g_rows, seq = tokens.shape
+        n = self.n_nodes
+        node_parts = [self._node_parts(i, g_rows // n, g_rows) for i in range(n)]
+        mb = self._slices(g_rows)
+        slice_rows = g_rows // mb
+        counts = [[self.model.route_counts(tree_map(lambda t: t[i], params), tokens[rows])
+                   for rows in parts] for i, parts in enumerate(node_parts)]
+        per_slice: List[Any] = [0.0] * mb
+        for parts, cs in zip(node_parts, counts):
+            for rows, c in zip(parts, cs):
+                per_slice[rows.start // slice_rows] = per_slice[rows.start // slice_rows] + c
+        scale = (MOE_AUX_WEIGHT * cfg.n_experts
+                 / (mb * cfg.n_layers * cfg.top_k * float(slice_rows * seq) ** 2))
+        coefs = [[per_slice[rows.start // slice_rows] * scale for rows in parts]
+                 for parts in node_parts]
+        return coefs, counts
+
+    def grads(self, params: PyTree, batch: Batch
+              ) -> Tuple[torch.Tensor, PyTree, List[float], Optional[torch.Tensor]]:
+        """(the step's loss, its gradient, each node's own mean loss, the
+        route mismatch): node i at its row of ``params`` on rows
+        [i·bpn, (i+1)·bpn) of the batch.
 
         The reference differentiates the global batch's masked-mean loss, so
         node i's share weighs by its count of valid labels, not 1 / N (P4):
         each part of its rows (see :meth:`_node_parts`) takes the weight
         c_p / (mb max(C_j, 1)) of :meth:`row_weights`, c_p the part's count
         of labels >= 0. The weights stay on the device; with equal counts
-        they are 1 / (N mb), the plain mean over nodes."""
+        they are 1 / (N mb), the plain mean over nodes. A moe model adds
+        each part's share of its slice's aux loss (:meth:`aux_coefs`); the
+        routing pass and the differentiated one must route alike: the route
+        mismatch is the sum of |their f counts' differences| over every part
+        and layer, a device tensor that is 0 when they do (None for a model
+        without experts). A node's own loss is its rows' own ``train_loss``,
+        aux over its rows alone."""
         n = self.n_nodes
         tokens = batch.tokens.to(self.device)
         labels = batch.labels.to(self.device)
@@ -231,16 +299,24 @@ class DFLTrainer:
             raise ValueError(f"a batch of {g_rows} rows does not split over {n} nodes")
         bpn = g_rows // n
         row_w = self.row_weights(labels) * (labels >= 0).sum(dim=1)
-        acc, loss, losses = None, None, []
+        node_parts = [self._node_parts(i, bpn, g_rows) for i in range(n)]
+        coefs, routed = None, None
+        if self.cfg.family == "moe":
+            coefs, routed = self.aux_coefs(params, tokens)
+        acc, loss, losses, mismatch = None, None, [], None
         for i in range(n):
-            parts = [(rows, row_w[rows].sum()) for rows in self._node_parts(i, bpn, g_rows)]
-            l, own, acc, _ = self._weighted_grads(tree_map(lambda t: t[i], params), tokens,
-                                                  labels, parts, acc)
+            parts = [(rows, row_w[rows].sum(), None if coefs is None else coefs[i][j])
+                     for j, rows in enumerate(node_parts[i])]
+            l, own, acc, _, f_counts = self._weighted_grads(
+                tree_map(lambda t: t[i], params), tokens, labels, parts, acc)
             loss = l if loss is None else loss + l
             losses.append(own)
+            for f, f_routed in zip(f_counts, routed[i] if routed else []):
+                d = (f - f_routed).abs().sum()
+                mismatch = d if mismatch is None else mismatch + d
         it = iter(acc)
         mean = tree_map(lambda p: next(it).to(p.dtype), params)
-        return loss, mean, [float(x) for x in losses]
+        return loss, mean, [float(x) for x in losses], mismatch
 
     # -- the step -------------------------------------------------------------
     def gossip(self, params: PyTree, opt_state: Dict[str, PyTree]
@@ -271,13 +347,14 @@ class DFLTrainer:
         """One local step on every node, then (on a gossip step) one round."""
         dev, dfl = self.device, self.dfl
         t0 = _sync(dev) if self.timed else 0.0
-        loss, grads, node_losses = self.grads(state.params, batch)
+        loss, grads, node_losses, mismatch = self.grads(state.params, batch)
         t1 = _sync(dev) if self.timed else 0.0
         grads, gnorm = clip_by_global_norm(grads, dfl.max_grad_norm)
         ef = state.opt_state.get("codec_ef")
         opt_in = {k: v for k, v in state.opt_state.items() if k != "codec_ef"}
         params, opt_state = self.opt.update(state.params, grads, opt_in, state.step)
-        del grads
+        del grads, opt_in
+        state.params, state.opt_state = None, None
         if ef is not None:  # optimizers rebuild their state dict; carry the residual
             opt_state = dict(opt_state, codec_ef=ef)
         t2 = _sync(dev) if self.timed else 0.0
@@ -288,6 +365,8 @@ class DFLTrainer:
         t3 = _sync(dev) if self.timed else 0.0
         metrics: Dict[str, Any] = {"loss": loss, "grad_norm": gnorm,
                                    "node_losses": node_losses, "gossip": gossiped}
+        if mismatch is not None:
+            metrics["route_mismatch"] = mismatch
         if self.timed:
             metrics["times"] = {"fwd_bwd": t1 - t0, "optimizer": t2 - t1, "gossip": t3 - t2}
         return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics

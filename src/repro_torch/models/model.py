@@ -1,15 +1,16 @@
 """Models of the port (``repro.models.model``): ArchConfig -> init /
-forward / train_loss / init_cache / decode_step, for the dense and ssm
+forward / train_loss / init_cache / decode_step, for the dense, moe and ssm
 families.
 
 Parameters keep the JAX package's stacked-layer tree: every block leaf has
 a leading layer axis (gemma2 splits ``local_blocks`` and ``global_blocks``),
 so ``convert.from_numpy`` of a JAX ``Model.init`` tree is a valid params
-tree here. The loops over layers are Python loops over those leaves. The
-prefill forward reaches the two model kernels: flash attention in every
-dense layer (``attention.attention``), the selective scan in every Mamba1
-layer (``mamba.mamba1_forward``). Decode is plain PyTorch, as in the JAX
-package.
+tree here. ``init`` fills each stacked leaf in place, layer by layer, so it
+never holds the per-layer trees and their stacked copy at once. The loops
+over layers are Python loops over those leaves. The prefill forward reaches
+the two model kernels: flash attention in every dense and moe layer
+(``attention.attention``), the selective scan in every Mamba1 layer
+(``mamba.mamba1_forward``). Decode is plain PyTorch, as in the JAX package.
 
 ``train_loss`` is differentiable: flash attention is an autograd Function
 whose backward is the backward kernel on the card (its plain version on
@@ -22,13 +23,16 @@ Families
   dense : llama-style GQA decoder (smollm, granite), gemma2 (alternating
           local/global layers with softcaps), and the long-context
           sliding-window variant of any dense arch (``long_500k``)
+  moe   : dense attention + top-k expert MLP (qwen3-moe; arctic adds a dense
+          residual MLP), ``models/moe.py``; the forward's aux loss is the
+          layers' Switch losses averaged over layers
   ssm   : attention-free Mamba1 stack (falcon-mamba)
-The moe, hybrid, audio and vlm families raise ``NotImplementedError``.
+The hybrid, audio and vlm families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -37,6 +41,7 @@ from .. import DeviceLike, resolve_device
 from ..configs.base import ArchConfig
 from . import attention as attn_lib
 from . import mamba as mamba_lib
+from .moe import MoEStats, init_moe, moe_layer
 from .layers import (
     Params,
     cross_entropy_loss,
@@ -51,8 +56,7 @@ from .layers import (
 MOE_AUX_WEIGHT = 0.01
 
 NOT_PORTED = {
-    "moe": "ROADMAP Queue A item 4, the moe family (next)",
-    "hybrid": "ROADMAP Queue A item 4, the hybrid family (Mamba2, after moe)",
+    "hybrid": "ROADMAP Queue A item 4, the hybrid family (Mamba2)",
     "audio": "ROADMAP Queue A item 4, the audio and vlm families (after hybrid)",
     "vlm": "ROADMAP Queue A item 4, the audio and vlm families (after hybrid)",
 }
@@ -81,6 +85,28 @@ def _stack(trees: List[Params]) -> Params:
     return torch.stack(trees)
 
 
+def _tree_map(fn, tree: Params, *rest: Params) -> Params:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _stack_layers(n: int, make_block: Callable[[], Params]) -> Params:
+    """The stacked tree of ``n`` blocks from ``make_block()``, drawn in layer
+    order (the draws of ``_stack([make_block() for _ in range(n)])``) and
+    copied into each stacked leaf in place: at most the stacked tree and one
+    layer's tree live at once. One layer is a view of its own tree."""
+    first = make_block()
+    if n == 1:
+        return _tree_map(lambda t: t.unsqueeze(0), first)
+    out = _tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+    _tree_map(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for i in range(1, n):
+        _tree_map(lambda o, t: o[i].copy_(t), out, make_block())
+    return out
+
+
 class Model:
     """Functional model; all state lives in explicit params / cache trees."""
 
@@ -88,7 +114,7 @@ class Model:
         if cfg.family in NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet ({NOT_PORTED[cfg.family]})")
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise ValueError(f"unknown family {cfg.family}")
         if cfg.family == "ssm" and cfg.ssm_version != 1:
             raise NotImplementedError(f"{cfg.name}: only Mamba1 ssm stacks are ported")
@@ -112,7 +138,9 @@ class Model:
     def init(self, gen: torch.Generator) -> Params:
         """Random params drawn from ``gen`` on its device. Norm scales are 0,
         and Mamba1's A_log = log(1..n), D = 1, dt_bias = 0, as in the JAX
-        package; the random leaves come from torch's generator, not JAX's."""
+        package; the random leaves come from torch's generator, not JAX's.
+        Peak memory: the stacked tree, one layer's tree and one leaf's f32
+        draw (:func:`_stack_layers`)."""
         cfg, dt = self.cfg, self.dtype
         params: Params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, dt)}
         params["final_norm"] = self._zeros(gen, cfg.d_model)
@@ -126,6 +154,16 @@ class Model:
                 "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt),
             }
 
+        def moe_block() -> Params:
+            return {
+                "ln1": self._zeros(gen, cfg.d_model),
+                "attn": attn_lib.init_attention(gen, cfg.d_model, cfg.eff_n_heads,
+                                                cfg.eff_n_kv_heads, cfg.resolved_head_dim, dt),
+                "ln2": self._zeros(gen, cfg.d_model),
+                "moe": init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, dt,
+                                cfg.dense_ff if cfg.moe_dense_residual else 0),
+            }
+
         def mamba_block() -> Params:
             return {"ln": self._zeros(gen, cfg.d_model),
                     "body": mamba_lib.init_mamba1(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
@@ -133,12 +171,14 @@ class Model:
 
         n = cfg.n_layers
         if cfg.family == "dense" and cfg.alt_local_global:
-            params["local_blocks"] = _stack([dense_block() for _ in range(n // 2)])
-            params["global_blocks"] = _stack([dense_block() for _ in range(n // 2)])
+            params["local_blocks"] = _stack_layers(n // 2, dense_block)
+            params["global_blocks"] = _stack_layers(n // 2, dense_block)
         elif cfg.family == "dense":
-            params["blocks"] = _stack([dense_block() for _ in range(n)])
+            params["blocks"] = _stack_layers(n, dense_block)
+        elif cfg.family == "moe":
+            params["blocks"] = _stack_layers(n, moe_block)
         else:
-            params["blocks"] = _stack([mamba_block() for _ in range(n)])
+            params["blocks"] = _stack_layers(n, mamba_block)
         return params
 
     @staticmethod
@@ -165,9 +205,36 @@ class Model:
         return x + mamba_lib.mamba1_forward(block["body"], rms_norm(x, block["ln"]),
                                             self.cfg.ssm_state, self.cfg.dt_rank)
 
-    def forward(self, params: Params, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _moe_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
+                   window: int) -> Tuple[torch.Tensor, torch.Tensor, MoEStats]:
+        cfg = self.cfg
+        x = x + attn_lib.attention(
+            block["attn"], rms_norm(x, block["ln1"]), positions, causal=True,
+            sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
+        y, aux, stats = moe_layer(block["moe"], rms_norm(x, block["ln2"]), cfg.top_k,
+                                  cfg.moe_capacity_factor)
+        return x + y, aux, stats
+
+    def _moe_layers(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
+                    stats: Optional[List[MoEStats]]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The moe stack: (x, the layers' aux losses summed), each layer's
+        :class:`MoEStats` appended to ``stats`` when given."""
+        moe_block = self._layer_fn(self._moe_block)
+        window = self.cfg.sliding_window if self.long_context else 0
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(self.cfg.n_layers):
+            x, a, st = moe_block(_layer(params["blocks"], i), x, positions, window)
+            aux = aux + a
+            if stats is not None:
+                stats.append(st)
+        return x, aux
+
+    def forward(self, params: Params, batch: Batch,
+                stats: Optional[List[MoEStats]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits over the full sequence (b, s, padded vocab) f32,
-        moe aux loss = 0)."""
+        moe aux loss: the layers' mean, 0 outside the moe family). A moe
+        forward appends each layer's :class:`MoEStats` to ``stats`` when
+        given."""
         cfg = self.cfg
         dense_block = self._layer_fn(self._dense_block)
         mamba_block = self._layer_fn(self._mamba_block)
@@ -177,7 +244,10 @@ class Model:
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
 
-        if cfg.family == "dense" and cfg.alt_local_global:
+        if cfg.family == "moe":
+            x, aux = self._moe_layers(params, x, positions, stats)
+            aux = aux / cfg.n_layers
+        elif cfg.family == "dense" and cfg.alt_local_global:
             for i in range(cfg.n_layers // 2):
                 x = dense_block(_layer(params["local_blocks"], i), x, positions,
                                 cfg.sliding_window)
@@ -198,6 +268,20 @@ class Model:
         logits, aux = self.forward(params, batch)
         return cross_entropy_loss(logits, batch.labels) + MOE_AUX_WEIGHT * aux
 
+    @torch.no_grad()
+    def route_counts(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """(n_layers, n_experts) f32: each moe layer's f counts
+        (:attr:`MoEStats.f`) over ``tokens``, from the layers alone (no
+        logits) and without a graph; the forward computes them the same
+        way, launch for launch."""
+        if self.cfg.family != "moe":
+            raise ValueError(f"{self.cfg.name}: route_counts needs a moe model")
+        x = embed(params["embed"], tokens).to(self.dtype)
+        b, s, _ = x.shape
+        stats: List[MoEStats] = []
+        self._moe_layers(params, x, torch.arange(s, device=x.device).expand(b, s), stats)
+        return torch.stack([st.f for st in stats])
+
     # -- decode: cache + one-token step ---------------------------------------------
     def init_cache(self, batch: int, cache_len: int) -> Params:
         """Zeroed decode cache on the model's device, stacked over layers."""
@@ -212,7 +296,7 @@ class Model:
         def ring(length: int) -> int:
             return min(length, cfg.sliding_window) if cfg.sliding_window else length
 
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             if cfg.alt_local_global:
                 return {"local": kvc(cfg.n_layers // 2, ring(cache_len)),
                         "global": kvc(cfg.n_layers // 2, cache_len)}
@@ -233,6 +317,10 @@ class Model:
                 block["attn"], rms_norm(x, block["ln1"]), positions, c, sliding_window=window,
                 softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
             x = x + h
+            if cfg.family == "moe":  # the aux loss is not needed here
+                y, _, _ = moe_layer(block["moe"], rms_norm(x, block["ln2"]), cfg.top_k,
+                                    cfg.moe_capacity_factor)
+                return x + y, c2
             return x + mlp(block["mlp"], rms_norm(x, block["ln2"])), c2
 
         if cfg.family == "dense" and cfg.alt_local_global:
@@ -244,7 +332,7 @@ class Model:
                 local.append(lc)
                 glob.append(gc)
             new_cache = {"local": _stack(local), "global": _stack(glob)}
-        elif cfg.family == "dense":
+        elif cfg.family in ("dense", "moe"):
             window = cfg.sliding_window if self.long_context else 0
             kvs = []
             for i in range(cfg.n_layers):
@@ -269,5 +357,5 @@ class Model:
 
 def build_model(cfg: ArchConfig, shape_name: str = "", device: DeviceLike = None) -> Model:
     """Factory: the long_500k shape selects the sliding-window variant of a
-    dense arch."""
+    dense or moe arch."""
     return Model(cfg, long_context=shape_name == "long_500k", device=device)

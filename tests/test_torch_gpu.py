@@ -564,3 +564,99 @@ def test_scan_raises_where_autograd_needs_its_gradient(cuda):
     with torch.no_grad():
         y, _ = selective_scan_op(*args, out_dtype=torch.float32)
     assert y.grad_fn is None and bool(torch.isfinite(y).all())
+
+
+# -- the moe family on the card ------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("h,kv", [(32, 4), (56, 8)], ids=["qwen3-moe", "arctic"])
+def test_flash_kernels_at_the_moe_head_groups(cuda, dtype, h, kv):
+    """hd 128 with GQA groups of 8 and 7, the moe configs' heads: the
+    forward and the backward against their plain versions."""
+    q = _normal((1, 320, h, 128), 41).to(dtype).to(cuda)
+    k = _normal((1, 320, kv, 128), 42).to(dtype).to(cuda)
+    v = _normal((1, 320, kv, 128), 43).to(dtype).to(cuda)
+    out = flash_attention_op(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert float((out.float() - want.float()).abs().max()) <= atol
+    if dtype == torch.bfloat16:
+        assert rounding_units(out, q, k, v, causal=True) <= BF16_UNITS_TOL
+    do = _normal((1, 320, h, 128), 44).to(dtype).to(cuda)
+    _check_bwd(q, k, v, do, dict(causal=True, sliding_window=0, softcap=0.0))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b"])
+def test_moe_model_on_card_matches_cpu(cuda, arch):
+    """The f32 smoke forward (aux included) and a decode step through the
+    kernels on the card against the plain path on the CPU, same params."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Batch, build_model
+
+    cfg = get_arch(arch).smoke_variant()
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_card = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 160)))
+    reset_launches()
+    got, aux = card.forward(params_card, Batch(tokens=tokens.to(cuda)))
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == cfg.n_layers
+    want, want_aux = cpu.forward(params, Batch(tokens=tokens))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
+    step, _ = card.decode_step(params_card, tokens[:, :1].to(cuda),
+                               torch.zeros(2, dtype=torch.long, device=cuda),
+                               card.init_cache(2, 32))
+    assert float((step[:, 0].cpu() - want[:, 0]).abs().max()) <= 5e-2
+
+
+def test_moe_decode_step_replays_as_a_cuda_graph(cuda):
+    """No host sync and no data-dependent shape in a moe decode step: it
+    captures, and the replay gives the eager step's logits."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("qwen3-moe-30b-a3b").smoke_variant().replace(dtype="bfloat16")
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    cache = model.init_cache(4, 32)
+    tok = torch.randint(0, cfg.vocab, (4, 1), device=cuda)
+    pos = torch.full((4,), 3, dtype=torch.long, device=cuda)
+    with torch.inference_mode():
+        eager, _ = model.decode_step(params, tok, pos, cache)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.decode_step(params, tok, pos, cache)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, _ = model.decode_step(params, tok, pos, cache)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_moe_train_step_on_card_routes_alike(cuda):
+    """One DFL step of the qwen3-moe smoke variant in bf16 on 4 stacked
+    nodes: the routing pass and the differentiated pass give equal f counts,
+    and each flash kernel launches once a layer a node in each pass."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, FederatedData
+    from repro_torch.dfl.trainer import DFLConfig, DFLTrainer
+    from repro_torch.models import Batch, build_model
+
+    cfg = get_arch("qwen3-moe-30b-a3b").smoke_variant().replace(dtype="bfloat16")
+    model = build_model(cfg, device="cuda")
+    trainer = DFLTrainer(model, 4, DFLConfig(lr=1e-3, warmup=0), device="cuda")
+    state = trainer.init_state(torch.Generator(device=cuda).manual_seed(0))
+    tok, lab = FederatedData(DataConfig(vocab=cfg.vocab, seq_len=256, batch_per_node=2,
+                                        n_nodes=4)).global_batch()
+    reset_launches()
+    state, m = trainer.train_step(state, Batch(tokens=torch.from_numpy(tok).long().to(cuda),
+                                               labels=torch.from_numpy(lab).long().to(cuda)))
+    torch.cuda.synchronize()
+    assert float(m["route_mismatch"]) == 0.0 and np.isfinite(float(m["loss"]))
+    assert launch_counts()["flash_attention"] == 2 * cfg.n_layers * 4
+    assert launch_counts()["flash_attention_bwd"] == cfg.n_layers * 4

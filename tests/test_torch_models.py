@@ -4,16 +4,22 @@ The JAX ``Model.init`` tree crosses to the port with ``convert.from_numpy``
 leaf for leaf (stacked layer axis, nested ``embed/table``, bf16 as raw
 bits); then both run the same tokens. On the f32 smoke variants of
 smollm-360m, granite-3-2b, gemma2-2b (s above its smoke window of 128, so
-the local layers' window bites) and falcon-mamba-7b:
+the local layers' window bites), falcon-mamba-7b, qwen3-moe-30b-a3b and
+arctic-480b:
 
 * ``forward`` logits within 1e-4 of the JAX package's (f32; the attention
-  and scan sum in another order than XLA's einsum and associative scan);
+  and scan sum in another order than XLA's einsum and associative scan),
+  the moe aux loss within 1e-6 and ``train_loss`` within 1e-5;
 * ``decode_step`` logits within 1e-4 at every step and the caches within
-  1e-5, gemma2's local ring wrapping past its window;
+  1e-5, gemma2's local ring wrapping past its window; the moe archs at
+  ``moe_capacity_factor=100``, as ``tests/test_models.py`` decodes them (no
+  drops, so the forward and the decode route every token alike);
 * teacher-forced decode within 5e-2 of the port's own forward, the bound of
   ``tests/test_models.py::test_decode_matches_forward``;
-* the prefill forward reaches the flash-attention op once per dense layer
-  and the selective-scan op once per Mamba1 layer.
+* the prefill forward reaches the flash-attention op once per dense or moe
+  layer and the selective-scan op once per Mamba1 layer;
+* ``Model.init`` fills the stacked leaves in place with the draws that
+  stacking per-layer trees would give.
 """
 import dataclasses
 
@@ -33,7 +39,8 @@ from repro_torch.models import Batch, build_model  # noqa: E402
 from repro_torch.models import attention as pt_attn  # noqa: E402
 from repro_torch.models import mamba as pt_mamba  # noqa: E402
 
-ARCHS = ("smollm-360m", "granite-3-2b", "gemma2-2b", "falcon-mamba-7b")
+ARCHS = ("smollm-360m", "granite-3-2b", "gemma2-2b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
+         "arctic-480b")
 SEQ = {"gemma2-2b": 160}  # above the smoke window of 128
 KEY = jax.random.PRNGKey(0)
 
@@ -46,9 +53,9 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-def _pair(arch, shape_name=""):
-    cfg_j = jax_configs.get_arch(arch).smoke_variant()
-    cfg_t = pt_configs.get_arch(arch).smoke_variant()
+def _pair(arch, shape_name="", **overrides):
+    cfg_j = jax_configs.get_arch(arch).smoke_variant().replace(**overrides)
+    cfg_t = pt_configs.get_arch(arch).smoke_variant().replace(**overrides)
     mj = jax_build_model(cfg_j, shape_name)
     mt = build_model(cfg_t, shape_name, device="cpu")
     params_j = mj.init(KEY)
@@ -72,10 +79,10 @@ def test_registry_holds_the_ported_archs():
     assert pt_configs.list_archs() == sorted(ARCHS)
     assert set(pt_configs.INPUT_SHAPES) == set(jax_configs.INPUT_SHAPES)
     with pytest.raises(KeyError, match="ROADMAP"):
-        pt_configs.get_arch("qwen3-moe-30b-a3b")
+        pt_configs.get_arch("zamba2-7b")
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "audio", "vlm"])
+@pytest.mark.parametrize("family", ["hybrid", "audio", "vlm"])
 def test_unported_families_raise(family):
     cfg = pt_configs.ArchConfig(name="x", family=family, source="")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -133,18 +140,22 @@ def _count_kernel_calls(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,shape_name", [(a, "") for a in ARCHS]
-                         + [("smollm-360m", "long_500k")])
+                         + [("smollm-360m", "long_500k"), ("qwen3-moe-30b-a3b", "long_500k")])
 def test_forward_matches_jax(monkeypatch, arch, shape_name):
     mj, mt, params_j, params_t = _pair(arch, shape_name)
     cfg = mt.cfg
     b, s = 2, SEQ.get(arch, 160 if shape_name else 48)
     tokens = _tokens(cfg, b, s)
     labels = _tokens(cfg, b, s, seed=1)
-    want, _ = jax.jit(mj.forward)(params_j, JaxBatch(tokens=jnp.asarray(tokens)))
+    want, want_aux = jax.jit(mj.forward)(params_j, JaxBatch(tokens=jnp.asarray(tokens)))
     calls = _count_kernel_calls(monkeypatch)
     batch = Batch(tokens=torch.from_numpy(tokens).long(), labels=torch.from_numpy(labels).long())
     got, aux = mt.forward(params_t, batch)
-    assert got.shape == want.shape and got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.shape == want.shape and got.dtype == torch.float32
+    if cfg.family == "moe":  # the layers' Switch losses averaged over layers, ~1 each
+        assert 0.5 < float(aux) and abs(float(aux) - float(want_aux)) <= 1e-6
+    else:
+        assert float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     attn_free = cfg.family == "ssm"
     assert calls == {"flash": 0 if attn_free else cfg.n_layers,
@@ -156,7 +167,8 @@ def test_forward_matches_jax(monkeypatch, arch, shape_name):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_jax_and_own_forward(arch):
-    mj, mt, params_j, params_t = _pair(arch)
+    no_drops = {"moe_capacity_factor": 100.0} if "moe" in arch or "arctic" in arch else {}
+    mj, mt, params_j, params_t = _pair(arch, **no_drops)
     cfg = mt.cfg
     b = 2
     steps = 136 if cfg.alt_local_global else 12  # gemma2: the local ring wraps at 128
@@ -177,3 +189,70 @@ def test_decode_matches_jax_and_own_forward(arch):
     for (path, w), (_, g) in zip(_leaves(cj), _leaves(ct)):
         assert tuple(g.shape) == w.shape, path
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, err_msg=path)
+
+
+@pytest.mark.parametrize("arch", ("gemma2-2b", "qwen3-moe-30b-a3b"))
+def test_init_fills_stacked_leaves_with_the_stacked_draws(monkeypatch, arch):
+    """``_stack_layers`` draws block after block, as stacking a list of
+    per-layer trees does, so the in-place init gives the same values."""
+    from repro_torch.models import model as pt_model
+
+    mt = build_model(pt_configs.get_arch(arch).smoke_variant().replace(n_layers=4),
+                     device="cpu")
+    got = mt.init(torch.Generator().manual_seed(7))
+    calls = []
+
+    def stacked(n, make_block):
+        calls.append(n)
+        return pt_model._stack([make_block() for _ in range(n)])
+
+    monkeypatch.setattr(pt_model, "_stack_layers", stacked)
+    want = mt.init(torch.Generator().manual_seed(7))
+    assert calls and all(n == (2 if mt.cfg.alt_local_global else 4) for n in calls)
+    for (path, g), (_, w) in zip(_leaves(got), _leaves(want)):
+        assert torch.equal(g, w), path
+    one = pt_model._stack_layers(1, lambda: {"w": torch.ones(3)})
+    assert one["w"].shape == (1, 3)
+
+
+# qwen3-moe-30b-a3b at 1 layer, f32, one row of 512 tokens (the group size
+# and capacity of its 2048-token rows: 64 and 5). Each case keeps one of the
+# two widths that hold most of the parameters at full size and narrows the
+# other, so a case holds ~50 M f32 parameters: full d_model (2048) with a
+# narrow vocab, and the full vocab (151936) with a narrow d_model. Both keep
+# the full 128 experts, top 8, capacity factor and 32 / 4 heads of 128.
+QWEN3_WIDTHS = {"d_model 2048": dict(vocab=4096), "vocab 151936": dict(d_model=256)}
+
+
+@pytest.mark.parametrize("width", sorted(QWEN3_WIDTHS))
+def test_qwen3_moe_loss_and_grads_match_jax_at_full_routing_width(width):
+    """``train_loss`` within 1e-5 relative and every gradient leaf within
+    1e-4 of its max |g| of the JAX package's, on the same converted params."""
+    from repro_torch.models.moe import group_size
+
+    cut = dict(n_layers=1, d_ff=32, dtype="float32", optimizer_dtype="float32", remat=False,
+               **QWEN3_WIDTHS[width])
+    cfg_j = jax_configs.get_arch("qwen3-moe-30b-a3b").replace(**cut)
+    cfg_t = pt_configs.get_arch("qwen3-moe-30b-a3b").replace(**cut)
+    assert (cfg_t.n_experts, cfg_t.top_k, cfg_t.n_heads, cfg_t.n_kv_heads) == (128, 8, 32, 4)
+    s = 512
+    assert group_size(s, cfg_t.n_experts, cfg_t.top_k, cfg_t.moe_capacity_factor) == \
+        group_size(2048, cfg_t.n_experts, cfg_t.top_k, cfg_t.moe_capacity_factor) == (64, 5)
+    mj, mt = jax_build_model(cfg_j), build_model(cfg_t, device="cpu")
+    params_j = mj.init(KEY)
+    tokens, labels = _tokens(cfg_t, 1, s), _tokens(cfg_t, 1, s, seed=1)
+    batch_j = JaxBatch(tokens=jnp.asarray(tokens), labels=jnp.asarray(labels))
+    loss_j, grads_j = jax.jit(jax.value_and_grad(mj.train_loss))(params_j, batch_j)
+    params_t = from_numpy(params_j, device="cpu")
+    del params_j
+    leaves = [t.requires_grad_(True) for _, t in _leaves(params_t)]
+    loss_t = mt.train_loss(params_t, Batch(tokens=torch.from_numpy(tokens).long(),
+                                           labels=torch.from_numpy(labels).long()))
+    grads_t = torch.autograd.grad(loss_t, leaves)
+    assert abs(float(loss_t.detach()) - float(loss_j)) <= 1e-5 * abs(float(loss_j))
+    want = list(_leaves(grads_j))
+    assert [p for p, _ in want] == [p for p, _ in _leaves(params_t)]
+    for (path, w), g in zip(want, grads_t):
+        w = np.asarray(w)
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= 1e-4 * float(np.abs(w).max()), (path, err, float(np.abs(w).max()))

@@ -141,6 +141,15 @@ def test_make_optimizer_matches_jax(arch):
     got_s = got.init(from_numpy(params, device="cpu"))
     want_s = want.init(jax.tree.map(jnp.asarray, params))
     assert sorted(got_s) == sorted(want_s)
-    for k in got_s:
-        assert str(got_s[k]["w"].dtype).split(".")[-1] == str(want_s[k]["w"].dtype)
-    assert to_numpy(got_s)["m"]["w"].shape == (3, 2)
+
+    def leaves(tree, prefix=""):  # Adafactor's state holds a dict per leaf
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{prefix}/{k}")
+        else:
+            yield prefix, tree
+
+    got_l, want_l = dict(leaves(to_numpy(got_s))), dict(leaves(want_s))
+    assert sorted(got_l) == sorted(want_l)
+    for path, w in want_l.items():
+        assert str(got_l[path].dtype) == str(w.dtype) and got_l[path].shape == w.shape, path

@@ -40,7 +40,8 @@ def _jax_serve(model, params, prompts, gen, cache_len):
     return np.asarray(jnp.concatenate(out_tokens[1:], axis=1))
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b", "falcon-mamba-7b",
+                                  "qwen3-moe-30b-a3b"])
 def test_serve_tokens_match_jax(arch):
     cfg = jax_configs.get_arch(arch).smoke_variant()
     mj = jax_build_model(cfg)
@@ -64,6 +65,16 @@ def test_cli_runs_on_the_cpu(capsys):
                    "--batch", "2", "--prompt-len", "4", "--gen", "3", "--cache-len", "16"])
     out = capsys.readouterr().out
     assert "6 decode steps" in out and "ms/step" in out and "tok/s" in out and "on cpu" in out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b"])
+def test_cli_serves_a_moe_arch_on_the_cpu(capsys, arch):
+    pt_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+                   "--prompt-len", "4", "--gen", "3", "--cache-len", "16"])
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out and "6 decode steps" in out and "on cpu" in out
+    ids = [int(t) for t in out.split("generated token ids (seq 0):")[1].strip(" []\n").split(",")]
+    assert len(ids) == 3 and all(0 <= t < 512 for t in ids)
 
 
 def test_cli_defaults_to_the_card():

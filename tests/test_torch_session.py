@@ -37,7 +37,7 @@ from repro_torch.core import moderator as pt_moderator  # noqa: E402
 from repro_torch.data import DataConfig, FederatedData  # noqa: E402
 from repro_torch.dfl.collectives import tree_map  # noqa: E402
 from repro_torch.dfl.session import DFLSession  # noqa: E402
-from repro_torch.dfl.trainer import DFLConfig, DFLTrainer  # noqa: E402
+from repro_torch.dfl.trainer import DFLConfig, DFLTrainer, TrainState  # noqa: E402
 from repro_torch.models import Batch, build_model  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.scenario.spec import ChurnEvent, get as get_scenario  # noqa: E402
@@ -156,7 +156,10 @@ def test_masked_node_keeps_its_own_params_through_the_round():
     session.node_leaves(3)
     solo = DFLTrainer(model, N, DFLConfig(lr=1e-3, warmup=0, gossip_interval=10 ** 9),
                       device="cpu")
-    alone, _ = solo.train_step(state, batch)  # the same step with no gossip
+    # the same step with no gossip, on a copy (a step consumes its input state)
+    copy = TrainState(params=tree_map(torch.clone, state.params),
+                      opt_state=tree_map(torch.clone, state.opt_state), step=state.step.clone())
+    alone, _ = solo.train_step(copy, batch)
     state, _ = session.train_round(state, batch)
     for got, local in zip(tree_leaves(state.opt_state["master"]),
                           tree_leaves(alone.opt_state["master"])):

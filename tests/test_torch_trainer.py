@@ -2,9 +2,10 @@
 
 * ``Model.train_loss`` gradients against ``jax.grad`` of the JAX model on the
   same params (converted leaf for leaf) and tokens, for the f32 smoke
-  variants of smollm-360m, granite-3-2b, gemma2-2b (s above its window) and
-  falcon-mamba-7b: within 1e-4 of each leaf's max |g| (attention, scan and
-  matmuls sum in another order than XLA).
+  variants of smollm-360m, granite-3-2b, gemma2-2b (s above its window),
+  falcon-mamba-7b, qwen3-moe-30b-a3b and arctic-480b: within 1e-4 of each
+  leaf's max |g| (attention, scan and matmuls sum in another order than
+  XLA).
 * One DFL step of the port on 4 stacked nodes against the JAX ``DFLTrainer``
   on 4 forced host devices with an Auto-axis mesh (ROADMAP R1), from the
   same init and batch: loss within 1e-5 relative, grad_norm within 1e-4
@@ -12,6 +13,16 @@
   reference's (Adam's first step moves an element by lr g / |g|, so a
   gradient near 0 can move it by a fraction of lr either way). The
   ``gossip_interval=2`` path likewise over two steps.
+* The moe family (P4's aux half): one step of qwen3-moe-30b-a3b's smoke
+  variant at 1 and 2 microbatches and of arctic-480b's (8 microbatches,
+  Adafactor, no fp32 masters) against the JAX ``DFLTrainer``. The reference
+  takes the Switch aux loss over each microbatch slice of the global batch,
+  which differs from the mean of the nodes' own aux losses by more than the
+  loss tolerance (the fixture checks it). Loss within 1e-5 relative, grad
+  norm within 1e-4 relative, the first moment (AdamW) or the factored
+  second moment (Adafactor) within 1e-4 of each leaf's max, the params
+  within 1e-4 of each leaf's max (Adafactor) or 0.1 lr (AdamW, as above);
+  the routing pass and the differentiated pass route alike.
 * R9: the reference's Adam moments are identical on every node device and
   equal (1 - b1) times the clipped mean of the nodes' own gradients, which
   differ; the port holds the moments once and matches them.
@@ -46,13 +57,15 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import from_numpy, train_state_from_numpy  # noqa: E402
 from repro_torch.data import DataConfig, FederatedData  # noqa: E402
 from repro_torch.dfl.collectives import tree_map  # noqa: E402
-from repro_torch.dfl.trainer import DFLConfig, DFLTrainer  # noqa: E402
+from repro_torch.dfl.trainer import DFLConfig, DFLTrainer, TrainState  # noqa: E402
 from repro_torch.models import Batch, build_model  # noqa: E402
+from repro_torch.models.model import MOE_AUX_WEIGHT  # noqa: E402
 from repro_torch.optim import adafactor, adamw, constant_schedule  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("smollm-360m", "granite-3-2b", "gemma2-2b", "falcon-mamba-7b")
+ARCHS = ("smollm-360m", "granite-3-2b", "gemma2-2b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
+         "arctic-480b")
 SEQ = {"gemma2-2b": 160}  # above the smoke window of 128
 N, BPN, S, LR = 4, 2, 32, 1e-3
 
@@ -403,6 +416,107 @@ def test_row_weights_follow_the_reference_slices_p4():
         assert trainer._node_parts(1, 2, 8) == want, mb
 
 
+# -- the moe family: the reference's aux loss over the global batch (P4) -------------
+
+JAX_MOE = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import jax, jax.numpy as jnp
+    from jax.sharding import AxisType
+    from repro.checkpoint import save_pytree
+    from repro.configs import get_arch
+    from repro.data import DataConfig, FederatedData
+    from repro.dfl import DFLConfig, DFLTrainer
+    from repro.models import Batch, build_model
+
+    out_dir, n, bpn, s, lr = sys.argv[1], 4, 2, 32, 1e-3
+    mesh = jax.make_mesh((n, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    res = {}
+    for run, arch, mb in MOE_RUNS:
+        base = get_arch(arch).smoke_variant()
+        model = build_model(base.replace(microbatches=mb))
+        tok, lab = FederatedData(DataConfig(vocab=base.vocab, seq_len=s, batch_per_node=bpn,
+                                            n_nodes=n, seed=5)).global_batch()
+        res[f"{run}/tokens"], res[f"{run}/labels"] = tok, lab
+        tr = DFLTrainer(model, mesh, DFLConfig(gossip_mode="tree_allreduce", lr=lr, warmup=0))
+        state = tr.init_state(jax.random.PRNGKey(0))
+        init = jax.device_get(state.params)
+        save_pytree(f"{out_dir}/{run}_init", init)
+        batch = Batch(tokens=jnp.asarray(tok), labels=jnp.asarray(lab))
+        step = tr.jitted_train_step(jax.eval_shape(lambda: state), jax.eval_shape(lambda: batch))
+        state, m = step(state, batch)
+        res[f"{run}/loss"] = float(m["loss"])
+        res[f"{run}/grad_norm"] = float(m["grad_norm"])
+        save_pytree(f"{out_dir}/{run}_params", jax.device_get(state.params))
+        save_pytree(f"{out_dir}/{run}_opt", jax.device_get(state.opt_state))
+        if mb == 1:  # the aux over the global batch against the mean of the nodes' own
+            fwd = jax.jit(model.forward)
+            res[f"{run}/aux_global"] = float(fwd(init, Batch(tokens=jnp.asarray(tok)))[1])
+            res[f"{run}/aux_node_mean"] = float(np.mean([float(fwd(init, Batch(
+                tokens=jnp.asarray(tok[i * bpn:(i + 1) * bpn])))[1]) for i in range(n)]))
+    np.savez(f"{out_dir}/ref.npz", **{k: np.asarray(v) for k, v in res.items()})
+""")
+MOE_RUNS = (("qwen3_mb1", "qwen3-moe-30b-a3b", 1), ("qwen3_mb2", "qwen3-moe-30b-a3b", 2),
+            ("arctic", "arctic-480b", 8))
+
+
+@pytest.fixture(scope="module")
+def jax_moe(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_moe")
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    script = JAX_MOE.replace("MOE_RUNS", repr(MOE_RUNS))
+    proc = subprocess.run([sys.executable, "-c", script, str(out)], capture_output=True,
+                          text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ref = dict(np.load(out / "ref.npz"))
+    # the reference's aux over the global batch is not the mean of the nodes'
+    # own, by more than the loss tolerance: a trainer that took each node's
+    # own aux could not pass
+    gap = MOE_AUX_WEIGHT * abs(float(ref["qwen3_mb1/aux_global"])
+                               - float(ref["qwen3_mb1/aux_node_mean"]))
+    assert gap > 1e-5 * abs(float(ref["qwen3_mb1/loss"])), gap
+    return out, ref
+
+
+@pytest.mark.parametrize("run,arch,mb", MOE_RUNS, ids=[r[0] for r in MOE_RUNS])
+def test_moe_step_matches_jax_trainer_with_the_global_aux_p4(jax_moe, run, arch, mb):
+    out, ref = jax_moe
+    cfg = get_arch(arch).smoke_variant().replace(microbatches=mb)
+    model = build_model(cfg, device="cpu")
+    like = _like(model)
+    init = restore_pytree(str(out / f"{run}_init.npz"), like)
+    trainer = DFLTrainer(model, N, DFLConfig(gossip_mode="tree_allreduce", lr=LR, warmup=0),
+                         device="cpu")
+    opt = trainer.opt.init(init)
+    state = train_state_from_numpy(
+        tree_map(lambda t: t.numpy(), init), tree_map(lambda t: t.numpy(), opt), 0, N,
+        device="cpu")
+    batch = Batch(tokens=torch.from_numpy(ref[f"{run}/tokens"]).long(),
+                  labels=torch.from_numpy(ref[f"{run}/labels"]).long())
+    state, m = trainer.train_step(state, batch)
+    want = ref[f"{run}/loss"]
+    assert abs(float(m["loss"]) - want) <= 1e-5 * abs(want), (float(m["loss"]), want)
+    want = ref[f"{run}/grad_norm"]
+    assert abs(float(m["grad_norm"]) - want) <= 1e-4 * want, (float(m["grad_norm"]), want)
+    want_opt = restore_pytree(str(out / f"{run}_opt.npz"), opt)
+    moment = "m" if "m" in opt else "f"  # Adafactor keeps no first moment
+    _close_per_leaf(state.opt_state[moment], want_opt[moment], 1e-4)
+    want_p = restore_pytree(str(out / f"{run}_params.npz"), like)
+    for node in range(N):
+        got_p = tree_map(lambda t: t[node], state.params)
+        if moment == "f":
+            _close_per_leaf(got_p, want_p, 1e-4)
+            continue
+        # Adam's first step moves an element by lr g / (|g| + eps): where g is
+        # near 0 a sum order moves that by a share of lr (the bound of
+        # test_one_step_matches_jax_trainer)
+        for (name, g), (_, w) in zip(_leaves(got_p), _leaves(want_p)):
+            assert float((g - w).abs().max()) <= 0.1 * LR, f"{name} node {node}"
+    assert float(m["route_mismatch"]) == 0.0
+
+
 # -- the port alone ---------------------------------------------------------------
 
 def _data_batch(cfg, seq=S, seed=0):
@@ -418,7 +532,8 @@ def test_per_node_gradients_and_their_mean_do_not_mix_nodes():
     g = torch.Generator().manual_seed(1)
     params = tree_map(lambda t: t + 0.01 * torch.randn(t.shape, generator=g), state.params)
     batch = _data_batch(cfg)
-    loss, mean, node_losses = trainer.grads(params, batch)
+    loss, mean, node_losses, mismatch = trainer.grads(params, batch)
+    assert mismatch is None  # a model without experts routes nothing
     own = []
     for i in range(N):
         rows = slice(i * BPN, (i + 1) * BPN)
@@ -548,6 +663,30 @@ def test_remat_gives_the_same_gradients():
     assert float(out[0][0]) == float(out[1][0])
     for a, b in zip(tree_leaves(out[0][1]), tree_leaves(out[1][1])):
         assert float((a - b).abs().max()) <= 1e-6 * float(a.abs().max())
+
+
+def test_donated_step_consumes_its_input_state_and_steps_alike():
+    """A step donates its input state (the reference's donate_argnums=(0,)):
+    the input state's params and opt_state are dropped, and two steps from
+    equal states give equal results."""
+    cfg, model = _smoke()
+    batch = _data_batch(cfg)
+    trainer = DFLTrainer(model, N, DFLConfig(gossip_mode="dissemination", codec="int8",
+                                             lr=LR, warmup=0), device="cpu")
+    first = trainer.init_state(torch.Generator().manual_seed(0))
+    second = TrainState(params=tree_map(torch.clone, first.params),
+                        opt_state=tree_map(torch.clone, first.opt_state),
+                        step=first.step.clone())
+    out = []
+    for state in (first, second):
+        new, m = trainer.train_step(state, batch)
+        assert state.params is None and state.opt_state is None
+        out.append((new, float(m["loss"])))
+    assert out[0][1] == out[1][1]
+    for a, b in zip(tree_leaves(out[0][0].params), tree_leaves(out[1][0].params)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(out[0][0].opt_state), tree_leaves(out[1][0].opt_state)):
+        assert torch.equal(a, b)
 
 
 def test_train_state_crosses_to_jax_numpy_and_back():
