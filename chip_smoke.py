@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round,
 the model serving path (prefill forward + cached decode) and the DFL
 training step (4 stacked nodes, forward, the flash-attention backward, the
-optimizer and a gossip round), for the dense, ssm and moe families.
+optimizer and a gossip round), for the dense, ssm, moe and hybrid families.
 
     python3 chip_smoke.py
 
@@ -10,12 +10,12 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. build   — nvcc compiles ``src/repro_torch/csrc/*.cu`` for sm_90a; prints
              the build time, ptxas's registers and spills for the
-             tensor-core flash kernel, the two passes of the flash backward
-             (the tensor-core ones at hd 64 and 256, the SIMT ones in f32 at
-             hd 64) and the scan, the count of HGMMA (wgmma) instructions in
-             the SASS of the forward's and the backward's objects
-             (cuobjdump; none in either is a failure), and the card's name
-             and power limit.
+             tensor-core flash kernel at every head dim, the two passes of
+             the flash backward (the tensor-core ones at hd 64, 112, 160 and
+             256, the SIMT ones in f32 at hd 64) and the scan, the count of
+             HGMMA (wgmma) instructions in the SASS of the forward's and the
+             backward's objects (cuobjdump; none in either is a failure), and
+             the card's name and power limit.
 2. kernels — each Hopper kernel at the main path's shapes against its plain
              PyTorch version on the same inputs. Quantize / dequantize (int8,
              int4) and top-k (k = 13) at every (rows, size) that phase 3
@@ -42,7 +42,11 @@ Phases, each fatal on failure (exit code 1, no result line):
              the sum order differs); SDPA's time beside the causal case; and
              at the moe configs' prefill shapes, qwen3-moe-30b-a3b's (2, 2048,
              32 / 4, 128) and arctic-480b's (1, 2048, 56 / 8, 128), causal bf16,
-             timed beside SDPA. The selective scan at falcon-mamba-7b's
+             timed beside SDPA; at stablelm-12b's prefill (2, 2048, 32 / 8,
+             160) and zamba2-7b's (2, 2048, 32 / 32, 112) and at their
+             training batch of 1, the head dims the kernels pad to whole
+             slabs inside, causal bf16 timed beside SDPA, a bf16 case on fused-qkv views at hd 160 and f32 cases at
+             hd 160 and 112. The selective scan at falcon-mamba-7b's
              (1, 2048, 8192, 16) and at its prefill batch (2, 2048, 8192, 16),
              x bf16, y f32, within 1e-4 of max|y| of the plain version.
              The flash forward with and without its LSE output at smollm's
@@ -53,8 +57,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              training shape (2, 2048, 15 / 5, 64) causal in bf16 and f32,
              gemma2-2b's (1, 8192, 8 / 4, 256) with window 4096 and softcap
              50 in bf16, an hd-128 case (2, 2048, 16 / 8, 128) causal in
-             bf16 and qwen3-moe's training shape (1, 2048, 32 / 4, 128)
-             causal in bf16: each of dQ, dK and dV within BWD_F32_TOL (f32) or
+             bf16, qwen3-moe's training shape (1, 2048, 32 / 4, 128) and
+             stablelm-12b's (1, 2048, 32 / 8, 160) and zamba2-7b's (1, 2048,
+             32 / 32, 112) causal in bf16: each of dQ, dK and dV within
+             BWD_F32_TOL (f32) or
              BWD_BF16_TOL (bf16) of its max |g|, two runs bit-identical;
              its time, its bound and the backward of SDPA (autograd,
              causal, GQA) beside it.
@@ -70,8 +76,11 @@ Phases, each fatal on failure (exit code 1, no result line):
              each gossip kernel's launches by shape and each codec kernel's
              loss, the sum over shapes of launches x (time - bound).
 4. serve   — smollm-360m (32 layers, d 960), falcon-mamba-7b (64 layers,
-             d 4096) and qwen3-moe-30b-a3b (48 layers, d 2048, 128 experts,
-             60.4 GB) at full width and depth, and arctic-480b at full width
+             d 4096), qwen3-moe-30b-a3b (48 layers, d 2048, 128 experts,
+             60.4 GB), stablelm-12b (40 layers, d 5120, 23.3 GB) and
+             zamba2-7b (81 layers: 13 super-blocks of 5 Mamba2 blocks and the
+             shared attention block, then 3 Mamba2 blocks; d 3584, 11.2 GB)
+             at full width and depth, and arctic-480b at full width
              and 1 of its 35 layers (26.8 GB of experts), in bf16, params
              from Model.init on the card (seed 0; stacked leaves filled in
              place), with the launch counts set to 0 just before and read
@@ -79,12 +88,17 @@ Phases, each fatal on failure (exit code 1, no result line):
              (2, 2048) and (1, 2048) tokens (the first a warm-up), then the
              serve loop at the reference CLI's defaults (batch 4, prompt 32,
              gen 16, cache 128) or, for arctic, 8 decode steps. Every logit
-             finite; flash_attention launched once a dense or moe layer and
-             selective_scan once a Mamba1 layer per forward. Prints prefill ms
+             finite; flash_attention launched once a dense or moe layer or a
+             use of the hybrid's shared block and selective_scan once a
+             Mamba1 layer per forward, the other model kernel never; zamba2's
+             Mamba2 blocks' share of its prefill (one block timed alone at
+             the prefill shape, times the blocks). Prints prefill ms
              and tok/s, decode ms/step and tok/s and peak memory, and the
              device time of one decode step replayed as a CUDA graph (not
              arctic). Then, in f32 at full width, 4 layers (2 for qwen3-moe,
-             capacity factor 100 as tests/test_models.py decodes moe archs),
+             capacity factor 100 as tests/test_models.py decodes moe archs;
+             13 for zamba2: two super-blocks and a tail block, so the shared
+             block's decode cache is used twice),
              forward logits against teacher-forced decode logits over a
              256-token prompt, within 5e-2 (the bound of tests/test_models.py).
 5. train   — smollm-360m at full width and depth (32 layers, d 960, 15 / 5
@@ -116,7 +130,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              launches the flash forward twice a layer a node (the routing
              pass of the global-batch aux loss, then the differentiated
              pass) and the backward once, and both passes must route alike;
-             the f32 gradient check at 1 layer over (1, 2048) tokens.
+             the f32 gradient check at 1 layer over (1, 2048) tokens. The same
+             at lr 3e-4 (1e-3 overshoots at d >= 2048) for stablelm-12b at
+             full width and 1 of its 40 layers and zamba2-7b at full width
+             and 7 layers (one super-block and a tail block), 4 nodes x (1,
+             2048), AdamW with fp32 masters and bf16 moments: tree_allreduce
+             for 4 steps (the fourth profiled), one flash forward and one
+             backward a node a step (the one attention layer, the one use of
+             the shared block), no selective_scan; the f32 gradient check at
+             1 layer (stablelm) and 13 (zamba2: the shared block's gradient
+             sums over two uses).
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers (the codec kernels' also by shape, with their loss), and the result
@@ -149,6 +172,17 @@ CODEC_KERNELS = ("quantize", "dequantize", "topk_select")
 MODEL_KERNELS = ("flash_attention", "selective_scan")
 
 
+def attention_layers(cfg) -> int:
+    """The self-attention layers a forward runs through the flash op: every
+    dense or moe layer, each use of the hybrid's shared block, none in an
+    attention-free stack."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     raise SystemExit(1)
@@ -179,9 +213,10 @@ def print_kernel_resources(build_dir: Path) -> None:
             name = line.split("'")[1]
             kernel = next(k for k in kernels if k in name)
             args = name.split(kernel, 1)[1].split("EEv")[0]
-            # the backward as phase 2 runs it: the tensor-core passes at hd 64
-            # and 256, the SIMT ones in f32 at hd 64
-            if kernel.startswith("bwd_") and args not in ("ILi64E", "ILi256E", "ILi64Ef"):
+            # the backward as phase 2 runs it: the tensor-core passes at hd 64,
+            # 112, 160 and 256, the SIMT ones in f32 at hd 64
+            if kernel.startswith("bwd_") and args not in ("ILi64E", "ILi112E", "ILi160E",
+                                                          "ILi256E", "ILi64Ef"):
                 continue
             info = " | ".join(x.split(":", 1)[-1].strip() for x in log[i + 2:i + 4])
             print(f"[build] ptxas {kernel} {args}: {info}")
@@ -311,6 +346,8 @@ def main() -> int:
     from repro_torch.launch.serve import serve
     from repro_torch.models import Batch, build_model
     from repro_torch.models import attention as attn_model
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.mamba import mamba2_forward
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.scenario import SCENARIOS, run_scenario
 
@@ -481,7 +518,14 @@ def main() -> int:
         (2, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # qwen3-moe's prefill
         (1, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # qwen3-moe's training
         (1, 2048, 56, 8, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # arctic's
+        (2, 2048, 32, 8, 160, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # stablelm-12b's prefill
+        (2, 2048, 32, 32, 112, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # zamba2-7b's prefill
+        (1, 2048, 32, 8, 160, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # stablelm-12b's training
+        (1, 2048, 32, 32, 112, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # zamba2-7b's training
         (2, 1024, 6, 2, 64, 0, 0.0, torch.float32, 2e-5, "checked"),
+        (1, 1024, 8, 2, 160, 0, 0.0, torch.float32, 2e-5, "checked"),
+        (1, 1024, 8, 8, 112, 0, 0.0, torch.float32, 2e-5, "checked"),
+        (1, 2048, 32, 8, 160, 0, 0.0, torch.bfloat16, 2e-2, "fused views"),
         (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, "fused views"),
         (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, None, "near the cap"),
     ]
@@ -596,6 +640,8 @@ def main() -> int:
         (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16),
         (2, 2048, 16, 8, 128, 0, 0.0, torch.bfloat16),  # hd 128, GQA 2:1
         (1, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16),  # qwen3-moe's training shape
+        (1, 2048, 32, 8, 160, 0, 0.0, torch.bfloat16),  # stablelm-12b's training shape
+        (1, 2048, 32, 32, 112, 0, 0.0, torch.bfloat16),  # zamba2-7b's training shape
     ]
     for b, s, h, kv, hd, window, cap, dtype in bwd_cases:
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
@@ -727,7 +773,9 @@ def main() -> int:
     serve_runs = [("smollm-360m", 0, 4, "flash_attention", "cli"),
                   ("falcon-mamba-7b", 0, 2, "selective_scan", "cli"),
                   ("qwen3-moe-30b-a3b", 0, 2, "flash_attention", "cli"),
-                  ("arctic-480b", 1, 1, "flash_attention", 8)]
+                  ("arctic-480b", 1, 1, "flash_attention", 8),
+                  ("stablelm-12b", 0, 2, "flash_attention", "cli"),
+                  ("zamba2-7b", 0, 2, "flash_attention", "cli")]
     seq, n_prefill = 2048, 3
     reset_launches()
     serve_launches = Counter()
@@ -747,7 +795,7 @@ def main() -> int:
         n_params = count_elements(params)
         tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
         torch.cuda.reset_peak_memory_stats()
-        before = launch_counts()[kernel]
+        before = launch_counts()
         spans = []
         with torch.inference_mode():
             for _ in range(n_prefill):
@@ -759,10 +807,16 @@ def main() -> int:
                 if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
                     fail(f"{arch}: non-finite prefill logits")
                 del logits
-        n = launch_counts()[kernel] - before
-        if n != cfg.n_layers * n_prefill:
+        after = launch_counts()
+        n = after[kernel] - before[kernel]
+        per_fwd = attention_layers(cfg) if kernel == "flash_attention" else cfg.n_layers
+        if n != per_fwd * n_prefill:
             fail(f"{arch}: {kernel} launched {n} times in {n_prefill} forwards, expected "
-                 f"{cfg.n_layers} a forward")
+                 f"{per_fwd} a forward")
+        other = next(k for k in MODEL_KERNELS if k != kernel)
+        if after[other] != before[other]:
+            fail(f"{arch}: {other} launched {after[other] - before[other]} times in its "
+                 "prefill forwards, expected none")
         serve_launches[kernel] += n
         prefill_peak = torch.cuda.max_memory_allocated() / 1e9
         prefill_ms = statistics.median(spans[1:]) * 1e3
@@ -770,8 +824,21 @@ def main() -> int:
               f"(init {init_s:.1f} s, peak {init_peak:.2f} GB); prefill ({batch}, {seq}): "
               f"{prefill_ms:.3f} ms median of {n_prefill - 1} after a warm-up "
               f"[{', '.join(f'{1e3 * t:.3f}' for t in spans)}], "
-              f"{batch * seq / prefill_ms * 1e3:.0f} tok/s, {cfg.n_layers} {kernel} launches a "
-              f"forward, peak {prefill_peak:.2f} GB on {card}")
+              f"{batch * seq / prefill_ms * 1e3:.0f} tok/s, {per_fwd} {kernel} launches a "
+              f"forward, no {other}, peak {prefill_peak:.2f} GB on {card}")
+        if cfg.family == "hybrid":  # the Mamba2 blocks' share of the prefill
+            block = tree_map(lambda t: t[0], params["tail_blocks"])
+            x = torch.randn((batch, seq, cfg.d_model), generator=g, device=dev).to(model.dtype)
+            with torch.inference_mode():
+                block_ms = median_ms(lambda: x + mamba2_forward(
+                    block["body"], rms_norm(x, block["ln"]), cfg.ssm_state), 5, cold=False)
+            n_mamba = cfg.n_layers - attention_layers(cfg)
+            print(f"[serve] {arch}: one Mamba2 block (rms norm, SSD scan in plain PyTorch, "
+                  f"residual) at ({batch}, {seq}, {cfg.d_model}): {block_ms:.3f} ms; "
+                  f"{n_mamba} blocks {n_mamba * block_ms:.1f} ms, "
+                  f"{100 * n_mamba * block_ms / prefill_ms:.1f}% of the prefill's "
+                  f"{prefill_ms:.3f} ms on {card}")
+            del block, x
         torch.cuda.reset_peak_memory_stats()
         # the reference CLI's defaults (batch 4, prompt 32, gen 16, cache 128),
         # or a 4-token prompt and as many generated tokens as make `decode` steps
@@ -819,7 +886,10 @@ def main() -> int:
     # qwen3-moe with capacity 100 tokens an expert, as tests/test_models.py
     # decodes moe archs: no drops, so both paths route every token alike
     f32_checks = [("smollm-360m", dict(n_layers=4)), ("falcon-mamba-7b", dict(n_layers=4)),
-                  ("qwen3-moe-30b-a3b", dict(n_layers=2, moe_capacity_factor=100.0))]
+                  ("qwen3-moe-30b-a3b", dict(n_layers=2, moe_capacity_factor=100.0)),
+                  ("stablelm-12b", dict(n_layers=4)),
+                  # two super-blocks and a tail block: the shared block's cache used twice
+                  ("zamba2-7b", dict(n_layers=13))]
     for arch, cut in f32_checks:
         cfg = get_arch(arch).replace(dtype="float32", **cut)
         model = build_model(cfg, device="cuda")
@@ -844,7 +914,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 5. the training path: 4 stacked nodes -------------------------------------
-    def train_path(cfg, bpn, train_runs):
+    def train_path(cfg, bpn, train_runs, lr=1e-3):
         """The train runs of one config, 4 nodes x (bpn, 2048), the launch
         counts set to 0 just before each run and read just after; returns the
         data whose batches the gradient check reads."""
@@ -856,14 +926,14 @@ def main() -> int:
         batch = Batch(tokens=torch.from_numpy(tok).long().to(dev),
                       labels=torch.from_numpy(lab).long().to(dev))
         params0 = model.init(torch.Generator(device=dev).manual_seed(0))
-        per_step = cfg.n_layers * n_nodes
+        per_step = attention_layers(cfg) * n_nodes
         # a moe step routes every node's rows once without a graph first
         # (DFLTrainer.aux_coefs): one more forward launch a layer a node
         fwd_per_step = per_step * (2 if cfg.family == "moe" else 1)
         train_launches = Counter()
         for mode, codec, steps in train_runs:
             trainer = DFLTrainer(model, n_nodes, DFLConfig(gossip_mode=mode, codec=codec,
-                                                           lr=1e-3, warmup=0),
+                                                           lr=lr, warmup=0),
                                  device="cuda", timed=True)
             state = trainer.state_from_params(params0)
             torch.cuda.synchronize()
@@ -893,7 +963,7 @@ def main() -> int:
                     n = after[kernel] - before[kernel]
                     if n != want:
                         fail(f"train {run} step {i}: {kernel} launched {n} times, expected "
-                             f"{want} ({cfg.n_layers} layers x {n_nodes} nodes"
+                             f"{want} ({attention_layers(cfg)} attention layers x {n_nodes} nodes"
                              f"{' x 2 passes' if want != per_step else ''})")
                 routed = ""
                 if cfg.family == "moe":  # the routing pass and the differentiated one
@@ -942,7 +1012,9 @@ def main() -> int:
                       f"{n_nodes * bpn * seq / wall:.0f} tok/s{fedavg}{routed} on {card}")
             counts = launch_counts()
             train_launches.update(counts)
-            print(f"[train] {run}: losses {[round(x, 4) for x in losses]}, peak "
+            if cfg.family != "ssm" and counts["selective_scan"]:
+                fail(f"train {run}: selective_scan launched {counts['selective_scan']} times")
+            print(f"[train] {run}: lr {lr}, losses {[round(x, 4) for x in losses]}, peak "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
                   f"{json.dumps(counts)}")
             want = {"": (), "int8": ("quantize", "dequantize", "gossip_mix"),
@@ -1023,6 +1095,19 @@ def main() -> int:
     cfg = get_arch("qwen3-moe-30b-a3b").replace(n_layers=1, remat=False)
     data = train_path(cfg, 1, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)])
     grad_check(cfg.replace(dtype="float32"), data, 1)
+    # stablelm-12b at full width and 1 of its 40 layers, and zamba2-7b at full
+    # width and 7 of its 81 layers (one super-block: 5 Mamba2 blocks and the
+    # shared attention block, then one tail block), (1, 2048) a node, fp32
+    # masters and bf16 moments (their configs), lr 3e-4: 1e-3 overshoots at
+    # d >= 2048 (PERF.md section 5). No dissemination run: its f32 (N, N, P)
+    # buffer of stablelm's 514 M-parameter embedding alone would be 33 GB
+    cfg = get_arch("stablelm-12b").replace(n_layers=1, remat=False)
+    data = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
+    grad_check(cfg.replace(dtype="float32"), data, 1)
+    cfg = get_arch("zamba2-7b").replace(n_layers=7, remat=False)
+    data = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
+    # 13 layers: two super-blocks, so the shared block's gradient sums two uses
+    grad_check(cfg.replace(n_layers=13, dtype="float32"), data, 1)
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

@@ -1,10 +1,11 @@
 """Architecture configs of the port: ``ArchConfig``, the input shapes and the
 registry (``repro.configs.base`` without the ``jax.ShapeDtypeStruct`` specs).
 
-The registry holds the six architectures whose families the port runs:
-smollm-360m, granite-3-2b and gemma2-2b (dense), falcon-mamba-7b (ssm) and
-qwen3-moe-30b-a3b and arctic-480b (moe). Asking for any other raises
-``KeyError``; ROADMAP Queue A lists what comes next.
+The registry holds the eight architectures whose families the port runs:
+smollm-360m, granite-3-2b, gemma2-2b and stablelm-12b (dense),
+falcon-mamba-7b (ssm), qwen3-moe-30b-a3b and arctic-480b (moe) and zamba2-7b
+(hybrid). Asking for any other raises ``KeyError``; ROADMAP Queue A lists
+what comes next.
 """
 from __future__ import annotations
 
@@ -190,4 +191,6 @@ def _ensure_loaded() -> None:
         granite_3_2b,
         qwen3_moe_30b_a3b,
         smollm_360m,
+        stablelm_12b,
+        zamba2_7b,
     )

@@ -15,7 +15,7 @@
 // row's log-sum-exp of the (softcapped, masked) scores, m + log(max(l,
 // 1e-20)) in natural units, (b, H, sq) f32, which the backward kernel
 // (flash_attention_bwd.cu) recomputes P from; a null `lse` writes nothing
-// more. Masked scores get p = 0 outright, so a tile whose
+// more. Head dims 32, 64, 112, 128, 160 and 256. Masked scores get p = 0 outright, so a tile whose
 // keys a row cannot see adds nothing to that row. Only the key tiles a q
 // tile can see are visited (none past the causal diagonal, none wholly below
 // the window); rows past sq and keys past skv are masked, so any sequence
@@ -37,11 +37,11 @@
 // most likely); a producer warpgroup with setmaxnreg 24 / 240 compiled to
 // the same 168 and the same spills, so nothing moves registers at run time
 // (spills at hd 256 only: PERF.md). The Q tile arrives once by TMA; K and V
-// tiles stream through rings by TMA (4 stages at hd <= 64, 3 at hd 128, 2
-// at hd 256), each tile completed on its own "full" mbarrier and released
-// on its own "empty" one. Tiles are 64 keys at hd 64 and 256 (at hd 256 Q,
-// two K and two V stages take 192 KB of shared memory), 128 at hd 32 and
-// 128. TMA writes each tile as 64-column slabs of 128-byte rows in the
+// tiles stream through rings by TMA (4 stages at hd <= 64, 3 at hd 112 to
+// 160, 2 at hd 256), each tile completed on its own "full" mbarrier and
+// released on its own "empty" one. Tiles are 64 keys at hd 64, 160 and 256
+// (at hd 256 Q, two K and two V stages take 192 KB of shared memory), 128 at
+// hd 32, 112 and 128. TMA writes each tile as 64-column slabs of 128-byte rows in the
 // 128-byte swizzle (a 32-column slab in the 64-byte swizzle at hd 32), the
 // layout the wgmma descriptors name. S = Q K^T is
 // wgmma m64nBKk16 with both operands in shared memory (K-major) and f32
@@ -56,7 +56,15 @@
 // softmax runs while the other's products do. (Issuing tile j - 1's P V
 // behind tile j's S, to overlap it with tile j's softmax inside a
 // warpgroup, holds two P tiles in registers and measured slower at every
-// head dim.) TMA fills rows past sq and keys past skv with zeros. The tensor
+// head dim.) TMA fills rows past sq and keys past skv with zeros. A head dim
+// that is no whole number of 64-column slabs (112, 160) is padded inside the
+// kernel, never in memory: each tensor map keeps the true hd as its inner
+// extent, so the last slab's box runs past it and TMA fills those columns
+// with zeros (the transaction still counts the whole box). Q K^T then takes
+// hd / 16 k-steps, only the real columns; P V runs over the padded slabs
+// (hd 112 as 128 columns, 160 as 192: 14% and 20% more of that product, 7%
+// and 10% of the kernel's), and the epilogue stores the first hd columns at a
+// row pitch of hd. The scale is the true hd^-0.5. The tensor
 // maps are built per call from the strides the caller passes, so GQA and
 // views into a fused projection need no copy; their base must be 16-byte
 // aligned and their strides multiples of 16 bytes (the wrapper raises
@@ -252,22 +260,24 @@ constexpr int kTCThreads = 288;   // warpgroups 0-1 consume, warp 8 produces
 
 template <int HD>
 struct Tile {
-  // keys per streamed tile: 64 at hd 256, where registers and shared memory
-  // bind, and at hd 64, where 64 took 11% less time than 128 at smollm's
-  // shape (ptxas: 90 registers against 128, so two CTAs fit an SM); 128 at
-  // hd 32 and 128
-  static constexpr int BK = HD == 64 || HD == 256 ? 64 : 128;
-  // K / V ring depth: as deep as the 227 KB of shared memory allows
-  static constexpr int STAGES = HD <= 64 ? 4 : HD == 128 ? 3 : 2;
   static constexpr int SLAB = HD < 64 ? HD : 64;    // head-dim columns per swizzled slab
   static constexpr int ROW = SLAB * 2;              // bytes in one slab row: 128 (64 at hd 32)
-  static constexpr int NSLAB = HD / SLAB;
-  static constexpr int Q_BYTES = kTQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;      // one K or V tile
+  static constexpr int NSLAB = (HD + SLAB - 1) / SLAB;
+  static constexpr int HP = NSLAB * SLAB;           // the head dim padded to whole slabs
+  // keys per streamed tile: 64 above 128 padded columns, where registers and
+  // shared memory bind (at 192, 128 keys and 2 stages would take 247 KB), and
+  // at hd 64, where 64 took 11% less time than 128 at smollm's shape (ptxas:
+  // 90 registers against 128, so two CTAs fit an SM); 128 at hd 32 and 128
+  static constexpr int BK = HD == 64 || HP > 128 ? 64 : 128;
+  // K / V ring depth: as deep as the 227 KB of shared memory allows
+  static constexpr int STAGES = HP <= 64 ? 4 : HP <= 192 ? 3 : 2;
+  static constexpr int Q_BYTES = kTQ * HP * 2;      // whole boxes, zero-filled past hd
+  static constexpr int KV_BYTES = BK * HP * 2;      // one K or V tile
   // 1 KB of slack to align the tiles to the 1 KB swizzle atom, then Q, the K
   // and V rings, and 1 + 4 x STAGES mbarriers
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 4 * STAGES);
   static constexpr uint64_t SWIZZLE = ROW == 128 ? 1 : 2;  // wgmma layout: 128 B or 64 B
+  static_assert(HD % 16 == 0 && SMEM <= 232448, "a head dim the tiles do not take");
 };
 
 struct TcArgs {
@@ -470,7 +480,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       mbar_arrive(v_empty + 8 * st);
     }
 
-    // O / max(l, 1e-20), rounded to bf16, (b, sq, H, hd) contiguous
+    // O / max(l, 1e-20), rounded to bf16, (b, sq, H, hd) contiguous: the
+    // first hd columns of the padded slabs
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -487,8 +498,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       for (int j = 0; j < NSLAB; ++j)
 #pragma unroll
         for (int c = 0; c < SLAB / 8; ++c)
-          *reinterpret_cast<uint32_t*>(out + j * SLAB + 8 * c) =
-              pack_bf16(o[j][4 * c + 2 * r] * inv, o[j][4 * c + 2 * r + 1] * inv);
+          if (j * SLAB + 8 * c < HD)
+            *reinterpret_cast<uint32_t*>(out + j * SLAB + 8 * c) =
+                pack_bf16(o[j][4 * c + 2 * r] * inv, o[j][4 * c + 2 * r + 1] * inv);
     }
   }
 }
@@ -520,7 +532,7 @@ bool bad_sizes(int b, int h, int kvh, int window) {
 
 }  // namespace
 
-// hd in {32, 64, 128, 256}; kvh divides h; b and h at most 65535 (grid.z,
+// hd in {32, 64, 112, 128, 160, 256}; kvh divides h; b and h at most 65535 (grid.z,
 // grid.y). Strides in elements. `lse` (b, h, sq) f32 or null.
 extern "C" int rt_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int b, int sq, int skv, int h, int kvh, int hd,
@@ -537,7 +549,9 @@ extern "C" int rt_flash_attention_f32(const void* q, const void* k, const void* 
   switch (hd) {
     case 32: return launch_f32<32>(a, b, s);
     case 64: return launch_f32<64>(a, b, s);
+    case 112: return launch_f32<112>(a, b, s);
     case 128: return launch_f32<128>(a, b, s);
+    case 160: return launch_f32<160>(a, b, s);
     case 256: return launch_f32<256>(a, b, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -562,7 +576,9 @@ extern "C" int rt_flash_attention_bf16(const void* q, const void* k, const void*
   switch (hd) {
     case 32: return launch_bf16<32>(q, k, v, a, b, st, s);
     case 64: return launch_bf16<64>(q, k, v, a, b, st, s);
+    case 112: return launch_bf16<112>(q, k, v, a, b, st, s);
     case 128: return launch_bf16<128>(q, k, v, a, b, st, s);
+    case 160: return launch_bf16<160>(q, k, v, a, b, st, s);
     case 256: return launch_bf16<256>(q, k, v, a, b, st, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -65,7 +65,20 @@
 // round to wait. At hd 256 a tile's dQ, or its dK and dV, split over two
 // blocks of 128 columns that each recompute S and dP over the full head dim:
 // 128 columns of dK and dV are 128 f32 registers a thread, as many as one
-// warpgroup holds beside S and dP.
+// warpgroup holds beside S and dP. A head dim that is no whole number of
+// such splits (112, 160) is padded inside the kernel, never in memory: each
+// tensor map keeps the true hd as its inner extent, so TMA fills the columns
+// of the last loaded slab past hd with zeros (the transaction counts the
+// whole box), and slabs wholly past hd are not loaded at all. S and dP take
+// hd / 16 k-steps, the real columns only. hd 112 runs as one 128-column
+// split; hd 160 as two of 128 (the tiles laid out 256 columns wide, as at hd
+// 256), the second's last 96 columns never stored: a block's products over
+// columns past hd land in accumulators that the epilogue drops, which stores
+// the first hd columns at a row pitch of hd. Per visible pair, in products
+// of one column: at hd 112 S and dP (twice each) over 112 columns and dQ, dK
+// and dV over 128, 832 against 7 x 112 = 784 unpadded (+6%); at hd 160 S and
+// dP twice in each pass (once a split) and dQ, dK and dV over 256 columns,
+// 2048 against 1120 (+83%; hd 256's own split costs 57% over 7 x 256).
 //
 // f32, used by the parity checks: SIMT f32 arithmetic, 256 threads a block.
 // Thread (ty, tx) of a 16 x 16 block owns score rows ty + 16 r and columns
@@ -435,13 +448,17 @@ template <int HD>
 struct TcTile {
   static constexpr int SLAB = HD < 64 ? HD : 64;  // head-dim columns per swizzled slab
   static constexpr int ROW = SLAB * 2;            // bytes in one slab row: 128 (64 at hd 32)
-  static constexpr int NSLAB = HD / SLAB;
+  static constexpr int NLOAD = (HD + SLAB - 1) / SLAB;  // slabs that hold columns of hd
   static constexpr uint64_t SWIZZLE = ROW == 128 ? 1 : 2;  // wgmma layout: 128 B or 64 B
-  // gradient columns one block accumulates: at hd 256 a tile's dQ (or dK and
-  // dV) splits over two blocks of 128 columns, each recomputing S and dP
-  static constexpr int COLS = HD < 128 ? HD : 128;
-  static constexpr int SPLIT = HD / COLS;
+  // gradient columns one block accumulates: above 128 a tile's dQ (or dK and
+  // dV) splits over blocks of 128 columns, each recomputing S and dP; the
+  // tiles are laid out HP columns wide, hd padded to whole splits
+  static constexpr int COLS = NLOAD * SLAB < 128 ? NLOAD * SLAB : 128;
+  static constexpr int HP = (HD + COLS - 1) / COLS * COLS;
+  static constexpr int SPLIT = HP / COLS;
   static constexpr int CSLAB = COLS / SLAB;
+  // threads of the D launch a row: a power of two, one 16-byte load each
+  static constexpr int D_LANES = HD <= 32 ? 4 : HD <= 64 ? 8 : HD <= 128 ? 16 : 32;
   // queries a dK / dV step streams: 32 at hd 64, which keeps the kernel at
   // 144 registers (2 blocks an SM: with 5 warps a block, a quadrant of the
   // register file holds 3 warps of at most 168 registers), 64 above (32 took
@@ -451,13 +468,17 @@ struct TcTile {
   // depth of the streamed ring: a stage is released half a step late (the
   // pipelined loops), so 3 where shared memory allows
   static constexpr int STAGES = HD <= 128 ? 3 : 2;
-  static constexpr int FIX = 64 * HD * 2;  // a block's own 64-row tile of Q, dO or K, V
-  static constexpr int Q_STEP = BM * HD * 2, K_STEP = BN * HD * 2;
+  static constexpr int FIX = 64 * HP * 2;  // a block's own 64-row tile of Q, dO or K, V
+  static constexpr int Q_STEP = BM * HP * 2, K_STEP = BN * HP * 2;
+  // the bytes TMA writes into each: the loaded slabs, zero-filled past hd
+  static constexpr int FIX_TX = 64 * NLOAD * ROW, Q_TX = BM * NLOAD * ROW, K_TX = BN * NLOAD * ROW;
   // 1 KB of slack to align the tiles to the 1 KB swizzle atom, the two fixed
   // tiles, the ring of two streamed tiles, and 1 + 2 x STAGES mbarriers
   static constexpr int BARS = 8 * (1 + 2 * STAGES);
   static constexpr int DQ_SMEM = 1024 + 2 * FIX + 2 * STAGES * K_STEP + BARS;
   static constexpr int DKV_SMEM = 1024 + 2 * FIX + 2 * STAGES * Q_STEP + BARS;
+  static_assert(HD % 16 == 0 && HD <= 8 * D_LANES && DQ_SMEM <= 232448 && DKV_SMEM <= 232448,
+                "a head dim the tiles do not take");
 };
 
 struct TcArgs {
@@ -534,11 +555,12 @@ __device__ __forceinline__ void zero(float (&acc)[TcTile<HD>::CSLAB][TcTile<HD>:
 }
 
 // Rows r and r + 8 of a 64-row accumulator block (the thread's rows) to bf16
-// rows of `out` (row stride `rs` elements), times `mul`, columns from `col0`.
+// rows of `out` (row stride `rs` elements), times `mul`: the first `cols`
+// columns of the block's (the rest lie past hd).
 template <int HD>
 __device__ __forceinline__ void store_rows(
     __nv_bfloat16* out, long long rs, int r, int limit,
-    const float (&acc)[TcTile<HD>::CSLAB][TcTile<HD>::SLAB / 2], float mul, int cq) {
+    const float (&acc)[TcTile<HD>::CSLAB][TcTile<HD>::SLAB / 2], float mul, int cq, int cols) {
   using T = TcTile<HD>;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -548,8 +570,9 @@ __device__ __forceinline__ void store_rows(
     for (int j = 0; j < T::CSLAB; ++j)
 #pragma unroll
       for (int c = 0; c < T::SLAB / 8; ++c)
-        *reinterpret_cast<uint32_t*>(row + j * T::SLAB + 8 * c) =
-            pack_bf16(acc[j][4 * c + 2 * h] * mul, acc[j][4 * c + 2 * h + 1] * mul);
+        if (j * T::SLAB + 8 * c < cols)
+          *reinterpret_cast<uint32_t*>(row + j * T::SLAB + 8 * c) =
+              pack_bf16(acc[j][4 * c + 2 * h] * mul, acc[j][4 * c + 2 * h + 1] * mul);
   }
 }
 
@@ -575,17 +598,19 @@ __device__ __forceinline__ void init_barriers(uint32_t fix_full, uint32_t full, 
   __syncthreads();
 }
 
-// D = rowsum(dO o O) of every query row, (b, H, sq): HD / 8 threads a row,
-// 16 bytes of o and of dO each. Both passes' blocks read it.
+// D = rowsum(dO o O) of every query row, (b, H, sq): D_LANES threads a row
+// (a power of two), each 16 bytes of o and of dO, or nothing past hd. Both
+// passes' blocks read it.
 template <int HD>
 __global__ void __launch_bounds__(256) bwd_d_kernel(TcArgs a) {
-  constexpr int L = HD / 8;  // threads a row
+  constexpr int L = TcTile<HD>::D_LANES;
   const long long t = blockIdx.x * 256ll + threadIdx.x, row = t / L;  // (batch, query, head)
-  const bool in = row < (long long)a.b * a.sq * a.h;
+  const int c = (int)(t % L);
+  const bool row_in = row < (long long)a.b * a.sq * a.h, in = row_in && c < HD / 8;
   float acc = 0.f;
   if (in) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(a.o + t * 8);
-    const uint4 gv = *reinterpret_cast<const uint4*>(a.dout + t * 8);
+    const uint4 ov = *reinterpret_cast<const uint4*>(a.o + row * HD + c * 8);
+    const uint4 gv = *reinterpret_cast<const uint4*>(a.dout + row * HD + c * 8);
     const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
     const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
@@ -596,7 +621,7 @@ __global__ void __launch_bounds__(256) bwd_d_kernel(TcArgs a) {
   }
 #pragma unroll
   for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (in && t % L == 0) {
+  if (row_in && c == 0) {
     const long long hq = row % a.h, qi = row / a.h % a.sq, bi = row / a.h / a.sq;
     a.dd[(bi * a.h + hq) * a.sq + qi] = acc;
   }
@@ -633,16 +658,16 @@ __device__ __forceinline__ void dq_block(const CUtensorMap& tq, const CUtensorMa
   init_barriers(fix_full, full, empty, S, 1);
   if (threadIdx.x >= 128) {  // producer warp: one thread issues every copy
     if (threadIdx.x == 128) {
-      mbar_expect_tx(fix_full, 2 * T::FIX);
-      for (int j = 0; j < T::NSLAB; ++j) {
+      mbar_expect_tx(fix_full, 2 * T::FIX_TX);
+      for (int j = 0; j < T::NLOAD; ++j) {
         tma_load(sQ + j * 64 * ROW, &tq, fix_full, j * SLAB, hq, q0, bi);
         tma_load(sdO + j * 64 * ROW, &tdo, fix_full, j * SLAB, hq, q0, bi);
       }
       for (int t = t_lo; t < t_hi; ++t) {
         const int i = t - t_lo, st = i % S, avail = ((i / S) & 1) ^ 1;
         mbar_wait(empty + 8 * st, avail);
-        mbar_expect_tx(full + 8 * st, 2 * T::K_STEP);
-        for (int j = 0; j < T::NSLAB; ++j) {
+        mbar_expect_tx(full + 8 * st, 2 * T::K_TX);
+        for (int j = 0; j < T::NLOAD; ++j) {
           tma_load(sK + st * T::K_STEP + j * BN * ROW, &tk, full + 8 * st, j * SLAB, hk, t * BN,
                    bi);
           tma_load(sV + st * T::K_STEP + j * BN * ROW, &tv, full + 8 * st, j * SLAB, hk, t * BN,
@@ -741,7 +766,7 @@ __device__ __forceinline__ void dq_block(const CUtensorMap& tq, const CUtensorMa
   }
   const long long rs = (long long)a.h * HD;
   store_rows<HD>(a.dq + ((long long)bi * a.sq + q0) * rs + (long long)hq * HD + split * T::COLS,
-                 rs, r0, a.sq - q0, dq, a.scale, cq);
+                 rs, r0, a.sq - q0, dq, a.scale, cq, HD - split * T::COLS);
 }
 
 // The dK / dV pass: dK and dV for 64 keys of one kv head (the columns of one
@@ -781,8 +806,8 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap& tk, const CUtensor
   if (threadIdx.x >= 128) {  // producer warp
     const int lane = threadIdx.x - 128;
     if (lane == 0) {
-      mbar_expect_tx(fix_full, 2 * T::FIX);
-      for (int j = 0; j < T::NSLAB; ++j) {
+      mbar_expect_tx(fix_full, 2 * T::FIX_TX);
+      for (int j = 0; j < T::NLOAD; ++j) {
         tma_load(sK + j * 64 * ROW, &tk, fix_full, j * SLAB, hk, k0, bi);
         tma_load(sV + j * 64 * ROW, &tv, fix_full, j * SLAB, hk, k0, bi);
       }
@@ -795,8 +820,8 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap& tk, const CUtensor
         const int st = i % S, avail = ((i / S) & 1) ^ 1;
         mbar_wait(empty + 8 * st, avail);
         if (lane == 0) {
-          mbar_expect_tx(full + 8 * st, 2 * T::Q_STEP);
-          for (int j = 0; j < T::NSLAB; ++j) {
+          mbar_expect_tx(full + 8 * st, 2 * T::Q_TX);
+          for (int j = 0; j < T::NLOAD; ++j) {
             tma_load(sQ + st * T::Q_STEP + j * BM * ROW, &tq, full + 8 * st, j * SLAB, hq,
                      t * BM, bi);
             tma_load(sdO + st * T::Q_STEP + j * BM * ROW, &tdo, full + 8 * st, j * SLAB, hq,
@@ -902,8 +927,8 @@ __device__ __forceinline__ void dkdv_block(const CUtensorMap& tk, const CUtensor
   }
   const long long rs = (long long)a.kvh * HD;
   const long long off = ((long long)bi * a.skv + k0) * rs + (long long)hk * HD + split * T::COLS;
-  store_rows<HD>(a.dk + off, rs, r0, a.skv - k0, dk, a.scale, cq);
-  store_rows<HD>(a.dv + off, rs, r0, a.skv - k0, dv, 1.f, cq);
+  store_rows<HD>(a.dk + off, rs, r0, a.skv - k0, dk, a.scale, cq, HD - split * T::COLS);
+  store_rows<HD>(a.dv + off, rs, r0, a.skv - k0, dv, 1.f, cq, HD - split * T::COLS);
 }
 
 // Both passes in one grid: the dK / dV blocks first (longest first), then
@@ -938,7 +963,7 @@ int launch_tc(const void* q, const void* k, const void* v, const TcArgs& a, cuda
   static std::atomic<uint32_t> smem_set{0};
   cudaError_t err = opt_in_smem(bwd_tc_kernel<HD>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const long long threads = (long long)a.b * a.sq * a.h * (HD / 8);
+  const long long threads = (long long)a.b * a.sq * a.h * T::D_LANES;
   bwd_d_kernel<HD><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -953,7 +978,9 @@ int dispatch_f32(const BwdArgs<float>& a, int b, int hd, cudaStream_t stream) {
   switch (hd) {
     case 32: return launch<32, float>(a, b, stream);
     case 64: return launch<64, float>(a, b, stream);
+    case 112: return launch<112, float>(a, b, stream);
     case 128: return launch<128, float>(a, b, stream);
+    case 160: return launch<160, float>(a, b, stream);
     case 256: return launch<256, float>(a, b, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -964,7 +991,9 @@ int dispatch_bf16(const void* q, const void* k, const void* v, const TcArgs& a, 
   switch (hd) {
     case 32: return launch_tc<32>(q, k, v, a, stream);
     case 64: return launch_tc<64>(q, k, v, a, stream);
+    case 112: return launch_tc<112>(q, k, v, a, stream);
     case 128: return launch_tc<128>(q, k, v, a, stream);
+    case 160: return launch_tc<160>(q, k, v, a, stream);
     case 256: return launch_tc<256>(q, k, v, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -974,7 +1003,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v, const TcArgs& a, 
 
 // q, o, dout, dq (b, sq, h, hd); k, v, dk, dv (b, skv, kvh, hd); lse and the
 // scratch dd (b, h, sq) f32; all contiguous, 16-byte aligned. dtype 0 = f32,
-// 1 = bf16; hd in {32, 64, 128, 256}; kvh divides h; b and h at most 65535.
+// 1 = bf16; hd in {32, 64, 112, 128, 160, 256}; kvh divides h; b and h at most 65535.
 // `ws` is unused: it keeps the signature of the earlier kernels, so the
 // variants harness can load either file through one entry point.
 extern "C" int rt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,

@@ -27,7 +27,9 @@ from .. import count_launch
 from .._build import check, lib
 
 _ENTRY = {torch.float32: "rt_flash_attention_f32", torch.bfloat16: "rt_flash_attention_bf16"}
-HEAD_DIMS = (32, 64, 128, 256)
+# the head dims the kernels are built for; 112 and 160 run padded to whole
+# 64-column slabs inside the kernels (the sources say how), never in memory
+HEAD_DIMS = (32, 64, 112, 128, 160, 256)
 
 
 def _check_tma_layout(*tensors: torch.Tensor) -> None:

@@ -131,8 +131,8 @@ BWD_SPLIT_HEADS = (
      "  const int hq0 = rest % a.h, bi = rest / a.h, hk = hq0 / (a.h / a.kvh), group = 1;"),
     ("      const int hq = hk * group + g;\n      const long long row_off",
      "      const int hq = hq0 + g;\n      const long long row_off"),
-    ("  store_rows<HD>(a.dk + off, rs, r0, a.skv - k0, dk, a.scale, cq);\n"
-     "  store_rows<HD>(a.dv + off, rs, r0, a.skv - k0, dv, 1.f, cq);\n",
+    ("  store_rows<HD>(a.dk + off, rs, r0, a.skv - k0, dk, a.scale, cq, HD - split * T::COLS);\n"
+     "  store_rows<HD>(a.dv + off, rs, r0, a.skv - k0, dv, 1.f, cq, HD - split * T::COLS);\n",
      "  (void)off;\n"
      "  const long long half = (long long)a.b * a.skv * a.h * HD;\n"
      "  for (int hh = 0; hh < 2; ++hh) {\n"
@@ -179,8 +179,8 @@ VARIANTS = (
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(y + 1.f));
   y = 1.f - 2.f * y;'''),)),
     Variant("128-key tiles at hd 64", "flash_attention.cu",
-            (("static constexpr int BK = HD == 64 || HD == 256 ? 64 : 128;",
-              "static constexpr int BK = HD == 256 ? 64 : 128;"),)),
+            (("static constexpr int BK = HD == 64 || HP > 128 ? 64 : 128;",
+              "static constexpr int BK = HP > 128 ? 64 : 128;"),)),
     Variant("scan: two states a group", "selective_scan.cu",
             (("constexpr int kGroup = 4;", "constexpr int kGroup = 2;"),)),
     Variant("scan: 4 channels x 8 segments a warp", "selective_scan.cu",

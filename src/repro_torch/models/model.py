@@ -1,16 +1,20 @@
 """Models of the port (``repro.models.model``): ArchConfig -> init /
-forward / train_loss / init_cache / decode_step, for the dense, moe and ssm
-families.
+forward / train_loss / init_cache / decode_step, for the dense, moe, ssm and
+hybrid families.
 
 Parameters keep the JAX package's stacked-layer tree: every block leaf has
-a leading layer axis (gemma2 splits ``local_blocks`` and ``global_blocks``),
-so ``convert.from_numpy`` of a JAX ``Model.init`` tree is a valid params
-tree here. ``init`` fills each stacked leaf in place, layer by layer, so it
-never holds the per-layer trees and their stacked copy at once. The loops
+a leading layer axis (gemma2 splits ``local_blocks`` and ``global_blocks``;
+the hybrid stacks ``mamba_blocks`` over (super-block, block) and keeps one
+``shared_attn`` block), so ``convert.from_numpy`` of a JAX ``Model.init``
+tree is a valid params tree here. ``init`` fills each stacked leaf in place,
+layer by layer, so it never holds the per-layer trees and their stacked copy
+at once. The loops
 over layers are Python loops over those leaves. The prefill forward reaches
-the two model kernels: flash attention in every dense and moe layer
-(``attention.attention``), the selective scan in every Mamba1 layer
-(``mamba.mamba1_forward``). Decode is plain PyTorch, as in the JAX package.
+the two model kernels: flash attention in every dense and moe layer and in
+each use of the hybrid's shared attention block (``attention.attention``),
+the selective scan in every Mamba1 layer (``mamba.mamba1_forward``); the
+hybrid's Mamba2 blocks are plain PyTorch (``mamba.ssd_scan``), as the JAX
+package's are jnp. Decode is plain PyTorch, as in the JAX package.
 
 ``train_loss`` is differentiable: flash attention is an autograd Function
 whose backward is the backward kernel on the card (its plain version on
@@ -27,7 +31,13 @@ Families
           residual MLP), ``models/moe.py``; the forward's aux loss is the
           layers' Switch losses averaged over layers
   ssm   : attention-free Mamba1 stack (falcon-mamba)
-The hybrid, audio and vlm families raise ``NotImplementedError``.
+  hybrid: Mamba2 blocks with one shared attention block every ``attn_every``
+          layers (zamba2): ``n_layers // attn_every`` super-blocks of
+          ``attn_every - 1`` Mamba2 blocks and the shared block, then the
+          remaining Mamba2 blocks as a tail. The shared block is one set of
+          tensors used by every super-block, so autograd sums its gradient
+          over the uses, as XLA does
+The audio and vlm families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,9 +66,8 @@ from .layers import (
 MOE_AUX_WEIGHT = 0.01
 
 NOT_PORTED = {
-    "hybrid": "ROADMAP Queue A item 4, the hybrid family (Mamba2)",
-    "audio": "ROADMAP Queue A item 4, the audio and vlm families (after hybrid)",
-    "vlm": "ROADMAP Queue A item 4, the audio and vlm families (after hybrid)",
+    "audio": "ROADMAP Queue A item 4, the audio and vlm families",
+    "vlm": "ROADMAP Queue A item 4, the audio and vlm families",
 }
 
 
@@ -114,10 +123,18 @@ class Model:
         if cfg.family in NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet ({NOT_PORTED[cfg.family]})")
-        if cfg.family not in ("dense", "moe", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise ValueError(f"unknown family {cfg.family}")
         if cfg.family == "ssm" and cfg.ssm_version != 1:
             raise NotImplementedError(f"{cfg.name}: only Mamba1 ssm stacks are ported")
+        if cfg.family == "hybrid":
+            if cfg.ssm_version != 2 or not 2 <= cfg.attn_every <= cfg.n_layers:
+                raise ValueError(f"{cfg.name}: a hybrid stack takes Mamba2 blocks and an "
+                                 "attention block every attn_every layers, 2 <= attn_every "
+                                 "<= n_layers")
+            self.n_super = cfg.n_layers // cfg.attn_every
+            self.mamba_per_super = cfg.attn_every - 1
+            self.n_tail = cfg.n_layers - self.n_super * cfg.attn_every
         if cfg.alt_local_global and cfg.n_layers % 2:
             raise ValueError(f"{cfg.name}: alternating local/global needs an even layer count")
         self.cfg = cfg
@@ -137,8 +154,9 @@ class Model:
     # -- init -----------------------------------------------------------------
     def init(self, gen: torch.Generator) -> Params:
         """Random params drawn from ``gen`` on its device. Norm scales are 0,
-        and Mamba1's A_log = log(1..n), D = 1, dt_bias = 0, as in the JAX
-        package; the random leaves come from torch's generator, not JAX's.
+        Mamba1's A_log = log(1..n) and Mamba2's 0, D = 1, dt_bias = 0, as in
+        the JAX package; the random leaves come from torch's generator, not
+        JAX's.
         Peak memory: the stacked tree, one layer's tree and one leaf's f32
         draw (:func:`_stack_layers`)."""
         cfg, dt = self.cfg, self.dtype
@@ -169,6 +187,11 @@ class Model:
                     "body": mamba_lib.init_mamba1(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
                                                   cfg.dt_rank, cfg.conv_width, dt)}
 
+        def mamba2_block() -> Params:
+            return {"ln": self._zeros(gen, cfg.d_model),
+                    "body": mamba_lib.init_mamba2(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                                  cfg.conv_width, dt)}
+
         n = cfg.n_layers
         if cfg.family == "dense" and cfg.alt_local_global:
             params["local_blocks"] = _stack_layers(n // 2, dense_block)
@@ -177,6 +200,14 @@ class Model:
             params["blocks"] = _stack_layers(n, dense_block)
         elif cfg.family == "moe":
             params["blocks"] = _stack_layers(n, moe_block)
+        elif cfg.family == "hybrid":
+            n_super, per = self.n_super, self.mamba_per_super
+            params["mamba_blocks"] = _tree_map(
+                lambda t: t.reshape(n_super, per, *t.shape[1:]),
+                _stack_layers(n_super * per, mamba2_block))
+            params["shared_attn"] = dense_block()
+            if self.n_tail:
+                params["tail_blocks"] = _stack_layers(self.n_tail, mamba2_block)
         else:
             params["blocks"] = _stack_layers(n, mamba_block)
         return params
@@ -204,6 +235,18 @@ class Model:
     def _mamba_block(self, block: Params, x: torch.Tensor) -> torch.Tensor:
         return x + mamba_lib.mamba1_forward(block["body"], rms_norm(x, block["ln"]),
                                             self.cfg.ssm_state, self.cfg.dt_rank)
+
+    def _mamba2_block(self, block: Params, x: torch.Tensor) -> torch.Tensor:
+        return x + mamba_lib.mamba2_forward(block["body"], rms_norm(x, block["ln"]),
+                                            self.cfg.ssm_state)
+
+    def _super_block(self, mamba_blocks: Params, shared: Params, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+        """One hybrid super-block: its Mamba2 blocks, then the shared
+        attention block (full causal attention, as the JAX package's)."""
+        for j in range(self.mamba_per_super):
+            x = self._mamba2_block(_layer(mamba_blocks, j), x)
+        return self._dense_block(shared, x, positions, 0)
 
     def _moe_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
                    window: int) -> Tuple[torch.Tensor, torch.Tensor, MoEStats]:
@@ -256,6 +299,14 @@ class Model:
             window = self.layer_window(local=True) if self.long_context else 0
             for i in range(cfg.n_layers):
                 x = dense_block(_layer(params["blocks"], i), x, positions, window)
+        elif cfg.family == "hybrid":
+            super_block = self._layer_fn(self._super_block)
+            mamba2_block = self._layer_fn(self._mamba2_block)
+            for i in range(self.n_super):
+                x = super_block(_layer(params["mamba_blocks"], i), params["shared_attn"], x,
+                                positions)
+            for i in range(self.n_tail):
+                x = mamba2_block(_layer(params["tail_blocks"], i), x)
         else:
             for i in range(cfg.n_layers):
                 x = mamba_block(_layer(params["blocks"], i), x)
@@ -301,9 +352,21 @@ class Model:
                 return {"local": kvc(cfg.n_layers // 2, ring(cache_len)),
                         "global": kvc(cfg.n_layers // 2, cache_len)}
             return {"kv": kvc(cfg.n_layers, ring(cache_len) if self.long_context else cache_len)}
+
+        def stacked(c: Params, *lead: int) -> Params:
+            return {k: torch.zeros((*lead, *a.shape), dtype=a.dtype, device=dev)
+                    for k, a in c.items()}
+
+        if cfg.family == "hybrid":  # the shared block keeps a cache for each of its uses
+            c = mamba_lib.init_mamba2_cache(batch, cfg.d_inner, cfg.ssm_state, cfg.conv_width,
+                                            dt, dev)
+            out = {"mamba": stacked(c, self.n_super, self.mamba_per_super),
+                   "attn": kvc(self.n_super, cache_len)}
+            if self.n_tail:
+                out["tail"] = stacked(c, self.n_tail)
+            return out
         c = mamba_lib.init_mamba1_cache(batch, cfg.d_inner, cfg.ssm_state, cfg.conv_width, dt, dev)
-        return {"mamba": {k: torch.zeros((cfg.n_layers, *a.shape), dtype=a.dtype, device=dev)
-                          for k, a in c.items()}}
+        return {"mamba": stacked(c, cfg.n_layers)}
 
     def decode_step(self, params: Params, tokens: torch.Tensor, positions: torch.Tensor,
                     cache: Params) -> Tuple[torch.Tensor, Params]:
@@ -339,6 +402,29 @@ class Model:
                 x, c2 = dense(_layer(params["blocks"], i), x, _layer(cache["kv"], i), window)
                 kvs.append(c2)
             new_cache = {"kv": _stack(kvs)}
+        elif cfg.family == "hybrid":
+            def mamba2(block: Params, x: torch.Tensor, c: Params):
+                y, c2 = mamba_lib.mamba2_decode(block["body"], rms_norm(x, block["ln"]), c,
+                                                cfg.ssm_state)
+                return x + y, c2
+
+            supers, attns = [], []
+            for i in range(self.n_super):
+                blocks, states = _layer(params["mamba_blocks"], i), _layer(cache["mamba"], i)
+                inner = []
+                for j in range(self.mamba_per_super):
+                    x, c2 = mamba2(_layer(blocks, j), x, _layer(states, j))
+                    inner.append(c2)
+                supers.append(_stack(inner))
+                x, a2 = dense(params["shared_attn"], x, _layer(cache["attn"], i), 0)
+                attns.append(a2)
+            new_cache = {"mamba": _stack(supers), "attn": _stack(attns)}
+            if self.n_tail:
+                tails = []
+                for i in range(self.n_tail):
+                    x, c2 = mamba2(_layer(params["tail_blocks"], i), x, _layer(cache["tail"], i))
+                    tails.append(c2)
+                new_cache["tail"] = _stack(tails)
         else:
             states = []
             for i in range(cfg.n_layers):

@@ -37,6 +37,8 @@ CASES = [  # b, s, h, kv, hd, causal, window, softcap
     (2, 384, 5, 5, 32, True, 256, 30.0),  # window + softcap, odd sizes
     (2, 256, 6, 2, 64, True, 0, 0.0),  # GQA, 3 q heads per kv head (smollm's ratio)
     (1, 256, 4, 2, 256, True, 128, 50.0),  # GQA at gemma2's head dim, window + softcap
+    (2, 256, 4, 4, 112, True, 0, 0.0),  # zamba2's head dim, MHA
+    (1, 256, 4, 1, 160, True, 128, 0.0),  # stablelm-12b's head dim, GQA 4 / 1, window
 ]
 
 

@@ -260,6 +260,10 @@ def _normal(shape, seed):
     (1, 1, 4, 2, 64, True, 0, 0.0),
     (2, 1, 2, 1, 256, False, 0, 30.0),
     (1, 129, 4, 1, 32, True, 64, 0.0),
+    (1, 300, 4, 4, 112, True, 0, 0.0),  # zamba2's head dim: slabs padded inside the kernel
+    (1, 257, 6, 3, 112, True, 64, 50.0),
+    (1, 333, 8, 2, 160, True, 100, 0.0),  # stablelm-12b's head dim: 2.5 slabs
+    (2, 200, 4, 1, 160, False, 0, 30.0),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, atol, b, s, h, kv, hd, causal, window, softcap):
     q = _normal((b, s, h, hd), 1).to(dtype)
@@ -275,11 +279,13 @@ def test_flash_kernel_matches_plain(cuda, dtype, atol, b, s, h, kv, hd, causal, 
         assert rounding_units(out, q.to(cuda), k.to(cuda), v.to(cuda), **kw) <= BF16_UNITS_TOL
 
 
+@pytest.mark.parametrize("hd", (64, 112, 160))
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-def test_flash_kernel_reads_strided_heads(cuda, dtype, atol):
+def test_flash_kernel_reads_strided_heads(cuda, dtype, atol, hd):
     """q, k and v as views into one fused (b, s, H + 2 KV, hd) projection (in
-    bf16, TMA reads them through their strides)."""
-    qkv = _normal((2, 130, 8 + 2 + 2, 64), 4).to(dtype).to(cuda)
+    bf16, TMA reads them through their strides: 224 and 320 bytes a head at
+    hd 112 and 160)."""
+    qkv = _normal((2, 130, 8 + 2 + 2, hd), 4).to(dtype).to(cuda)
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     out = flash_attention_op(q, k, v, causal=True)
     want = attention_ref(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
@@ -404,6 +410,7 @@ def test_model_forward_on_card_matches_cpu(cuda, arch):
 # -- the flash-attention backward and training through the kernels ----------------
 
 from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.kernels.attention.flash import flash_attention, flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.attention.ref import (  # noqa: E402
     BWD_BF16_TOL,
@@ -429,6 +436,10 @@ BWD_CASES = [  # b, s, h, kv, hd, causal, window, softcap
     (2, 200, 12, 3, 32, True, 0, 0.0),
     (1, 1000, 8, 8, 64, True, 77, 0.0),  # the window's edge inside a tile
     (1, 256, 4, 1, 128, False, 0, 30.0),
+    (1, 300, 4, 4, 112, True, 0, 0.0),  # zamba2's head dim, one padded 128-column split
+    (2, 200, 6, 6, 112, False, 0, 0.0),
+    (1, 1000, 8, 2, 160, True, 0, 0.0),  # stablelm-12b's: two 128-column splits, 96 dropped
+    (1, 333, 4, 1, 160, True, 100, 30.0),
 ]
 
 
@@ -586,6 +597,66 @@ def test_flash_kernels_at_the_moe_head_groups(cuda, dtype, h, kv):
     _check_bwd(q, k, v, do, dict(causal=True, sliding_window=0, softcap=0.0))
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("h,kv,hd", [(32, 8, 160), (32, 32, 112)], ids=["stablelm", "zamba2"])
+def test_flash_kernels_at_the_new_head_dims(cuda, dtype, h, kv, hd):
+    """stablelm-12b's and zamba2-7b's heads at their head dims: the forward
+    and the backward against their plain versions, every gradient column
+    (the backward's dropped padding columns must not reach dQ, dK or dV)."""
+    q = _normal((1, 384, h, hd), 51).to(dtype).to(cuda)
+    k = _normal((1, 384, kv, hd), 52).to(dtype).to(cuda)
+    v = _normal((1, 384, kv, hd), 53).to(dtype).to(cuda)
+    out = flash_attention_op(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert out.shape == q.shape and float((out.float() - want.float()).abs().max()) <= atol
+    if dtype == torch.bfloat16:
+        assert rounding_units(out, q, k, v, causal=True) <= BF16_UNITS_TOL
+    do = _normal((1, 384, h, hd), 54).to(dtype).to(cuda)
+    _check_bwd(q, k, v, do, dict(causal=True, sliding_window=0, softcap=0.0))
+
+
+@pytest.mark.parametrize("arch,head_dim", [("stablelm-12b", 160), ("zamba2-7b", 112)])
+def test_new_archs_on_card_match_cpu_at_their_head_dims(cuda, arch, head_dim):
+    """The f32 smoke variants at their own head dims (zamba2 with two
+    super-blocks and a tail): the forward through the kernels on the card
+    (one flash launch a dense layer or a use of the shared block, no scan)
+    and every gradient leaf against the plain path on the CPU, same params;
+    a decode step against the forward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Batch, build_model
+
+    cfg = get_arch(arch).smoke_variant().replace(head_dim=head_dim)
+    if cfg.family == "hybrid":
+        cfg = cfg.replace(n_layers=5, attn_every=2)
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_card = tree_map(lambda t: t.to(cuda).requires_grad_(), params)
+    params = tree_map(lambda t: t.requires_grad_(), params)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 160)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 160)))
+    reset_launches()
+    loss = card.train_loss(params_card, Batch(tokens=tokens.to(cuda), labels=labels.to(cuda)))
+    got = torch.autograd.grad(loss, tree_leaves(params_card))
+    torch.cuda.synchronize()
+    n_attn = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else cfg.n_layers
+    assert launch_counts()["flash_attention"] == n_attn
+    assert launch_counts()["flash_attention_bwd"] == n_attn
+    assert launch_counts()["selective_scan"] == 0
+    want_loss = cpu.train_loss(params, Batch(tokens=tokens, labels=labels))
+    want = torch.autograd.grad(want_loss, tree_leaves(params))
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+    with torch.no_grad():
+        full, _ = card.forward(params_card, Batch(tokens=tokens.to(cuda)))
+        step, _ = card.decode_step(params_card, tokens[:, :1].to(cuda),
+                                   torch.zeros(2, dtype=torch.long, device=cuda),
+                                   card.init_cache(2, 32))
+    assert float((step[:, 0] - full[:, 0]).abs().max()) <= 5e-2
+
+
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b"])
 def test_moe_model_on_card_matches_cpu(cuda, arch):
     """The f32 smoke forward (aux included) and a decode step through the
@@ -660,3 +731,30 @@ def test_moe_train_step_on_card_routes_alike(cuda):
     assert float(m["route_mismatch"]) == 0.0 and np.isfinite(float(m["loss"]))
     assert launch_counts()["flash_attention"] == 2 * cfg.n_layers * 4
     assert launch_counts()["flash_attention_bwd"] == cfg.n_layers * 4
+
+
+def test_hybrid_decode_step_replays_as_a_cuda_graph(cuda):
+    """The hybrid's decode step (Mamba2 state updates and the shared block's
+    caches) captures, and the replay gives the eager step's logits."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("zamba2-7b").smoke_variant().replace(dtype="bfloat16", n_layers=5)
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    cache = model.init_cache(4, 32)
+    tok = torch.randint(0, cfg.vocab, (4, 1), device=cuda)
+    pos = torch.full((4,), 3, dtype=torch.long, device=cuda)
+    with torch.inference_mode():
+        eager, _ = model.decode_step(params, tok, pos, cache)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.decode_step(params, tok, pos, cache)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, _ = model.decode_step(params, tok, pos, cache)
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)

@@ -4,8 +4,9 @@ The JAX ``Model.init`` tree crosses to the port with ``convert.from_numpy``
 leaf for leaf (stacked layer axis, nested ``embed/table``, bf16 as raw
 bits); then both run the same tokens. On the f32 smoke variants of
 smollm-360m, granite-3-2b, gemma2-2b (s above its smoke window of 128, so
-the local layers' window bites), falcon-mamba-7b, qwen3-moe-30b-a3b and
-arctic-480b:
+the local layers' window bites), falcon-mamba-7b, qwen3-moe-30b-a3b,
+arctic-480b, stablelm-12b and zamba2-7b (hybrid: Mamba2 blocks and a shared
+attention block):
 
 * ``forward`` logits within 1e-4 of the JAX package's (f32; the attention
   and scan sum in another order than XLA's einsum and associative scan),
@@ -17,7 +18,12 @@ arctic-480b:
 * teacher-forced decode within 5e-2 of the port's own forward, the bound of
   ``tests/test_models.py::test_decode_matches_forward``;
 * the prefill forward reaches the flash-attention op once per dense or moe
-  layer and the selective-scan op once per Mamba1 layer;
+  layer and per use of the hybrid's shared block, and the selective-scan op
+  once per Mamba1 layer (never in the hybrid: Mamba2 is plain PyTorch);
+* the hybrid's loss and every gradient leaf, the shared block's summed over
+  its uses, match ``jax.grad`` over two super-blocks and a tail block;
+  stablelm-12b at its own head dim 160 and zamba2-7b at its 112 match the
+  JAX forward on narrow widths (the smoke variants force 64);
 * ``Model.init`` fills the stacked leaves in place with the draws that
   stacking per-layer trees would give.
 """
@@ -40,7 +46,7 @@ from repro_torch.models import attention as pt_attn  # noqa: E402
 from repro_torch.models import mamba as pt_mamba  # noqa: E402
 
 ARCHS = ("smollm-360m", "granite-3-2b", "gemma2-2b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
-         "arctic-480b")
+         "arctic-480b", "stablelm-12b", "zamba2-7b")
 SEQ = {"gemma2-2b": 160}  # above the smoke window of 128
 KEY = jax.random.PRNGKey(0)
 
@@ -79,10 +85,10 @@ def test_registry_holds_the_ported_archs():
     assert pt_configs.list_archs() == sorted(ARCHS)
     assert set(pt_configs.INPUT_SHAPES) == set(jax_configs.INPUT_SHAPES)
     with pytest.raises(KeyError, match="ROADMAP"):
-        pt_configs.get_arch("zamba2-7b")
+        pt_configs.get_arch("whisper-tiny")
 
 
-@pytest.mark.parametrize("family", ["hybrid", "audio", "vlm"])
+@pytest.mark.parametrize("family", ["audio", "vlm"])
 def test_unported_families_raise(family):
     cfg = pt_configs.ArchConfig(name="x", family=family, source="")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -122,6 +128,17 @@ def test_from_numpy_carries_a_bf16_init_tree():
         np.testing.assert_array_equal(back[path].view(np.uint8), np.asarray(w).view(np.uint8))
 
 
+def _kernel_calls(cfg):
+    """The flash and scan calls a prefill forward makes: one flash call a
+    dense or moe layer, or a use of the hybrid's shared block; one scan call
+    a Mamba1 layer."""
+    if cfg.family == "ssm":
+        return {"flash": 0, "scan": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"flash": cfg.n_layers // cfg.attn_every, "scan": 0}
+    return {"flash": cfg.n_layers, "scan": 0}
+
+
 def _count_kernel_calls(monkeypatch):
     calls = {"flash": 0, "scan": 0}
     flash, scan = pt_attn.flash_attention_op, pt_mamba.selective_scan_op
@@ -157,9 +174,7 @@ def test_forward_matches_jax(monkeypatch, arch, shape_name):
     else:
         assert float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
-    attn_free = cfg.family == "ssm"
-    assert calls == {"flash": 0 if attn_free else cfg.n_layers,
-                     "scan": cfg.n_layers if attn_free else 0}
+    assert calls == _kernel_calls(cfg)
     loss_j = jax.jit(mj.train_loss)(params_j, JaxBatch(tokens=jnp.asarray(tokens),
                                                        labels=jnp.asarray(labels)))
     np.testing.assert_allclose(float(mt.train_loss(params_t, batch)), float(loss_j), atol=1e-5)
@@ -256,3 +271,63 @@ def test_qwen3_moe_loss_and_grads_match_jax_at_full_routing_width(width):
         w = np.asarray(w)
         err = float(np.abs(g.numpy() - w).max())
         assert err <= 1e-4 * float(np.abs(w).max()), (path, err, float(np.abs(w).max()))
+
+
+def _loss_and_grads(cfg_j, cfg_t, s=48):
+    """``train_loss`` and every gradient leaf of both packages on the same
+    converted params, with masked labels."""
+    mj, mt = jax_build_model(cfg_j), build_model(cfg_t, device="cpu")
+    params_j = mj.init(KEY)
+    tokens, labels = _tokens(cfg_t, 2, s), _tokens(cfg_t, 2, s, seed=1)
+    labels[1, :7] = -1
+    batch_j = JaxBatch(tokens=jnp.asarray(tokens), labels=jnp.asarray(labels))
+    loss_j, grads_j = jax.jit(jax.value_and_grad(mj.train_loss))(params_j, batch_j)
+    params_t = from_numpy(params_j, device="cpu")
+    leaves = [t.requires_grad_(True) for _, t in _leaves(params_t)]
+    loss_t = mt.train_loss(params_t, Batch(tokens=torch.from_numpy(tokens).long(),
+                                           labels=torch.from_numpy(labels).long()))
+    grads_t = torch.autograd.grad(loss_t, leaves)
+    return (float(loss_t.detach()), float(loss_j), dict(zip([p for p, _ in _leaves(params_t)],
+                                                             grads_t)),
+            dict(_leaves(jax.device_get(grads_j))))
+
+
+def test_hybrid_loss_and_grads_match_jax_over_two_super_blocks_and_a_tail():
+    """zamba2-7b's smoke variant at 5 layers, attention every 2: two
+    super-blocks of one Mamba2 block and the shared block, then a tail
+    block. Loss within 1e-5 relative and every gradient leaf within 1e-4 of
+    its max |g| of ``jax.grad``'s; the shared block's gradient is the sum
+    over its two uses (a port that kept one copy per use would split it)."""
+    overrides = dict(n_layers=5, attn_every=2)
+    cfg_j = jax_configs.get_arch("zamba2-7b").smoke_variant().replace(**overrides)
+    cfg_t = pt_configs.get_arch("zamba2-7b").smoke_variant().replace(**overrides)
+    mt = build_model(cfg_t, device="cpu")
+    assert (mt.n_super, mt.mamba_per_super, mt.n_tail) == (2, 1, 1)
+    loss_t, loss_j, got, want = _loss_and_grads(cfg_j, cfg_t)
+    assert abs(loss_t - loss_j) <= 1e-5 * abs(loss_j)
+    assert sorted(got) == sorted(want) and "/shared_attn/attn/wq" in got
+    assert got["/mamba_blocks/body/wx"].shape[:2] == (2, 1) and "/tail_blocks/body/wx" in got
+    for path, w in want.items():
+        w = np.asarray(w)
+        err = float(np.abs(got[path].numpy() - w).max())
+        assert err <= 1e-4 * float(np.abs(w).max()), (path, err, float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("arch,head_dim", [("stablelm-12b", 160), ("zamba2-7b", 112)])
+def test_forward_and_loss_at_the_configs_own_head_dim(monkeypatch, arch, head_dim):
+    """The smoke variants force head dim 64; here each arch keeps its own
+    (stablelm's GQA 4 / 2 at 160, zamba2's MHA at 112) on narrow widths:
+    logits within 1e-4 and the loss within 1e-5 of the JAX model's."""
+    mj, mt, params_j, params_t = _pair(arch, head_dim=head_dim)
+    cfg = mt.cfg
+    assert cfg.resolved_head_dim == head_dim
+    tokens, labels = _tokens(cfg, 2, 40), _tokens(cfg, 2, 40, seed=1)
+    want, _ = jax.jit(mj.forward)(params_j, JaxBatch(tokens=jnp.asarray(tokens)))
+    calls = _count_kernel_calls(monkeypatch)
+    batch = Batch(tokens=torch.from_numpy(tokens).long(), labels=torch.from_numpy(labels).long())
+    got, _ = mt.forward(params_t, batch)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    assert calls == _kernel_calls(cfg)
+    loss_j = jax.jit(mj.train_loss)(params_j, JaxBatch(tokens=jnp.asarray(tokens),
+                                                       labels=jnp.asarray(labels)))
+    np.testing.assert_allclose(float(mt.train_loss(params_t, batch)), float(loss_j), atol=1e-5)

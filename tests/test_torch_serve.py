@@ -41,7 +41,7 @@ def _jax_serve(model, params, prompts, gen, cache_len):
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b", "falcon-mamba-7b",
-                                  "qwen3-moe-30b-a3b"])
+                                  "qwen3-moe-30b-a3b", "stablelm-12b", "zamba2-7b"])
 def test_serve_tokens_match_jax(arch):
     cfg = jax_configs.get_arch(arch).smoke_variant()
     mj = jax_build_model(cfg)
@@ -69,6 +69,15 @@ def test_cli_runs_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b"])
 def test_cli_serves_a_moe_arch_on_the_cpu(capsys, arch):
+    _serve_cli_on_the_cpu(capsys, arch)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "zamba2-7b"])
+def test_cli_serves_stablelm_and_the_hybrid_on_the_cpu(capsys, arch):
+    _serve_cli_on_the_cpu(capsys, arch)
+
+
+def _serve_cli_on_the_cpu(capsys, arch):
     pt_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                    "--prompt-len", "4", "--gen", "3", "--cache-len", "16"])
     out = capsys.readouterr().out

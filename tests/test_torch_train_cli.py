@@ -10,7 +10,8 @@ CPU, and its checkpoints crossing to the JAX package and back.
 * bf16 leaves keep their bits through the port's save and restore (stored
   as raw 16-bit patterns, as ``np.savez`` stores the JAX package's).
 * ``--scenario mesh_smoke`` drives the session: the churn fires at round 1.
-* ``--arch qwen3-moe-30b-a3b`` and ``--arch arctic-480b`` train (smoke).
+* ``--arch qwen3-moe-30b-a3b``, ``arctic-480b``, ``stablelm-12b`` and
+  ``zamba2-7b`` (hybrid) train (smoke).
 """
 import os
 import re
@@ -110,6 +111,18 @@ def test_cli_trains_a_moe_arch(arch):
     """The moe smoke variants train from the CLI: qwen3-moe (AdamW, one
     microbatch) and arctic (Adafactor, 8 microbatches over the 4 nodes'
     rows); the loss of a fixed-seed run falls."""
+    out = _cli("--arch", arch, "--smoke", "--steps", "3", "--nodes", "4", "--seq-len", "32",
+               "--batch-per-node", "2", "--device", "cpu")
+    assert f"arch={arch}" in out and "nodes=4" in out
+    losses = [float(x) for x in re.search(r"done: 3 steps .* loss (.*)", out).group(1).split()]
+    assert len(losses) == 3 and all(np.isfinite(losses)) and losses[2] < losses[0], losses
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "zamba2-7b"])
+def test_cli_trains_stablelm_and_the_hybrid(arch):
+    """The dense stablelm-12b and the hybrid zamba2-7b (Mamba2 blocks and the
+    shared attention block) smoke variants train from the CLI; the loss
+    falls."""
     out = _cli("--arch", arch, "--smoke", "--steps", "3", "--nodes", "4", "--seq-len", "32",
                "--batch-per-node", "2", "--device", "cpu")
     assert f"arch={arch}" in out and "nodes=4" in out

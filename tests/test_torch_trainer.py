@@ -3,9 +3,9 @@
 * ``Model.train_loss`` gradients against ``jax.grad`` of the JAX model on the
   same params (converted leaf for leaf) and tokens, for the f32 smoke
   variants of smollm-360m, granite-3-2b, gemma2-2b (s above its window),
-  falcon-mamba-7b, qwen3-moe-30b-a3b and arctic-480b: within 1e-4 of each
-  leaf's max |g| (attention, scan and matmuls sum in another order than
-  XLA).
+  falcon-mamba-7b, qwen3-moe-30b-a3b, arctic-480b, stablelm-12b and
+  zamba2-7b: within 1e-4 of each leaf's max |g| (attention, scan and
+  matmuls sum in another order than XLA).
 * One DFL step of the port on 4 stacked nodes against the JAX ``DFLTrainer``
   on 4 forced host devices with an Auto-axis mesh (ROADMAP R1), from the
   same init and batch: loss within 1e-5 relative, grad_norm within 1e-4
@@ -22,7 +22,9 @@
   norm within 1e-4 relative, the first moment (AdamW) or the factored
   second moment (Adafactor) within 1e-4 of each leaf's max, the params
   within 1e-4 of each leaf's max (Adafactor) or 0.1 lr (AdamW, as above);
-  the routing pass and the differentiated pass route alike.
+  the routing pass and the differentiated pass route alike. The hybrid
+  family likewise: one step of zamba2-7b's smoke variant (Mamba2 blocks and
+  the shared attention block, AdamW) against the JAX ``DFLTrainer``.
 * R9: the reference's Adam moments are identical on every node device and
   equal (1 - b1) times the clipped mean of the nodes' own gradients, which
   differ; the port holds the moments once and matches them.
@@ -65,7 +67,7 @@ from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("smollm-360m", "granite-3-2b", "gemma2-2b", "falcon-mamba-7b", "qwen3-moe-30b-a3b",
-         "arctic-480b")
+         "arctic-480b", "stablelm-12b", "zamba2-7b")
 SEQ = {"gemma2-2b": 160}  # above the smoke window of 128
 N, BPN, S, LR = 4, 2, 32, 1e-3
 
@@ -460,17 +462,26 @@ MOE_RUNS = (("qwen3_mb1", "qwen3-moe-30b-a3b", 1), ("qwen3_mb2", "qwen3-moe-30b-
             ("arctic", "arctic-480b", 8))
 
 
-@pytest.fixture(scope="module")
-def jax_moe(tmp_path_factory):
-    out = tmp_path_factory.mktemp("jax_moe")
+HYBRID_RUNS = (("zamba2", "zamba2-7b", 1),)
+
+
+def _jax_steps(out, runs):
+    """One JAX ``DFLTrainer`` step of each run (the ``JAX_MOE`` script) into
+    ``out``; returns its ref.npz."""
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
-    script = JAX_MOE.replace("MOE_RUNS", repr(MOE_RUNS))
+    script = JAX_MOE.replace("MOE_RUNS", repr(runs))
     proc = subprocess.run([sys.executable, "-c", script, str(out)], capture_output=True,
                           text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    ref = dict(np.load(out / "ref.npz"))
+    return dict(np.load(out / "ref.npz"))
+
+
+@pytest.fixture(scope="module")
+def jax_moe(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_moe")
+    ref = _jax_steps(out, MOE_RUNS)
     # the reference's aux over the global batch is not the mean of the nodes'
     # own, by more than the loss tolerance: a trainer that took each node's
     # own aux could not pass
@@ -480,9 +491,28 @@ def jax_moe(tmp_path_factory):
     return out, ref
 
 
+@pytest.fixture(scope="module")
+def jax_hybrid(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_hybrid")
+    return out, _jax_steps(out, HYBRID_RUNS)
+
+
 @pytest.mark.parametrize("run,arch,mb", MOE_RUNS, ids=[r[0] for r in MOE_RUNS])
 def test_moe_step_matches_jax_trainer_with_the_global_aux_p4(jax_moe, run, arch, mb):
-    out, ref = jax_moe
+    m = _step_against_jax(*jax_moe, run, arch, mb)
+    assert float(m["route_mismatch"]) == 0.0
+
+
+@pytest.mark.parametrize("run,arch,mb", HYBRID_RUNS, ids=[r[0] for r in HYBRID_RUNS])
+def test_hybrid_step_matches_jax_trainer(jax_hybrid, run, arch, mb):
+    m = _step_against_jax(*jax_hybrid, run, arch, mb)
+    assert "route_mismatch" not in m
+
+
+def _step_against_jax(out, ref, run, arch, mb):
+    """One port step of ``run`` against the reference's (loss within 1e-5
+    relative, grad norm within 1e-4 relative, the moments and params as the
+    module docstring says); returns the step's metrics."""
     cfg = get_arch(arch).smoke_variant().replace(microbatches=mb)
     model = build_model(cfg, device="cpu")
     like = _like(model)
@@ -514,7 +544,7 @@ def test_moe_step_matches_jax_trainer_with_the_global_aux_p4(jax_moe, run, arch,
         # test_one_step_matches_jax_trainer)
         for (name, g), (_, w) in zip(_leaves(got_p), _leaves(want_p)):
             assert float((g - w).abs().max()) <= 0.1 * LR, f"{name} node {node}"
-    assert float(m["route_mismatch"]) == 0.0
+    return m
 
 
 # -- the port alone ---------------------------------------------------------------
@@ -652,7 +682,18 @@ def test_dfl_config_matches_jax():
 def test_remat_gives_the_same_gradients():
     """cfg.remat runs each layer under torch.utils.checkpoint (the forward
     again in the backward), as jax.checkpoint does there: same gradients."""
-    cfg, _ = _smoke()
+    _remat_grads_agree(_smoke()[0])
+
+
+def test_remat_gives_the_same_gradients_for_the_hybrid():
+    """The hybrid checkpoints each super-block (its Mamba2 blocks and the
+    shared attention block) and each tail block, as the JAX package's
+    remat wraps its scan bodies: same gradients, the shared block's sum
+    over its two uses included."""
+    _remat_grads_agree(get_arch("zamba2-7b").smoke_variant().replace(n_layers=5, attn_every=2))
+
+
+def _remat_grads_agree(cfg):
     batch = _data_batch(cfg)
     out = []
     for remat in (False, True):
