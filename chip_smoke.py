@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round,
 the model serving path (prefill forward + cached decode) and the DFL
 training step (4 stacked nodes, forward, the flash-attention backward, the
-optimizer and a gossip round), for the dense, ssm, moe and hybrid families.
+optimizer and a gossip round), for every family: dense, ssm, moe, hybrid,
+audio (whisper-tiny) and vlm (paligemma-3b).
 
     python3 chip_smoke.py
 
@@ -15,15 +16,19 @@ Phases, each fatal on failure (exit code 1, no result line):
              256, the SIMT ones in f32 at hd 64) and the scan, the count of
              HGMMA (wgmma) instructions in the SASS of the forward's and the
              backward's objects (cuobjdump; none in either is a failure), and
-             the card's name and power limit.
+             the card's name and power limit. hd 256 is gemma2's and
+             paligemma-3b's head dim.
 2. kernels — each Hopper kernel at the main path's shapes against its plain
              PyTorch version on the same inputs. Quantize / dequantize (int8,
              int4) and top-k (k = 13) at every (rows, size) that phase 3
              launches them with, found by a dry run of its scenarios at the
              proxy size on the card (rows = a step's senders; size = the
              scenario's payload: EfficientNet-B0's 5.3 M f32, MobileNetV2's
-             3.5 M, smollm-360m's 180.9 M for mesh_smoke int8); the FedAvg mix
-             at (10, 10, 5.3 M). Quantize, dequantize and top-k must be
+             3.5 M, smollm-360m's 180.9 M for mesh_smoke int8), and at every
+             shape phase 5's whisper-tiny int8 dissemination launches them
+             with (a dry run of one round of its 4 nodes' f32 masters on the
+             card: one payload a leaf); the FedAvg mix at (10, 10, 5.3 M) and
+             at whisper's leaf shapes. Quantize, dequantize and top-k must be
              bit-identical; the mix within rtol 1e-6 of max|x|. Prints each
              kernel's median time (CUDA events, L2 flushed before every
              launch by a write; for the codec kernels also from an L2 flushed
@@ -46,7 +51,15 @@ Phases, each fatal on failure (exit code 1, no result line):
              160) and zamba2-7b's (2, 2048, 32 / 32, 112) and at their
              training batch of 1, the head dims the kernels pad to whole
              slabs inside, causal bf16 timed beside SDPA, a bf16 case on fused-qkv views at hd 160 and f32 cases at
-             hd 160 and 112. The selective scan at falcon-mamba-7b's
+             hd 160 and 112; whisper-tiny's attentions, non-causal over its
+             1500 frames (the last key tile ragged) in the encoder (8, 1500,
+             6 / 6, 64) and from its 448 text positions in the
+             cross-attention, and causal in the decoder (8, 448), with an f32
+             case of the cross-attention; paligemma-3b's two calls of the
+             prefix split (MQA 8 / 1 at hd 256) at its prefill (2, 2304) and
+             training (1, 2304) batches, causal over every row and
+             non-causal over the 256 patches; each timed beside SDPA. The
+             selective scan at falcon-mamba-7b's
              (1, 2048, 8192, 16) and at its prefill batch (2, 2048, 8192, 16),
              x bf16, y f32, within 1e-4 of max|y| of the plain version.
              The flash forward with and without its LSE output at smollm's
@@ -59,7 +72,11 @@ Phases, each fatal on failure (exit code 1, no result line):
              50 in bf16, an hd-128 case (2, 2048, 16 / 8, 128) causal in
              bf16, qwen3-moe's training shape (1, 2048, 32 / 4, 128) and
              stablelm-12b's (1, 2048, 32 / 8, 160) and zamba2-7b's (1, 2048,
-             32 / 32, 112) causal in bf16: each of dQ, dK and dV within
+             32 / 32, 112) causal in bf16, whisper-tiny's training shapes
+             (encoder (8, 1500) and cross-attention 448 x 1500 non-causal,
+             decoder (8, 448) causal) and paligemma-3b's (1, 2304, 8 / 1,
+             256) causal and (1, 256, 8 / 1, 256) non-causal (GQA 8:1 sums 8
+             query heads into one dK / dV block): each of dQ, dK and dV within
              BWD_F32_TOL (f32) or
              BWD_BF16_TOL (bf16) of its max |g|, two runs bit-identical;
              its time, its bound and the backward of SDPA (autograd,
@@ -101,6 +118,19 @@ Phases, each fatal on failure (exit code 1, no result line):
              block's decode cache is used twice),
              forward logits against teacher-forced decode logits over a
              256-token prompt, within 5e-2 (the bound of tests/test_models.py).
+             whisper-tiny (4 encoder and 4 decoder layers, d 384, 39 M
+             params) and paligemma-3b (18 layers, d 2048, MQA 8 / 1 at hd
+             256, 2.5 B params) at full width and depth the same way, from
+             frames (8, 1500, 384) and tokens (8, 448), and patches (2, 256,
+             2048) and tokens (2, 2048): 12 flash forwards a whisper forward
+             (4 encoder, 4 self, 4 cross), 36 a paligemma one (the prefix
+             split's two a layer); whisper's decode step launches the flash
+             kernel for each layer's cross-attention, eagerly and in the
+             CUDA graph it captures (the serve loop's cross cache is zero, as
+             the reference CLI leaves it: ROADMAP R10). The f32 check runs
+             whisper at full depth with the cross cache filled from the
+             encoder output (as tests/test_models.py's _fill_whisper_cross),
+             and paligemma at 4 layers with no patches.
 5. train   — smollm-360m at full width and depth (32 layers, d 960, 15 / 5
              heads, vocab 49152, bf16 params, AdamW with fp32 masters), N = 4
              nodes stacked on the card, DataConfig(seq_len=2048,
@@ -139,7 +169,20 @@ Phases, each fatal on failure (exit code 1, no result line):
              backward a node a step (the one attention layer, the one use of
              the shared block), no selective_scan; the f32 gradient check at
              1 layer (stablelm) and 13 (zamba2: the shared block's gradient
-             sums over two uses).
+             sums over two uses). Then whisper-tiny at full width and depth,
+             4 nodes x (8, 448) tokens with seeded frames (8, 1500, 384) a
+             node, lr 3e-4: int8 dissemination for 2 steps (its codec and mix
+             shapes timed in phase 2; their launches join phase 3's), then
+             tree_allreduce for 4 (the fourth profiled), 12 flash forwards
+             and backwards a node a step; and paligemma-3b at full width and
+             1 of its 18 layers (0.64 B params a node, f32 moments, its
+             config's), 4 nodes x (1, 2048) tokens with patches (1, 256,
+             2048), lr 3e-4: tree_allreduce for 4 steps (the fourth
+             profiled), 2 flash forwards and backwards a node a step (no
+             dissemination: the (N, N, P) f32 buffer of its 527 M embedding
+             alone would be 34 GB). The
+             f32 gradient checks: whisper at full depth, paligemma at 1 layer
+             with its patches.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers (the codec kernels' also by shape, with their loss), and the result
@@ -173,13 +216,18 @@ MODEL_KERNELS = ("flash_attention", "selective_scan")
 
 
 def attention_layers(cfg) -> int:
-    """The self-attention layers a forward runs through the flash op: every
-    dense or moe layer, each use of the hybrid's shared block, none in an
-    attention-free stack."""
+    """The flash calls a forward makes: one a dense or moe layer, a use of
+    the hybrid's shared block or a whisper encoder layer, two a whisper
+    decoder layer (self and cross) or a paligemma layer with patches (the
+    prefix split), none in an attention-free stack."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    if cfg.family == "vlm":
+        return 2 * cfg.n_layers
     return cfg.n_layers
 
 
@@ -219,7 +267,8 @@ def print_kernel_resources(build_dir: Path) -> None:
                                                           "ILi256E", "ILi64Ef"):
                 continue
             info = " | ".join(x.split(":", 1)[-1].strip() for x in log[i + 2:i + 4])
-            print(f"[build] ptxas {kernel} {args}: {info}")
+            who = " (gemma2's and paligemma-3b's hd 256)" if "ILi256E" in args else ""
+            print(f"[build] ptxas {kernel} {args}{who}: {info}")
     objdump = Path("/usr/local/cuda/bin/cuobjdump")
     if not objdump.is_file():
         print("[build] SASS check: cuobjdump not in the toolkit, not run")
@@ -309,6 +358,48 @@ def profile_step(trainer, state, batch):
     return state, m, ms, count, busy / 1e3, (hi - lo) / 1e3
 
 
+def frontend_inputs(cfg, rows, gen):
+    """The stubbed frontends' inputs, seeded normal f32 on the generator's
+    device: whisper's encoder frames, paligemma's patches, none otherwise."""
+    import torch
+
+    if cfg.family == "audio":
+        return {"encoder_frames": torch.randn((rows, cfg.n_frames, cfg.d_model), generator=gen,
+                                              device=gen.device)}
+    if cfg.family == "vlm":
+        return {"patch_embeddings": torch.randn((rows, cfg.n_patches, cfg.d_model),
+                                                generator=gen, device=gen.device)}
+    return {}
+
+
+def fill_whisper_cross(model, params, frames, cache):
+    """tests/test_models.py's ``_fill_whisper_cross``: the encoder over
+    ``frames`` (its own loop over the encoder layers, bidirectional
+    self-attention with rope), its final norm, then each decoder layer's
+    cross K and V, as a prefill would leave them in the decode cache."""
+    import torch
+
+    from repro_torch.models import attention as attn_model
+    from repro_torch.models.layers import mlp, rms_norm
+    from repro_torch.models.model import _layer
+
+    cfg = model.cfg
+    x = frames.to(model.dtype)
+    b, f, _ = x.shape
+    fpos = torch.arange(f, device=x.device).expand(b, f)
+    for i in range(cfg.n_encoder_layers):
+        block = _layer(params["enc_blocks"], i)
+        x = x + attn_model.attention(block["attn"], rms_norm(x, block["ln1"]), fpos,
+                                     causal=False, rope_theta=cfg.rope_theta)
+        x = x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+    enc = rms_norm(x, params["enc_final_norm"])
+    cross = params["blocks"]["cross"]
+    kc = torch.stack([attn_model.project_heads(enc, w) for w in cross["wk"]])
+    vc = torch.stack([attn_model.project_heads(enc, w) for w in cross["wv"]])
+    return dict(cache, cross_k=kc.to(cache["cross_k"].dtype),
+                cross_v=vc.to(cache["cross_v"].dtype))
+
+
 def count_elements(tree) -> int:
     if isinstance(tree, dict):
         return sum(count_elements(v) for v in tree.values())
@@ -325,7 +416,7 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch.compress import per_send_wire_mb
+    from repro_torch.compress import make_codec, per_send_wire_mb
     from repro_torch.configs import get_arch
     from repro_torch.kernels import (KERNEL_NAMES, _build, launch_counts, launch_shapes,
                                      reset_launches)
@@ -341,7 +432,7 @@ def main() -> int:
     from repro_torch.kernels.scan.ops import selective_scan_op
     from repro_torch.kernels.scan.ref import selective_scan_ref
     from repro_torch.data import DataConfig, FederatedData
-    from repro_torch.dfl.collectives import tree_map
+    from repro_torch.dfl.collectives import GossipPlan, gossip_exchange, tree_map
     from repro_torch.dfl.trainer import DFLConfig, DFLTrainer
     from repro_torch.launch.serve import serve
     from repro_torch.models import Batch, build_model
@@ -432,9 +523,25 @@ def main() -> int:
     for name in CODEC_KERNELS:
         print(f"[kernel] {name}: the main path's launch shapes "
               f"{sorted(path_shapes[name].items())} (dry run at the proxy size)")
+    # phase 5's whisper-tiny int8 dissemination: one payload a leaf of the 4
+    # nodes' f32 masters; a dry run of one round at the real leaf sizes
+    whisper_masters = tree_map(lambda t: torch.zeros((4, *t.shape), device=dev),
+                               build_model(get_arch("whisper-tiny"), device="cuda").init(
+                                   torch.Generator(device=dev).manual_seed(0)))
+    reset_launches()
+    gossip_exchange("dissemination", GossipPlan.build(4), whisper_masters,
+                    codec=make_codec("int8"))
+    whisper_shapes = launch_shapes()
+    del whisper_masters
+    for name in ("quantize", "dequantize"):
+        path_shapes[name].update(whisper_shapes[name])
+    print(f"[kernel] whisper-tiny int8 dissemination (dry run, 4 nodes' f32 masters, real "
+          f"leaf sizes): quantize {sorted(whisper_shapes['quantize'].items())}, gossip_mix "
+          f"{sorted(whisper_shapes['gossip_mix'].items())}")
 
-    def by_size(key):  # the single-row shapes first, int8 before int4
-        return key[0], key[1], -key[2]
+    def by_size(key):  # phase 3's shapes first (the first sets the kernel's
+        # headline numbers), the single-row shapes first, int8 before int4
+        return key in whisper_shapes["quantize"], key[0], key[1], -key[2]
 
     for rows, size, bits in sorted(path_shapes["quantize"], key=by_size):
         x = torch.randn((rows, size), generator=gen, device=dev) * 3
@@ -506,30 +613,64 @@ def main() -> int:
            library_ms=median_ms(lambda: torch.mean(buf, dim=1), 10, cold=False),
            shape=" (10, 10, 5.3 M)")
     del buf, mixed, plain
+    # the mix at whisper-tiny's leaf shapes (the FedAvg of its dissemination):
+    # from a cold L2, as one leaf's mix follows the others' rounds
+    for batch, n, p in sorted(whisper_shapes["gossip_mix"]):
+        buf = torch.randn((batch, n, p), generator=gen, device=dev)
+        w = torch.full((n,), 1.0 / n, device=dev)
+        mixed, plain = gossip_mix_op(buf, w), gossip_mix_ref(buf, w)
+        iters = 50 if buf.numel() < 5e7 else 10
+        record("gossip_mix", "src/repro_torch/csrc/gossip_mix.cu",
+               "src/repro/kernels/mixing/gossip_mix.py:22", float((mixed - plain).abs().max()),
+               1e-6 * float(buf.abs().max()), median_ms(lambda: gossip_mix_op(buf, w), iters),
+               median_ms(lambda: gossip_mix_ref(buf, w), iters // 5),
+               4 * buf.numel() + 4 * mixed.numel(), 2 * buf.numel(),
+               library_ms=median_ms(lambda: torch.mean(buf, dim=1), iters),
+               shape=f" ({batch}, {n}, {p}) whisper-tiny", key=(batch, n, p))
+        del buf, mixed, plain
 
     # flash attention: smollm-360m's causal prefill, gemma2-2b's local layer,
-    # and an f32 case
-    def visible_pairs(s, window):
-        return sum(min(q + 1, window) if window else q + 1 for q in range(s))
+    # the other configs' prefill and training shapes, and f32 cases
+    def visible_pairs(s_q, s_kv, causal, window):
+        """The (query, key) pairs the masks leave visible: keys k < s_kv with
+        k <= q when causal and k > q - window when windowed."""
+        total = 0
+        for q in range(s_q):
+            hi = min(q + 1, s_kv) if causal else s_kv
+            lo = max(0, q - window + 1) if window else 0
+            total += max(0, hi - lo)
+        return total
 
-    flash_cases = [  # b, s, h, kv, hd, window, softcap, dtype, tol, how
-        (4, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
-        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, 2e-2, "timed"),
-        (2, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # qwen3-moe's prefill
-        (1, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # qwen3-moe's training
-        (1, 2048, 56, 8, 128, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # arctic's
-        (2, 2048, 32, 8, 160, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # stablelm-12b's prefill
-        (2, 2048, 32, 32, 112, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # zamba2-7b's prefill
-        (1, 2048, 32, 8, 160, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # stablelm-12b's training
-        (1, 2048, 32, 32, 112, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # zamba2-7b's training
-        (2, 1024, 6, 2, 64, 0, 0.0, torch.float32, 2e-5, "checked"),
-        (1, 1024, 8, 2, 160, 0, 0.0, torch.float32, 2e-5, "checked"),
-        (1, 1024, 8, 8, 112, 0, 0.0, torch.float32, 2e-5, "checked"),
-        (1, 2048, 32, 8, 160, 0, 0.0, torch.bfloat16, 2e-2, "fused views"),
-        (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16, 2e-2, "fused views"),
-        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16, None, "near the cap"),
+    flash_cases = [  # b, s, s_kv, h, kv, hd, causal, window, softcap, dtype, tol, how
+        (4, 2048, 2048, 15, 5, 64, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, torch.bfloat16, 2e-2, "timed"),
+        (2, 2048, 2048, 32, 4, 128, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # qwen3-moe
+        (1, 2048, 2048, 32, 4, 128, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # its training
+        (1, 2048, 2048, 56, 8, 128, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # arctic's
+        (2, 2048, 2048, 32, 8, 160, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # stablelm-12b
+        (2, 2048, 2048, 32, 32, 112, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # zamba2-7b
+        (1, 2048, 2048, 32, 8, 160, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # their training
+        (1, 2048, 2048, 32, 32, 112, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        # whisper-tiny: the encoder over 1500 frames (the last key tile ragged),
+        # the decoder's cross-attention and its causal self-attention
+        (8, 1500, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (8, 448, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (8, 448, 448, 6, 6, 64, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        # paligemma-3b's prefix split at its prefill and training batches:
+        # causal over every row, non-causal over the 256 patches (MQA, hd 256)
+        (2, 2304, 2304, 8, 1, 256, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (2, 256, 256, 8, 1, 256, False, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (1, 2304, 2304, 8, 1, 256, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (1, 256, 256, 8, 1, 256, False, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (2, 1024, 1024, 6, 2, 64, True, 0, 0.0, torch.float32, 2e-5, "checked"),
+        (1, 1024, 1024, 8, 2, 160, True, 0, 0.0, torch.float32, 2e-5, "checked"),
+        (1, 1024, 1024, 8, 8, 112, True, 0, 0.0, torch.float32, 2e-5, "checked"),
+        (8, 448, 1500, 6, 6, 64, False, 0, 0.0, torch.float32, 2e-5, "checked"),  # whisper's cross
+        (1, 2048, 2048, 32, 8, 160, True, 0, 0.0, torch.bfloat16, 2e-2, "fused views"),
+        (2, 2048, 2048, 15, 5, 64, True, 0, 0.0, torch.bfloat16, 2e-2, "fused views"),
+        (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, torch.bfloat16, None, "near the cap"),
     ]
-    for b, s, h, kv, hd, window, cap, dtype, tol, how in flash_cases:
+    for b, s, s_kv, h, kv, hd, causal, window, cap, dtype, tol, how in flash_cases:
         if how == "fused views":  # into one (b, s, H + 2 KV, hd) projection
             qkv = torch.randn((b, s, h + 2 * kv, hd), generator=gen, device=dev).to(dtype)
             q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
@@ -537,13 +678,15 @@ def main() -> int:
             # near the cap, q x 25 makes the scores' std half the cap of 50
             q_scale = 25.0 if how == "near the cap" else 1.0
             q = (q_scale * torch.randn((b, s, h, hd), generator=gen, device=dev)).to(dtype)
-            k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
-            v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
-        kw = dict(causal=True, sliding_window=window, softcap=cap)
+            k = torch.randn((b, s_kv, kv, hd), generator=gen, device=dev).to(dtype)
+            v = torch.randn((b, s_kv, kv, hd), generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, sliding_window=window, softcap=cap)
         out = flash_attention_op(q, k, v, **kw)
         plain = attention_ref(q, k, v, **kw)
         err = float((out.float() - plain.float()).abs().max())
-        shape = f" ({b}, {s}, {h}/{kv}, {hd}) {str(dtype)[6:]} window {window} softcap {cap}"
+        keys = f" x {s_kv} keys" if s_kv != s else ""
+        shape = (f" ({b}, {s}{keys}, {h}/{kv}, {hd}) {str(dtype)[6:]} "
+                 f"{'causal' if causal else 'non-causal'} window {window} softcap {cap}")
         if how != "timed":
             shape += f" {how}" if how != "checked" else ""
         units = ""
@@ -563,14 +706,14 @@ def main() -> int:
         if window == 0 and cap == 0.0:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 10)
         n_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
         record("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/attention/flash.py:25", err, tol,
                median_ms(lambda: flash_attention_op(q, k, v, **kw), 5),
                median_ms(lambda: attention_ref(q, k, v, **kw), 3),
-               n_bytes, 4 * hd * b * h * visible_pairs(s, window), library_ms=lib_ms,
-               shape=shape + units, ops_per_s=BF16_OPS_PER_S)
+               n_bytes, 4 * hd * b * h * visible_pairs(s, s_kv, causal, window),
+               library_ms=lib_ms, shape=shape + units, ops_per_s=BF16_OPS_PER_S)
     del q, k, v, out, plain
 
     # the forward's LSE output: bit-identical outputs with and without it, at
@@ -589,7 +732,8 @@ def main() -> int:
             fail(f"flash_attention: LSE off the plain version's by {lse_err}")
         no_lse_ms = median_ms(lambda: flash_attention(q, k, v, causal=True), 10)
         lse_ms = median_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True), 10)
-        b_ms, _ = bound_ms(0, 4 * 64 * b * 15 * visible_pairs(2048, 0), BF16_OPS_PER_S)
+        b_ms, _ = bound_ms(0, 4 * 64 * b * 15 * visible_pairs(2048, 2048, True, 0),
+                          BF16_OPS_PER_S)
         # the library calls that compute the same pair (output and LSE), kv
         # heads repeated to 15 (they take no GQA), and SDPA's own dispatch,
         # which returns no LSE
@@ -633,28 +777,38 @@ def main() -> int:
         del q, k, v, out, out_lse, lse, want_lse, qt, kt, vt
 
     # the flash backward at smollm-360m's training shape (bf16, f32), at
-    # gemma2-2b's local layer and at hd 128, against attention_bwd_ref
-    bwd_cases = [  # b, s, h, kv, hd, window, softcap, dtype
-        (2, 2048, 15, 5, 64, 0, 0.0, torch.bfloat16),
-        (2, 2048, 15, 5, 64, 0, 0.0, torch.float32),
-        (1, 8192, 8, 4, 256, 4096, 50.0, torch.bfloat16),
-        (2, 2048, 16, 8, 128, 0, 0.0, torch.bfloat16),  # hd 128, GQA 2:1
-        (1, 2048, 32, 4, 128, 0, 0.0, torch.bfloat16),  # qwen3-moe's training shape
-        (1, 2048, 32, 8, 160, 0, 0.0, torch.bfloat16),  # stablelm-12b's training shape
-        (1, 2048, 32, 32, 112, 0, 0.0, torch.bfloat16),  # zamba2-7b's training shape
+    # gemma2-2b's local layer, at hd 128 and at the other configs' training
+    # shapes, against attention_bwd_ref
+    bwd_cases = [  # b, s, s_kv, h, kv, hd, causal, window, softcap, dtype
+        (2, 2048, 2048, 15, 5, 64, True, 0, 0.0, torch.bfloat16),
+        (2, 2048, 2048, 15, 5, 64, True, 0, 0.0, torch.float32),
+        (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, torch.bfloat16),
+        (2, 2048, 2048, 16, 8, 128, True, 0, 0.0, torch.bfloat16),  # hd 128, GQA 2:1
+        (1, 2048, 2048, 32, 4, 128, True, 0, 0.0, torch.bfloat16),  # qwen3-moe's training
+        (1, 2048, 2048, 32, 8, 160, True, 0, 0.0, torch.bfloat16),  # stablelm-12b's training
+        (1, 2048, 2048, 32, 32, 112, True, 0, 0.0, torch.bfloat16),  # zamba2-7b's training
+        # whisper-tiny's encoder, cross-attention and decoder, 8 rows a node
+        (8, 1500, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16),
+        (8, 448, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16),
+        (8, 448, 448, 6, 6, 64, True, 0, 0.0, torch.bfloat16),
+        # paligemma-3b's prefix split, one row a node: 8 query heads a kv head
+        (1, 2304, 2304, 8, 1, 256, True, 0, 0.0, torch.bfloat16),
+        (1, 256, 256, 8, 1, 256, False, 0, 0.0, torch.bfloat16),
     ]
-    for b, s, h, kv, hd, window, cap, dtype in bwd_cases:
+    for b, s, s_kv, h, kv, hd, causal, window, cap, dtype in bwd_cases:
         q = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
-        v = torch.randn((b, s, kv, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, s_kv, kv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, s_kv, kv, hd), generator=gen, device=dev).to(dtype)
         do = torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
-        kw = dict(causal=True, sliding_window=window, softcap=cap)
+        kw = dict(causal=causal, sliding_window=window, softcap=cap)
         out, lse = flash_attention(q, k, v, return_lse=True, **kw)
         got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
         again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
         want = attention_bwd_ref(q, k, v, out, lse, do, **kw)
         tol = BWD_F32_TOL if dtype == torch.float32 else BWD_BF16_TOL
-        shape = f" ({b}, {s}, {h}/{kv}, {hd}) {str(dtype)[6:]} window {window} softcap {cap}"
+        keys = f" x {s_kv} keys" if s_kv != s else ""
+        shape = (f" ({b}, {s}{keys}, {h}/{kv}, {hd}) {str(dtype)[6:]} "
+                 f"{'causal' if causal else 'non-causal'} window {window} softcap {cap}")
         errs = []
         for name, g1, g2, w in zip(("dq", "dk", "dv"), got, again, want):
             if not torch.equal(g1, g2):
@@ -669,7 +823,7 @@ def main() -> int:
         lib_ms = None
         if window == 0 and cap == 0.0:
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-            sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            sd = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
             dot = do.transpose(1, 2)
             lib_ms = median_ms(lambda: torch.autograd.grad(sd, (qt, kt, vt), dot,
                                                            retain_graph=True), 5)
@@ -682,7 +836,8 @@ def main() -> int:
                None,
                median_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw), 5),
                median_ms(lambda: attention_bwd_ref(q, k, v, out, lse, do, **kw), 3),
-               n_bytes, 10 * hd * b * h * visible_pairs(s, window), library_ms=lib_ms,
+               n_bytes, 10 * hd * b * h * visible_pairs(s, s_kv, causal, window),
+               library_ms=lib_ms,
                shape=shape, ops_per_s=BF16_OPS_PER_S if dtype == torch.bfloat16
                else F32_OPS_PER_S)
         del q, k, v, do, out, lse, got, again, want
@@ -749,21 +904,26 @@ def main() -> int:
         hist = ", ".join(f"{key} x {n}" for key, n in
                          sorted(shapes[name].items(), key=lambda kv: -kv[1]))
         print(f"[path] {name} launches by shape: {hist}")
-    # each codec kernel's loss: launches x (time - bound), summed over shapes
-    for name in CODEC_KERNELS:
-        timed = {tuple(row["shape"]): row for row in results[name]["shapes"]}
-        untimed = sorted(set(shapes[name]) - set(timed))
+    def add_shape_launches(name, shapes_run, where):
+        """A run's launches of a gossip kernel, by shape, into the rows timed
+        in phase 2 (every shape must have been), and the kernel's loss:
+        launches x (time - bound), summed over its shapes."""
+        timed = {tuple(row["shape"]): row for row in results[name].get("shapes", [])}
+        untimed = sorted(set(shapes_run) - set(timed))
         if untimed:
-            fail(f"{name}: shapes launched on the main path but not timed: {untimed}")
+            fail(f"{name}: shapes launched on {where} but not timed: {untimed}")
         for key, row in timed.items():
-            row["launches"] = shapes[name].get(key, 0)
+            row["launches"] = row.get("launches", 0) + shapes_run.get(key, 0)
             row["loss_ms"] = row["launches"] * (row["ms"] - row["bound_ms"])
-            print(f"[path] {name} {key}: {row['launches']} launches x ({row['ms']:.4f} - "
+            print(f"[{where}] {name} {key}: {row['launches']} launches x ({row['ms']:.4f} - "
                   f"{row['bound_ms']:.4f} ms) = {row['loss_ms']:.4f} ms")
         loss = sum(r["loss_ms"] for r in timed.values())
         results[name]["loss_ms"] = loss
-        print(f"[path] {name}: loss sum over shapes of launches x (ms - bound_ms) = "
+        print(f"[{where}] {name}: loss sum over shapes of launches x (ms - bound_ms) = "
               f"{loss:.4f} ms on {card}")
+
+    for name in CODEC_KERNELS:
+        add_shape_launches(name, shapes[name], "path")
     torch.cuda.empty_cache()
 
     # -- 4. the serving path at full width ----------------------------------------
@@ -775,11 +935,15 @@ def main() -> int:
                   ("qwen3-moe-30b-a3b", 0, 2, "flash_attention", "cli"),
                   ("arctic-480b", 1, 1, "flash_attention", 8),
                   ("stablelm-12b", 0, 2, "flash_attention", "cli"),
-                  ("zamba2-7b", 0, 2, "flash_attention", "cli")]
-    seq, n_prefill = 2048, 3
+                  ("zamba2-7b", 0, 2, "flash_attention", "cli"),
+                  ("whisper-tiny", 0, 8, "flash_attention", "cli"),
+                  ("paligemma-3b", 0, 2, "flash_attention", "cli")]
+    n_prefill = 3
     reset_launches()
     serve_launches = Counter()
     for arch, layers, batch, kernel, decode in serve_runs:
+        # whisper's 448 text positions, Whisper's text context (arXiv:2212.04356)
+        seq = 448 if arch == "whisper-tiny" else 2048
         full = get_arch(arch)
         cfg = full.replace(n_layers=layers) if layers else full
         depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full.n_layers
@@ -794,6 +958,7 @@ def main() -> int:
         init_peak = torch.cuda.max_memory_allocated() / 1e9
         n_params = count_elements(params)
         tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g, device=dev)
+        frontend = frontend_inputs(cfg, batch, g)
         torch.cuda.reset_peak_memory_stats()
         before = launch_counts()
         spans = []
@@ -801,7 +966,7 @@ def main() -> int:
             for _ in range(n_prefill):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                logits, _ = model.forward(params, Batch(tokens=tokens))
+                logits, _ = model.forward(params, Batch(tokens=tokens, **frontend))
                 torch.cuda.synchronize()
                 spans.append(time.perf_counter() - t0)
                 if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
@@ -820,8 +985,9 @@ def main() -> int:
         serve_launches[kernel] += n
         prefill_peak = torch.cuda.max_memory_allocated() / 1e9
         prefill_ms = statistics.median(spans[1:]) * 1e3
+        inputs = "".join(f" + {k} {tuple(t.shape)}" for k, t in frontend.items())
         print(f"[serve] {arch}: {depth}, d {cfg.d_model}, {n_params / 1e9:.3f} B params bf16 "
-              f"(init {init_s:.1f} s, peak {init_peak:.2f} GB); prefill ({batch}, {seq}): "
+              f"(init {init_s:.1f} s, peak {init_peak:.2f} GB); prefill ({batch}, {seq}){inputs}: "
               f"{prefill_ms:.3f} ms median of {n_prefill - 1} after a warm-up "
               f"[{', '.join(f'{1e3 * t:.3f}' for t in spans)}], "
               f"{batch * seq / prefill_ms * 1e3:.0f} tok/s, {per_fwd} {kernel} launches a "
@@ -841,10 +1007,19 @@ def main() -> int:
             del block, x
         torch.cuda.reset_peak_memory_stats()
         # the reference CLI's defaults (batch 4, prompt 32, gen 16, cache 128),
-        # or a 4-token prompt and as many generated tokens as make `decode` steps
+        # or a 4-token prompt and as many generated tokens as make `decode` steps;
+        # a whisper decode step launches the flash kernel for each layer's
+        # cross-attention, whose cache the CLI leaves zero (ROADMAP R10)
+        per_step = cfg.n_layers if cfg.family == "audio" else 0
         b_dec, prompt_len, gen = (4, 32, 16) if decode == "cli" else (batch, 4, decode - 3)
         prompts = torch.randint(0, cfg.vocab, (b_dec, prompt_len), generator=g, device=dev)
+        before = launch_counts()[kernel]
         res = serve(model, params, prompts, gen=gen, cache_len=128)
+        n = launch_counts()[kernel] - before
+        if n != per_step * res.steps:
+            fail(f"{arch}: {kernel} launched {n} times in {res.steps} decode steps, expected "
+                 f"{per_step} a step")
+        serve_launches[kernel] += n
         if not bool(torch.isfinite(res.logits[..., :cfg.vocab]).all()):
             fail(f"{arch}: non-finite decode logits")
         if not bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
@@ -861,6 +1036,7 @@ def main() -> int:
             tok, pos = prompts[:, :1].clone(), torch.zeros(4, dtype=torch.long, device=dev)
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
+            before = launch_counts()[kernel]
             with torch.inference_mode(), torch.cuda.stream(side):
                 for _ in range(2):
                     model.decode_step(params, tok, pos, cache)
@@ -868,9 +1044,15 @@ def main() -> int:
             graph = torch.cuda.CUDAGraph()
             with torch.inference_mode(), torch.cuda.graph(graph):
                 model.decode_step(params, tok, pos, cache)
+            n = launch_counts()[kernel] - before
+            if n != 3 * per_step:  # two warm-up steps and the captured one
+                fail(f"{arch}: {kernel} launched {n} times in 3 decode steps, expected "
+                     f"{per_step} a step")
+            serve_launches[kernel] += n
             graph_ms = median_ms(graph.replay, 20, cold=False)
-            print(f"[serve] {arch}: one decode step replayed as a CUDA graph: {graph_ms:.3f} "
-                  f"ms on the device against {step_ms:.3f} ms eager (device idle ~"
+            captured = f", {per_step} flash launches captured" if per_step else ""
+            print(f"[serve] {arch}: one decode step replayed as a CUDA graph{captured}: "
+                  f"{graph_ms:.3f} ms on the device against {step_ms:.3f} ms eager (device idle ~"
                   f"{100 * (1 - graph_ms / step_ms):.1f}% of an eager step) on {card}")
             del graph, cache
         del params, res, model
@@ -889,16 +1071,22 @@ def main() -> int:
                   ("qwen3-moe-30b-a3b", dict(n_layers=2, moe_capacity_factor=100.0)),
                   ("stablelm-12b", dict(n_layers=4)),
                   # two super-blocks and a tail block: the shared block's cache used twice
-                  ("zamba2-7b", dict(n_layers=13))]
+                  ("zamba2-7b", dict(n_layers=13)),
+                  # whisper at full depth, its cross cache filled from the encoder
+                  # output; paligemma with no patches: pure gemma decoding
+                  ("whisper-tiny", {}), ("paligemma-3b", dict(n_layers=4))]
     for arch, cut in f32_checks:
         cfg = get_arch(arch).replace(dtype="float32", **cut)
         model = build_model(cfg, device="cuda")
         g = torch.Generator(device=dev).manual_seed(1)
         params = model.init(g)
         tokens = torch.randint(0, cfg.vocab, (2, 256), generator=g, device=dev)
+        frontend = frontend_inputs(cfg, 2, g) if cfg.family == "audio" else {}
         with torch.inference_mode():
-            full, _ = model.forward(params, Batch(tokens=tokens))
+            full, _ = model.forward(params, Batch(tokens=tokens, **frontend))
             cache = model.init_cache(2, 256)
+            if cfg.family == "audio":
+                cache = fill_whisper_cross(model, params, frontend["encoder_frames"], cache)
             err = 0.0
             for t in range(256):
                 pos = torch.full((2,), t, dtype=torch.long, device=dev)
@@ -914,17 +1102,20 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 5. the training path: 4 stacked nodes -------------------------------------
-    def train_path(cfg, bpn, train_runs, lr=1e-3):
-        """The train runs of one config, 4 nodes x (bpn, 2048), the launch
-        counts set to 0 just before each run and read just after; returns the
-        data whose batches the gradient check reads."""
-        n_nodes, seq = 4, 2048
+    def train_path(cfg, bpn, train_runs, lr=1e-3, seq=2048, timed_codec=False):
+        """The train runs of one config, 4 nodes x (bpn, seq), the launch
+        counts set to 0 just before each run and read just after (with
+        ``timed_codec``, a codec run's gossip launches join their shapes'
+        rows, each of which phase 2 must have timed); returns the data whose
+        batches the gradient check reads and the frontend's inputs."""
+        n_nodes = 4
         model = build_model(cfg, device="cuda")
         data = FederatedData(DataConfig(vocab=cfg.vocab, seq_len=seq, batch_per_node=bpn,
                                         n_nodes=n_nodes, seed=0))
         tok, lab = data.global_batch()
+        frontend = frontend_inputs(cfg, n_nodes * bpn, torch.Generator(device=dev).manual_seed(3))
         batch = Batch(tokens=torch.from_numpy(tok).long().to(dev),
-                      labels=torch.from_numpy(lab).long().to(dev))
+                      labels=torch.from_numpy(lab).long().to(dev), **frontend)
         params0 = model.init(torch.Generator(device=dev).manual_seed(0))
         per_step = attention_layers(cfg) * n_nodes
         # a moe step routes every node's rows once without a graph first
@@ -1028,6 +1219,11 @@ def main() -> int:
             if codec == "topk" and not any(float(x.abs().max()) > 0
                                            for x in tree_leaves(state.opt_state["codec_ef"])):
                 fail(f"train {run}: codec_ef never changed")
+            if codec and timed_codec:
+                run_shapes = launch_shapes()
+                for name in want:
+                    results[name]["launches"] += counts[name]
+                    add_shape_launches(name, run_shapes[name], f"train {run}")
             del trainer, state, m
             torch.cuda.empty_cache()
         for kernel in ("flash_attention", "flash_attention_bwd"):
@@ -1049,9 +1245,9 @@ def main() -> int:
             del trainer, stacked
         del params0, model, batch
         torch.cuda.empty_cache()
-        return data
+        return data, frontend
 
-    def grad_check(cfg, data, rows):
+    def grad_check(cfg, data, rows, frontend=None):
         """Every leaf's f32 training gradient through the kernels against the
         gradient through the plain versions on the card, within 1e-3 of its
         max |g|."""
@@ -1062,7 +1258,8 @@ def main() -> int:
             x.requires_grad_(True)
         tok, lab = data.global_batch()
         b2 = Batch(tokens=torch.from_numpy(tok[:rows]).long().to(dev),
-                   labels=torch.from_numpy(lab[:rows]).long().to(dev))
+                   labels=torch.from_numpy(lab[:rows]).long().to(dev),
+                   **{k: t[:rows] for k, t in (frontend or {}).items()})
         got = torch.autograd.grad(model.train_loss(params, b2), leaves)
         attn_model.flash_attention_op = attention_ref  # the plain route, autograd's own backward
         try:
@@ -1076,8 +1273,8 @@ def main() -> int:
             if not rel <= 1e-3:
                 fail(f"train gradients ({cfg.name}): a leaf through the kernels is {rel:.2e} "
                      "of its max|g| off the plain versions' (bound 1e-3)")
-        print(f"[train] {cfg.name} f32, {cfg.n_layers} layers, full width, ({rows}, 2048) "
-              f"tokens: every leaf's gradient through the kernels within {worst:.3e} of its "
+        print(f"[train] {cfg.name} f32, {cfg.n_layers} layers, full width, "
+              f"{tuple(b2.tokens.shape)} tokens: every leaf's gradient through the kernels within {worst:.3e} of its "
               f"max|g| of the plain versions' (bound 1e-3) on {card}")
         del params, leaves, got, want, model
         torch.cuda.empty_cache()
@@ -1086,14 +1283,14 @@ def main() -> int:
     # fourth step runs under torch.profiler, and the tree run comes last, so
     # no other step follows a profiled one
     cfg = get_arch("smollm-360m").replace(remat=False)
-    data = train_path(cfg, 2, [("dissemination", "int8", 2), ("dissemination", "topk", 2),
-                               ("tree_allreduce", "", 4)])
+    data, _ = train_path(cfg, 2, [("dissemination", "int8", 2), ("dissemination", "topk", 2),
+                                  ("tree_allreduce", "", 4)])
     grad_check(cfg.replace(n_layers=4, dtype="float32"), data, 2)
     # qwen3-moe-30b-a3b at full width and 1 of its 48 layers, (1, 2048) a node:
     # 0.934 B params a node, fp32 masters and bf16 moments (its config); no
     # top-k run, whose f32 residual would add 15 GB
     cfg = get_arch("qwen3-moe-30b-a3b").replace(n_layers=1, remat=False)
-    data = train_path(cfg, 1, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)])
+    data, _ = train_path(cfg, 1, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)])
     grad_check(cfg.replace(dtype="float32"), data, 1)
     # stablelm-12b at full width and 1 of its 40 layers, and zamba2-7b at full
     # width and 7 of its 81 layers (one super-block: 5 Mamba2 blocks and the
@@ -1102,12 +1299,24 @@ def main() -> int:
     # d >= 2048 (PERF.md section 5). No dissemination run: its f32 (N, N, P)
     # buffer of stablelm's 514 M-parameter embedding alone would be 33 GB
     cfg = get_arch("stablelm-12b").replace(n_layers=1, remat=False)
-    data = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
+    data, _ = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
     grad_check(cfg.replace(dtype="float32"), data, 1)
     cfg = get_arch("zamba2-7b").replace(n_layers=7, remat=False)
-    data = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
+    data, _ = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
     # 13 layers: two super-blocks, so the shared block's gradient sums two uses
     grad_check(cfg.replace(n_layers=13, dtype="float32"), data, 1)
+    # whisper-tiny at full width and depth, (8, 448) tokens and (8, 1500, 384)
+    # frames a node: int8 dissemination (its shapes timed in phase 2), then tree
+    cfg = get_arch("whisper-tiny").replace(remat=False)
+    data, frontend = train_path(cfg, 8, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)],
+                                lr=3e-4, seq=448, timed_codec=True)
+    grad_check(cfg.replace(dtype="float32"), data, 2, frontend)
+    # paligemma-3b at full width and 1 of its 18 layers, (1, 2048) tokens and
+    # (1, 256, 2048) patches a node, f32 moments (its config's). No
+    # dissemination: its (N, N, P) f32 buffer of the 527 M embedding is 34 GB
+    cfg = get_arch("paligemma-3b").replace(n_layers=1, remat=False)
+    data, frontend = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
+    grad_check(cfg.replace(dtype="float32"), data, 1, frontend)
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

@@ -1,4 +1,4 @@
-"""Config registry of the port: the eight architectures whose families it runs."""
+"""Config registry of the port: the JAX package's ten architectures."""
 from .base import (  # noqa: F401
     INPUT_SHAPES,
     ArchConfig,

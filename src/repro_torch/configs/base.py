@@ -1,11 +1,10 @@
 """Architecture configs of the port: ``ArchConfig``, the input shapes and the
 registry (``repro.configs.base`` without the ``jax.ShapeDtypeStruct`` specs).
 
-The registry holds the eight architectures whose families the port runs:
+The registry holds the ten architectures of the JAX package's:
 smollm-360m, granite-3-2b, gemma2-2b and stablelm-12b (dense),
-falcon-mamba-7b (ssm), qwen3-moe-30b-a3b and arctic-480b (moe) and zamba2-7b
-(hybrid). Asking for any other raises ``KeyError``; ROADMAP Queue A lists
-what comes next.
+falcon-mamba-7b (ssm), qwen3-moe-30b-a3b and arctic-480b (moe), zamba2-7b
+(hybrid), whisper-tiny (audio) and paligemma-3b (vlm).
 """
 from __future__ import annotations
 
@@ -166,9 +165,7 @@ def get_arch(name: str) -> ArchConfig:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise KeyError(
-            f"arch {name!r} is not in the port's registry (ported: {sorted(_REGISTRY)}); "
-            "ROADMAP Queue A lists the families still to port") from None
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}") from None
 
 
 def list_archs() -> List[str]:
@@ -189,8 +186,10 @@ def _ensure_loaded() -> None:
         falcon_mamba_7b,
         gemma2_2b,
         granite_3_2b,
+        paligemma_3b,
         qwen3_moe_30b_a3b,
         smollm_360m,
         stablelm_12b,
+        whisper_tiny,
         zamba2_7b,
     )

@@ -15,7 +15,10 @@ nodes differ only by what a lossy gossip wire leaves. Here:
 
 1. node i takes ``train_loss`` and its gradient at its own parameters on its
    own ``batch_per_node`` rows (in ``FederatedData.global_batch``'s node
-   order), with ``cfg.microbatches`` accumulated in f32 within those rows;
+   order; the frontend inputs, whisper's ``encoder_frames`` and
+   paligemma's ``patch_embeddings``, split by the same rows as the tokens,
+   as the reference splits every field of its batch), with
+   ``cfg.microbatches`` accumulated in f32 within those rows;
 2. the step's loss and gradient are the reference's: the global batch's
    cross-entropy over its count of labels >= 0 (per microbatch slice of the
    global batch, then averaged over the slices), so node i weighs by its
@@ -39,7 +42,7 @@ gradient over the node rows (``repro_torch.optim``).
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -80,6 +83,12 @@ def _stack(tree: PyTree, n: int, dtype: Optional[torch.dtype] = None) -> PyTree:
     """Each leaf repeated over a new leading node axis of n."""
     return tree_map(lambda t: t.to(dtype or t.dtype).unsqueeze(0).repeat(
         n, *([1] * t.dim())), tree)
+
+
+def _map_batch(fn, batch: Batch) -> Batch:
+    """``fn`` of every field of ``batch`` that is set."""
+    return Batch(**{f.name: None if getattr(batch, f.name) is None
+                    else fn(getattr(batch, f.name)) for f in fields(batch)})
 
 
 def _sync(dev: torch.device) -> float:
@@ -147,12 +156,12 @@ class DFLTrainer:
             return [(slice(j * step, (j + 1) * step), 1.0 / mb) for j in range(mb)]
         return [(slice(0, rows), 1.0)]
 
-    def _weighted_grads(self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor,
+    def _weighted_grads(self, params: PyTree, batch: Batch,
                         parts: List[Tuple[slice, Any, Optional[torch.Tensor]]],
                         acc: Optional[List[torch.Tensor]]
                         ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor], PyTree,
                                    List[torch.Tensor]]:
-        """Each part (rows, w, coef) of the rows at ``params`` (no node
+        """Each part (rows, w, coef) of the batch's rows at ``params`` (no node
         axis) adds its objective's gradient in f32 into ``acc`` (one tensor a
         leaf, made when None). Without ``coef`` the objective is w
         ``train_loss`` (differentiated, then scaled by w); with ``coef``, an
@@ -170,18 +179,18 @@ class DFLTrainer:
             return t
 
         live = tree_map(leaf, params)
-        zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        zero = torch.zeros((), dtype=torch.float32, device=batch.tokens.device)
         loss, own, count, f_counts = zero, zero, zero, []
         for rows, w, coef in parts:
-            lab = labels[rows]
-            batch = Batch(tokens=tokens[rows], labels=lab)
+            part = _map_batch(lambda t: t[rows], batch)
+            lab = part.labels
             if coef is None:
-                l = self.model.train_loss(live, batch)
+                l = self.model.train_loss(live, part)
                 g = torch.autograd.grad(l, leaves)
                 objective, scale = l.detach() * w, w
             else:
                 stats: List[Any] = []
-                logits, aux = self.model.forward(live, batch, stats)
+                logits, aux = self.model.forward(live, part, stats)
                 ce = cross_entropy_loss(logits, lab)
                 del logits
                 objective = ce * w + (coef * torch.stack([st.p for st in stats])).sum()
@@ -201,14 +210,13 @@ class DFLTrainer:
             count = count + c
         return loss, own / count.clamp(min=1), acc, live, f_counts
 
-    def node_grads(self, params: PyTree, tokens: torch.Tensor, labels: torch.Tensor
-                   ) -> Tuple[torch.Tensor, PyTree]:
+    def node_grads(self, params: PyTree, batch: Batch) -> Tuple[torch.Tensor, PyTree]:
         """(loss, grads) of one node at its own ``params`` (no node axis) on
-        its own rows; grads in the parameters' dtype. With
+        its own rows ``batch``; grads in the parameters' dtype. With
         ``cfg.microbatches`` > 1 dividing the rows, the microbatches'
         gradients average in f32, as the reference accumulates them."""
-        parts = [(rows, w, None) for rows, w in self._own_parts(tokens.shape[0])]
-        loss, _, acc, live, _ = self._weighted_grads(params, tokens, labels, parts, None)
+        parts = [(rows, w, None) for rows, w in self._own_parts(batch.tokens.shape[0])]
+        loss, _, acc, live, _ = self._weighted_grads(params, batch, parts, None)
         it = iter(acc)
         return loss, tree_map(lambda t: next(it).to(t.dtype), live)
 
@@ -292,8 +300,8 @@ class DFLTrainer:
         without experts). A node's own loss is its rows' own ``train_loss``,
         aux over its rows alone."""
         n = self.n_nodes
-        tokens = batch.tokens.to(self.device)
-        labels = batch.labels.to(self.device)
+        batch = _map_batch(lambda t: t.to(self.device), batch)
+        tokens, labels = batch.tokens, batch.labels
         g_rows = tokens.shape[0]
         if g_rows % n:
             raise ValueError(f"a batch of {g_rows} rows does not split over {n} nodes")
@@ -308,7 +316,7 @@ class DFLTrainer:
             parts = [(rows, row_w[rows].sum(), None if coefs is None else coefs[i][j])
                      for j, rows in enumerate(node_parts[i])]
             l, own, acc, _, f_counts = self._weighted_grads(
-                tree_map(lambda t: t[i], params), tokens, labels, parts, acc)
+                tree_map(lambda t: t[i], params), batch, parts, acc)
             loss = l if loss is None else loss + l
             losses.append(own)
             for f, f_routed in zip(f_counts, routed[i] if routed else []):

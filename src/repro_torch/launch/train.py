@@ -84,9 +84,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                                     batch_per_node=args.batch_per_node, n_nodes=args.nodes))
 
     def make_batch() -> Batch:
+        """The next global batch; whisper's frames and paligemma's patches
+        are zeros in f32, as the JAX launcher makes them (the frontends are
+        stubs)."""
         tok, lab = data.global_batch()
+        kw = {}
+        if cfg.family == "audio":
+            kw["encoder_frames"] = torch.zeros((tok.shape[0], cfg.n_frames, cfg.d_model),
+                                               device=dev)
+        if cfg.family == "vlm":
+            kw["patch_embeddings"] = torch.zeros((tok.shape[0], cfg.n_patches, cfg.d_model),
+                                                 device=dev)
         return Batch(tokens=torch.from_numpy(tok).long().to(dev),
-                     labels=torch.from_numpy(lab).long().to(dev))
+                     labels=torch.from_numpy(lab).long().to(dev), **kw)
 
     batch = make_batch()
     if scenario is not None:

@@ -1,2 +1,2 @@
-"""Models of the port: the dense and ssm (Mamba1) families."""
+"""Models of the port: every family of the JAX package's."""
 from .model import Batch, Model, build_model  # noqa: F401

@@ -1,13 +1,27 @@
 """GQA attention of the port (``repro.models.attention``): full sequence and
 cached one-token decode, with sliding windows and the tanh logit softcap.
 
-Self-attention over positions ``arange(s)`` (every layer of the prefill
-forward) goes to the flash-attention op: the Hopper kernel on the card, its
-plain version on the CPU. Cross-attention, a bidirectional prefix
-(``prefix_len > 0``) and any other positions take the masked einsum that
-the JAX package uses everywhere (``_attend_block``), as plain PyTorch.
-Decode attends one token against the (ring-buffered when windowed) cache in
-plain PyTorch, as the JAX package does.
+Every mask the flash kernel computes goes to the flash-attention op (the
+Hopper kernel on the card, its plain version on the CPU):
+
+* self-attention over positions ``arange(s)``, causal or not, windowed or
+  not (every dense, moe and hybrid layer, whisper's encoder);
+* cross-attention with no key positions (``kv_override`` and
+  ``kv_positions=None``: whisper's decoder, prefill and decode), whose mask
+  is all true whatever ``causal`` says, as in the JAX package: one
+  non-causal call with s_q != s_kv;
+* a bidirectional prefix of P positions with no window over ``arange(s)``
+  (paligemma). Query q sees key k where k <= q or k < P: for q >= P that is
+  k <= q (k < P <= q already implies it), for q < P it is k < P. So the
+  output is a non-causal call over the first P queries and keys, then the
+  rows from P on of a causal call over all of them; autograd sums dK and dV
+  over the two.
+
+A prefix with a window, any other positions, and cross-attention with key
+positions take the masked einsum the JAX package uses everywhere
+(``_attend_block``), as plain PyTorch. Decode self-attention attends one
+token against the (ring-buffered when windowed) cache in plain PyTorch, as
+the JAX package does.
 """
 from __future__ import annotations
 
@@ -72,6 +86,17 @@ def _attend_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
+def _prefix_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, prefix_len: int,
+                  softcap: float) -> torch.Tensor:
+    """Causal attention with the first ``prefix_len`` keys visible to every
+    query, as two flash calls (see the module docstring)."""
+    p = prefix_len
+    head = flash_attention_op(q[:, :p], k[:, :p], v[:, :p], causal=False, sliding_window=0,
+                              softcap=softcap)
+    tail = flash_attention_op(q, k, v, causal=True, sliding_window=0, softcap=softcap)
+    return torch.cat([head, tail[:, p:]], dim=1)
+
+
 def attention(
     params: Params,
     x: torch.Tensor,  # (b, s, d)
@@ -100,9 +125,16 @@ def attention(
         if kv_override is None:
             k = apply_rope(k, kv_pos, rope_theta)
 
-    if kv_override is None and prefix_len == 0 and _is_arange(positions):
-        out = flash_attention_op(q, k, v, causal=causal, sliding_window=sliding_window,
-                                 softcap=softcap)
+    if kv_override is not None and kv_positions is None:  # every key visible
+        out = flash_attention_op(q, k, v, causal=False, sliding_window=0, softcap=softcap)
+        return merge_heads(out, params["wo"])
+    if kv_override is None and (prefix_len == 0 or (causal and sliding_window == 0)) \
+            and _is_arange(positions):
+        if prefix_len == 0:
+            out = flash_attention_op(q, k, v, causal=causal, sliding_window=sliding_window,
+                                     softcap=softcap)
+        else:
+            out = _prefix_flash(q, k, v, prefix_len, softcap)
         return merge_heads(out, params["wo"])
 
     b, s = q.shape[:2]

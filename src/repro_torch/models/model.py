@@ -1,6 +1,6 @@
 """Models of the port (``repro.models.model``): ArchConfig -> init /
-forward / train_loss / init_cache / decode_step, for the dense, moe, ssm and
-hybrid families.
+forward / train_loss / init_cache / decode_step, for every family of the JAX
+package's.
 
 Parameters keep the JAX package's stacked-layer tree: every block leaf has
 a leading layer axis (gemma2 splits ``local_blocks`` and ``global_blocks``;
@@ -10,11 +10,15 @@ tree is a valid params tree here. ``init`` fills each stacked leaf in place,
 layer by layer, so it never holds the per-layer trees and their stacked copy
 at once. The loops
 over layers are Python loops over those leaves. The prefill forward reaches
-the two model kernels: flash attention in every dense and moe layer and in
-each use of the hybrid's shared attention block (``attention.attention``),
+the two model kernels: flash attention in every dense and moe layer, in
+each use of the hybrid's shared attention block, in whisper's encoder
+layers and in both attentions of its decoder layers, and twice in each
+paligemma layer with patches (the prefix split, ``attention.attention``);
 the selective scan in every Mamba1 layer (``mamba.mamba1_forward``); the
 hybrid's Mamba2 blocks are plain PyTorch (``mamba.ssd_scan``), as the JAX
-package's are jnp. Decode is plain PyTorch, as in the JAX package.
+package's are jnp. Decode is plain PyTorch, as in the JAX package, except
+whisper's cross-attention of the one token against the encoder's keys,
+which is a flash call like any other cross-attention.
 
 ``train_loss`` is differentiable: flash attention is an autograd Function
 whose backward is the backward kernel on the card (its plain version on
@@ -37,7 +41,21 @@ Families
           remaining Mamba2 blocks as a tail. The shared block is one set of
           tensors used by every super-block, so autograd sums its gradient
           over the uses, as XLA does
-The audio and vlm families raise ``NotImplementedError``.
+  audio : whisper's encoder-decoder backbone. The frontend is a stub, as in
+          the JAX package: the batch carries precomputed ``encoder_frames``
+          (b, n_frames, d). Encoder layers are dense blocks with
+          bidirectional self-attention (rope over the frames), then
+          ``enc_final_norm``; each decoder layer is causal self-attention,
+          cross-attention to the encoder output (K and V projected from it,
+          no rope), then the MLP; no logit softcap. The decode cache adds
+          ``cross_k`` and ``cross_v`` (n_layers, b, n_frames, kv, hd), which
+          a decode step reads and passes through; nothing in the package
+          fills them (the reference CLI neither, ROADMAP R10)
+  vlm   : paligemma, the dense decoder over ``[patch_embeddings; tokens]``
+          (the SigLIP encoder a stub, as in the JAX package): the patches
+          attend bidirectionally among themselves (``prefix_len``), the text
+          causally, and the logits cover the text positions only. Decode is
+          the dense decode, with no prefix
 """
 from __future__ import annotations
 
@@ -64,12 +82,6 @@ from .layers import (
 )
 
 MOE_AUX_WEIGHT = 0.01
-
-NOT_PORTED = {
-    "audio": "ROADMAP Queue A item 4, the audio and vlm families",
-    "vlm": "ROADMAP Queue A item 4, the audio and vlm families",
-}
-
 
 @dataclass
 class Batch:
@@ -120,10 +132,7 @@ class Model:
     """Functional model; all state lives in explicit params / cache trees."""
 
     def __init__(self, cfg: ArchConfig, long_context: bool = False, device: DeviceLike = None):
-        if cfg.family in NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet ({NOT_PORTED[cfg.family]})")
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm"):
             raise ValueError(f"unknown family {cfg.family}")
         if cfg.family == "ssm" and cfg.ssm_version != 1:
             raise NotImplementedError(f"{cfg.name}: only Mamba1 ssm stacks are ported")
@@ -192,11 +201,23 @@ class Model:
                     "body": mamba_lib.init_mamba2(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
                                                   cfg.conv_width, dt)}
 
+        def decoder_block() -> Params:
+            return {
+                "ln1": self._zeros(gen, cfg.d_model),
+                "attn": attn_lib.init_attention(gen, cfg.d_model, cfg.eff_n_heads,
+                                                cfg.eff_n_kv_heads, cfg.resolved_head_dim, dt),
+                "ln_cross": self._zeros(gen, cfg.d_model),
+                "cross": attn_lib.init_attention(gen, cfg.d_model, cfg.eff_n_heads,
+                                                 cfg.eff_n_kv_heads, cfg.resolved_head_dim, dt),
+                "ln2": self._zeros(gen, cfg.d_model),
+                "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dt),
+            }
+
         n = cfg.n_layers
-        if cfg.family == "dense" and cfg.alt_local_global:
+        if cfg.family in ("dense", "vlm") and cfg.alt_local_global:
             params["local_blocks"] = _stack_layers(n // 2, dense_block)
             params["global_blocks"] = _stack_layers(n // 2, dense_block)
-        elif cfg.family == "dense":
+        elif cfg.family in ("dense", "vlm"):
             params["blocks"] = _stack_layers(n, dense_block)
         elif cfg.family == "moe":
             params["blocks"] = _stack_layers(n, moe_block)
@@ -208,6 +229,10 @@ class Model:
             params["shared_attn"] = dense_block()
             if self.n_tail:
                 params["tail_blocks"] = _stack_layers(self.n_tail, mamba2_block)
+        elif cfg.family == "audio":
+            params["enc_blocks"] = _stack_layers(cfg.n_encoder_layers, dense_block)
+            params["enc_final_norm"] = self._zeros(gen, cfg.d_model)
+            params["blocks"] = _stack_layers(n, decoder_block)
         else:
             params["blocks"] = _stack_layers(n, mamba_block)
         return params
@@ -218,12 +243,46 @@ class Model:
 
     # -- full-sequence forward (prefill) ------------------------------------------
     def _dense_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
-                     window: int) -> torch.Tensor:
+                     window: int, prefix_len: int = 0) -> torch.Tensor:
         cfg = self.cfg
         x = x + attn_lib.attention(
             block["attn"], rms_norm(x, block["ln1"]), positions, causal=True,
-            sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
+            sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta,
+            prefix_len=prefix_len)
         return x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+
+    def _encoder_block(self, block: Params, x: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+        """A whisper encoder layer: bidirectional self-attention over the
+        frames (rope, no softcap, as the JAX package's), then the MLP."""
+        x = x + attn_lib.attention(block["attn"], rms_norm(x, block["ln1"]), positions,
+                                   causal=False, rope_theta=self.cfg.rope_theta)
+        return x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+
+    def _decoder_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
+                       enc: torch.Tensor) -> torch.Tensor:
+        """A whisper decoder layer: causal self-attention, cross-attention to
+        the encoder output ``enc`` (K and V projected from it, no rope, every
+        frame visible), then the MLP."""
+        x = x + attn_lib.attention(block["attn"], rms_norm(x, block["ln1"]), positions,
+                                   causal=True, rope_theta=self.cfg.rope_theta)
+        cross = block["cross"]
+        kv = (attn_lib.project_heads(enc, cross["wk"]), attn_lib.project_heads(enc, cross["wv"]))
+        x = x + attn_lib.attention(cross, rms_norm(x, block["ln_cross"]), positions,
+                                   causal=False, use_rope=False, kv_override=kv,
+                                   kv_positions=None)
+        return x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+
+    def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """whisper's encoder: (b, n_frames, d) frames -> the normed encoder
+        output in the model's dtype."""
+        encoder_block = self._layer_fn(self._encoder_block)
+        x = frames.to(self.dtype)
+        b, f, _ = x.shape
+        positions = torch.arange(f, device=x.device).expand(b, f)
+        for i in range(self.cfg.n_encoder_layers):
+            x = encoder_block(_layer(params["enc_blocks"], i), x, positions)
+        return rms_norm(x, params["enc_final_norm"])
 
     def _layer_fn(self, fn):
         """``fn`` under per-layer remat when the config asks for it and
@@ -283,22 +342,28 @@ class Model:
         mamba_block = self._layer_fn(self._mamba_block)
         tokens = batch.tokens
         aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        if cfg.family == "audio":
+            return self._forward_encdec(params, batch), aux
         x = embed(params["embed"], tokens).to(self.dtype)
+        prefix_len = 0
+        if cfg.family == "vlm" and batch.patch_embeddings is not None:
+            x = torch.cat([batch.patch_embeddings.to(self.dtype), x], dim=1)
+            prefix_len = batch.patch_embeddings.shape[1]
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
 
         if cfg.family == "moe":
             x, aux = self._moe_layers(params, x, positions, stats)
             aux = aux / cfg.n_layers
-        elif cfg.family == "dense" and cfg.alt_local_global:
+        elif cfg.family in ("dense", "vlm") and cfg.alt_local_global:
             for i in range(cfg.n_layers // 2):
                 x = dense_block(_layer(params["local_blocks"], i), x, positions,
                                 cfg.sliding_window)
                 x = dense_block(_layer(params["global_blocks"], i), x, positions, 0)
-        elif cfg.family == "dense":
+        elif cfg.family in ("dense", "vlm"):
             window = self.layer_window(local=True) if self.long_context else 0
             for i in range(cfg.n_layers):
-                x = dense_block(_layer(params["blocks"], i), x, positions, window)
+                x = dense_block(_layer(params["blocks"], i), x, positions, window, prefix_len)
         elif cfg.family == "hybrid":
             super_block = self._layer_fn(self._super_block)
             mamba2_block = self._layer_fn(self._mamba2_block)
@@ -311,9 +376,24 @@ class Model:
             for i in range(cfg.n_layers):
                 x = mamba_block(_layer(params["blocks"], i), x)
 
-        x = rms_norm(x, params["final_norm"])
+        # the logits of the text positions only (vlm); each row is normed and
+        # projected on its own, so the prefix rows are dropped before the head
+        x = rms_norm(x[:, prefix_len:], params["final_norm"])
         logits = logits_from_embedding(params["embed"], x, cfg.vocab, cfg.final_logit_softcap)
         return logits, aux
+
+    def _forward_encdec(self, params: Params, batch: Batch) -> torch.Tensor:
+        """whisper: the encoder over ``batch.encoder_frames``, then the
+        decoder over the tokens; logits (b, s, padded vocab) f32, no softcap."""
+        enc = self.encode(params, batch.encoder_frames)
+        decoder_block = self._layer_fn(self._decoder_block)
+        x = embed(params["embed"], batch.tokens).to(self.dtype)
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        for i in range(self.cfg.n_layers):
+            x = decoder_block(_layer(params["blocks"], i), x, positions, enc)
+        x = rms_norm(x, params["final_norm"])
+        return logits_from_embedding(params["embed"], x, self.cfg.vocab)
 
     def train_loss(self, params: Params, batch: Batch) -> torch.Tensor:
         logits, aux = self.forward(params, batch)
@@ -347,11 +427,16 @@ class Model:
         def ring(length: int) -> int:
             return min(length, cfg.sliding_window) if cfg.sliding_window else length
 
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm"):
             if cfg.alt_local_global:
                 return {"local": kvc(cfg.n_layers // 2, ring(cache_len)),
                         "global": kvc(cfg.n_layers // 2, cache_len)}
             return {"kv": kvc(cfg.n_layers, ring(cache_len) if self.long_context else cache_len)}
+        if cfg.family == "audio":
+            cross = (cfg.n_layers, batch, cfg.n_frames, kv, hd)
+            return {"kv": kvc(cfg.n_layers, cache_len),
+                    "cross_k": torch.zeros(cross, dtype=dt, device=dev),
+                    "cross_v": torch.zeros(cross, dtype=dt, device=dev)}
 
         def stacked(c: Params, *lead: int) -> Params:
             return {k: torch.zeros((*lead, *a.shape), dtype=a.dtype, device=dev)
@@ -386,7 +471,7 @@ class Model:
                 return x + y, c2
             return x + mlp(block["mlp"], rms_norm(x, block["ln2"])), c2
 
-        if cfg.family == "dense" and cfg.alt_local_global:
+        if cfg.family in ("dense", "vlm") and cfg.alt_local_global:
             local, glob = [], []
             for i in range(cfg.n_layers // 2):
                 x, lc = dense(_layer(params["local_blocks"], i), x, _layer(cache["local"], i),
@@ -395,7 +480,7 @@ class Model:
                 local.append(lc)
                 glob.append(gc)
             new_cache = {"local": _stack(local), "global": _stack(glob)}
-        elif cfg.family in ("dense", "moe"):
+        elif cfg.family in ("dense", "moe", "vlm"):
             window = cfg.sliding_window if self.long_context else 0
             kvs = []
             for i in range(cfg.n_layers):
@@ -425,6 +510,23 @@ class Model:
                     x, c2 = mamba2(_layer(params["tail_blocks"], i), x, _layer(cache["tail"], i))
                     tails.append(c2)
                 new_cache["tail"] = _stack(tails)
+        elif cfg.family == "audio":
+            kvs = []
+            for i in range(cfg.n_layers):
+                block = _layer(params["blocks"], i)
+                h, c2 = attn_lib.decode_attention(
+                    block["attn"], rms_norm(x, block["ln1"]), positions, _layer(cache["kv"], i),
+                    softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
+                x = x + h
+                # the one token against every encoder frame: an all-true mask
+                x = x + attn_lib.attention(
+                    block["cross"], rms_norm(x, block["ln_cross"]), positions[:, None],
+                    causal=False, use_rope=False,
+                    kv_override=(cache["cross_k"][i], cache["cross_v"][i]), kv_positions=None)
+                x = x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+                kvs.append(c2)
+            new_cache = {"kv": _stack(kvs), "cross_k": cache["cross_k"],
+                         "cross_v": cache["cross_v"]}
         else:
             states = []
             for i in range(cfg.n_layers):

@@ -7,8 +7,11 @@
   in f32, 2e-2 in bf16 (the sum order differs).
 * ``models.attention.attention`` and ``decode_attention`` against
   ``repro.models.attention`` on the same weights: within 1e-5 in f32.
-* Routing: self-attention over arange positions takes the flash op; a
-  prefix, other positions and cross-attention take the masked einsum.
+* Routing: self-attention over arange positions takes the flash op (one
+  call); a prefix with no window takes it twice (a non-causal call over the
+  prefix, a causal one over everything); cross-attention with no key
+  positions takes one non-causal call with s_q != s_kv, whatever ``causal``
+  says; a prefix with a window and other positions take the masked einsum.
 """
 import jax
 import jax.numpy as jnp
@@ -96,8 +99,9 @@ ATTN_CASES = [  # h, kv, causal, window, softcap, prefix_len, positions
     (4, 4, True, 16, 0.0, 0, "arange"),
     (4, 2, True, 16, 30.0, 0, "arange"),
     (4, 2, False, 0, 0.0, 0, "arange"),
-    (4, 2, True, 0, 0.0, 8, "arange"),  # vlm prefix: the einsum route
-    (4, 2, True, 16, 0.0, 8, "arange"),
+    (4, 2, True, 0, 0.0, 8, "arange"),  # vlm prefix: two flash calls
+    (8, 1, True, 0, 0.0, 13, "arange"),  # paligemma's MQA, a prefix of no tile's size
+    (4, 2, True, 16, 0.0, 8, "arange"),  # a prefix with a window: the einsum route
     (4, 2, True, 0, 0.0, 0, "offset"),  # positions 5..: the einsum route
     (4, 2, True, 8, 50.0, 0, "offset"),
 ]
@@ -119,13 +123,21 @@ def test_attention_matches_jax(monkeypatch, h, kv, causal, window, softcap, pref
                         lambda *a, **k: calls.append(k) or real(*a, **k))
     got = pt_attn.attention(tp, torch.from_numpy(x), torch.from_numpy(positions.copy()), **kw)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
-    flash = pos == "arange" and prefix == 0
-    assert calls == ([dict(causal=causal, sliding_window=window, softcap=softcap)]
-                     if flash else [])
+    if pos != "arange" or (prefix and window):
+        assert calls == []
+    elif prefix:  # the prefix block non-causal, then everything causal
+        assert calls == [dict(causal=False, sliding_window=0, softcap=softcap),
+                         dict(causal=True, sliding_window=0, softcap=softcap)]
+    else:
+        assert calls == [dict(causal=causal, sliding_window=window, softcap=softcap)]
 
 
-def test_cross_attention_matches_jax(monkeypatch):
-    b, s, f, d, h, hd = 2, 12, 20, 32, 4, 16
+@pytest.mark.parametrize("s,causal", [(12, False), (1, False), (12, True)])
+def test_cross_attention_matches_jax(monkeypatch, s, causal):
+    """whisper's cross-attention (s = 12) and its decode step (s = 1): with
+    no key positions every key is visible, causal or not, as in the JAX
+    package; one non-causal flash call, s_q != s_kv."""
+    b, f, d, h, hd = 2, 20, 32, 4, 16
     p = _params(d, h, h, hd, seed=4)
     g = np.random.default_rng(5)
     x = g.standard_normal((b, s, d)).astype(np.float32)
@@ -133,15 +145,20 @@ def test_cross_attention_matches_jax(monkeypatch):
     vc = g.standard_normal((b, f, h, hd)).astype(np.float32)
     positions = np.broadcast_to(np.arange(s), (b, s)).copy()
     jp, tp = _both(p)
-    want = jax_attn.attention(jp, jnp.asarray(x), jnp.asarray(positions), causal=False,
+    want = jax_attn.attention(jp, jnp.asarray(x), jnp.asarray(positions), causal=causal,
                               use_rope=False, kv_override=(jnp.asarray(kc), jnp.asarray(vc)),
                               kv_positions=None)
-    monkeypatch.setattr(pt_attn, "flash_attention_op", None)  # must not be reached
-    got = pt_attn.attention(tp, torch.from_numpy(x), torch.from_numpy(positions), causal=False,
+    calls = []
+    real = pt_attn.flash_attention_op
+    monkeypatch.setattr(pt_attn, "flash_attention_op",
+                        lambda q, k, v, **kw: calls.append((q.shape[1], k.shape[1], kw))
+                        or real(q, k, v, **kw))
+    got = pt_attn.attention(tp, torch.from_numpy(x), torch.from_numpy(positions), causal=causal,
                             use_rope=False,
                             kv_override=(torch.from_numpy(kc), torch.from_numpy(vc)),
                             kv_positions=None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    assert calls == [(s, f, dict(causal=False, sliding_window=0, softcap=0.0))]
 
 
 @pytest.mark.parametrize("window,cache_len,positions", [

@@ -758,3 +758,133 @@ def test_hybrid_decode_step_replays_as_a_cuda_graph(cuda):
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
+
+
+# -- whisper-tiny and paligemma-3b on the card ----------------------------------------
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("s,causal", [(320, True), (40, False)], ids=["causal", "prefix"])
+def test_flash_kernels_at_paligemma_mqa_hd256(cuda, dtype, s, causal):
+    """paligemma's heads, shrunk: hd 256 at GQA 8:1 (MQA), the two calls of
+    the prefix split (a causal one over every row, a non-causal one over a
+    40-row prefix, which no tile divides). The forward against its plain
+    version, and the backward, whose dK / dV blocks sum 8 query heads."""
+    q = _normal((1, s, 8, 256), 61).to(dtype).to(cuda)
+    k = _normal((1, s, 1, 256), 62).to(dtype).to(cuda)
+    v = _normal((1, s, 1, 256), 63).to(dtype).to(cuda)
+    out = flash_attention_op(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert float((out.float() - want.float()).abs().max()) <= atol
+    if dtype == torch.bfloat16:
+        assert rounding_units(out, q, k, v, causal=causal) <= BF16_UNITS_TOL
+    do = _normal((1, s, 8, 256), 64).to(dtype).to(cuda)
+    _check_bwd(q, k, v, do, dict(causal=causal, sliding_window=0, softcap=0.0))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("s_q,s_kv", [(375, 375), (100, 375), (1, 375)],
+                         ids=["encoder", "cross", "decode"])
+def test_flash_kernels_non_causal_over_a_ragged_kv(cuda, dtype, s_q, s_kv):
+    """whisper's attentions, shrunk: non-causal over 375 keys (1500 / 4, no
+    tile divides it), self (the encoder), from 100 queries (the decoder's
+    cross-attention) and from one (a decode step's). The forward against its
+    plain version, and the backward."""
+    q = _normal((2, s_q, 6, 64), 71).to(dtype).to(cuda)
+    k = _normal((2, s_kv, 6, 64), 72).to(dtype).to(cuda)
+    v = _normal((2, s_kv, 6, 64), 73).to(dtype).to(cuda)
+    out = flash_attention_op(q, k, v, causal=False)
+    want = attention_ref(q, k, v, causal=False)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert out.shape == q.shape and float((out.float() - want.float()).abs().max()) <= atol
+    if dtype == torch.bfloat16:
+        assert rounding_units(out, q, k, v, causal=False) <= BF16_UNITS_TOL
+    do = _normal((2, s_q, 6, 64), 74).to(dtype).to(cuda)
+    _check_bwd(q, k, v, do, dict(causal=False, sliding_window=0, softcap=0.0))
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "paligemma-3b"])
+def test_frontend_archs_on_card_match_cpu(cuda, arch):
+    """The f32 smoke variants with seeded frames or patches: the loss and
+    every gradient leaf through the kernels on the card against the plain
+    path on the CPU, same params (flash forward and backward launches:
+    whisper's encoder layers plus two a decoder layer, two a paligemma
+    layer); whisper's decode step with the cross cache filled from
+    ``Model.encode`` against the forward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Batch, build_model
+    from repro_torch.models.attention import project_heads
+
+    cfg = get_arch(arch).smoke_variant()
+    cpu, card = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_card = tree_map(lambda t: t.to(cuda).requires_grad_(), params)
+    params = tree_map(lambda t: t.requires_grad_(), params)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 160)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 160)))
+    key, n_rows = (("encoder_frames", cfg.n_frames) if cfg.family == "audio"
+                   else ("patch_embeddings", cfg.n_patches))
+    front = _normal((2, n_rows, cfg.d_model), 2)
+    reset_launches()
+    loss = card.train_loss(params_card, Batch(tokens=tokens.to(cuda), labels=labels.to(cuda),
+                                              **{key: front.to(cuda)}))
+    got = torch.autograd.grad(loss, tree_leaves(params_card))
+    torch.cuda.synchronize()
+    n_flash = (cfg.n_encoder_layers + 2 * cfg.n_layers if cfg.family == "audio"
+               else 2 * cfg.n_layers)
+    assert launch_counts()["flash_attention"] == n_flash
+    assert launch_counts()["flash_attention_bwd"] == n_flash
+    want_loss = cpu.train_loss(params, Batch(tokens=tokens, labels=labels, **{key: front}))
+    want = torch.autograd.grad(want_loss, tree_leaves(params))
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+    if cfg.family != "audio":
+        return
+    with torch.no_grad():
+        full, _ = card.forward(params_card, Batch(tokens=tokens.to(cuda),
+                                                  encoder_frames=front.to(cuda)))
+        enc = card.encode(params_card, front.to(cuda))
+        cross = params_card["blocks"]["cross"]
+        cache = dict(card.init_cache(2, 32),
+                     cross_k=torch.stack([project_heads(enc, w) for w in cross["wk"]]),
+                     cross_v=torch.stack([project_heads(enc, w) for w in cross["wv"]]))
+        reset_launches()
+        step, _ = card.decode_step(params_card, tokens[:, :1].to(cuda),
+                                   torch.zeros(2, dtype=torch.long, device=cuda), cache)
+    assert launch_counts()["flash_attention"] == cfg.n_layers  # the cross-attentions
+    assert float((step[:, 0] - full[:, 0]).abs().max()) <= 5e-2
+
+
+def test_whisper_decode_step_replays_as_a_cuda_graph(cuda):
+    """whisper's decode step launches the flash kernel for each layer's
+    cross-attention (s_q 1 against the cross cache): the step captures, the
+    replay launches it, and gives the eager step's logits."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch("whisper-tiny").smoke_variant().replace(dtype="bfloat16")
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    cache = model.init_cache(4, 32)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for n in ("cross_k", "cross_v"):
+        cache[n].normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab, (4, 1), device=cuda)
+    pos = torch.full((4,), 3, dtype=torch.long, device=cuda)
+    with torch.inference_mode():
+        eager, _ = model.decode_step(params, tok, pos, cache)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.decode_step(params, tok, pos, cache)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        reset_launches()
+        with torch.cuda.graph(graph):
+            out, _ = model.decode_step(params, tok, pos, cache)
+        assert launch_counts()["flash_attention"] == cfg.n_layers
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)

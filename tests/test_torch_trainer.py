@@ -24,7 +24,11 @@
   within 1e-4 of each leaf's max (Adafactor) or 0.1 lr (AdamW, as above);
   the routing pass and the differentiated pass route alike. The hybrid
   family likewise: one step of zamba2-7b's smoke variant (Mamba2 blocks and
-  the shared attention block, AdamW) against the JAX ``DFLTrainer``.
+  the shared attention block, AdamW) against the JAX ``DFLTrainer``. And
+  the frontend families: one step of whisper-tiny's and paligemma-3b's
+  smoke variants at 1 and 2 microbatches, with seeded frames or patches
+  that differ by row, so a trainer that dropped them or split them other
+  than by the tokens' rows would read other inputs than the reference's.
 * R9: the reference's Adam moments are identical on every node device and
   equal (1 - b1) times the clipped mean of the nodes' own gradients, which
   differ; the port holds the moments once and matches them.
@@ -295,8 +299,9 @@ def test_adam_moments_equal_across_nodes_r9(jax_ref):
     _, model = _smoke()
     batch = _batch(jax_ref[1], 0)
     init = restore_pytree(str(out / "init_params.npz"), like)
-    _, g0 = trainer.node_grads(init, batch.tokens[:BPN], batch.labels[:BPN])
-    _, g1 = trainer.node_grads(init, batch.tokens[BPN:2 * BPN], batch.labels[BPN:2 * BPN])
+    _, g0 = trainer.node_grads(init, Batch(tokens=batch.tokens[:BPN], labels=batch.labels[:BPN]))
+    _, g1 = trainer.node_grads(init, Batch(tokens=batch.tokens[BPN:2 * BPN],
+                                           labels=batch.labels[BPN:2 * BPN]))
     diff = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(g0), tree_leaves(g1)))
     assert abs(diff - ref["r9/node_grad_diff"]) <= 1e-3 * ref["r9/node_grad_diff"]
 
@@ -440,18 +445,29 @@ JAX_MOE = textwrap.dedent("""
         tok, lab = FederatedData(DataConfig(vocab=base.vocab, seq_len=s, batch_per_node=bpn,
                                             n_nodes=n, seed=5)).global_batch()
         res[f"{run}/tokens"], res[f"{run}/labels"] = tok, lab
+        # the stubbed frontends' inputs, one draw a row
+        g, frontend = np.random.default_rng(6), {}
+        if base.family == "audio":
+            frontend["encoder_frames"] = g.standard_normal(
+                (n * bpn, base.n_frames, base.d_model), dtype=np.float32)
+        if base.family == "vlm":
+            frontend["patch_embeddings"] = g.standard_normal(
+                (n * bpn, base.n_patches, base.d_model), dtype=np.float32)
+        for k, v in frontend.items():
+            res[f"{run}/{k}"] = v
         tr = DFLTrainer(model, mesh, DFLConfig(gossip_mode="tree_allreduce", lr=lr, warmup=0))
         state = tr.init_state(jax.random.PRNGKey(0))
         init = jax.device_get(state.params)
         save_pytree(f"{out_dir}/{run}_init", init)
-        batch = Batch(tokens=jnp.asarray(tok), labels=jnp.asarray(lab))
+        batch = Batch(tokens=jnp.asarray(tok), labels=jnp.asarray(lab),
+                      **{k: jnp.asarray(v) for k, v in frontend.items()})
         step = tr.jitted_train_step(jax.eval_shape(lambda: state), jax.eval_shape(lambda: batch))
         state, m = step(state, batch)
         res[f"{run}/loss"] = float(m["loss"])
         res[f"{run}/grad_norm"] = float(m["grad_norm"])
         save_pytree(f"{out_dir}/{run}_params", jax.device_get(state.params))
         save_pytree(f"{out_dir}/{run}_opt", jax.device_get(state.opt_state))
-        if mb == 1:  # the aux over the global batch against the mean of the nodes' own
+        if base.family == "moe" and mb == 1:  # the global batch's aux against the nodes' own
             fwd = jax.jit(model.forward)
             res[f"{run}/aux_global"] = float(fwd(init, Batch(tokens=jnp.asarray(tok)))[1])
             res[f"{run}/aux_node_mean"] = float(np.mean([float(fwd(init, Batch(
@@ -463,6 +479,8 @@ MOE_RUNS = (("qwen3_mb1", "qwen3-moe-30b-a3b", 1), ("qwen3_mb2", "qwen3-moe-30b-
 
 
 HYBRID_RUNS = (("zamba2", "zamba2-7b", 1),)
+FRONTEND_RUNS = (("whisper_mb1", "whisper-tiny", 1), ("whisper_mb2", "whisper-tiny", 2),
+                 ("paligemma_mb1", "paligemma-3b", 1), ("paligemma_mb2", "paligemma-3b", 2))
 
 
 def _jax_steps(out, runs):
@@ -497,6 +515,12 @@ def jax_hybrid(tmp_path_factory):
     return out, _jax_steps(out, HYBRID_RUNS)
 
 
+@pytest.fixture(scope="module")
+def jax_frontend(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_frontend")
+    return out, _jax_steps(out, FRONTEND_RUNS)
+
+
 @pytest.mark.parametrize("run,arch,mb", MOE_RUNS, ids=[r[0] for r in MOE_RUNS])
 def test_moe_step_matches_jax_trainer_with_the_global_aux_p4(jax_moe, run, arch, mb):
     m = _step_against_jax(*jax_moe, run, arch, mb)
@@ -506,6 +530,19 @@ def test_moe_step_matches_jax_trainer_with_the_global_aux_p4(jax_moe, run, arch,
 @pytest.mark.parametrize("run,arch,mb", HYBRID_RUNS, ids=[r[0] for r in HYBRID_RUNS])
 def test_hybrid_step_matches_jax_trainer(jax_hybrid, run, arch, mb):
     m = _step_against_jax(*jax_hybrid, run, arch, mb)
+    assert "route_mismatch" not in m
+
+
+@pytest.mark.parametrize("run,arch,mb", FRONTEND_RUNS, ids=[r[0] for r in FRONTEND_RUNS])
+def test_frontend_step_matches_jax_trainer(jax_frontend, run, arch, mb):
+    """whisper's frames and paligemma's patches go to each node with its
+    token rows (and to each microbatch with its part): one step against the
+    JAX ``DFLTrainer``'s, as the module docstring says."""
+    out, ref = jax_frontend
+    key = "encoder_frames" if arch == "whisper-tiny" else "patch_embeddings"
+    rows = ref[f"{run}/{key}"]
+    assert rows.shape[0] == N * BPN and np.abs(rows[0] - rows[BPN]).max() > 1.0
+    m = _step_against_jax(out, ref, run, arch, mb)
     assert "route_mismatch" not in m
 
 
@@ -523,8 +560,11 @@ def _step_against_jax(out, ref, run, arch, mb):
     state = train_state_from_numpy(
         tree_map(lambda t: t.numpy(), init), tree_map(lambda t: t.numpy(), opt), 0, N,
         device="cpu")
+    frontend = {k: torch.from_numpy(ref[f"{run}/{k}"]) for k in ("encoder_frames",
+                                                                  "patch_embeddings")
+                if f"{run}/{k}" in ref}
     batch = Batch(tokens=torch.from_numpy(ref[f"{run}/tokens"]).long(),
-                  labels=torch.from_numpy(ref[f"{run}/labels"]).long())
+                  labels=torch.from_numpy(ref[f"{run}/labels"]).long(), **frontend)
     state, m = trainer.train_step(state, batch)
     want = ref[f"{run}/loss"]
     assert abs(float(m["loss"]) - want) <= 1e-5 * abs(want), (float(m["loss"]), want)
