@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round,
 the model serving path (prefill forward + cached decode) and the DFL
-training step (4 stacked nodes, forward, the flash-attention backward, the
-optimizer and a gossip round), for every family: dense, ssm, moe, hybrid,
-audio (whisper-tiny) and vlm (paligemma-3b).
+training step (4 stacked nodes, forward, the flash-attention and
+selective-scan backwards, the optimizer and a gossip round), for every
+family: dense, ssm, moe, hybrid, audio (whisper-tiny) and vlm
+(paligemma-3b).
 
     python3 chip_smoke.py
 
@@ -13,7 +14,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              the build time, ptxas's registers and spills for the
              tensor-core flash kernel at every head dim, the two passes of
              the flash backward (the tensor-core ones at hd 64, 112, 160 and
-             256, the SIMT ones in f32 at hd 64) and the scan, the count of
+             256, the SIMT ones in f32 at hd 64), the scan and its backward
+             (every x / dy type it is built for), the count of
              HGMMA (wgmma) instructions in the SASS of the forward's and the
              backward's objects (cuobjdump; none in either is a failure), and
              the card's name and power limit. hd 256 is gemma2's and
@@ -80,7 +82,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              BWD_F32_TOL (f32) or
              BWD_BF16_TOL (bf16) of its max |g|, two runs bit-identical;
              its time, its bound and the backward of SDPA (autograd,
-             causal, GQA) beside it.
+             causal, GQA) beside it. The scan's backward against
+             ``selective_scan_bwd_ref`` at falcon-mamba-7b's training shape
+             (1, 2048, 8192, 16) and at b = 2 (x bf16, dy f32; timed, L2
+             flushed, with its bound, the plain version's time and, as a
+             diagnostic, autograd through the plain forward: no single
+             PyTorch call computes it), at a ragged length (2000) with a
+             non-zero gradient of the last state and at n = 32 (x f32):
+             every gradient within SCAN_BWD_TOL of its max |g| (a bf16 dx
+             within SCAN_BWD_BF16_TOL), two runs bit-identical; the forward
+             timed with and without its chunk states, y bit-identical.
 3. path    — the scenarios at full width through ``run_scenario``, with the
              launch counts set to 0 just before and read just after:
              paper_table3 (fp32), quantized_table3 (int8) and an int4
@@ -182,11 +193,22 @@ Phases, each fatal on failure (exit code 1, no result line):
              dissemination: the (N, N, P) f32 buffer of its 527 M embedding
              alone would be 34 GB). The
              f32 gradient checks: whisper at full depth, paligemma at 1 layer
-             with its patches.
+             with its patches. Then falcon-mamba-7b at full width (d 4096,
+             di 8192, n 16, vocab 65024) and 2 of its 64 layers, 4 nodes x
+             (1, 2048), AdamW with fp32 masters and its config's bf16
+             moments, lr 3e-4: tree_allreduce for 4 steps (the fourth
+             profiled, the scan's kernels a group of their own), every step
+             launching selective_scan and selective_scan_bwd once a layer a
+             node and no flash kernel (tree rounds only; the (N, N, P) f32
+             dissemination buffer of its 0.48 B params a node, 30.5 GB, is
+             printed); the
+             f32 gradient check at 1 layer over (1, 2048) tokens, the plain
+             scan differentiated by autograd as the reference.
 
 Then the card's name and power limit, one JSON line with every kernel's
-numbers (the codec kernels' also by shape, with their loss), and the result
-line. Exits non-zero without a CUDA device, and when
+numbers (the codec kernels' also by shape, with their loss; the scan's
+forward with and without its chunk states; the scan backward's autograd
+diagnostic), and the result line. Exits non-zero without a CUDA device, and when
 run from a directory that holds nothing of the repository but this file.
 """
 from __future__ import annotations
@@ -254,8 +276,8 @@ def print_kernel_resources(build_dir: Path) -> None:
     """ptxas's registers and spills for the redesigned kernels (from the
     build log), and the HGMMA instructions in the two flash objects' SASS."""
     log = (build_dir / "nvcc.log").read_text().splitlines()
-    kernels = ("flash_tc_kernel", "scan_kernel", "bwd_tc_kernel", "bwd_d_kernel", "bwd_dq_kernel",
-               "bwd_dkdv_kernel")
+    kernels = ("flash_tc_kernel", "scan_kernel", "scan_bwd_kernel", "bwd_tc_kernel",
+               "bwd_d_kernel", "bwd_dq_kernel", "bwd_dkdv_kernel")
     for i, line in enumerate(log):
         if "Compiling entry function" in line and any(k in line for k in kernels):
             name = line.split("'")[1]
@@ -283,12 +305,16 @@ def print_kernel_resources(build_dir: Path) -> None:
 
 
 # device-time groups of a profiled training step, by kernel name
-STEP_GROUPS = ("flash forward", "flash backward", "GEMMs", "elementwise/other", "optimizer",
-               "gossip")
+STEP_GROUPS = ("flash forward", "flash backward", "scan forward", "scan backward", "GEMMs",
+               "elementwise/other", "optimizer", "gossip")
 
 
 def kernel_group(name: str) -> str:
     n = name.lower()
+    if "scan_bwd" in n:  # the backward and its finishing launch
+        return "scan backward"
+    if "scan_kernel" in n:
+        return "scan forward"
     if "bwd_tc_kernel" in n or "bwd_d_kernel" in n:
         return "flash backward"
     if "flash" in n:
@@ -380,6 +406,7 @@ def fill_whisper_cross(model, params, frames, cache):
     import torch
 
     from repro_torch.models import attention as attn_model
+    from repro_torch.models import mamba as mamba_model
     from repro_torch.models.layers import mlp, rms_norm
     from repro_torch.models.model import _layer
 
@@ -429,14 +456,17 @@ def main() -> int:
     from repro_torch.kernels.codec.ops import dequantize_op, quantize_op, topk_select_op
     from repro_torch.kernels.mixing.ops import gossip_mix_op
     from repro_torch.kernels.mixing.ref import gossip_mix_ref
+    from repro_torch.kernels.scan.mamba_scan import mamba_selective_scan, selective_scan_bwd
     from repro_torch.kernels.scan.ops import selective_scan_op
-    from repro_torch.kernels.scan.ref import selective_scan_ref
+    from repro_torch.kernels.scan.ref import (SCAN_BWD_BF16_TOL, SCAN_BWD_TOL,
+                                              selective_scan_bwd_ref, selective_scan_ref)
     from repro_torch.data import DataConfig, FederatedData
     from repro_torch.dfl.collectives import GossipPlan, gossip_exchange, tree_map
     from repro_torch.dfl.trainer import DFLConfig, DFLTrainer
     from repro_torch.launch.serve import serve
     from repro_torch.models import Batch, build_model
     from repro_torch.models import attention as attn_model
+    from repro_torch.models import mamba as mamba_model
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.mamba import mamba2_forward
     from repro_torch.optim.optimizers import tree_leaves
@@ -866,6 +896,85 @@ def main() -> int:
                n_bytes, 8 * b * s * di * n + 2 * b * s * di,
                shape=f" ({b}, {s}, {di}, {n}) x bf16, y f32")
         del dt, Bm, Cm, xs, A_log, Dp, y, h, py, ph, scan_args
+
+    # the scan's backward against selective_scan_bwd_ref: falcon-mamba-7b's
+    # training shape (b 1) and b 2, timed; a ragged length with a non-zero
+    # gradient of the last state, and n = 32; x bf16 (f32 in the last), dy f32
+    scan_bwd_cases = [  # b, s, di, n, x dtype, dh_last, how
+        (1, 2048, 8192, 16, torch.bfloat16, False, "timed"),
+        (2, 2048, 8192, 16, torch.bfloat16, False, "timed"),
+        (1, 2000, 8192, 16, torch.bfloat16, True, "ragged s, dh_last"),
+        (2, 1000, 1024, 32, torch.float32, True, "n 32, dh_last"),
+    ]
+    for b, s, di, n, x_dtype, with_dh, how in scan_bwd_cases:
+        dt = F.softplus(torch.randn((b, s, di), generator=gen, device=dev))
+        Bm = torch.randn((b, s, n), generator=gen, device=dev)
+        Cm = torch.randn((b, s, n), generator=gen, device=dev)
+        xs = torch.randn((b, s, di), generator=gen, device=dev).to(x_dtype)
+        A_log = torch.log(torch.randn((di, n), generator=gen, device=dev).abs() + 0.5)
+        Dp = torch.randn((di,), generator=gen, device=dev)
+        dy = torch.randn((b, s, di), generator=gen, device=dev)
+        dh = torch.randn((b, di, n), generator=gen, device=dev) if with_dh else None
+        scan_args = (dt, Bm, Cm, xs, A_log, Dp)
+        y, _, hc = mamba_selective_scan(*scan_args, torch.float32, return_chunk_states=True)
+        y_plain, _ = mamba_selective_scan(*scan_args, torch.float32)
+        if not torch.equal(y, y_plain):
+            fail(f"selective_scan ({b}, {s}, {di}, {n}): y with the chunk states differs from "
+                 "y without them")
+        got = selective_scan_bwd(*scan_args, hc, dy, dh)
+        again = selective_scan_bwd(*scan_args, hc, dy, dh)
+        want = selective_scan_bwd_ref(*scan_args, dy, dh)
+        shape = (f" ({b}, {s}, {di}, {n}) x {str(x_dtype)[6:]}, dy f32"
+                 f"{', dh_last' if with_dh else ''}")
+        errs, worst = [], 0.0
+        for name, g1, g2, w in zip(("ddt", "dB", "dC", "dx", "dA_log", "dD"), got, again, want):
+            if not torch.equal(g1, g2):
+                fail(f"selective_scan_bwd{shape}: two runs give different {name}")
+            tol = SCAN_BWD_BF16_TOL if g1.dtype == torch.bfloat16 else SCAN_BWD_TOL
+            err = float((g1.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max())
+            if not err <= tol * scale:
+                fail(f"selective_scan_bwd{shape}: {name} max |kernel - plain| = {err} > {tol} x "
+                     f"max|{name}| = {tol * scale}")
+            worst = max(worst, err)
+            errs.append(f"{name} {err / scale:.2e}")
+        print(f"[kernel] selective_scan_bwd{shape}: max |kernel - plain| over max|g|: "
+              f"{', '.join(errs)} (tol {SCAN_BWD_TOL}, a bf16 dx {SCAN_BWD_BF16_TOL}), two runs "
+              f"bit-identical on {card}")
+        if how == "timed":
+            # the forward with and without its chunk states (the training call
+            # and the serving one), bit-identical y above
+            fwd_ms = median_ms(lambda: mamba_selective_scan(*scan_args, torch.float32), 10)
+            fwd_hc_ms = median_ms(lambda: mamba_selective_scan(
+                *scan_args, torch.float32, return_chunk_states=True), 10)
+            print(f"[kernel] selective_scan ({b}, {s}, {di}, {n}) x bf16, y f32: {fwd_ms:.4f} ms "
+                  f"without the chunk states, {fwd_hc_ms:.4f} ms writing them "
+                  f"({hc.numel() * 4 / 1e6:.1f} MB); y bit-identical on {card}")
+            results["selective_scan"].setdefault("chunk_states", []).append(dict(
+                shape=[b, s, di, n], ms=fwd_ms, with_chunk_states_ms=fwd_hc_ms))
+            # autograd through the plain forward: a diagnostic, no library
+            # call computes this function
+            leaves = [t.detach().requires_grad_() for t in scan_args]
+
+            def autograd_plain():
+                yp, _ = selective_scan_ref(*leaves, out_dtype=torch.float32)
+                return torch.autograd.grad(yp, leaves, dy)
+
+            auto_ms = median_ms(autograd_plain, 2)
+            print(f"[kernel] selective_scan_bwd{shape}: autograd through the plain forward "
+                  f"{auto_ms:.4f} ms (a diagnostic) on {card}")
+            n_bytes = ((4 + x_dtype.itemsize + 4 + 4 + x_dtype.itemsize) * b * s * di
+                       + 4 * hc.numel() + 4 * 4 * b * s * n + 4 * 2 * (di * n + di))
+            record("selective_scan_bwd", "src/repro_torch/csrc/selective_scan_bwd.cu",
+                   # no TPU kernel: XLA differentiates the JAX package's jnp scan
+                   "src/repro/models/mamba.py:42", worst, None,
+                   median_ms(lambda: selective_scan_bwd(*scan_args, hc, dy, dh), 10),
+                   median_ms(lambda: selective_scan_bwd_ref(*scan_args, dy, dh), 2),
+                   n_bytes, 18 * b * s * di * n, shape=shape)
+            results["selective_scan_bwd"].setdefault("autograd_plain_ms", []).append(
+                dict(shape=[b, s, di, n], ms=auto_ms))
+        del dt, Bm, Cm, xs, A_log, Dp, dy, dh, y, y_plain, hc, got, again, want, scan_args
+    torch.cuda.empty_cache()
     del flush
 
     # -- 3. the main path: scenario rounds at full width ------------------------
@@ -1117,7 +1226,13 @@ def main() -> int:
         batch = Batch(tokens=torch.from_numpy(tok).long().to(dev),
                       labels=torch.from_numpy(lab).long().to(dev), **frontend)
         params0 = model.init(torch.Generator(device=dev).manual_seed(0))
+        n_params = count_elements(params0)
+        print(f"[train] {cfg.name}: {cfg.n_layers} of {get_arch(cfg.name).n_layers} layers, "
+              f"{n_params / 1e9:.3f} B params a node; a dissemination round's (N, N, P) f32 "
+              f"buffer would be {n_nodes * n_nodes * n_params * 4 / 1e9:.1f} GB")
         per_step = attention_layers(cfg) * n_nodes
+        # a Mamba1 layer's scan forward and backward, once a layer a node
+        scan_per_step = cfg.n_layers * n_nodes if cfg.family == "ssm" else 0
         # a moe step routes every node's rows once without a graph first
         # (DFLTrainer.aux_coefs): one more forward launch a layer a node
         fwd_per_step = per_step * (2 if cfg.family == "moe" else 1)
@@ -1150,11 +1265,15 @@ def main() -> int:
                 if not (math.isfinite(loss) and math.isfinite(gnorm)):
                     fail(f"train {run} step {i}: loss {loss}, grad_norm {gnorm}")
                 for kernel, want in (("flash_attention", fwd_per_step),
-                                     ("flash_attention_bwd", per_step)):
+                                     ("flash_attention_bwd", per_step),
+                                     ("selective_scan", scan_per_step),
+                                     ("selective_scan_bwd", scan_per_step)):
                     n = after[kernel] - before[kernel]
                     if n != want:
+                        layers = (f"{cfg.n_layers} Mamba1 layers" if kernel.startswith("sel")
+                                  else f"{attention_layers(cfg)} attention layers")
                         fail(f"train {run} step {i}: {kernel} launched {n} times, expected "
-                             f"{want} ({attention_layers(cfg)} attention layers x {n_nodes} nodes"
+                             f"{want} ({layers} x {n_nodes} nodes"
                              f"{' x 2 passes' if want != per_step else ''})")
                 routed = ""
                 if cfg.family == "moe":  # the routing pass and the differentiated one
@@ -1182,10 +1301,14 @@ def main() -> int:
                 if profiled:  # where a steady step's device time goes
                     if (n_kernels["flash backward"] != 2 * per_step
                             or n_kernels["flash forward"] != fwd_per_step
+                            or n_kernels["scan backward"] != 2 * scan_per_step
+                            or n_kernels["scan forward"] != scan_per_step
                             or n_kernels["GEMMs"] == 0):
                         fail(f"profiled step: {dict(n_kernels)} kernels by group; expected "
                              f"{2 * per_step} of the flash backward (D and the fused passes a "
-                             f"launch), {fwd_per_step} of the forward and GEMMs")
+                             f"launch), {fwd_per_step} of the forward, {scan_per_step} of the "
+                             f"scan forward, {2 * scan_per_step} of its backward (the kernel "
+                             "and its finishing pass a launch) and GEMMs")
                     split = ", ".join(f"{g} {dev_ms[g]:.3f} ms ({n_kernels[g]} kernels)"
                                       for g in STEP_GROUPS)
                     # the profiler slows the host's issue, so the idle share is
@@ -1226,7 +1349,8 @@ def main() -> int:
                     add_shape_launches(name, run_shapes[name], f"train {run}")
             del trainer, state, m
             torch.cuda.empty_cache()
-        for kernel in ("flash_attention", "flash_attention_bwd"):
+        for kernel in ("flash_attention", "flash_attention_bwd", "selective_scan",
+                       "selective_scan_bwd"):
             results[kernel]["launches"] += train_launches[kernel]
         if cfg.family == "moe":  # what the global-batch aux loss costs a step
             trainer = DFLTrainer(model, n_nodes, device="cuda")
@@ -1261,11 +1385,14 @@ def main() -> int:
                    labels=torch.from_numpy(lab[:rows]).long().to(dev),
                    **{k: t[:rows] for k, t in (frontend or {}).items()})
         got = torch.autograd.grad(model.train_loss(params, b2), leaves)
-        attn_model.flash_attention_op = attention_ref  # the plain route, autograd's own backward
+        # the plain routes, differentiated by autograd itself
+        attn_model.flash_attention_op = attention_ref
+        mamba_model.selective_scan_op = selective_scan_ref
         try:
             want = torch.autograd.grad(model.train_loss(params, b2), leaves)
         finally:
             attn_model.flash_attention_op = flash_attention_op
+            mamba_model.selective_scan_op = selective_scan_op
         worst = 0.0
         for g1, g2 in zip(got, want):
             rel = float((g1 - g2).abs().max()) / max(float(g2.abs().max()), 1e-30)
@@ -1317,6 +1444,15 @@ def main() -> int:
     cfg = get_arch("paligemma-3b").replace(n_layers=1, remat=False)
     data, frontend = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
     grad_check(cfg.replace(dtype="float32"), data, 1, frontend)
+    # falcon-mamba-7b at full width and 2 of its 64 layers, (1, 2048) a node,
+    # fp32 masters and bf16 moments (its config's), lr 3e-4: every layer's
+    # scan through the forward kernel (with its chunk states) and the
+    # backward kernel. Tree rounds only, as the other cut-depth runs: 0.48 B
+    # params a node (the embedding tied to the head), whose (N, N, P) f32
+    # dissemination buffer would be 30.5 GB (printed above the run)
+    cfg = get_arch("falcon-mamba-7b").replace(n_layers=2, remat=False)
+    data, _ = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
+    grad_check(cfg.replace(n_layers=1, dtype="float32"), data, 1)
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

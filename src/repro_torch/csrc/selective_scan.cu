@@ -8,7 +8,10 @@
 // Layout: dt (b, s, di) f32, B and C (b, s, n) f32, x (b, s, di) f32 or bf16,
 // A_log (di, n) f32, D (di,) f32, all contiguous; y (b, s, di) in the type
 // the caller asks for (the Mamba1 block asks for f32: it gates y with
-// silu(z) before rounding), h_last (b, di, n) f32.
+// silu(z) before rounding), h_last (b, di, n) f32, and, when the caller
+// passes h_chunks (training: the backward, csrc/selective_scan_bwd.cu, reads
+// it), the state entering each 64-step chunk, (b, ceil(s / 64), di, n) f32.
+// A null h_chunks writes nothing more and leaves y bit for bit as it was.
 //
 // Bound: bytes. The kernel reads dt, x, B, C once and writes y once: at
 // falcon-mamba-7b (b 1, s 2048, di 8192, n 16, x bf16, y f32) 168 MB, 50 us
@@ -134,7 +137,8 @@ __global__ void __launch_bounds__(kThreads)
 scan_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
             const float* __restrict__ Cm, const TX* __restrict__ x,
             const float* __restrict__ A_log, const float* __restrict__ D,
-            TY* __restrict__ y, float* __restrict__ h_last, int s, int di, int n) {
+            TY* __restrict__ y, float* __restrict__ h_last, float* __restrict__ h_chunks,
+            int s, int di, int n) {
   extern __shared__ float smem[];
   const int np = padded(n);
   float* sBC = smem;                    // [2][B | C][np][kRow]: transposed B and C by chunk parity
@@ -168,6 +172,14 @@ scan_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
   for (int t0 = 0; t0 < s; t0 += kChunk, ++chunk) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // this chunk's B / C landed; the last chunk's are read
+    const float* carry_in = sH + (chunk & 1) * np * kBlockCh;
+    if (h_chunks != nullptr) {  // the state entering the chunk, n states a channel
+      const long long base0 = ((long long)blockIdx.y * ((s + kChunk - 1) / kChunk) + chunk) * di;
+      for (int i = threadIdx.x; i < kBlockCh * n; i += kThreads) {
+        const int cc = blockIdx.x * kBlockCh + i / n, j = i % n;
+        if (cc < di) h_chunks[(base0 + cc) * n + j] = carry_in[j * kBlockCh + i / n];
+      }
+    }
     const float* sB = sBC + (chunk & 1) * 2 * np * kRow;
     const float* sC = sB + np * kRow;
     const int t_first = t0 + first;
@@ -188,7 +200,6 @@ scan_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
       load_steps(dtn, xn, dt, x, base + (long long)kChunk * di, t_first + kChunk, s, di, live);
     }
 
-    const float* carry_in = sH + (chunk & 1) * np * kBlockCh;
     float* carry_out = sH + ((chunk & 1) ^ 1) * np * kBlockCh;
     for (int j0 = 0; j0 < np; j0 += kGroup) {  // kGroup independent states at a time
       float A2[kGroup], pa[kGroup], pb[kGroup], a[kGroup][kItems], b[kGroup][kItems];
@@ -274,24 +285,26 @@ scan_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
 
 template <typename TX, typename TY>
 int launch(const float* dt, const float* Bm, const float* Cm, const void* x, const float* A_log,
-           const float* D, void* y, float* h, int b, int s, int di, int n, cudaStream_t st) {
+           const float* D, void* y, float* h, float* hc, int b, int s, int di, int n,
+           cudaStream_t st) {
   const size_t bytes = smem_bytes(n);
   cudaError_t err = cudaFuncSetAttribute(scan_kernel<TX, TY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((di + kBlockCh - 1) / kBlockCh, b);
   scan_kernel<TX, TY><<<grid, kThreads, bytes, st>>>(dt, Bm, Cm, static_cast<const TX*>(x),
-                                                     A_log, D, static_cast<TY*>(y), h, s, di, n);
+                                                     A_log, D, static_cast<TY*>(y), h, hc, s, di, n);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x_dtype, y_dtype: 0 = float32, 1 = bfloat16. 1 <= n <= 32; b <= 65535.
+// h_chunks may be null (no chunk-edge states written).
 extern "C" int rt_selective_scan(const void* dt, const void* Bm, const void* Cm, const void* x,
                                  const void* A_log, const void* D, void* y, void* h_last,
-                                 int b, int s, int di, int n, int x_dtype, int y_dtype,
-                                 void* stream) {
+                                 void* h_chunks, int b, int s, int di, int n, int x_dtype,
+                                 int y_dtype, void* stream) {
   if (b <= 0 || di <= 0) return 0;
   if (n < 1 || n > kMaxN || s < 0 || b > 65535 || (x_dtype != 0 && x_dtype != 1) ||
       (y_dtype != 0 && y_dtype != 1))
@@ -302,13 +315,14 @@ extern "C" int rt_selective_scan(const void* dt, const void* Bm, const void* Cm,
   const float* f_A = static_cast<const float*>(A_log);
   const float* f_D = static_cast<const float*>(D);
   float* f_h = static_cast<float*>(h_last);
+  float* f_hc = static_cast<float*>(h_chunks);
   cudaStream_t st = (cudaStream_t)stream;
   if (x_dtype == 0 && y_dtype == 0)
-    return launch<float, float>(f_dt, f_B, f_C, x, f_A, f_D, y, f_h, b, s, di, n, st);
+    return launch<float, float>(f_dt, f_B, f_C, x, f_A, f_D, y, f_h, f_hc, b, s, di, n, st);
   if (x_dtype == 0)
-    return launch<float, __nv_bfloat16>(f_dt, f_B, f_C, x, f_A, f_D, y, f_h, b, s, di, n, st);
+    return launch<float, __nv_bfloat16>(f_dt, f_B, f_C, x, f_A, f_D, y, f_h, f_hc, b, s, di, n, st);
   if (y_dtype == 0)
-    return launch<__nv_bfloat16, float>(f_dt, f_B, f_C, x, f_A, f_D, y, f_h, b, s, di, n, st);
-  return launch<__nv_bfloat16, __nv_bfloat16>(f_dt, f_B, f_C, x, f_A, f_D, y, f_h, b, s, di, n,
-                                              st);
+    return launch<__nv_bfloat16, float>(f_dt, f_B, f_C, x, f_A, f_D, y, f_h, f_hc, b, s, di, n, st);
+  return launch<__nv_bfloat16, __nv_bfloat16>(f_dt, f_B, f_C, x, f_A, f_D, y, f_h, f_hc, b, s, di,
+                                              n, st);
 }

@@ -181,12 +181,33 @@ class DFLSession:
     def train_round(self, state, batch, local_steps: int = 1):
         """This round's scheduled churn, a replan if membership changed,
         ``local_steps`` steps (each with gossip when the interval is 1),
-        then the moderator rotates."""
+        then the moderator rotates.
+
+        With a recorder installed (``obs``) the round records the JAX
+        session's spans, with the same names, categories, track and args:
+        ``plan:recompile`` (round, members) around a replan and
+        ``train:step`` (round, gossip) around each step. They are host-clock
+        spans. The step reads the nodes' losses to the host after their
+        backward (a device synchronization inside the step) but does not
+        synchronize before its span closes, and none is added: on the card
+        the optimizer's and the gossip round's kernels may still run when a
+        ``train:step`` span ends, and the next step's first host read waits
+        for them inside its own span."""
+        from .. import obs
+
+        rec = obs.get()
         self.apply_scheduled_churn()
-        self._ensure_plan()
+        if self._dirty:
+            with rec.span("plan:recompile", cat="plan", track="train",
+                          round=self.round_idx, members=len(self.members)):
+                self._ensure_plan()
         metrics = None
         for _ in range(local_steps):
-            state, metrics = self.trainer.train_step(state, batch)
+            # the gossip exchange runs inside the step (when the interval is
+            # 1), so the step span covers both; the args mark it
+            with rec.span("train:step", cat="train", track="train",
+                          round=self.round_idx, gossip=True):
+                state, metrics = self.trainer.train_step(state, batch)
         self.round_idx += 1
         self.rotate_moderator()
         return state, metrics

@@ -17,7 +17,7 @@ from typing import Dict, Tuple
 
 KERNEL_NAMES = (
     "quantize", "dequantize", "topk_select", "gossip_mix", "flash_attention", "selective_scan",
-    "flash_attention_bwd")
+    "flash_attention_bwd", "selective_scan_bwd")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 SHAPES: Dict[str, Counter] = {name: Counter() for name in KERNEL_NAMES}

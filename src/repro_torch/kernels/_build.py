@@ -58,9 +58,19 @@ SIGNATURES = {
     # softcap, dtype (0 = f32, 1 = bf16), stream
     "rt_flash_attention_bwd": [*[_P] * 11, _I32, _I32, _I32, _I32, _I32, _I32,
                                _I32, _I32, _F32, _I32, _P],
-    # dt, B, C, x, A_log, D, y, h_last, b, s, di, n, x dtype, y dtype, stream
-    "rt_selective_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                          _I32, _I32, _P],
+    # dt, B, C, x, A_log, D, y, h_last, h_chunks (or null), b, s, di, n, x dtype,
+    # y dtype, stream
+    "rt_selective_scan": [*[_P] * 9, _I32, _I32, _I32, _I32, _I32, _I32, _P],
+    # dt, B, C, x, A_log, D, h_chunks, dy, dh_last (or null), ddt, dx, dB, dC,
+    # dA_log, dD, workspace, its f32 elements, b, s, di, n, x dtype, dy dtype,
+    # stream
+    "rt_selective_scan_bwd": [*[_P] * 16, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _P],
+}
+# name: (argtypes, restype) of the entry points that return something else
+# than a CUDA status
+QUERIES = {
+    # b, s, di, n -> the backward's workspace in f32 elements
+    "rt_selective_scan_bwd_workspace": ([_I32, _I32, _I32, _I32], _I64),
 }
 
 
@@ -139,6 +149,10 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, (argtypes, restype) in QUERIES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             handle.rt_error_string.argtypes = [ctypes.c_int]
             handle.rt_error_string.restype = ctypes.c_char_p
             _lib = handle

@@ -1,3 +1,4 @@
-"""Mamba1 selective scan: the Hopper kernel's wrapper (``mamba_scan.py``,
-source ``csrc/selective_scan.cu``), its plain PyTorch version (``ref.py``)
-and the dispatching entry point (``ops.py``)."""
+"""Mamba1 selective scan: the Hopper kernels' wrappers (``mamba_scan.py``,
+sources ``csrc/selective_scan.cu`` and its backward
+``csrc/selective_scan_bwd.cu``), their plain PyTorch versions (``ref.py``)
+and the dispatching entry point with its autograd Function (``ops.py``)."""

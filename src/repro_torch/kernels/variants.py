@@ -567,7 +567,7 @@ def main(argv: List[str] | None = None) -> int:
 
             def call(fn=fn, y=y, hl=hl):
                 return fn(dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), xs.data_ptr(),
-                          A_log.data_ptr(), Dp.data_ptr(), y.data_ptr(), hl.data_ptr(),
+                          A_log.data_ptr(), Dp.data_ptr(), y.data_ptr(), hl.data_ptr(), None,
                           b, s, di, n, 1, 0, torch.cuda.current_stream().cuda_stream)
 
             status = call()

@@ -8,13 +8,16 @@ schedule (moderator rotation every round, replan on churn):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --smoke \\
       --steps 3 --nodes 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --nodes 4 \\
-      --scenario mesh_smoke --device cpu
+      --scenario mesh_smoke --device cpu --trace trace.json
 
 ``--nodes`` takes the place of the JAX launcher's ``--mesh``: one device
-holds every node. Without ``--device cpu`` it runs on the card. The
-launcher's ``--sweep``, ``--cell`` and ``--trace`` are not ported yet
-(ROADMAP A9). ``--warmup`` defaults to 0: the cosine schedule gives lr 0
-at step 0 with a warm-up, so a short run would not move.
+holds every node. Without ``--device cpu`` it runs on the card. ``--trace
+PATH`` records the run's host-clock spans (``train:step`` a step; a
+scenario run records the session's ``plan:recompile`` and ``train:step``)
+and writes a validated Chrome / Perfetto trace at the end. The launcher's
+``--sweep`` and ``--cell`` are not ported yet (ROADMAP A9). ``--warmup``
+defaults to 0: the cosine schedule gives lr 0 at step 0 with a warm-up, so
+a short run would not move.
 """
 from __future__ import annotations
 
@@ -42,7 +45,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--trace", default="",
+                    help="record an observability trace of the run and write "
+                         "Chrome/Perfetto JSON to this path")
     args = ap.parse_args(argv)
+
+    from .. import obs
+
+    if args.trace:
+        obs.set_recorder(obs.Recorder())
 
     import torch
 
@@ -106,11 +117,15 @@ def main(argv: Optional[List[str]] = None) -> None:
         t0 = time.time()
         run_scenario_rounds(session, state, batch, make_batch)
         print(f"done: {scenario.rounds} scenario rounds in {time.time() - t0:.1f}s")
+        _flush_trace(args.trace)
         return
 
+    rec = obs.get()
     t0, losses = time.time(), []
     for i in range(args.steps):
-        state, metrics = trainer.train_step(state, batch)
+        with rec.span("train:step", cat="train", track="train", step=i,
+                      gossip=(i + 1) % max(args.gossip_interval, 1) == 0):
+            state, metrics = trainer.train_step(state, batch)
         losses.append(float(metrics["loss"]))
         batch = make_batch()
         if (i + 1) % args.log_every == 0 or i == 0:
@@ -124,6 +139,19 @@ def main(argv: Optional[List[str]] = None) -> None:
                             {"step": i + 1, "arch": cfg.name, "node": node})
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s, loss "
           + " ".join(f"{x:.4f}" for x in losses))
+    _flush_trace(args.trace)
+
+
+def _flush_trace(path: str) -> None:
+    """Uninstall the run's recorder and export it as a Perfetto trace
+    (validated before it is written)."""
+    if not path:
+        return
+    from .. import obs
+
+    rec = obs.set_recorder(obs.NULL_RECORDER)
+    obs.write_trace(rec, path)
+    print(f"wrote {path} ({len(rec.spans)} spans) — open in ui.perfetto.dev")
 
 
 if __name__ == "__main__":

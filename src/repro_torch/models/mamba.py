@@ -4,7 +4,9 @@ The full-sequence Mamba1 block runs its recurrence through the
 selective-scan op (the Hopper kernel on the card, its plain version on the
 CPU) where the JAX package runs ``chunked_selective_scan``; the scan returns
 y in f32 with ``D x`` added, and the block gates it with ``silu(z)`` before
-rounding to the model dtype, as the JAX block does.
+rounding to the model dtype, as the JAX block does. A differentiated call
+goes through the op's autograd Function, whose backward is the scan's
+backward kernel on the card.
 
 The Mamba2 block (zamba2) has a scalar decay per head of 64 channels and one
 group of B and C (d_state wide) shared by every head. The JAX package runs

@@ -20,10 +20,9 @@ package's are jnp. Decode is plain PyTorch, as in the JAX package, except
 whisper's cross-attention of the one token against the encoder's keys,
 which is a flash call like any other cross-attention.
 
-``train_loss`` is differentiable: flash attention is an autograd Function
-whose backward is the backward kernel on the card (its plain version on
-the CPU); the selective scan has no backward kernel yet and raises on the
-card when a gradient is asked of it (ROADMAP B6b). With ``cfg.remat`` each
+``train_loss`` is differentiable: flash attention and the selective scan
+are autograd Functions whose backwards are the backward kernels on the card
+(their plain versions on the CPU). With ``cfg.remat`` each
 layer of a differentiated forward runs under ``torch.utils.checkpoint``, as
 ``jax.checkpoint`` wraps each layer there (its forward then runs twice).
 

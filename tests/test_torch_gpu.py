@@ -237,8 +237,18 @@ from repro_torch.kernels.attention.ref import (  # noqa: E402
     attention_ref,
     rounding_units,
 )
+from repro_torch.kernels.scan.mamba_scan import (  # noqa: E402
+    mamba_selective_scan,
+    selective_scan_bwd,
+)
 from repro_torch.kernels.scan.ops import selective_scan_op  # noqa: E402
-from repro_torch.kernels.scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.kernels.scan.ref import (  # noqa: E402
+    SCAN_BWD_BF16_TOL,
+    SCAN_BWD_TOL,
+    selective_scan_blocked,
+    selective_scan_bwd_ref,
+    selective_scan_ref,
+)
 
 
 def _normal(shape, seed):
@@ -562,19 +572,170 @@ def test_autograd_reaches_q_k_v_projections_through_the_kernels(cuda):
         assert float((got_g.cpu() - want_g).abs().max()) <= 1e-4 * float(want_g.abs().max())
 
 
-def test_scan_raises_where_autograd_needs_its_gradient(cuda):
-    """P3: the scan kernel has no backward; asked for one it raises instead
-    of returning a y with no graph. Without a gradient it runs."""
-    b, s, di, n = 1, 16, 32, 4
-    args = [_normal((b, s, di), 1).abs().to(cuda), _normal((b, s, n), 2).to(cuda),
-            _normal((b, s, n), 3).to(cuda), _normal((b, s, di), 4).to(cuda),
-            _normal((di, n), 5).to(cuda), _normal((di,), 6).to(cuda)]
-    args[3].requires_grad_()
-    with pytest.raises(NotImplementedError, match="B6b"):
-        selective_scan_op(*args, out_dtype=torch.float32)
+SCAN_BWD_CASES = [  # b, s, di, n
+    (2, 64, 64, 16),  # one chunk, one block of channels
+    (2, 100, 70, 1),  # ragged chunk and block, one state
+    (2, 200, 130, 32),  # n = 32: sixteen groups of two states
+    (2, 17, 24, 16),  # shorter than a chunk, fewer channels than a warp row
+    (2, 130, 192, 16),  # three whole blocks, three chunks
+]
+
+
+def _scan_bwd_inputs(cuda, b, s, di, n, x_dtype, with_dh, seed=0):
+    g = np.random.default_rng(seed + s + n)
+    dt = torch.from_numpy(np.log1p(np.exp(g.standard_normal((b, s, di)))).astype(np.float32))
+    A_log = torch.from_numpy(np.log(np.abs(g.standard_normal((di, n))) + 0.5).astype(np.float32))
+    args = [t.to(cuda) for t in (dt, _normal((b, s, n), 5), _normal((b, s, n), 6),
+                                 _normal((b, s, di), 7).to(x_dtype), A_log, _normal((di,), 8))]
+    dy = _normal((b, s, di), 9).to(cuda)
+    dh = _normal((b, di, n), 10).to(cuda) if with_dh else None
+    return args, dy, dh
+
+
+@pytest.mark.parametrize("with_dh", (False, True), ids=("dh_zero", "dh_nonzero"))
+@pytest.mark.parametrize("x_dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,s,di,n", SCAN_BWD_CASES)
+def test_scan_bwd_kernel_matches_plain(cuda, x_dtype, with_dh, b, s, di, n):
+    """Every gradient within SCAN_BWD_TOL of its max |g| of
+    selective_scan_bwd_ref on the same inputs (a bf16 dx within
+    SCAN_BWD_BF16_TOL), two runs bit-identical; the forward's y the same
+    bits with and without its chunk states."""
+    args, dy, dh = _scan_bwd_inputs(cuda, b, s, di, n, x_dtype, with_dh)
+    y0, _ = mamba_selective_scan(*args, torch.float32)
+    reset_launches()
+    y, _, hc = mamba_selective_scan(*args, torch.float32, return_chunk_states=True)
+    got = selective_scan_bwd(*args, hc, dy, dh)
+    again = selective_scan_bwd(*args, hc, dy, dh)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y0) and hc.shape == (b, -(-s // 64), di, n)
+    assert launch_counts()["selective_scan_bwd"] == 2
+    want = selective_scan_bwd_ref(*args, dy, dh)
+    for name, g1, g2, w in zip(("ddt", "dB", "dC", "dx", "dA_log", "dD"), got, again, want):
+        assert torch.equal(g1, g2), name
+        assert g1.dtype == w.dtype and g1.shape == w.shape, name
+        tol = SCAN_BWD_BF16_TOL if g1.dtype == torch.bfloat16 else SCAN_BWD_TOL
+        err, scale = float((g1.float() - w.float()).abs().max()), float(w.float().abs().max())
+        assert err <= tol * scale, f"{name}: {err} > {tol} x {scale}"
+
+
+@pytest.mark.parametrize("b,s,di,n", [(0, 10, 8, 4), (2, 10, 0, 4), (2, 0, 8, 4)])
+def test_scan_bwd_kernel_empty_shapes(cuda, b, s, di, n):
+    """No batch rows, channels or steps: every gradient is a sum over
+    nothing, so it equals the plain version's zeros exactly."""
+    args, dy, dh = _scan_bwd_inputs(cuda, b, s, di, n, torch.float32, False)
+    _, _, hc = mamba_selective_scan(*args, torch.float32, return_chunk_states=True)
+    got = selective_scan_bwd(*args, hc, dy, dh)
+    want = selective_scan_bwd_ref(*args, dy, dh)
+    for name, g, w in zip(("ddt", "dB", "dC", "dx", "dA_log", "dD"), got, want):
+        assert g.shape == w.shape and torch.equal(g, w), name
+
+
+def test_scan_chunk_states_match_the_blocked_forward(cuda):
+    """The forward kernel's chunk states against the plain decomposition's."""
+    args, _, _ = _scan_bwd_inputs(cuda, 2, 300, 40, 8, torch.float32, False)
+    _, _, hc = mamba_selective_scan(*args, torch.float32, return_chunk_states=True)
+    _, _, want = selective_scan_blocked(*args, return_chunk_states=True)
+    assert float((hc - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+def test_scan_autograd_on_card_goes_through_the_backward_kernel(cuda):
+    """P3, closed by B6b: with a gradient asked for, the op runs the
+    SelectiveScan Function, the forward kernel and the backward kernel once
+    each, and its gradients equal the CPU's (the plain versions); without a
+    gradient it launches the forward alone."""
+    b, s, di, n = 2, 100, 48, 16
+    args, dy, dh = _scan_bwd_inputs(cuda, b, s, di, n, torch.float32, True, seed=3)
+    leaves = [t.clone().requires_grad_() for t in args]
+    reset_launches()
+    y, h = selective_scan_op(*leaves, out_dtype=torch.float32)
+    grads = torch.autograd.grad((y * dy).sum() + (h * dh).sum(), leaves)
+    torch.cuda.synchronize()
+    assert launch_counts()["selective_scan"] == 1 and launch_counts()["selective_scan_bwd"] == 1
+    cpu = [t.detach().cpu().requires_grad_() for t in args]
+    yc, hc_ = selective_scan_op(*cpu, out_dtype=torch.float32)
+    want = torch.autograd.grad((yc * dy.cpu()).sum() + (hc_ * dh.cpu()).sum(), cpu)
+    for g, w in zip(grads, want):
+        assert float((g.cpu() - w).abs().max()) <= SCAN_BWD_TOL * float(w.abs().max())
+    reset_launches()
     with torch.no_grad():
-        y, _ = selective_scan_op(*args, out_dtype=torch.float32)
-    assert y.grad_fn is None and bool(torch.isfinite(y).all())
+        y, _ = selective_scan_op(*leaves, out_dtype=torch.float32)
+    assert y.grad_fn is None and launch_counts()["selective_scan"] == 1
+    assert launch_counts()["selective_scan_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_mamba1_block_grads_on_card_match_cpu(cuda, dtype):
+    """A Mamba1 block's gradients through the kernels on the card against
+    the same block's on the CPU (the plain versions), on the same weights:
+    every leaf within 1e-4 of its max |g| in f32; in bf16 the card's are
+    held to the CPU's f32 gradients of the same bf16 weights within 5e-2."""
+    from repro_torch.models import mamba as pt_mamba
+
+    d_model, d_inner, n, rank = 64, 128, 16, 4
+    params = pt_mamba.init_mamba1(torch.Generator().manual_seed(0), d_model, d_inner, n, rank,
+                                  4, dtype)
+    x = _normal((2, 150, d_model), 11).to(dtype)
+    w = _normal((2, 150, d_model), 12)
+    names = sorted(params)
+
+    def grads(dev, leaf_dtype):
+        p = {k: v.to(dev, leaf_dtype if v.dtype == dtype else v.dtype).requires_grad_()
+             for k, v in params.items()}
+        xx = x.to(dev, leaf_dtype).requires_grad_()
+        out = pt_mamba.mamba1_forward(p, xx, n, rank)
+        return torch.autograd.grad((out.float() * w.to(dev)).sum(), [p[k] for k in names] + [xx])
+
+    reset_launches()
+    got = grads(cuda, dtype)
+    torch.cuda.synchronize()
+    assert launch_counts()["selective_scan"] == 1 and launch_counts()["selective_scan_bwd"] == 1
+    want = grads("cpu", torch.float32)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    for name, g, wg in zip(names + ["x"], got, want):
+        err = float((g.float().cpu() - wg).abs().max())
+        assert err <= tol * float(wg.abs().max()), f"d{name}: {err}"
+
+
+def test_ssm_train_loss_grads_on_card_match_cpu(cuda):
+    """falcon-mamba's f32 smoke variant: train_loss gradients through the
+    scan kernels on the card against the CPU's, every leaf within 1e-4 of
+    its max |g|; one forward and one backward launch a layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Batch, build_model
+
+    cfg = get_arch("falcon-mamba-7b").smoke_variant()
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    g = np.random.default_rng(2)
+    tok = torch.from_numpy(g.integers(0, cfg.vocab, (2, 130)))
+    lab = torch.from_numpy(g.integers(0, cfg.vocab, (2, 130)))
+
+    def grads(dev):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        loss = build_model(cfg, device=dev).train_loss(
+            p, Batch(tokens=tok.to(dev), labels=lab.to(dev)))
+        return torch.autograd.grad(loss, tree_leaves(p))
+
+    reset_launches()
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    assert launch_counts()["selective_scan"] == cfg.n_layers
+    assert launch_counts()["selective_scan_bwd"] == cfg.n_layers
+    assert launch_counts()["flash_attention"] == 0
+    for gc, wc in zip(got, grads("cpu")):
+        assert float((gc.cpu() - wc).abs().max()) <= 1e-4 * float(wc.abs().max())
+
+
+def test_scan_bwd_kernel_rejects_bad_inputs(cuda):
+    args, dy, dh = _scan_bwd_inputs(cuda, 1, 70, 16, 4, torch.float32, True)
+    _, _, hc = mamba_selective_scan(*args, torch.float32, return_chunk_states=True)
+    with pytest.raises(ValueError, match="h_chunks"):
+        selective_scan_bwd(*args, hc[:, :1], dy, dh)
+    with pytest.raises(ValueError, match="dy"):
+        selective_scan_bwd(*args, hc, dy[:, :5], dh)
+    with pytest.raises(ValueError, match="dh_last"):
+        selective_scan_bwd(*args, hc, dy, dh.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan_bwd(*args, hc, dy.cpu(), dh)
 
 
 # -- the moe family on the card ------------------------------------------------------

@@ -13,6 +13,17 @@
 * ``models.mamba``'s block, conv and decode step against
   ``repro.models.mamba`` on the same weights (the block's scan is the port's
   stand-in for ``chunked_selective_scan``): within 1e-5 in f32.
+* The backward: ``selective_scan_bwd_ref`` (the explicit adjoint) against
+  ``jax.grad`` of the jnp oracle for every input, with a zero (None) and a
+  non-zero gradient of the last state, within 1e-5 of each gradient's max
+  |g| (the same f32 terms summed in another order). The kernel's
+  decomposition (``selective_scan_bwd_blocked``: the forward's chunk
+  states, reverse chunks, the segments' reversed pair scan, dB and dC
+  summed a block of channels at a time) against the ref at ragged lengths
+  and channel counts, within 1e-5. The Mamba1 block through the
+  ``SelectiveScan`` Function against ``jax.grad`` of
+  ``repro.models.mamba.mamba1_forward`` in f32, within 1e-4 of each leaf's
+  max |g| (the block's projections and conv sum in another order).
 """
 import jax
 import jax.numpy as jnp
@@ -24,8 +35,14 @@ torch = pytest.importorskip("torch")
 from repro.kernels.scan.mamba_scan import mamba_selective_scan  # noqa: E402
 from repro.kernels.scan.ref import selective_scan_ref as jax_scan_ref  # noqa: E402
 from repro.models import mamba as jax_mamba  # noqa: E402
-from repro_torch.kernels.scan.ops import selective_scan_op  # noqa: E402
-from repro_torch.kernels.scan.ref import selective_scan_blocked, selective_scan_ref  # noqa: E402
+from repro_torch.kernels.scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.scan.ops import SelectiveScan, selective_scan_op  # noqa: E402
+from repro_torch.kernels.scan.ref import (  # noqa: E402
+    selective_scan_blocked,
+    selective_scan_bwd_blocked,
+    selective_scan_bwd_ref,
+    selective_scan_ref,
+)
 from repro_torch.models import mamba as pt_mamba  # noqa: E402
 
 
@@ -170,3 +187,136 @@ def test_scan_op_rejects_other_devices():
     a = {k: torch.from_numpy(v).to("meta") for k, v in _inputs(1, 4, 8, 4).items()}
     with pytest.raises(ValueError):
         selective_scan_op(*[a[k] for k in ("dt", "Bm", "Cm", "x", "A_log", "D")])
+
+
+# -- the backward ----------------------------------------------------------------------
+
+NAMES = ("dt", "Bm", "Cm", "x", "A_log", "D")
+
+
+def _jax_grads(a, dy, dh):
+    """jax.grad of sum(y dy) + sum(h_last dh) through the jnp oracle."""
+    def loss(*args):
+        y, h = jax_scan_ref(*args)
+        return jnp.sum(y * dy) + (0.0 if dh is None else jnp.sum(h * dh))
+    return jax.grad(loss, argnums=tuple(range(6)))(*[jnp.asarray(a[k]) for k in NAMES])
+
+
+def _assert_grads_close(got, want, rel, what=""):
+    for name, g, w in zip(NAMES, got, want):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        assert g.shape == w.shape, name
+        err, scale = float(np.abs(g - w).max()), float(np.abs(w).max())
+        assert err <= rel * max(scale, 1e-30), f"{what} d{name}: {err} > {rel} x {scale}"
+
+
+@pytest.mark.parametrize("with_dh", [False, True], ids=["dh_zero", "dh_nonzero"])
+@pytest.mark.parametrize("b,s,di,n", [(2, 37, 16, 4), (1, 70, 24, 16), (3, 9, 8, 1),
+                                      (1, 130, 12, 32)])
+def test_bwd_ref_matches_jax_grad_of_the_oracle(b, s, di, n, with_dh):
+    a = _inputs(b, s, di, n, seed=s + n)
+    g = np.random.default_rng(7)
+    dy = g.standard_normal((b, s, di)).astype(np.float32)
+    dh = g.standard_normal((b, di, n)).astype(np.float32) if with_dh else None
+    want = _jax_grads(a, dy, dh)
+    t = [torch.from_numpy(a[k]) for k in NAMES]
+    got = selective_scan_bwd_ref(*t, torch.from_numpy(dy),
+                                 None if dh is None else torch.from_numpy(dh))
+    # the ref returns (ddt, dB, dC, dx, dA_log, dD): the inputs' order
+    _assert_grads_close([x.numpy() for x in got], want, 1e-5)
+    if not with_dh:  # None and an explicit zero gradient agree
+        zero = selective_scan_bwd_ref(*t, torch.from_numpy(dy), torch.zeros((b, di, n)))
+        for x, z in zip(got, zero):
+            assert torch.equal(x, z)
+
+
+@pytest.mark.parametrize("b,s,di,n,items,segments,block", [
+    (2, 96, 64, 8, 5, 4, 16),  # 20-step chunks, the last ragged; 4 blocks of channels
+    (1, 75, 70, 16, 16, 4, 64),  # the kernel's geometry: two chunks, ragged; 70 = 64 + 6
+    (2, 300, 8, 4, 16, 4, 64),  # five chunks, one ragged block
+    (1, 1, 8, 32, 16, 4, 4),
+    (3, 64, 24, 1, 3, 3, 8),
+])
+def test_blocked_bwd_decomposition_matches_ref(b, s, di, n, items, segments, block):
+    a = _inputs(b, s, di, n, seed=s + di)
+    g = np.random.default_rng(8)
+    t = [torch.from_numpy(a[k]) for k in NAMES]
+    dy = torch.from_numpy(g.standard_normal((b, s, di)).astype(np.float32))
+    dh = torch.from_numpy(g.standard_normal((b, di, n)).astype(np.float32))
+    y, h, h_chunks = selective_scan_blocked(*t, items=items, segments=segments,
+                                            return_chunk_states=True)
+    # the chunk states are the states entering each chunk of the step-by-step scan
+    chunk = items * segments
+    assert h_chunks.shape == (b, -(-s // chunk), di, n)
+    for k in range(h_chunks.shape[1]):
+        if k == 0:
+            assert float(h_chunks[:, 0].abs().max()) == 0.0
+            continue
+        _, want_h = selective_scan_ref(*[x[:, :k * chunk] if x.dim() == 3 else x for x in t])
+        np.testing.assert_allclose(h_chunks[:, k].numpy(), want_h.numpy(), atol=1e-5)
+    for dhl in (None, dh):
+        got = selective_scan_bwd_blocked(*t, h_chunks, dy, dhl, items=items, segments=segments,
+                                         block_channels=block)
+        want = selective_scan_bwd_ref(*t, dy, dhl)
+        _assert_grads_close([x.numpy() for x in got], [x.numpy() for x in want], 1e-5,
+                            "dh" if dhl is not None else "")
+
+
+def _count_scan_calls(monkeypatch):
+    """Counts of SelectiveScan's forwards and of the plain backward calls."""
+    calls = {"forward": 0, "backward": 0}
+    apply, bwd = SelectiveScan.apply, scan_ops.selective_scan_bwd_ref
+
+    def counted_apply(*args):
+        calls["forward"] += 1
+        return apply(*args)
+
+    def counted_bwd(*args):
+        calls["backward"] += 1
+        return bwd(*args)
+
+    monkeypatch.setattr(SelectiveScan, "apply", counted_apply)
+    monkeypatch.setattr(scan_ops, "selective_scan_bwd_ref", counted_bwd)
+    return calls
+
+
+@pytest.mark.parametrize("s", [7, 48, 70])
+def test_mamba1_block_grads_match_jax_through_selective_scan(s, monkeypatch):
+    jp, tp = _block_params(seed=9)
+    g = np.random.default_rng(10)
+    x = g.standard_normal((2, s, D_MODEL)).astype(np.float32)
+    w = g.standard_normal((2, s, D_MODEL)).astype(np.float32)
+    names = sorted(jp)
+
+    def jloss(p, xx):
+        return jnp.sum(jax_mamba.mamba1_forward(p, xx, N, RANK, chunk=16) * w)
+
+    want_p, want_x = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    calls = _count_scan_calls(monkeypatch)
+    tp = {k: v.requires_grad_() for k, v in tp.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    out = pt_mamba.mamba1_forward(tp, xt, N, RANK)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), [tp[k] for k in names] + [xt])
+    assert calls == {"forward": 1, "backward": 1}
+    for name, got, want in zip(names + ["x"], grads, [want_p[k] for k in names] + [want_x]):
+        want = np.asarray(want, np.float64)
+        err, scale = float(np.abs(got.double().numpy() - want).max()), float(np.abs(want).max())
+        assert err <= 1e-4 * scale, f"d{name}: {err} > 1e-4 x {scale}"
+
+
+def test_selective_scan_function_takes_either_output_alone():
+    """A loss of h_last alone (dy None) or of y alone (dh_last None) gives
+    the ref's gradients with the other output's gradient zero."""
+    a = _inputs(2, 20, 8, 4, seed=11)
+    t = [torch.from_numpy(a[k]).requires_grad_() for k in NAMES]
+    g = np.random.default_rng(12)
+    dy = torch.from_numpy(g.standard_normal((2, 20, 8)).astype(np.float32))
+    dh = torch.from_numpy(g.standard_normal((2, 8, 4)).astype(np.float32))
+    for use_y, use_h in ((True, False), (False, True)):
+        y, h = selective_scan_op(*t)
+        loss = (y * dy).sum() if use_y else (h * dh).sum()
+        got = torch.autograd.grad(loss, t)
+        want = selective_scan_bwd_ref(*[x.detach() for x in t],
+                                      dy if use_y else torch.zeros_like(dy),
+                                      dh if use_h else None)
+        _assert_grads_close([x.numpy() for x in got], [x.numpy() for x in want], 1e-6)

@@ -12,11 +12,20 @@ CPU, and its checkpoints crossing to the JAX package and back.
 * ``--scenario mesh_smoke`` drives the session: the churn fires at round 1.
 * ``--arch qwen3-moe-30b-a3b``, ``arctic-480b``, ``stablelm-12b`` and
   ``zamba2-7b`` (hybrid) train (smoke).
+* ``--trace PATH`` writes a trace that ``validate_trace`` (the port's and
+  the JAX package's) accepts: with ``--scenario mesh_smoke`` its spans'
+  (name, cat, track, args) equal, as a multiset, those the JAX
+  ``DFLSession`` records over the same scenario rounds (an Auto-axis mesh of
+  4 forced host devices, ROADMAP R1); without a scenario one ``train:step``
+  a step, as the JAX launcher's loop records.
 """
+import json
 import os
 import re
 import subprocess
 import sys
+import textwrap
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -29,6 +38,7 @@ from repro.checkpoint import load_metadata as jax_load_metadata  # noqa: E402
 from repro.checkpoint import restore_pytree as jax_restore  # noqa: E402
 from repro.checkpoint import save_pytree as jax_save  # noqa: E402
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
+from repro.obs import validate_trace as jax_validate_trace  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.checkpoint import (  # noqa: E402
     load_metadata,
@@ -38,6 +48,7 @@ from repro_torch.checkpoint import (  # noqa: E402
 )
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs import validate_trace  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,3 +147,77 @@ def test_cli_scenario_drives_the_session():
     rounds = re.findall(r"round +(\d+) loss=([\d.]+) members=(\[[\d, ]+\])", out)
     assert [r[2] for r in rounds] == ["[0, 1, 2, 3]", "[0, 1, 2]"]
     assert "done: 2 scenario rounds" in out
+
+
+JAX_SESSION_SPANS = textwrap.dedent("""
+    import json, sys
+    import jax, jax.numpy as jnp
+    from jax.sharding import AxisType
+    from repro import obs
+    from repro.configs import get_arch
+    from repro.data import DataConfig, FederatedData
+    from repro.dfl import DFLConfig, DFLTrainer
+    from repro.dfl.session import DFLSession, run_scenario_rounds
+    from repro.models import Batch, build_model
+    from repro.scenario import resolve_gossip_mode, scenarios
+
+    scenario = scenarios.get("mesh_smoke")
+    cfg = get_arch("smollm-360m").smoke_variant()
+    mesh = jax.make_mesh((4, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    codec = scenario.codec if scenario.codec != "fp32" else ""
+    trainer = DFLTrainer(build_model(cfg), mesh, DFLConfig(
+        gossip_mode=resolve_gossip_mode(scenario.protocol), total_steps=scenario.rounds,
+        codec=codec))
+    state = trainer.init_state(jax.random.PRNGKey(0))
+    data = FederatedData(DataConfig(vocab=cfg.vocab, seq_len=32, batch_per_node=2, n_nodes=4))
+
+    def make_batch():
+        tok, lab = data.global_batch()
+        return Batch(tokens=jnp.asarray(tok), labels=jnp.asarray(lab))
+
+    rec = obs.Recorder()
+    with obs.recording(rec):
+        run_scenario_rounds(DFLSession(trainer, scenario=scenario), state, make_batch(),
+                            make_batch)
+    json.dump([[s.name, s.cat, s.track, s.args] for s in rec.spans], open(sys.argv[1], "w"))
+""")
+
+
+def _spans(trace):
+    """The (name, cat, track, args) of a trace's complete events."""
+    threads = {(e["pid"], e["tid"]): e["args"]["name"] for e in trace["traceEvents"]
+               if e["ph"] == "M" and e["name"] == "thread_name"}
+    return Counter((e["name"], e["cat"], threads[(e["pid"], e["tid"])],
+                    json.dumps(e.get("args"), sort_keys=True))
+                   for e in trace["traceEvents"] if e["ph"] == "X")
+
+
+def test_cli_trace_matches_the_jax_session_spans(tmp_path):
+    path = tmp_path / "trace.json"
+    out = _cli("--smoke", "--nodes", "4", "--scenario", "mesh_smoke", "--seq-len", "32",
+               "--device", "cpu", "--trace", str(path))
+    assert f"wrote {path} (4 spans)" in out
+    trace = json.loads(path.read_text())
+    validate_trace(trace)
+    jax_validate_trace(trace)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    ref = tmp_path / "jax_spans.json"
+    proc = subprocess.run([sys.executable, "-c", JAX_SESSION_SPANS, str(ref)],
+                          capture_output=True, text=True, env=env, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    want = Counter((name, cat, track, json.dumps(args, sort_keys=True))
+                   for name, cat, track, args in json.loads(ref.read_text()))
+    assert _spans(trace) == want
+    assert sum(want.values()) == 4  # a replan and a step in each of the 2 rounds
+
+
+def test_cli_trace_records_a_step_span_each_step(tmp_path):
+    path = tmp_path / "steps.json"
+    _cli("--smoke", "--steps", "3", "--nodes", "4", "--seq-len", "16", "--gossip-interval", "2",
+         "--device", "cpu", "--trace", str(path))
+    trace = json.loads(path.read_text())
+    validate_trace(trace)
+    want = Counter(("train:step", "train", "train", json.dumps(
+        {"step": i, "gossip": (i + 1) % 2 == 0}, sort_keys=True)) for i in range(3))
+    assert _spans(trace) == want

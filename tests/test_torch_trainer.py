@@ -29,6 +29,9 @@
   smoke variants at 1 and 2 microbatches, with seeded frames or patches
   that differ by row, so a trainer that dropped them or split them other
   than by the tokens' rows would read other inputs than the reference's.
+* The ssm family: one step of falcon-mamba-7b's smoke variant against the
+  JAX ``DFLTrainer``, every layer's scan forward and backward through the
+  ``SelectiveScan`` Function (counted), as ``train_loss``'s gradients are.
 * R9: the reference's Adam moments are identical on every node device and
   equal (1 - b1) times the clipped mean of the nodes' own gradients, which
   differ; the port holds the moments once and matches them.
@@ -64,6 +67,8 @@ from repro_torch.convert import from_numpy, train_state_from_numpy  # noqa: E402
 from repro_torch.data import DataConfig, FederatedData  # noqa: E402
 from repro_torch.dfl.collectives import tree_map  # noqa: E402
 from repro_torch.dfl.trainer import DFLConfig, DFLTrainer, TrainState  # noqa: E402
+from repro_torch.kernels.scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.scan.ops import SelectiveScan  # noqa: E402
 from repro_torch.models import Batch, build_model  # noqa: E402
 from repro_torch.models.model import MOE_AUX_WEIGHT  # noqa: E402
 from repro_torch.optim import adafactor, adamw, constant_schedule  # noqa: E402
@@ -104,8 +109,27 @@ def _close_per_leaf(got, want, rel):
 
 # -- train_loss gradients against jax.grad -----------------------------------------
 
+def _count_scan_functions(monkeypatch):
+    """Counts of the ``SelectiveScan`` Function's forwards and backwards."""
+    calls = {"forward": 0, "backward": 0}
+    apply, bwd = SelectiveScan.apply, scan_ops.selective_scan_bwd_ref
+
+    def counted_apply(*args):
+        calls["forward"] += 1
+        return apply(*args)
+
+    def counted_bwd(*args):
+        calls["backward"] += 1
+        return bwd(*args)
+
+    monkeypatch.setattr(SelectiveScan, "apply", counted_apply)
+    monkeypatch.setattr(scan_ops, "selective_scan_bwd_ref", counted_bwd)
+    return calls
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_loss_grads_match_jax(arch):
+def test_train_loss_grads_match_jax(arch, monkeypatch):
+    calls = _count_scan_functions(monkeypatch)
     cfg_j = jax_configs.get_arch(arch).smoke_variant()
     mj = jax_build_model(cfg_j)
     params_j = mj.init(jax.random.PRNGKey(0))
@@ -122,6 +146,10 @@ def test_train_loss_grads_match_jax(arch):
                                            labels=torch.from_numpy(lab).long()))
     grads_t = torch.autograd.grad(loss_t, [t for _, t in _leaves(params_t)])
     assert abs(float(loss_t) - float(loss_j)) <= 1e-5 * abs(float(loss_j))
+    # the ssm family's scan is differentiated through the SelectiveScan
+    # Function (its plain backward here), once a layer
+    n_scan = mt.cfg.n_layers if mt.cfg.family == "ssm" else 0
+    assert calls == {"forward": n_scan, "backward": n_scan}
     for (name, w), g in zip(_leaves(jax.device_get(grads_j)), grads_t):
         w = np.asarray(w, dtype=np.float64)
         err, scale = float(np.abs(g.double().numpy() - w).max()), float(np.abs(w).max())
@@ -479,6 +507,7 @@ MOE_RUNS = (("qwen3_mb1", "qwen3-moe-30b-a3b", 1), ("qwen3_mb2", "qwen3-moe-30b-
 
 
 HYBRID_RUNS = (("zamba2", "zamba2-7b", 1),)
+SSM_RUNS = (("falcon_mamba", "falcon-mamba-7b", 1),)
 FRONTEND_RUNS = (("whisper_mb1", "whisper-tiny", 1), ("whisper_mb2", "whisper-tiny", 2),
                  ("paligemma_mb1", "paligemma-3b", 1), ("paligemma_mb2", "paligemma-3b", 2))
 
@@ -516,6 +545,12 @@ def jax_hybrid(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def jax_ssm(tmp_path_factory):
+    out = tmp_path_factory.mktemp("jax_ssm")
+    return out, _jax_steps(out, SSM_RUNS)
+
+
+@pytest.fixture(scope="module")
 def jax_frontend(tmp_path_factory):
     out = tmp_path_factory.mktemp("jax_frontend")
     return out, _jax_steps(out, FRONTEND_RUNS)
@@ -530,6 +565,19 @@ def test_moe_step_matches_jax_trainer_with_the_global_aux_p4(jax_moe, run, arch,
 @pytest.mark.parametrize("run,arch,mb", HYBRID_RUNS, ids=[r[0] for r in HYBRID_RUNS])
 def test_hybrid_step_matches_jax_trainer(jax_hybrid, run, arch, mb):
     m = _step_against_jax(*jax_hybrid, run, arch, mb)
+    assert "route_mismatch" not in m
+
+
+@pytest.mark.parametrize("run,arch,mb", SSM_RUNS, ids=[r[0] for r in SSM_RUNS])
+def test_ssm_step_matches_jax_trainer_through_selective_scan(jax_ssm, run, arch, mb,
+                                                             monkeypatch):
+    """One falcon-mamba step against the JAX ``DFLTrainer``'s: each node's
+    forward runs each layer's scan through the ``SelectiveScan`` Function
+    and its backward through the Function's backward."""
+    calls = _count_scan_functions(monkeypatch)
+    m = _step_against_jax(*jax_ssm, run, arch, mb)
+    n_layers = get_arch(arch).smoke_variant().n_layers
+    assert calls == {"forward": N * n_layers, "backward": N * n_layers}
     assert "route_mismatch" not in m
 
 
