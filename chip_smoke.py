@@ -15,7 +15,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              tensor-core flash kernel at every head dim, the two passes of
              the flash backward (the tensor-core ones at hd 64, 112, 160 and
              256, the SIMT ones in f32 at hd 64), the scan and its backward
-             (every x / dy type it is built for), the count of
+             (every x / dy type it is built for; a spill in the backward is a
+             failure), the count of
              HGMMA (wgmma) instructions in the SASS of the forward's and the
              backward's objects (cuobjdump; none in either is a failure), and
              the card's name and power limit. hd 256 is gemma2's and
@@ -91,7 +92,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              non-zero gradient of the last state and at n = 32 (x f32):
              every gradient within SCAN_BWD_TOL of its max |g| (a bf16 dx
              within SCAN_BWD_BF16_TOL), two runs bit-identical; the forward
-             timed with and without its chunk states, y bit-identical.
+             timed with and without its chunk states, y bit-identical; and at
+             the training shape from Mamba's initialization (dt log-uniform
+             in [1e-3, 1e-1], A = -(1 .. n)), where states live long enough
+             that an error in the carries between segments and chunks shows.
 3. path    — the scenarios at full width through ``run_scenario``, with the
              launch counts set to 0 just before and read just after:
              paper_table3 (fp32), quantized_table3 (int8) and an int4
@@ -199,14 +203,17 @@ Phases, each fatal on failure (exit code 1, no result line):
              moments, lr 3e-4: tree_allreduce for 4 steps (the fourth
              profiled, the scan's kernels a group of their own), every step
              launching selective_scan and selective_scan_bwd once a layer a
-             node and no flash kernel (tree rounds only; the (N, N, P) f32
+             node and no flash kernel (the backward's launches, at the
+             training shape phase 2 timed, give its loss: launches x (time -
+             bound)) (tree rounds only; the (N, N, P) f32
              dissemination buffer of its 0.48 B params a node, 30.5 GB, is
              printed); the
              f32 gradient check at 1 layer over (1, 2048) tokens, the plain
              scan differentiated by autograd as the reference.
 
 Then the card's name and power limit, one JSON line with every kernel's
-numbers (the codec kernels' also by shape, with their loss; the scan's
+numbers (the codec kernels' and the scan backward's also by shape, with
+their loss; the scan's
 forward with and without its chunk states; the scan backward's autograd
 diagnostic), and the result line. Exits non-zero without a CUDA device, and when
 run from a directory that holds nothing of the repository but this file.
@@ -291,6 +298,9 @@ def print_kernel_resources(build_dir: Path) -> None:
             info = " | ".join(x.split(":", 1)[-1].strip() for x in log[i + 2:i + 4])
             who = " (gemma2's and paligemma-3b's hd 256)" if "ILi256E" in args else ""
             print(f"[build] ptxas {kernel} {args}{who}: {info}")
+            if kernel == "scan_bwd_kernel" and "0 bytes spill stores, 0 bytes spill loads" \
+                    not in info:
+                fail(f"ptxas: scan_bwd_kernel {args} spills: {info}")
     objdump = Path("/usr/local/cuda/bin/cuobjdump")
     if not objdump.is_file():
         print("[build] SASS check: cuobjdump not in the toolkit, not run")
@@ -899,19 +909,31 @@ def main() -> int:
 
     # the scan's backward against selective_scan_bwd_ref: falcon-mamba-7b's
     # training shape (b 1) and b 2, timed; a ragged length with a non-zero
-    # gradient of the last state, and n = 32; x bf16 (f32 in the last), dy f32
+    # gradient of the last state, and n = 32; x bf16 (f32 in the n = 32
+    # case), dy f32; and the training shape at Mamba's initialization (dt
+    # log-uniform in [1e-3, 1e-1], A = -(1 .. n)), where a state lives for
+    # hundreds of steps, so the carries between segments and chunks matter
+    # (with dt softplus(N(0, 1)) a state falls below f32 rounding within
+    # ~40 steps)
     scan_bwd_cases = [  # b, s, di, n, x dtype, dh_last, how
         (1, 2048, 8192, 16, torch.bfloat16, False, "timed"),
         (2, 2048, 8192, 16, torch.bfloat16, False, "timed"),
         (1, 2000, 8192, 16, torch.bfloat16, True, "ragged s, dh_last"),
         (2, 1000, 1024, 32, torch.float32, True, "n 32, dh_last"),
+        (1, 2048, 8192, 16, torch.bfloat16, True, "Mamba init, dh_last"),
     ]
     for b, s, di, n, x_dtype, with_dh, how in scan_bwd_cases:
-        dt = F.softplus(torch.randn((b, s, di), generator=gen, device=dev))
+        if how.startswith("Mamba init"):
+            dt = torch.exp(torch.empty((b, s, di), device=dev).uniform_(
+                math.log(1e-3), math.log(1e-1), generator=gen))
+            A_log = torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32)
+                              ).expand(di, n).contiguous()
+        else:
+            dt = F.softplus(torch.randn((b, s, di), generator=gen, device=dev))
+            A_log = torch.log(torch.randn((di, n), generator=gen, device=dev).abs() + 0.5)
         Bm = torch.randn((b, s, n), generator=gen, device=dev)
         Cm = torch.randn((b, s, n), generator=gen, device=dev)
         xs = torch.randn((b, s, di), generator=gen, device=dev).to(x_dtype)
-        A_log = torch.log(torch.randn((di, n), generator=gen, device=dev).abs() + 0.5)
         Dp = torch.randn((di,), generator=gen, device=dev)
         dy = torch.randn((b, s, di), generator=gen, device=dev)
         dh = torch.randn((b, di, n), generator=gen, device=dev) if with_dh else None
@@ -925,7 +947,8 @@ def main() -> int:
         again = selective_scan_bwd(*scan_args, hc, dy, dh)
         want = selective_scan_bwd_ref(*scan_args, dy, dh)
         shape = (f" ({b}, {s}, {di}, {n}) x {str(x_dtype)[6:]}, dy f32"
-                 f"{', dh_last' if with_dh else ''}")
+                 f"{', dh_last' if with_dh else ''}"
+                 f"{', at Mamba init' if how.startswith('Mamba') else ''}")
         errs, worst = [], 0.0
         for name, g1, g2, w in zip(("ddt", "dB", "dC", "dx", "dA_log", "dD"), got, again, want):
             if not torch.equal(g1, g2):
@@ -970,7 +993,9 @@ def main() -> int:
                    "src/repro/models/mamba.py:42", worst, None,
                    median_ms(lambda: selective_scan_bwd(*scan_args, hc, dy, dh), 10),
                    median_ms(lambda: selective_scan_bwd_ref(*scan_args, dy, dh), 2),
-                   n_bytes, 18 * b * s * di * n, shape=shape)
+                   n_bytes, 18 * b * s * di * n, shape=shape,
+                   # falcon-mamba's training step launches it at b = 1 (phase 5)
+                   key=(b, s, di, n) if b == 1 else None)
             results["selective_scan_bwd"].setdefault("autograd_plain_ms", []).append(
                 dict(shape=[b, s, di, n], ms=auto_ms))
         del dt, Bm, Cm, xs, A_log, Dp, dy, dh, y, y_plain, hc, got, again, want, scan_args
@@ -1014,8 +1039,8 @@ def main() -> int:
                          sorted(shapes[name].items(), key=lambda kv: -kv[1]))
         print(f"[path] {name} launches by shape: {hist}")
     def add_shape_launches(name, shapes_run, where):
-        """A run's launches of a gossip kernel, by shape, into the rows timed
-        in phase 2 (every shape must have been), and the kernel's loss:
+        """A run's launches of a kernel, by shape, into the rows timed in
+        phase 2 (every shape must have been), and the kernel's loss:
         launches x (time - bound), summed over its shapes."""
         timed = {tuple(row["shape"]): row for row in results[name].get("shapes", [])}
         untimed = sorted(set(shapes_run) - set(timed))
@@ -1347,6 +1372,9 @@ def main() -> int:
                 for name in want:
                     results[name]["launches"] += counts[name]
                     add_shape_launches(name, run_shapes[name], f"train {run}")
+            if counts["selective_scan_bwd"]:  # its loss, at the shape phase 2 timed
+                add_shape_launches("selective_scan_bwd", launch_shapes()["selective_scan_bwd"],
+                                   f"train {run}")
             del trainer, state, m
             torch.cuda.empty_cache()
         for kernel in ("flash_attention", "flash_attention_bwd", "selective_scan",

@@ -31,7 +31,7 @@
 // channel l % 8 and the 16-step segment l / 8 of a 64-step chunk, as in the
 // forward. The block walks the chunks from the last to the first. For each
 // group of two states (a, h and the segment's partial sums for 16 steps
-// of two chains fill ~200 registers; four would spill):
+// of two chains fill 255 registers; four would spill):
 //   1. h recomputed: the forward's segment pairs (a = exp2(dt A log2 e) by
 //      ex2.approx, the same instruction and operands as the forward), the
 //      warp's scan over its 4 segments and the chunk's entering state
@@ -56,9 +56,19 @@
 //      memory. A second, small launch adds the di / 64 blocks' partials in
 //      block order, and dA_log and dD over the batch rows. The partials are
 //      (2, b, di / 64, s, n) f32: 33.5 MB written and read at falcon-mamba's
-//      shape, against 134 MB for one partial a 16-channel block. A cluster
-//      of blocks summing through distributed shared memory would cut them
-//      further and is not done here.
+//      shape, against 134 MB for one partial a 16-channel block.
+// The constants below are the design's choices; kernels/variants.py builds
+// other values of them beside it. Measured there on an H100 80GB HBM3 at
+// 700 W (falcon-mamba's (1, 2048, 8192, 16), one run): this design 0.515
+// ms; 16 warps an SM of 4 channels x 8 segments of 8 steps at 128
+// registers 0.62 ms at one state a group and 0.68 at two (it spills); one
+// state a group here 0.54; clusters of 2 blocks adding dB / dC through
+// distributed shared memory 0.56; without the dB / dC butterfly 0.41. So
+// the kernel is bound by its instruction issue (shuffles and arithmetic),
+// not by latency that more warps would hide: the 8-step segments' third
+// scan level costs more than the extra warps give back. At n = 32, 16
+// warps would need the shared memory's warp sums in passes of kPass states
+// (a block may have 232,448 bytes); here one pass holds them all.
 // Padding states (A = 0, B = C = 0, h = 0, dh_last = 0) and channels past di
 // carry zeros through every sum; steps past s and padding states write
 // nothing.
@@ -69,19 +79,23 @@
 
 namespace {
 
-constexpr int kCh = 8;                      // channels per warp
+constexpr int kChBits = 3;
+constexpr int kCh = 1 << kChBits;           // channels per warp
 constexpr int kSegs = 4;                    // time segments per warp
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBlockCh = kCh * kWarps;      // 64 channels per block
 constexpr int kItems = 16;                  // steps per thread per chunk
 constexpr int kGroup = 2;                   // states a thread runs side by side
+constexpr int kPass = 32;                   // states whose warp sums shared memory holds
 constexpr int kChunk = kSegs * kItems;      // 64 steps
 constexpr int kRow = kChunk + 4;            // padded row of the B / C tiles
 constexpr int kMaxN = 32;
 constexpr int kFinishThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+static_assert(kCh * kSegs == 32 && kItems % 4 == 0 && kItems >= kCh && kPass % kGroup == 0,
+              "a warp is kCh channels x kSegs segments; B and C read 4 steps at a time");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -101,8 +115,15 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in)
                : "memory");
 }
 
+// 4 consecutive floats of a B or C row from shared memory, in one read
+__device__ __forceinline__ void read4(float (&v)[4], const float* p) {
+  const float4 w = *reinterpret_cast<const float4*>(p);
+  v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+}
+
 __host__ __device__ inline int padded(int n) { return (n + kGroup - 1) / kGroup * kGroup; }
-__host__ __device__ inline int red_row(int np) { return np + 1; }  // a step's row in sRed
+// a step's row in sRed: the states of one pass and a pad
+__host__ __device__ inline int red_row(int np) { return (np < kPass ? np : kPass) + 1; }
 
 struct Smem {  // offsets, in floats, into the dynamic shared memory
   int bc, hc, r, a, da, red, total;
@@ -112,7 +133,7 @@ struct Smem {  // offsets, in floats, into the dynamic shared memory
     r = hc + 2 * np * kBlockCh;            // [2][np][kBlockCh]: the carried r
     a = r + 2 * np * kBlockCh;             // [np][kBlockCh]: A log2 e
     da = a + np * kBlockCh;                // [np][kBlockCh]: sum of g a h dt
-    red = da + np * kBlockCh;              // [dB | dC][kWarps][kChunk][np + 1]
+    red = da + np * kBlockCh;              // [dB | dC][kWarps][kChunk][red_row]
     total = red + 2 * kWarps * kChunk * red_row(np);
   }
 };
@@ -153,26 +174,47 @@ __device__ __forceinline__ void load_steps(float (&d)[kItems], TX (&xv)[kItems],
   }
 }
 
-// One level of the butterfly: lanes M apart swap halves of their first
-// 2 HALF values and add, each keeping the half its lane bit names.
-template <int M, int HALF>
-__device__ __forceinline__ void butterfly_level(float (&v)[kItems], int cb) {
-  const bool hi = cb & M;
+// Sum v over the warp's kCh channel lanes (lane bits below kCh), halving the
+// steps a lane keeps at each level L: lanes 2^L apart swap halves and add,
+// each keeping the half its lane bit names. On return v[0 .. kItems / kCh)
+// hold the sums of the steps from butterfly_first(cb) on.
+template <int L = 0>
+__device__ __forceinline__ void butterfly(float (&v)[kItems], int cb) {
+  if constexpr (L < kChBits) {
+    constexpr int m = 1 << L, half = kItems >> (L + 1);
+    const bool hi = cb & m;
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = hi ? v[i] : v[i + HALF];
-    const float keep = hi ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+    for (int i = 0; i < half; ++i) {
+      const float send = hi ? v[i] : v[i + half];
+      const float keep = hi ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+    butterfly<L + 1>(v, cb);
   }
 }
 
-// Sum v over the warp's 8 channel lanes (lane bits 0-2), halving the steps a
-// lane keeps at each level: on return v[0], v[1] hold steps off, off + 1
-// with off = 8 bit0 + 4 bit1 + 2 bit2 of the lane's channel.
-__device__ __forceinline__ void butterfly(float (&v)[kItems], int cb) {
-  butterfly_level<1, 8>(v, cb);
-  butterfly_level<2, 4>(v, cb);
-  butterfly_level<4, 2>(v, cb);
+__device__ __forceinline__ int butterfly_first(int cb) {
+  int first = 0;
+#pragma unroll
+  for (int l = 0; l < kChBits; ++l) first += cb & (1 << l) ? kItems >> (l + 1) : 0;
+  return first;
+}
+
+// The block's partial of dB and dC for the states [j0, j0 + cnt) of the
+// chunk at t0: the warps' sums in sRed, added in warp order. The partials
+// are (dB | dC, batch, block, s, n).
+__device__ __forceinline__ void block_sums(const float* sRed, float* part_bc, int rrow, int t0,
+                                           int j0, int cnt, int s, int n) {
+  const long long part_row = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const long long part_q = (long long)gridDim.y * gridDim.x * s * n;
+  for (int o = threadIdx.x; o < 2 * kChunk * cnt; o += kThreads) {
+    const int qd = o / (kChunk * cnt), t = (o / cnt) % kChunk, jj = o % cnt;
+    if (t0 + t >= s) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += sRed[((qd * kWarps + w) * kChunk + t) * rrow + jj];
+    part_bc[qd * part_q + (part_row * s + t0 + t) * n + j0 + jj] = sum;
+  }
 }
 
 template <typename TX, typename TY>
@@ -194,15 +236,14 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, seg = lane / kCh, cb = lane % kCh;
   const int bc = warp * kCh + cb;                    // channel within the block
   const int first = seg * kItems;                    // the thread's first step in a chunk
+  const int t_red = first + butterfly_first(cb);     // its first step after the butterfly
   const int c = blockIdx.x * kBlockCh + bc;
   const bool live = c < di;
   const int n_chunks = (s + kChunk - 1) / kChunk;
   const long long row0 = (long long)blockIdx.y * s;  // first (batch, t) row
   const long long hc0 = (long long)blockIdx.y * n_chunks * di;
   const float Dc = live ? D[c] : 0.f;
-  // the partials of this block: (dB | dC, batch, block, s, n)
-  const long long part_row = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const long long part_q = (long long)gridDim.y * gridDim.x * s * n;
+  const int last_pass = kPass < kMaxN ? (np - 1) / kPass * kPass : 0;  // the last pass's first state
 
   for (int i = threadIdx.x; i < np * kBlockCh; i += kThreads) {
     const int j = i / kBlockCh, cc = blockIdx.x * kBlockCh + i % kBlockCh;
@@ -238,7 +279,7 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
             hc0 + (long long)(k - 1) * di, t0 - kChunk, s, di, n, np);
     }
     const int t_first = t0 + first;
-    float dsum = 0.f, gB[kItems], gAh[kItems];
+    float gB[kItems], gAh[kItems], dsum = 0.f;
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       dsum += dtv[i];
@@ -248,6 +289,14 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
     }
 
     for (int j0 = 0; j0 < np; j0 += kGroup) {
+      if constexpr (kPass < kMaxN) {
+        if (j0 > 0 && j0 % kPass == 0) {  // sRed is full: the last kPass states' partial
+          __syncthreads();
+          block_sums(sRed, part_bc, rrow, t0, j0 - kPass, kPass, s, n);
+          __syncthreads();
+        }
+      }
+      const int jr = kPass < kMaxN ? j0 % kPass : j0;  // the group's first column in sRed
       float A2[kGroup], pa[kGroup], pb[kGroup], hs[kGroup], a[kGroup][kItems],
           h[kGroup][kItems];
       // 1. h, as the forward computes it: the segment's pair, the warp's
@@ -261,10 +310,7 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
       for (int q = 0; q < kItems / 4; ++q) {
         float bq[kGroup][4];
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          const float4 bv = reinterpret_cast<const float4*>(sB + (j0 + u) * kRow + first)[q];
-          bq[u][0] = bv.x, bq[u][1] = bv.y, bq[u][2] = bv.z, bq[u][3] = bv.w;
-        }
+        for (int u = 0; u < kGroup; ++u) read4(bq[u], sB + (j0 + u) * kRow + first + 4 * q);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
 #pragma unroll
@@ -278,12 +324,12 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) seg_a[u] = pa[u] = exp2_approx(dsum * A2[u]);
 #pragma unroll
-      for (int off = kCh; off < kCh * kSegs; off *= 2)
+      for (int up = kCh; up < 32; up *= 2)
 #pragma unroll
         for (int u = 0; u < kGroup; ++u) {
-          const float qa = __shfl_up_sync(0xffffffffu, pa[u], off);
-          const float qb = __shfl_up_sync(0xffffffffu, pb[u], off);
-          if (lane >= off) {
+          const float qa = __shfl_up_sync(0xffffffffu, pa[u], up);
+          const float qb = __shfl_up_sync(0xffffffffu, pb[u], up);
+          if (lane >= up) {
             pb[u] = fmaf(pa[u], qb, pb[u]);
             pa[u] *= qa;
           }
@@ -299,10 +345,7 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
       for (int q = 0; q < kItems / 4; ++q) {
         float bq[kGroup][4];
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          const float4 bv = reinterpret_cast<const float4*>(sB + (j0 + u) * kRow + first)[q];
-          bq[u][0] = bv.x, bq[u][1] = bv.y, bq[u][2] = bv.z, bq[u][3] = bv.w;
-        }
+        for (int u = 0; u < kGroup; ++u) read4(bq[u], sB + (j0 + u) * kRow + first + 4 * q);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
 #pragma unroll
@@ -325,10 +368,7 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
       for (int q = kItems / 4 - 1; q >= 0; --q) {
         float cq[kGroup][4];
 #pragma unroll
-        for (int u = 0; u < kGroup; ++u) {
-          const float4 cv = reinterpret_cast<const float4*>(sC + (j0 + u) * kRow + first)[q];
-          cq[u][0] = cv.x, cq[u][1] = cv.y, cq[u][2] = cv.z, cq[u][3] = cv.w;
-        }
+        for (int u = 0; u < kGroup; ++u) read4(cq[u], sC + (j0 + u) * kRow + first + 4 * q);
 #pragma unroll
         for (int e = 3; e >= 0; --e)
 #pragma unroll
@@ -338,12 +378,12 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
           }
       }
 #pragma unroll
-      for (int off = kCh; off < kCh * kSegs; off *= 2)
+      for (int down = kCh; down < 32; down *= 2)
 #pragma unroll
         for (int u = 0; u < kGroup; ++u) {
-          const float qa = __shfl_down_sync(0xffffffffu, ra[u], off);
-          const float qb = __shfl_down_sync(0xffffffffu, rb[u], off);
-          if (lane + off < 32) {
+          const float qa = __shfl_down_sync(0xffffffffu, ra[u], down);
+          const float qb = __shfl_down_sync(0xffffffffu, rb[u], down);
+          if (lane + down < 32) {
             rb[u] = fmaf(ra[u], qb, rb[u]);
             ra[u] *= qa;
           }
@@ -364,10 +404,8 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
         float bq[kGroup][4], cq[kGroup][4];
 #pragma unroll
         for (int u = 0; u < kGroup; ++u) {
-          const float4 bv = reinterpret_cast<const float4*>(sB + (j0 + u) * kRow + first)[q];
-          const float4 cv = reinterpret_cast<const float4*>(sC + (j0 + u) * kRow + first)[q];
-          bq[u][0] = bv.x, bq[u][1] = bv.y, bq[u][2] = bv.z, bq[u][3] = bv.w;
-          cq[u][0] = cv.x, cq[u][1] = cv.y, cq[u][2] = cv.z, cq[u][3] = cv.w;
+          read4(bq[u], sB + (j0 + u) * kRow + first + 4 * q);
+          read4(cq[u], sC + (j0 + u) * kRow + first + 4 * q);
         }
 #pragma unroll
         for (int e = 3; e >= 0; --e)
@@ -389,21 +427,19 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
       // dA over the warp's segments, into the block's sum
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
-        dA[u] += __shfl_xor_sync(0xffffffffu, dA[u], kCh);
-        dA[u] += __shfl_xor_sync(0xffffffffu, dA[u], 2 * kCh);
+#pragma unroll
+        for (int m = kCh; m < 32; m *= 2) dA[u] += __shfl_xor_sync(0xffffffffu, dA[u], m);
         if (seg == 0) sDA[(j0 + u) * kBlockCh + bc] += dA[u];
       }
       // 3. dB and dC over the warp's channels, into the warp's row of sRed
-      const int t_off = ((cb & 1) << 3) | ((cb & 2) << 1) | ((cb & 4) >> 1);
 #pragma unroll
       for (int u = 0; u < kGroup; ++u) {
         butterfly(a[u], cb);
         butterfly(h[u], cb);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int t = first + t_off + e;
-          sRed[(warp * kChunk + t) * rrow + j0 + u] = a[u][e];
-          sRed[((kWarps + warp) * kChunk + t) * rrow + j0 + u] = h[u][e];
+        for (int e = 0; e < kItems / kCh; ++e) {
+          sRed[(warp * kChunk + t_red + e) * rrow + jr + u] = a[u][e];
+          sRed[((kWarps + warp) * kChunk + t_red + e) * rrow + jr + u] = h[u][e];
         }
       }
     }
@@ -420,21 +456,14 @@ scan_bwd_kernel(const float* __restrict__ dt, const float* __restrict__ Bm,
     if (k > 0)
       load_steps(dtv, xv, gy, dt, x, dy, (row0 + t_first - kChunk) * di + c,
                  t_first - kChunk, s, di, live);
-    __syncthreads();  // every warp's dB / dC sums are in sRed
-    // the block's partial: the 8 warps' sums, added in warp order
-    for (int o = threadIdx.x; o < 2 * kChunk * n; o += kThreads) {
-      const int qd = o / (kChunk * n), t = (o / n) % kChunk, j = o % n;
-      if (t0 + t >= s) continue;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += sRed[((qd * kWarps + w) * kChunk + t) * rrow + j];
-      part_bc[qd * part_q + (part_row * s + t0 + t) * n + j] = sum;
-    }
+    __syncthreads();  // every warp's dB / dC sums of the last pass are in sRed
+    block_sums(sRed, part_bc, rrow, t0, last_pass,
+               (n < last_pass + kPass ? n : last_pass + kPass) - last_pass, s, n);
   }
 
   // dD over the warp's segments; dA_log's and dD's partial for this batch row
-  dD += __shfl_xor_sync(0xffffffffu, dD, kCh);
-  dD += __shfl_xor_sync(0xffffffffu, dD, 2 * kCh);
+#pragma unroll
+  for (int m = kCh; m < 32; m *= 2) dD += __shfl_xor_sync(0xffffffffu, dD, m);
   __syncthreads();  // every warp's dA is in sDA
   if (seg == 0 && live) part_d[(long long)blockIdx.y * di + c] = dD;
   for (int i = threadIdx.x; i < kBlockCh * n; i += kThreads) {

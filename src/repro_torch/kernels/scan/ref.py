@@ -161,7 +161,9 @@ def selective_scan_bwd_blocked(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Ten
     """The backward split as ``csrc/selective_scan_bwd.cu`` splits it, in
     plain PyTorch, from the forward's chunk states ``h_chunks`` (b,
     n_chunks, di, n) (``selective_scan_blocked(..., return_chunk_states=
-    True)``): each segment of ``items`` steps recomputes h from the chunk's
+    True)``), by default at the kernel's geometry (4 segments of 16 steps, 64
+    channels a block; its 16-warp variant in ``kernels/variants.py`` runs 8
+    segments of 8): each segment of ``items`` steps recomputes h from the chunk's
     entering state and the forward's pair scan; with ``r_t = a_t g_t`` the
     adjoint step is the pair (a_t, a_t dy_t C_t), each segment's pair
     (``exp2(A log2 e sum dt)``, its serial sum) scanned over the chunk's

@@ -14,7 +14,8 @@ more variant of the shipped file of the same name (an earlier revision, say);
 ``--only FILE`` keeps the variants and cases of that source file alone, and
 ``--sources-only`` runs the ``--source`` files without the edited variants.
 
-Prints ptxas's registers and spills for each variant's kernels, then for
+Prints ptxas's registers and spills for the shipped kernels and each
+variant's (one that does not compile is reported and left out), then for
 each case the shipped kernel first and last (so drift shows) and every
 variant between: the median time (CUDA events, L2 flushed before each
 launch) and the error against the plain version. Flash attention reads its
@@ -23,7 +24,11 @@ units against the f32 attention (``ref.rounding_units``, held to
 ``BF16_UNITS_TOL``); the flash backward each of dQ, dK and dV's largest
 error over its max |g| (against ``attention_bwd_ref`` at the plain LSE,
 held to ``BWD_BF16_TOL`` / ``BWD_F32_TOL``); the scan its largest error over
-max|y|. Top-k,
+max|y|; the scan backward each of its six gradients' largest error over its
+max |g| (against ``selective_scan_bwd_ref``, held to ``SCAN_BWD_TOL``, a bf16
+dx to ``SCAN_BWD_BF16_TOL``), two runs of it bit-identical, and whether its
+bits are the shipped kernel's (a fault that only reorders a sum shows there
+alone). Top-k,
 quantize and dequantize must be bit-identical to the plain versions in
 ``codec/ref.py``: on random data at the payload shapes of the gossip path,
 and on data built to hit the tie rules (equal magnitudes at the k-th place;
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import math
 import statistics
 import subprocess
 import sys
@@ -162,6 +168,97 @@ BWD_SPLIT_HEADS = (
      "  return (int)cudaGetLastError();"),
 )
 
+
+# the scan backward's other design for dB and dC: a cluster of k blocks
+# along the channels adds its blocks' sums through distributed shared
+# memory (each block first adds its own warps into warp 0's rows, then the
+# cluster's blocks are added in rank order, each block writing a share), so
+# the partials in global memory and the finishing launch's reads shrink k
+# times; the grid is rounded up to whole clusters
+SCAN_BWD_BLOCK_SUMS = """__device__ __forceinline__ void block_sums(const float* sRed, float* part_bc, int rrow, int t0,
+                                           int j0, int cnt, int s, int n) {
+  const long long part_row = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const long long part_q = (long long)gridDim.y * gridDim.x * s * n;
+  for (int o = threadIdx.x; o < 2 * kChunk * cnt; o += kThreads) {
+    const int qd = o / (kChunk * cnt), t = (o / cnt) % kChunk, jj = o % cnt;
+    if (t0 + t >= s) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += sRed[((qd * kWarps + w) * kChunk + t) * rrow + jj];
+    part_bc[qd * part_q + (part_row * s + t0 + t) * n + j0 + jj] = sum;
+  }
+}
+"""
+SCAN_BWD_CLUSTER_SUMS = """__device__ __forceinline__ void block_sums(float* sRed, float* part_bc, int rrow, int t0,
+                                           int j0, int cnt, int s, int n) {
+  const long long part_row = ((long long)blockIdx.y * gridDim.x + blockIdx.x) / kCluster;
+  const long long part_q = (long long)gridDim.y * gridDim.x / kCluster * s * n;
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  for (int o = threadIdx.x; o < 2 * kChunk * cnt; o += kThreads) {
+    const int qd = o / (kChunk * cnt), t = (o / cnt) % kChunk, jj = o % cnt;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += sRed[((qd * kWarps + w) * kChunk + t) * rrow + jj];
+    sRed[(qd * kWarps * kChunk + t) * rrow + jj] = sum;
+  }
+  cluster.sync();  // every block's sums are in its warp 0 rows
+  for (int o = cluster.block_rank() * kThreads + threadIdx.x; o < 2 * kChunk * cnt;
+       o += kCluster * kThreads) {
+    const int qd = o / (kChunk * cnt), t = (o / cnt) % kChunk, jj = o % cnt;
+    if (t0 + t >= s) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < kCluster; ++r)
+      sum += cluster.map_shared_rank(sRed, r)[(qd * kWarps * kChunk + t) * rrow + jj];
+    part_bc[qd * part_q + (part_row * s + t0 + t) * n + j0 + jj] = sum;
+  }
+  cluster.sync();  // the other blocks have read these sums
+}
+"""
+
+# the scan backward's h pass taking b = dt x B from the pair pass, kept in
+# h's registers, in place of forming it (and reading B) again
+SCAN_BWD_B_IN_H = (
+    ("            pb[u] = fmaf(a[u][i], pb[u], dtv[i] * to_f32(xv[i]) * bq[u][e]);",
+     "            h[u][i] = dtv[i] * to_f32(xv[i]) * bq[u][e];\n"
+     "            pb[u] = fmaf(a[u][i], pb[u], h[u][i]);"),
+    ("            const float prev = i == 0 ? hs[u] : h[u][i - 1];\n"
+     "            h[u][i] = fmaf(a[u][i], prev, dtv[i] * to_f32(xv[i]) * bq[u][e]);",
+     "            h[u][i] = fmaf(a[u][i], i == 0 ? hs[u] : h[u][i - 1], h[u][i]);"),
+)
+
+# the scan backward at 16 warps a block: 4 channels x 8 segments of 8 steps a
+# warp (128 registers a thread, one block an SM), the shared memory's warp
+# sums in passes of 16 states (n = 32 would need 354,304 bytes in one)
+SCAN_BWD_16_WARPS = (
+    ("constexpr int kChBits = 3;", "constexpr int kChBits = 2;"),
+    ("constexpr int kSegs = 4; ", "constexpr int kSegs = 8; "),
+    ("constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
+    ("constexpr int kItems = 16;", "constexpr int kItems = 8; "),
+    ("constexpr int kPass = 32;", "constexpr int kPass = 16;"),
+)
+
+
+def scan_bwd_cluster(k: int) -> Tuple[Tuple[str, str], ...]:
+    return (
+        ("#include <stdint.h>\n", "#include <stdint.h>\n#include <cooperative_groups.h>\n"),
+        ("constexpr int kFinishThreads = 256;",
+         f"constexpr int kFinishThreads = 256;\nconstexpr int kCluster = {k};"),
+        ("__global__ void __launch_bounds__(kThreads, 1)\nscan_bwd_kernel(",
+         "__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)\n"
+         "scan_bwd_kernel("),
+        (SCAN_BWD_BLOCK_SUMS, SCAN_BWD_CLUSTER_SUMS),
+        ("const int np = padded(n), blocks = (di + kBlockCh - 1) / kBlockCh;",
+         "const int np = padded(n),\n"
+         "            blocks = ((di + kBlockCh - 1) / kBlockCh + kCluster - 1) / kCluster * kCluster;"),
+        ("float* part_a = part_bc + 2LL * b * blocks * s * n;",
+         "float* part_a = part_bc + 2LL * b * (blocks / kCluster) * s * n;"),
+        ("dA_log, dD, b, s, di, n, blocks);", "dA_log, dD, b, s, di, n, blocks / kCluster);"),
+        ("const long long blocks = (di + kBlockCh - 1) / kBlockCh;",
+         "const long long blocks = ((di + kBlockCh - 1) / kBlockCh + kCluster - 1) / kCluster;"),
+    )
+
+
 VARIANTS = (
     # planted faults: each must fail the check where it applies
     Variant("fault: the middle key tile of a range of 8 or more skipped", "flash_attention.cu",
@@ -186,6 +283,37 @@ VARIANTS = (
     Variant("scan: 4 channels x 8 segments a warp", "selective_scan.cu",
             (("constexpr int kCh = 8;", "constexpr int kCh = 4;"),
              ("constexpr int kSegs = 4;", "constexpr int kSegs = 8;"))),
+    # the scan backward: planted faults (the first must fail the tolerance
+    # from Mamba's initialization, the second only the bits: every sum but
+    # the warps' order is kept), design choices, an ablation
+    Variant("fault: scan backward, the reverse segment scan one level short",
+            "selective_scan_bwd.cu",
+            (("for (int down = kCh; down < 32; down *= 2)",
+              "for (int down = kCh; down < 16; down *= 2)"),)),
+    Variant("fault: scan backward, the warps' dB / dC sums added in reverse order",
+            "selective_scan_bwd.cu",
+            (("for (int w = 0; w < kWarps; ++w) sum +=",
+              "for (int w = kWarps - 1; w >= 0; --w) sum +="),)),
+    Variant("scan backward: one state a group", "selective_scan_bwd.cu",
+            (("constexpr int kGroup = 2;", "constexpr int kGroup = 1;"),)),
+    Variant("scan backward: b = dt x B kept in h's registers, not formed again",
+            "selective_scan_bwd.cu", SCAN_BWD_B_IN_H),
+    Variant("scan backward: 16 warps of 4 channels x 8 segments of 8 steps (128 registers)",
+            "selective_scan_bwd.cu", SCAN_BWD_16_WARPS),
+    Variant("scan backward: 16 warps, one state a group", "selective_scan_bwd.cu",
+            SCAN_BWD_16_WARPS + (("constexpr int kGroup = 2;", "constexpr int kGroup = 1;"),)),
+    Variant("scan backward: 16 warps' geometry in blocks of 8 warps (32 channels), two an SM",
+            "selective_scan_bwd.cu",
+            tuple(e for e in SCAN_BWD_16_WARPS if "kWarps" not in e[0])
+            + (("__launch_bounds__(kThreads, 1)", "__launch_bounds__(kThreads, 2)"),)),
+    Variant("scan backward: clusters of 2 blocks add dB / dC through DSMEM",
+            "selective_scan_bwd.cu", scan_bwd_cluster(2)),
+    Variant("scan backward: clusters of 4 blocks add dB / dC through DSMEM",
+            "selective_scan_bwd.cu", scan_bwd_cluster(4)),
+    Variant("ablation: scan backward, no dB / dC butterfly or shared-memory stores",
+            "selective_scan_bwd.cu",
+            (("for (int u = 0; u < kGroup; ++u) {\n        butterfly(a[u], cb);",
+              "for (int u = 0; u < kGroup && s < 0; ++u) {\n        butterfly(a[u], cb);"),)),
     # the flash backward: planted faults, from the row a tile's largest P
     # sits in to one near zero, to set the bf16 tolerance between them (the
     # SIMT ones apply to the f32 cases)
@@ -322,10 +450,13 @@ VARIANTS = (
 
 KERNELS = {"flash_attention.cu": ("flash_tc_kernel",), "selective_scan.cu": ("scan_kernel",),
            "topk_pack.cu": ("topk_kernel",), "quant_pack.cu": ("quantize_kernel",),
-           "flash_attention_bwd.cu": ("bwd_tc_kernel",)}
+           "flash_attention_bwd.cu": ("bwd_tc_kernel",),
+           "selective_scan_bwd.cu": ("scan_bwd_kernel",)}
 # ptxas lines to print where a kernel has many instantiations: top-k at block
-# 256, the flash backward's tensor-core passes (one kernel) at hd 64
-PTXAS_ARGS = {"topk_pack.cu": "ILi8E", "flash_attention_bwd.cu": "ILi64E"}
+# 256, the flash backward's tensor-core passes (one kernel) at hd 64, the
+# scan backward with x bf16 and dy f32 (as the timed cases)
+PTXAS_ARGS = {"topk_pack.cu": "ILi8E", "flash_attention_bwd.cu": "ILi64E",
+              "selective_scan_bwd.cu": "I13__nv_bfloat16f"}
 
 
 def half_ties(rows: int, n_chunks: int, chunk: int, bits: int, seed: int = 0) -> np.ndarray:
@@ -357,7 +488,8 @@ def variant_text(v: Variant) -> str:
 
 def build_all(variants: Sequence[Variant]) -> Dict[str, Path]:
     """Build each variant into its own library, all at once; prints ptxas's
-    registers and spills for each variant's kernels."""
+    registers and spills for each variant's kernels. A variant that does not
+    compile is printed with nvcc's log and left out."""
     nvcc = _build._nvcc()
     procs = []
     for i, v in enumerate(variants):
@@ -374,28 +506,32 @@ def build_all(variants: Sequence[Variant]) -> Dict[str, Path]:
     libs = {}
     for v, lib, proc in procs:
         log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {v.name}:\n{log[-4000:]}")
-        lines = log.splitlines()
-        serialized = sum("C7515" in line or "C7512" in line for line in lines)
-        if serialized:
-            print(f"[ptxas] {v.name}: wgmma serialized in {serialized} kernel(s) (C7512 / C7515)")
-        for i, line in enumerate(lines):
-            kernel = next((k for k in KERNELS[v.source] if k in line), None)
-            if "Compiling entry function" in line and kernel is not None:
-                name = line.split("'")[1].split(kernel, 1)[1].split("EEv")[0]
-                if not name.startswith(PTXAS_ARGS.get(v.source, "")):
-                    continue
-                info = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
-                print(f"[ptxas] {v.name}: {kernel} {name}: {info}")
+        if proc.returncode != 0:  # reported, and left out of the cases
+            print(f"[build] nvcc failed on {v.name}, not run:\n{log[-4000:]}")
+            continue
+        print_ptxas(v.name, v.source, log.splitlines())
         libs[v.name] = lib
     return libs
 
 
+def print_ptxas(name: str, source: str, lines: Sequence[str]) -> None:
+    """ptxas's registers and spills for the source's kernels in a build log."""
+    serialized = sum("C7515" in line or "C7512" in line for line in lines)
+    if serialized:
+        print(f"[ptxas] {name}: wgmma serialized in {serialized} kernel(s) (C7512 / C7515)")
+    for i, line in enumerate(lines):
+        kernel = next((k for k in KERNELS[source] if k in line), None)
+        if "Compiling entry function" in line and kernel is not None:
+            args = line.split("'")[1].split(kernel, 1)[1].split("EEv")[0]
+            if not args.startswith(PTXAS_ARGS.get(source, "")):
+                continue
+            info = " | ".join(x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4])
+            print(f"[ptxas] {name}: {kernel} {args}: {info}")
+
+
 def entry(lib_path: Path, name: str):
     fn = getattr(ctypes.CDLL(str(lib_path)), name)
-    fn.argtypes = _build.SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    fn.argtypes, fn.restype = _build.QUERIES.get(name, (_build.SIGNATURES.get(name), ctypes.c_int))
     return fn
 
 
@@ -415,7 +551,9 @@ def main(argv: List[str] | None = None) -> int:
     from .attention.ref import (BF16_UNITS_TOL, BWD_BF16_TOL, BWD_F32_TOL, attention_bwd_ref,
                                 attention_lse_ref, attention_ref, rounding_units)
     from .codec import ref as codec_ref
-    from .scan.ref import selective_scan_ref
+    from .scan.mamba_scan import mamba_selective_scan
+    from .scan.ref import (SCAN_BWD_BF16_TOL, SCAN_BWD_TOL, selective_scan_bwd_ref,
+                           selective_scan_ref)
 
     if not torch.cuda.is_available():
         print("variants: needs a CUDA device", file=sys.stderr)
@@ -432,6 +570,11 @@ def main(argv: List[str] | None = None) -> int:
     libs = build_all(variants)
     _build.lib()
     shipped = _build.build_dir() / _build.LIB_NAME
+    # the shipped kernels' log holds every source's; its sections are in order
+    shipped_log = (_build.build_dir() / "nvcc.log").read_text()
+    for source in sorted(only & {v.source for v in variants}):
+        section = shipped_log.split(f"== {source} ", 1)[-1].split("\n== ", 1)[0]
+        print_ptxas("shipped", source, section.splitlines())
     dev = torch.device("cuda")
     flush = torch.empty(128 * 2 ** 20, device=dev)  # 512 MB, above the 50 MB L2
 
@@ -456,7 +599,7 @@ def main(argv: List[str] | None = None) -> int:
         return statistics.median(s.elapsed_time(e) for s, e in spans)
 
     def runs(source: str):
-        ours = [v for v in variants if v.source == source]
+        ours = [v for v in variants if v.source == source and v.name in libs]
         return [("shipped", shipped), *[(v.name, libs[v.name]) for v in ours],
                 ("shipped again", shipped)]
 
@@ -582,6 +725,89 @@ def main(argv: List[str] | None = None) -> int:
 
     stream = torch.cuda.current_stream().cuda_stream
 
+    # the scan backward: falcon-mamba-7b's training shape and b = 2, timed;
+    # n = 32 (two passes of 16 states through shared memory) with dh_last in
+    # f32, checked; and Mamba's initialization (dt log-uniform in [1e-3,
+    # 1e-1], A = -(1 .. n)), where a state decays over hundreds of steps, so
+    # an error in the carries between segments and chunks shows (with dt
+    # softplus(N(0, 1)) a state has decayed below f32 rounding within ~40
+    # steps). Each gradient's error over its max |g| against
+    # selective_scan_bwd_ref; two runs of a variant must give the same bits,
+    # and whether they are the shipped kernel's bits is printed beside it
+    scan_bwd_cases = [  # b, s, di, n, x dtype, dh_last, timed, Mamba's init
+        (1, 2048, 8192, 16, torch.bfloat16, False, True, False),
+        (2, 2048, 8192, 16, torch.bfloat16, False, True, False),
+        (2, 1000, 1024, 32, torch.float32, True, False, False),
+        (1, 2048, 1024, 16, torch.bfloat16, True, False, True),
+    ]
+    for b, s, di, n, x_dtype, with_dh, timed, mamba_init in (
+            scan_bwd_cases if "selective_scan_bwd.cu" in only else []):
+        if mamba_init:
+            dt = torch.exp(torch.empty((b, s, di), device=dev).uniform_(
+                math.log(1e-3), math.log(1e-1), generator=gen))
+            A_log = torch.log(torch.arange(1, n + 1, device=dev, dtype=torch.float32)
+                              ).expand(di, n).contiguous()
+        else:
+            dt = F.softplus(torch.randn((b, s, di), generator=gen, device=dev))
+            A_log = torch.log(torch.randn((di, n), generator=gen, device=dev).abs() + 0.5)
+        Bm = torch.randn((b, s, n), generator=gen, device=dev)
+        Cm = torch.randn((b, s, n), generator=gen, device=dev)
+        xs = torch.randn((b, s, di), generator=gen, device=dev).to(x_dtype)
+        Dp = torch.randn((di,), generator=gen, device=dev)
+        dy = torch.randn((b, s, di), generator=gen, device=dev)
+        dh = torch.randn((b, di, n), generator=gen, device=dev) if with_dh else None
+        args = (dt, Bm, Cm, xs, A_log, Dp)
+        _, _, hc = mamba_selective_scan(*args, torch.float32, return_chunk_states=True)
+        want = selective_scan_bwd_ref(*args, dy, dh)
+        scales = [float(w.float().abs().max()) for w in want]
+        case = (f"({b}, {s}, {di}, {n}) x {str(x_dtype)[6:]}, dy f32"
+                f"{', dh_last' if with_dh else ''}{', at Mamba init' if mamba_init else ''}")
+        first = None  # the shipped kernel's gradients
+        for name, path in runs("selective_scan_bwd.cu"):
+            fn = entry(path, "rt_selective_scan_bwd")
+            work_elems = entry(path, "rt_selective_scan_bwd_workspace")(b, s, di, n)
+            work = torch.empty((work_elems,), device=dev)
+
+            def outputs():  # filled, so a variant that leaves one unwritten cannot pass
+                return [torch.full(w.shape, float("nan"), dtype=w.dtype, device=dev)
+                        for w in want]
+
+            def call(fn=fn, grads=None, work=work, work_elems=work_elems):
+                ddt, dB, dC, dx, dA, dD = grads
+                return fn(dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), xs.data_ptr(),
+                          A_log.data_ptr(), Dp.data_ptr(), hc.data_ptr(), dy.data_ptr(),
+                          None if dh is None else dh.data_ptr(), ddt.data_ptr(),
+                          dx.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA.data_ptr(),
+                          dD.data_ptr(), work.data_ptr(), work_elems, b, s, di, n,
+                          int(x_dtype == torch.bfloat16), 0, stream)
+
+            grads, again = outputs(), outputs()
+            status = call(grads=grads) or call(grads=again)
+            torch.cuda.synchronize()
+            if status != 0:  # a launch the card refused (a cluster it cannot place, say)
+                print(f"[scan bwd] {case}: {name}: launch returned CUDA error {status}: FAILS")
+                continue
+            rel = [float((g.float() - w.float()).abs().nan_to_num(float("inf")).max()) / sc
+                   for g, w, sc in zip(grads, want, scales)]
+            tols = [SCAN_BWD_BF16_TOL if g.dtype == torch.bfloat16 else SCAN_BWD_TOL
+                    for g in grads]
+            twice = all(torch.equal(g, a) for g, a in zip(grads, again))
+            ok = twice and all(r <= tol for r, tol in zip(rel, tols))
+            if first is None:
+                first = grads
+            same = ("bit-identical to the shipped gradients"
+                    if all(torch.equal(g, f) for g, f in zip(grads, first))
+                    else "differs from the shipped bits")
+            ms = f"{median_ms(lambda: call(grads=grads)):.4f} ms, " if timed else ""
+            errs = ", ".join(f"{g} {r:.2e}" for g, r in
+                             zip(("ddt", "dB", "dC", "dx", "dA_log", "dD"), rel))
+            print(f"[scan bwd] {case}: {name}: {ms}max err / max|g| {errs} (tol "
+                  f"{SCAN_BWD_TOL}, a bf16 dx {SCAN_BWD_BF16_TOL}), two runs "
+                  f"{'bit-identical' if twice else 'DIFFER'}: {'passes' if ok else 'FAILS'}; "
+                  f"{same}")
+        del dt, Bm, Cm, xs, A_log, Dp, dy, dh, args, hc, want, first
+
+
     def verdict(same: bool, n_diff: int, what: str) -> str:
         return "bit-identical: passes" if same else f"FAILS ({n_diff} {what} differ)"
 
@@ -670,7 +896,7 @@ def main(argv: List[str] | None = None) -> int:
     # shipped ones (the rest of the path as shipped), alternated
     round_cases = {"topk_pack.cu": ("topk_sweep", ("rt_topk_select",)),
                    "quant_pack.cu": ("quantized_table3", ("rt_quantize", "rt_dequantize"))}
-    whole = [v for v in variants if v.text and v.source in round_cases]
+    whole = [v for v in variants if v.text and v.source in round_cases and v.name in libs]
     if whole:
         from ..scenario import SCENARIOS, run_scenario
 

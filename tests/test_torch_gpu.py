@@ -578,13 +578,24 @@ SCAN_BWD_CASES = [  # b, s, di, n
     (2, 200, 130, 32),  # n = 32: sixteen groups of two states
     (2, 17, 24, 16),  # shorter than a chunk, fewer channels than a warp row
     (2, 130, 192, 16),  # three whole blocks, three chunks
+    (2, 63, 64, 16),  # one step short of a chunk: the last segment ragged
+    (2, 65, 64, 16),  # one step past a chunk
+    (2, 100, 68, 16),  # 4 channels past a block: half a warp of the second live
+    (2, 130, 96, 17),  # an odd state count: a padding state
+    (1, 2048, 512, 32),  # n = 32 at length 2048: the most shared memory a block takes
 ]
 
 
-def _scan_bwd_inputs(cuda, b, s, di, n, x_dtype, with_dh, seed=0):
+def _scan_bwd_inputs(cuda, b, s, di, n, x_dtype, with_dh, seed=0, mamba_init=False):
+    """With ``mamba_init``, Mamba's initialization: dt log-uniform in [1e-3,
+    1e-1] and A = -(1 .. n), states that live for hundreds of steps."""
     g = np.random.default_rng(seed + s + n)
     dt = torch.from_numpy(np.log1p(np.exp(g.standard_normal((b, s, di)))).astype(np.float32))
     A_log = torch.from_numpy(np.log(np.abs(g.standard_normal((di, n))) + 0.5).astype(np.float32))
+    if mamba_init:
+        dt = torch.from_numpy(np.exp(g.uniform(np.log(1e-3), np.log(1e-1), (b, s, di)))
+                              .astype(np.float32))
+        A_log = torch.log(torch.arange(1, n + 1, dtype=torch.float32)).expand(di, n).contiguous()
     args = [t.to(cuda) for t in (dt, _normal((b, s, n), 5), _normal((b, s, n), 6),
                                  _normal((b, s, di), 7).to(x_dtype), A_log, _normal((di,), 8))]
     dy = _normal((b, s, di), 9).to(cuda)
@@ -613,6 +624,25 @@ def test_scan_bwd_kernel_matches_plain(cuda, x_dtype, with_dh, b, s, di, n):
     for name, g1, g2, w in zip(("ddt", "dB", "dC", "dx", "dA_log", "dD"), got, again, want):
         assert torch.equal(g1, g2), name
         assert g1.dtype == w.dtype and g1.shape == w.shape, name
+        tol = SCAN_BWD_BF16_TOL if g1.dtype == torch.bfloat16 else SCAN_BWD_TOL
+        err, scale = float((g1.float() - w.float()).abs().max()), float(w.float().abs().max())
+        assert err <= tol * scale, f"{name}: {err} > {tol} x {scale}"
+
+
+@pytest.mark.parametrize("x_dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,s,di,n", [(2, 200, 70, 16), (1, 130, 68, 17), (1, 2048, 256, 32)])
+def test_scan_bwd_kernel_matches_plain_at_mamba_init(cuda, x_dtype, b, s, di, n):
+    """As test_scan_bwd_kernel_matches_plain, from Mamba's initialization:
+    states live for hundreds of steps, so a wrong carry between segments or
+    chunks cannot hide in the decay."""
+    args, dy, dh = _scan_bwd_inputs(cuda, b, s, di, n, x_dtype, True, mamba_init=True)
+    _, _, hc = mamba_selective_scan(*args, torch.float32, return_chunk_states=True)
+    got = selective_scan_bwd(*args, hc, dy, dh)
+    again = selective_scan_bwd(*args, hc, dy, dh)
+    torch.cuda.synchronize()
+    want = selective_scan_bwd_ref(*args, dy, dh)
+    for name, g1, g2, w in zip(("ddt", "dB", "dC", "dx", "dA_log", "dD"), got, again, want):
+        assert torch.equal(g1, g2), name
         tol = SCAN_BWD_BF16_TOL if g1.dtype == torch.bfloat16 else SCAN_BWD_TOL
         err, scale = float((g1.float() - w.float()).abs().max()), float(w.float().abs().max())
         assert err <= tol * scale, f"{name}: {err} > {tol} x {scale}"

@@ -232,10 +232,15 @@ def test_bwd_ref_matches_jax_grad_of_the_oracle(b, s, di, n, with_dh):
 
 @pytest.mark.parametrize("b,s,di,n,items,segments,block", [
     (2, 96, 64, 8, 5, 4, 16),  # 20-step chunks, the last ragged; 4 blocks of channels
-    (1, 75, 70, 16, 16, 4, 64),  # the kernel's geometry: two chunks, ragged; 70 = 64 + 6
+    (1, 75, 70, 16, 16, 4, 64),  # the kernels' geometry: two chunks, ragged; 70 = 64 + 6
     (2, 300, 8, 4, 16, 4, 64),  # five chunks, one ragged block
     (1, 1, 8, 32, 16, 4, 4),
     (3, 64, 24, 1, 3, 3, 8),
+    # the backward's 16-warp variant (kernels/variants.py): 8 segments of 8 steps
+    (1, 200, 64, 16, 8, 8, 64),  # four chunks, the last ragged
+    (2, 65, 70, 1, 8, 8, 64),  # one step past a chunk; 70 = 64 + 6 channels; one state
+    (1, 130, 70, 17, 8, 8, 64),  # an odd state count (a padding state in the kernel)
+    (1, 63, 68, 32, 8, 8, 64),  # one step short of a chunk; n = 32, two passes of 16
 ])
 def test_blocked_bwd_decomposition_matches_ref(b, s, di, n, items, segments, block):
     a = _inputs(b, s, di, n, seed=s + di)
@@ -257,6 +262,38 @@ def test_blocked_bwd_decomposition_matches_ref(b, s, di, n, items, segments, blo
     for dhl in (None, dh):
         got = selective_scan_bwd_blocked(*t, h_chunks, dy, dhl, items=items, segments=segments,
                                          block_channels=block)
+        want = selective_scan_bwd_ref(*t, dy, dhl)
+        _assert_grads_close([x.numpy() for x in got], [x.numpy() for x in want], 1e-5,
+                            "dh" if dhl is not None else "")
+
+
+def _mamba_init_inputs(b, s, di, n, seed=0):
+    """Mamba's initialization: dt log-uniform in [1e-3, 1e-1] and A = -(1 ..
+    n), so a state decays over hundreds of steps and the carries between
+    segments and chunks weigh (with dt softplus(N(0, 1)) a state falls below
+    f32 rounding within ~40 steps, and a wrong carry hides)."""
+    a = _inputs(b, s, di, n, seed)
+    g = np.random.default_rng(seed + 1)
+    a["dt"] = np.exp(g.uniform(np.log(1e-3), np.log(1e-1), (b, s, di))).astype(np.float32)
+    a["A_log"] = np.log(np.broadcast_to(np.arange(1, n + 1, dtype=np.float32), (di, n))).copy()
+    return a
+
+
+@pytest.mark.parametrize("items,segments", [(16, 4), (8, 8)], ids=["16x4", "8x8"])
+@pytest.mark.parametrize("b,s,di,n", [(1, 200, 70, 16), (2, 130, 64, 17), (1, 65, 68, 32)])
+def test_blocked_bwd_decomposition_at_mamba_init(b, s, di, n, items, segments):
+    """The backward's decomposition (the kernel's 4 segments of 16 steps and
+    its 16-warp variant's 8 of 8, 64 channels a block) from the forward's
+    chunk states, against the ref within 1e-5, where long-lived states make
+    every carry count."""
+    a = _mamba_init_inputs(b, s, di, n, seed=s)
+    g = np.random.default_rng(9)
+    t = [torch.from_numpy(a[k]) for k in NAMES]
+    dy = torch.from_numpy(g.standard_normal((b, s, di)).astype(np.float32))
+    dh = torch.from_numpy(g.standard_normal((b, di, n)).astype(np.float32))
+    _, _, h_chunks = selective_scan_blocked(*t, return_chunk_states=True)
+    for dhl in (None, dh):
+        got = selective_scan_bwd_blocked(*t, h_chunks, dy, dhl, items=items, segments=segments)
         want = selective_scan_bwd_ref(*t, dy, dhl)
         _assert_grads_close([x.numpy() for x in got], [x.numpy() for x in want], 1e-5,
                             "dh" if dhl is not None else "")

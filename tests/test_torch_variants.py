@@ -33,7 +33,8 @@ def test_variant_edits_match_once_in_the_shipped_source(variant):
 
 def test_every_codec_source_has_a_planted_fault():
     faults = {v.source for v in VARIANTS if v.name.startswith("fault:")}
-    assert {"topk_pack.cu", "quant_pack.cu", "flash_attention.cu"} <= faults
+    assert {"topk_pack.cu", "quant_pack.cu", "flash_attention.cu",
+            "selective_scan_bwd.cu"} <= faults
 
 
 @pytest.mark.parametrize("bits", (8, 4))
