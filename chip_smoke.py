@@ -29,10 +29,19 @@ Phases, each fatal on failure (exit code 1, no result line):
              scenario's payload: EfficientNet-B0's 5.3 M f32, MobileNetV2's
              3.5 M, smollm-360m's 180.9 M for mesh_smoke int8), and at every
              shape phase 5's whisper-tiny int8 dissemination launches them
-             with (a dry run of one round of its 4 nodes' f32 masters on the
-             card: one payload a leaf); the FedAvg mix at (10, 10, 5.3 M) and
-             at whisper's leaf shapes. Quantize, dequantize and top-k must be
-             bit-identical; the mix within rtol 1e-6 of max|x|. Prints each
+             with (one round of its 4 nodes' seeded f32 masters on the card:
+             a quantize a leaf, a dequantize a group of leaves a hop; the
+             round must equal the same round leaf by leaf bit for bit, with
+             groups x steps dequantize launches); dequantize at each group
+             as one launch, beside the same leaves in single launches, the
+             bound of the group's bytes and, where one call computes the
+             same values (int8, leaves of whole chunks or one row of one
+             leaf), torch.mul(codes, scales[:, None]) as the library time,
+             and through its single-leaf entry point at each quantize shape;
+             the FedAvg mix at (10, 10,
+             5.3 M) and at whisper's leaf shapes. Quantize, dequantize and
+             top-k must be bit-identical; the mix within rtol 1e-6 of
+             max|x|. Prints each
              kernel's median time (CUDA events, L2 flushed before every
              launch by a write; for the codec kernels also from an L2 flushed
              by a read, with no dirty lines), its bound and the plain
@@ -187,7 +196,12 @@ Phases, each fatal on failure (exit code 1, no result line):
              sums over two uses). Then whisper-tiny at full width and depth,
              4 nodes x (8, 448) tokens with seeded frames (8, 1500, 384) a
              node, lr 3e-4: int8 dissemination for 2 steps (its codec and mix
-             shapes timed in phase 2; their launches join phase 3's), then
+             shapes timed in phase 2; their launches join phase 3's; every
+             int8 run's steps print their dequantize launches, which must be
+             the round's leaf groups x its steps; smollm-360m's and
+             qwen3-moe's int8 runs first hold each of their dequantize
+             groups to the plain version bit for bit and time it, as phase 2
+             does, and their dequantize launches join row 2's), then
              tree_allreduce for 4 (the fourth profiled), 12 flash forwards
              and backwards a node a step; and paligemma-3b at full width and
              1 of its 18 layers (0.64 B params a node, f32 moments, its
@@ -463,7 +477,9 @@ def main() -> int:
                                                    attention_bwd_ref, attention_lse_ref,
                                                    attention_ref, rounding_units)
     from repro_torch.kernels.codec import ref as codec_ref
-    from repro_torch.kernels.codec.ops import dequantize_op, quantize_op, topk_select_op
+    from repro_torch.kernels.codec.group import group_layout
+    from repro_torch.kernels.codec.ops import (dequantize_group_op, dequantize_op, quantize_op,
+                                               topk_select_op)
     from repro_torch.kernels.mixing.ops import gossip_mix_op
     from repro_torch.kernels.mixing.ref import gossip_mix_ref
     from repro_torch.kernels.scan.mamba_scan import mamba_selective_scan, selective_scan_bwd
@@ -471,7 +487,8 @@ def main() -> int:
     from repro_torch.kernels.scan.ref import (SCAN_BWD_BF16_TOL, SCAN_BWD_TOL,
                                               selective_scan_bwd_ref, selective_scan_ref)
     from repro_torch.data import DataConfig, FederatedData
-    from repro_torch.dfl.collectives import GossipPlan, gossip_exchange, tree_map
+    from repro_torch.dfl.collectives import (GossipPlan, gossip_exchange, hop_groups,
+                                             tree_flatten, tree_map)
     from repro_torch.dfl.trainer import DFLConfig, DFLTrainer
     from repro_torch.launch.serve import serve
     from repro_torch.models import Batch, build_model
@@ -497,7 +514,8 @@ def main() -> int:
     print(f"[card] {smi}")
 
     # -- 2. kernels against their plain versions ------------------------------------
-    flush = torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)  # > 50 MB L2
+    # > 50 MB L2; freed after phase 2, made again to time phase 5's groups
+    flush = [torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev)]
 
     def median_ms(fn, iters, cold=True, clean=False):
         """cold: the L2 flushed before each launch, by writing (dirty lines
@@ -507,9 +525,9 @@ def main() -> int:
         spans = []
         for _ in range(iters):
             if clean:
-                flush.sum()
+                flush[0].sum()
             elif cold:
-                flush.zero_()
+                flush[0].zero_()
             torch.cuda._sleep(2_000_000)  # the card stays busy while the host enqueues
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -523,6 +541,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     b0 = int(round(21.2e6 / 4))   # EfficientNet-B0 payload, f32 elements
     results = {}
+    shape_rows = {}  # kernel -> launch shape -> its row in results
 
     def record(name, route_src, replaces, err, tol, ms, plain_ms, n_bytes, n_ops,
                library_ms=None, shape="", ops_per_s=F32_OPS_PER_S, key=None, clean_ms=None):
@@ -534,9 +553,10 @@ def main() -> int:
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=library_ms))
         if key is not None:  # one of the main path's launch shapes
-            entry.setdefault("shapes", []).append(dict(
-                shape=list(key), launches=0, ms=ms, bound_ms=b_ms, plain_ms=plain_ms,
-                clean_l2_ms=clean_ms))
+            row = dict(shape=list(key), launches=0, ms=ms, bound_ms=b_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, clean_l2_ms=clean_ms)
+            entry.setdefault("shapes", []).append(row)
+            shape_rows.setdefault(name, {})[key] = row
         lib = "" if library_ms is None else f" library {library_ms:.4f} ms"
         clean = "" if clean_ms is None else f" ({clean_ms:.4f} ms from a clean L2)"
         tol_s = "" if tol is None else f" (tol {tol})"
@@ -559,29 +579,50 @@ def main() -> int:
         elems = int(round(spec.payload_mb * 1e6 / 4))
         for name in CODEC_KERNELS:
             for key, n in launch_shapes()[name].items():
-                path_shapes[name][(key[0], elems, *key[2:])] += n
+                # a round's one leaf: dequantize's key holds the group's sizes
+                size = (elems,) if name == "dequantize" else elems
+                path_shapes[name][(key[0], size, *key[2:])] += n
     for name in CODEC_KERNELS:
         print(f"[kernel] {name}: the main path's launch shapes "
               f"{sorted(path_shapes[name].items())} (dry run at the proxy size)")
     # phase 5's whisper-tiny int8 dissemination: one payload a leaf of the 4
-    # nodes' f32 masters; a dry run of one round at the real leaf sizes
-    whisper_masters = tree_map(lambda t: torch.zeros((4, *t.shape), device=dev),
-                               build_model(get_arch("whisper-tiny"), device="cuda").init(
-                                   torch.Generator(device=dev).manual_seed(0)))
+    # nodes' f32 masters, the leaves hopped in groups (one dequantize a group
+    # a hop); a round at the real leaf sizes, on seeded masters, must equal
+    # the same round leaf by leaf (the per-leaf hop), bit for bit
+    whisper_masters = tree_map(
+        lambda t: t.float().expand(4, *t.shape) + 0.01 * torch.randn(
+            (4, *t.shape), generator=gen, device=dev),
+        build_model(get_arch("whisper-tiny"), device="cuda").init(
+            torch.Generator(device=dev).manual_seed(0)))
+    whisper_plan, int8 = GossipPlan.build(4), make_codec("int8")
     reset_launches()
-    gossip_exchange("dissemination", GossipPlan.build(4), whisper_masters,
-                    codec=make_codec("int8"))
+    grouped = gossip_exchange("dissemination", whisper_plan, whisper_masters, codec=int8)
     whisper_shapes = launch_shapes()
-    del whisper_masters
+    leaves = tree_flatten(whisper_masters)[0]
+    groups = hop_groups("dissemination", whisper_plan, leaves, int8)
+    if sum(whisper_shapes["dequantize"].values()) != len(groups) * len(whisper_plan.diss_steps):
+        fail(f"whisper-tiny int8 round: {whisper_shapes['dequantize']} dequantize launches, "
+             f"expected {len(groups)} groups x {len(whisper_plan.diss_steps)} steps")
+    for got, leaf in zip(tree_flatten(grouped)[0], leaves):
+        alone = gossip_exchange("dissemination", whisper_plan, {"x": leaf}, codec=int8)["x"]
+        if not torch.equal(got, alone):
+            fail("whisper-tiny int8 round: the grouped hop differs from the leaf-by-leaf hop")
+    print(f"[kernel] whisper-tiny int8 dissemination round (4 nodes' f32 masters, {len(leaves)} "
+          f"leaves in {len(groups)} groups {[len(g) for g in groups]}, "
+          f"{len(whisper_plan.diss_steps)} steps): equal to the leaf-by-leaf round bit for bit; "
+          f"{sum(whisper_shapes['dequantize'].values())} dequantize launches (a launch a leaf a hop: "
+          f"{len(leaves) * len(whisper_plan.diss_steps)}); quantize "
+          f"{sorted(whisper_shapes['quantize'].items())}, gossip_mix "
+          f"{sorted(whisper_shapes['gossip_mix'].items())}")
+    del whisper_masters, grouped, leaves, got, alone
     for name in ("quantize", "dequantize"):
         path_shapes[name].update(whisper_shapes[name])
-    print(f"[kernel] whisper-tiny int8 dissemination (dry run, 4 nodes' f32 masters, real "
-          f"leaf sizes): quantize {sorted(whisper_shapes['quantize'].items())}, gossip_mix "
-          f"{sorted(whisper_shapes['gossip_mix'].items())}")
 
     def by_size(key):  # phase 3's shapes first (the first sets the kernel's
         # headline numbers), the single-row shapes first, int8 before int4
-        return key in whisper_shapes["quantize"], key[0], key[1], -key[2]
+        size = sum(key[1]) if isinstance(key[1], tuple) else key[1]
+        return key in whisper_shapes["quantize"] or key in whisper_shapes["dequantize"], \
+            key[0], size, -key[2]
 
     for rows, size, bits in sorted(path_shapes["quantize"], key=by_size):
         x = torch.randn((rows, size), generator=gen, device=dev) * 3
@@ -601,20 +642,79 @@ def main() -> int:
                q_bytes, 5 * x.numel(), shape=shape, key=(rows, size, bits),
                clean_ms=median_ms(lambda: quantize_op(x, bits=bits), iters, clean=True))
         del pc, ps
+        # the single-leaf entry point (rt_dequantize: a group of one)
         out = dequantize_op(codes, scales, size=size, bits=bits)
-        plain = codec_ref.dequantize_rows(codes, scales, size, bits, 1024)
-        if not torch.equal(out, plain):
+        if not torch.equal(out, codec_ref.dequantize_rows(codes, scales, size, bits, 1024)):
             fail(f"dequantize int{bits} ({rows}, {size}): output differs from the plain version")
-        del out, plain
+        print(f"[kernel] dequantize{shape}, single-leaf entry point: "
+              f"{median_ms(lambda: dequantize_op(codes, scales, size=size, bits=bits), iters):.4f}"
+              f" ms, bit-identical to the plain version, on {card}")
+        del x, codes, scales, out
+
+    def time_dequantize(rows, sizes, bits, singles=True):
+        """A dequantize group as the path launches it, on seeded codes: each
+        leaf bit for bit against the plain version, then one launch timed
+        (with ``singles``, beside the same leaves in single launches), and
+        beside torch.mul(codes, scales[:, None]) where that one call computes
+        the same values (int8, with every leaf a whole number of chunks, or
+        one leaf at one row, whose padded tail it writes too)."""
+        layout = group_layout(rows, sizes, bits, 1024)
+        codes, scales = layout.arenas(dev)
+        seeded = torch.Generator(device=dev).manual_seed(rows + len(sizes))
+        for l, size in enumerate(sizes):
+            x = torch.randn((rows, size), generator=seeded, device=dev) * (l + 1)
+            quantize_op(x, bits=bits, out=(layout.codes(codes, l), layout.scales(scales, l)))
+            del x
+        n = rows * sum(sizes)
+        iters = 50 if n < 5e7 else 10
+        outs = dequantize_group_op(codes, scales, layout)
+        plain = codec_ref.dequantize_group(codes, scales, layout)
+        if not all(torch.equal(o, w) for o, w in zip(outs, plain)):
+            fail(f"dequantize int{bits} ({rows}, {sizes}): a leaf differs from the plain "
+                 "version")
+        del plain
+        lib_ms = None
+        if bits == 8 and (all(size % 1024 == 0 for size in sizes)
+                          or (rows == 1 and len(sizes) == 1)):
+            lib = torch.mul(codes, scales.unsqueeze(-1)).view(-1)
+            got = torch.cat([o.reshape(-1) for o in outs])
+            if torch.equal(lib[:got.numel()] if len(sizes) == 1 else lib, got):
+                lib_ms = median_ms(lambda: torch.mul(codes, scales.unsqueeze(-1)), iters)
+            else:
+                print(f"[kernel] dequantize int8 ({rows}, {sizes}): torch.mul differs from "
+                      "the kernel, so no library time")
+            del lib, got
+        del outs
+
+        shape = (f" int{bits} ({rows}, {layout.total_chunks // rows}x1024)" if len(sizes) == 1
+                 else f" int{bits} ({rows}, {len(sizes)} leaves, {sum(sizes)} elements)")
+        n_bytes = codes.numel() + 4 * scales.numel() + 4 * n
+        group_ms = median_ms(lambda: dequantize_group_op(codes, scales, layout), iters)
         record("dequantize", "src/repro_torch/csrc/quant_pack.cu",
-               "src/repro/kernels/codec/quant_pack.py:28", 0.0, 0.0,
-               median_ms(lambda: dequantize_op(codes, scales, size=size, bits=bits), iters),
-               median_ms(lambda: codec_ref.dequantize_rows(codes, scales, size, bits, 1024),
-                         iters // 5),
-               q_bytes, x.numel(), shape=shape, key=(rows, size, bits),
-               clean_ms=median_ms(lambda: dequantize_op(codes, scales, size=size, bits=bits),
-                                  iters, clean=True))
-        del x, codes, scales
+               "src/repro/kernels/codec/quant_pack.py:28", 0.0, 0.0, group_ms,
+               median_ms(lambda: codec_ref.dequantize_group(codes, scales, layout),
+                         max(iters // 5, 2)),
+               n_bytes, n, library_ms=lib_ms, shape=shape, key=(rows, sizes, bits),
+               clean_ms=median_ms(lambda: dequantize_group_op(codes, scales, layout), iters,
+                                  clean=True))
+        if singles and len(sizes) > 1:
+            def one_a_leaf():
+                for l, size in enumerate(sizes):
+                    dequantize_op(layout.codes(codes, l), layout.scales(scales, l), size=size,
+                                  bits=bits)
+
+            print(f"[kernel] dequantize{shape}: one launch {group_ms:.4f} ms; the same leaves "
+                  f"in {len(sizes)} single launches {median_ms(one_a_leaf, iters):.4f} ms "
+                  f"(bound of the group's bytes {1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms), "
+                  f"sizes {sizes}, on {card}")
+        del codes, scales
+
+    # dequantize at every group the path decodes at once (phase 3's rounds:
+    # one leaf; whisper's: its groups), each as one launch, beside the same
+    # leaves in single launches; the training runs' other groups before their
+    # runs (train_path)
+    for rows, sizes, bits in sorted(path_shapes["dequantize"], key=by_size):
+        time_dequantize(rows, sizes, bits)
 
     for rows, size, block, k in sorted(path_shapes["topk_select"]):
         xt = torch.randn((rows, size), generator=gen, device=dev)
@@ -1000,7 +1100,7 @@ def main() -> int:
                 dict(shape=[b, s, di, n], ms=auto_ms))
         del dt, Bm, Cm, xs, A_log, Dp, dy, dh, y, y_plain, hc, got, again, want, scan_args
     torch.cuda.empty_cache()
-    del flush
+    flush.clear()
 
     # -- 3. the main path: scenario rounds at full width ------------------------
     reset_launches()
@@ -1042,7 +1142,7 @@ def main() -> int:
         """A run's launches of a kernel, by shape, into the rows timed in
         phase 2 (every shape must have been), and the kernel's loss:
         launches x (time - bound), summed over its shapes."""
-        timed = {tuple(row["shape"]): row for row in results[name].get("shapes", [])}
+        timed = shape_rows.get(name, {})
         untimed = sorted(set(shapes_run) - set(timed))
         if untimed:
             fail(f"{name}: shapes launched on {where} but not timed: {untimed}")
@@ -1236,12 +1336,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- 5. the training path: 4 stacked nodes -------------------------------------
-    def train_path(cfg, bpn, train_runs, lr=1e-3, seq=2048, timed_codec=False):
+    def train_path(cfg, bpn, train_runs, lr=1e-3, seq=2048, timed=()):
         """The train runs of one config, 4 nodes x (bpn, seq), the launch
-        counts set to 0 just before each run and read just after (with
-        ``timed_codec``, a codec run's gossip launches join their shapes'
-        rows, each of which phase 2 must have timed); returns the data whose
-        batches the gradient check reads and the frontend's inputs."""
+        counts set to 0 just before each run and read just after (a codec
+        run's launches of the gossip kernels named in ``timed`` join their
+        shapes' rows, each of which must have been timed: in phase 2, or,
+        for dequantize's groups, just before the run); returns the data
+        whose batches the gradient check reads and the frontend's inputs."""
         n_nodes = 4
         model = build_model(cfg, device="cuda")
         data = FederatedData(DataConfig(vocab=cfg.vocab, seq_len=seq, batch_per_node=bpn,
@@ -1267,6 +1368,28 @@ def main() -> int:
                                                            lr=lr, warmup=0),
                                  device="cuda", timed=True)
             state = trainer.state_from_params(params0)
+            # one dequantize a group of leaves a hop (the gossip runs on the masters)
+            theta = tree_flatten(state.opt_state.get("master", state.params))[0]
+            groups = hop_groups(mode, trainer.plan, theta, trainer.codec)
+            n_groups = len(groups)
+            if codec == "int8" and "dequantize" in timed:
+                # every group at each step's senders (and all nodes for an
+                # error-feedback pre-encode), held and timed as phase 2 does
+                senders = {len(step.perm) for step in trainer.plan.diss_steps if step.perm}
+                if trainer.error_feedback:
+                    senders.add(n_nodes)
+                keys = {(rows, tuple(theta[i][0].numel() for i in g), 8)
+                        for g in groups for rows in senders}
+                new = sorted(keys - set(shape_rows.get("dequantize", {})))
+                flush.append(torch.empty(512 * 2 ** 20 // 4, dtype=torch.float32, device=dev))
+                for key in new:
+                    time_dequantize(*key, singles=False)
+                flush.clear()
+                print(f"[train] {cfg.name} {mode}+int8: {n_groups} dequantize groups, "
+                      f"{len(keys)} launch shapes, {len(new)} timed here against the plain "
+                      f"version (the rest in phase 2)")
+                torch.cuda.empty_cache()
+            del theta, groups
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             run = f"{cfg.name} {mode}{'+' + codec if codec else ''}"
@@ -1344,11 +1467,20 @@ def main() -> int:
                           f"{span_ms:.3f} ms (idle {100 * (1 - busy_ms / span_ms):.1f}%) and of "
                           f"step {i - 1}'s {steady_ms:.1f} ms unprofiled (idle "
                           f"{100 * (1 - busy_ms / steady_ms):.1f}%) on {card}")
+                decoded = ""
+                if codec == "int8":  # a round a step
+                    n = after["dequantize"] - before["dequantize"]
+                    want = n_groups * len(trainer.plan.diss_steps)
+                    if n != want:
+                        fail(f"train {run} step {i}: dequantize launched {n} times, expected "
+                             f"{n_groups} groups x {len(trainer.plan.diss_steps)} steps")
+                    decoded = (f", dequantize {n} launches a round ({n_groups} groups x "
+                               f"{len(trainer.plan.diss_steps)} steps)")
                 t = m["times"]
                 print(f"[train] {run} step {i}: loss {loss:.4f}, grad_norm {gnorm:.4f}, "
                       f"{wall * 1e3:.1f} ms (nodes' fwd+bwd {t['fwd_bwd'] * 1e3:.1f}, optimizer "
                       f"{t['optimizer'] * 1e3:.1f}, gossip {t['gossip'] * 1e3:.1f}), "
-                      f"{n_nodes * bpn * seq / wall:.0f} tok/s{fedavg}{routed} on {card}")
+                      f"{n_nodes * bpn * seq / wall:.0f} tok/s{fedavg}{routed}{decoded} on {card}")
             counts = launch_counts()
             train_launches.update(counts)
             if cfg.family != "ssm" and counts["selective_scan"]:
@@ -1367,9 +1499,9 @@ def main() -> int:
             if codec == "topk" and not any(float(x.abs().max()) > 0
                                            for x in tree_leaves(state.opt_state["codec_ef"])):
                 fail(f"train {run}: codec_ef never changed")
-            if codec and timed_codec:
+            if codec and timed:
                 run_shapes = launch_shapes()
-                for name in want:
+                for name in (k for k in want if k in timed):
                     results[name]["launches"] += counts[name]
                     add_shape_launches(name, run_shapes[name], f"train {run}")
             if counts["selective_scan_bwd"]:  # its loss, at the shape phase 2 timed
@@ -1439,13 +1571,14 @@ def main() -> int:
     # no other step follows a profiled one
     cfg = get_arch("smollm-360m").replace(remat=False)
     data, _ = train_path(cfg, 2, [("dissemination", "int8", 2), ("dissemination", "topk", 2),
-                                  ("tree_allreduce", "", 4)])
+                                  ("tree_allreduce", "", 4)], timed=("dequantize",))
     grad_check(cfg.replace(n_layers=4, dtype="float32"), data, 2)
     # qwen3-moe-30b-a3b at full width and 1 of its 48 layers, (1, 2048) a node:
     # 0.934 B params a node, fp32 masters and bf16 moments (its config); no
     # top-k run, whose f32 residual would add 15 GB
     cfg = get_arch("qwen3-moe-30b-a3b").replace(n_layers=1, remat=False)
-    data, _ = train_path(cfg, 1, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)])
+    data, _ = train_path(cfg, 1, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)],
+                         timed=("dequantize",))
     grad_check(cfg.replace(dtype="float32"), data, 1)
     # stablelm-12b at full width and 1 of its 40 layers, and zamba2-7b at full
     # width and 7 of its 81 layers (one super-block: 5 Mamba2 blocks and the
@@ -1464,7 +1597,7 @@ def main() -> int:
     # frames a node: int8 dissemination (its shapes timed in phase 2), then tree
     cfg = get_arch("whisper-tiny").replace(remat=False)
     data, frontend = train_path(cfg, 8, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)],
-                                lr=3e-4, seq=448, timed_codec=True)
+                                lr=3e-4, seq=448, timed=GOSSIP_KERNELS)
     grad_check(cfg.replace(dtype="float32"), data, 2, frontend)
     # paligemma-3b at full width and 1 of its 18 layers, (1, 2048) tokens and
     # (1, 256, 2048) patches a node, f32 moments (its config's). No

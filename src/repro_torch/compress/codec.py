@@ -23,11 +23,13 @@ of the same payload encoded alone.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.codec.ops import dequantize_op, quantize_op, topk_scatter, topk_select_op
+from ..kernels.codec.group import MAX_GROUP_LEAVES, group_layout
+from ..kernels.codec.ops import (dequantize_group_op, dequantize_op, quantize_op,
+                                 topk_scatter, topk_select_op)
 
 Wire = Tuple[torch.Tensor, ...]
 
@@ -38,6 +40,7 @@ class Codec:
     name: str = "abstract"
     lossless: bool = False
     error_feedback: bool = False  # the trainer carries a residual for it (sparsifiers)
+    grouped: bool = False  # roundtrip_group decodes several leaves at once
 
     def wire_bytes(self, n_elements: int) -> int:
         """Exact bytes on the wire for ``n_elements`` float32 values."""
@@ -61,6 +64,11 @@ class Codec:
     def roundtrip(self, t: torch.Tensor) -> torch.Tensor:
         """decode(encode(t)) — what one hop does to the values."""
         return self.decode(self.encode(t), t.shape[1:], t.dtype)
+
+    def roundtrip_group(self, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """:meth:`roundtrip` of each of ``ts`` (one hop's leaves, the same
+        rows each); one decode for all where :attr:`grouped`."""
+        return [self.roundtrip(t) for t in ts]
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"{type(self).__name__}({self.name!r})"
@@ -109,6 +117,8 @@ class UniformQuantCodec(Codec):
     is exact, so multi-hop gossip pays the quantization error once.
     """
 
+    grouped = True
+
     def __init__(self, bits: int = 8, chunk: int = 1024) -> None:
         if bits not in (4, 8):
             raise ValueError(f"bits must be 4 or 8, got {bits}")
@@ -139,6 +149,25 @@ class UniformQuantCodec(Codec):
         out = dequantize_op(codes, scales, size=_numel(shape), bits=self.bits,
                             chunk=self.chunk)
         return out.reshape(codes.shape[0], *shape).to(dtype)
+
+    def roundtrip_group(self, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each leaf quantized on its own into the group's arenas, then one
+        decode for all of them (one each ``MAX_GROUP_LEAVES``, the decode
+        kernel's table); the same values as :meth:`roundtrip` a leaf."""
+        rows = ts[0].shape[0]
+        if any(t.shape[0] != rows for t in ts):
+            raise ValueError("roundtrip_group: the leaves' row counts differ")
+        if len(ts) > MAX_GROUP_LEAVES:
+            return [out for i in range(0, len(ts), MAX_GROUP_LEAVES)
+                    for out in self.roundtrip_group(ts[i:i + MAX_GROUP_LEAVES])]
+        layout = group_layout(rows, tuple(_numel(t.shape[1:]) for t in ts), self.bits,
+                              self.chunk)
+        codes, scales = layout.arenas(ts[0].device)
+        for l, t in enumerate(ts):
+            quantize_op(t, bits=self.bits, chunk=self.chunk,
+                        out=(layout.codes(codes, l), layout.scales(scales, l)))
+        outs = dequantize_group_op(codes, scales, layout)
+        return [o.reshape(t.shape).to(t.dtype) for o, t in zip(outs, ts)]
 
 
 class TopKCodec(Codec):

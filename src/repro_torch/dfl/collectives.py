@@ -23,12 +23,15 @@ Modes (as in the JAX package):
 
 The buffers are updated in place where that saves memory (the perm steps
 write into the dissemination buffer); the caller's tensors are never
-written.
+written. With a codec that decodes several leaves at once (the quantizers),
+a body hops a group of leaves at a time (:func:`hop_groups`): each step
+encodes every leaf of the group and decodes them in one call
+(:meth:`Codec.roundtrip_group`), with the same values as leaf by leaf.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +50,10 @@ from ..kernels.mixing.ops import fedavg_mean
 
 PyTree = Any
 
+# A group's round buffers sum to at most this; a larger leaf hops alone.
+# A launch's fixed cost matters below a few million elements, far under it.
+GROUP_BYTES = 1 << 30
+
 
 def tree_map(fn: Callable, *trees):
     """Map over nested dict / list / tuple trees of tensors."""
@@ -56,6 +63,19 @@ def tree_map(fn: Callable, *trees):
     if isinstance(t0, (list, tuple)):
         return type(t0)(tree_map(fn, *parts) for parts in zip(*trees))
     return fn(*trees)
+
+
+def tree_flatten(tree: PyTree) -> Tuple[List[torch.Tensor], Callable[[Sequence], PyTree]]:
+    """The leaves in :func:`tree_map`'s order, and the function that builds
+    the same tree from new leaves."""
+    leaves: List[torch.Tensor] = []
+    tree_map(leaves.append, tree)
+
+    def rebuild(new: Sequence) -> PyTree:
+        it = iter(new)
+        return tree_map(lambda _: next(it), tree)
+
+    return leaves, rebuild
 
 
 def make_node_graph(n_nodes: int, n_pods: int = 1, inter_pod_cost: float = 10.0,
@@ -181,29 +201,68 @@ def mixing_matchings(mst: Graph) -> List[List[Tuple[int, int]]]:
 # ---------------------------------------------------------------------------
 
 
-def _hop(rows: torch.Tensor, codec: Optional[Codec], wire_dtype=None) -> torch.Tensor:
-    """What the receivers get for the sent ``rows``: the codec's round trip
-    (encode per row, decode on receipt) or the wire-dtype cast."""
+def hop_groups(mode: str, plan: "GossipPlan", leaves: Sequence[torch.Tensor],
+               codec: Optional[Codec]) -> List[List[int]]:
+    """The groups of leaf indices that ``mode``'s body hops together.
+
+    Without a codec that decodes a group at once (:attr:`Codec.grouped`)
+    each leaf hops alone. With one, consecutive leaves form a group while
+    the round buffers they keep alive together (dissemination and
+    segmented: ``(N, n, ...)`` in the leaf's dtype; tree and flooding:
+    ``(N, ...)`` in f32) sum to at most :data:`GROUP_BYTES`.
+    """
+    if codec is None or not codec.grouped:
+        return [[i] for i in range(len(leaves))]
+    copies = plan.n_nodes if mode in ("dissemination", "segmented") else 1
+    groups: List[List[int]] = []
+    total = 0
+    for i, t in enumerate(leaves):
+        nbytes = t.numel() * copies * (t.element_size() if copies > 1 else 4)
+        if not groups or total + nbytes > GROUP_BYTES:
+            groups.append([])
+            total = 0
+        groups[-1].append(i)
+        total += nbytes
+    return groups
+
+
+def _hop(rows: List[torch.Tensor], codec: Optional[Codec], wire_dtype=None
+         ) -> List[torch.Tensor]:
+    """What the receivers get for each leaf's sent ``rows``: the codec's
+    round trip of the group (encode per row, decode on receipt) or the
+    wire-dtype cast."""
     if codec is not None:
-        return codec.roundtrip(rows)
+        return codec.roundtrip_group(rows)
     if wire_dtype is not None:
-        return rows.to(wire_dtype)
+        return [r.to(wire_dtype) for r in rows]
     return rows
 
 
-def _apply_perm_steps(plan: GossipPlan, steps: List[PermStep], buf: torch.Tensor,
-                      codec: Optional[Codec] = None) -> torch.Tensor:
-    """Run a plan's steps over a ``(N, slots, ...)`` buffer, in place.
+def _apply_perm_steps(plan: GossipPlan, steps: List[PermStep], bufs: List[torch.Tensor],
+                      codec: Optional[Codec] = None) -> None:
+    """Run a plan's steps over a group's ``(N, slots, ...)`` buffers, in place.
 
     Each step gathers every sent payload before any write, so a node may
     send one slot and receive another in the same matching. With a codec
     every hop re-encodes (exact for every shipped codec after the first
-    encode), and one launch encodes all of the step's senders.
+    encode), one launch encodes all of the step's senders of a leaf, and one
+    decode serves the group.
     """
-    for src, send, dst, recv in plan.step_index(steps, buf.device):
-        got = _hop(buf[src, send], codec)
-        buf[dst, recv] = got.to(buf.dtype)
-    return buf
+    for src, send, dst, recv in plan.step_index(steps, bufs[0].device):
+        got = _hop([buf[src, send] for buf in bufs], codec)
+        for buf, g in zip(bufs, got):
+            buf[dst, recv] = g.to(buf.dtype)
+
+
+def _by_groups(groups: List[List[int]], one: Callable[[List[int]], list]) -> list:
+    """Each leaf's result of ``one`` on its group, in leaf order. A group's
+    buffers live inside ``one`` and are freed when it returns, before the
+    next group's are made."""
+    out: list = [None] * sum(len(g) for g in groups)
+    for group in groups:
+        for i, result in zip(group, one(group)):
+            out[i] = result
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -229,20 +288,26 @@ def _tree_allreduce_body(plan: GossipPlan, theta: PyTree, wire_dtype=None,
     """
     if plan.n_nodes == 1:
         return theta
+    leaves, rebuild = tree_flatten(theta)
 
-    def one(t: torch.Tensor) -> torch.Tensor:
-        acc = t.to(torch.float32, copy=True)
-        steps = plan.step_index(plan.tree_steps, t.device)
+    def one(group: List[int]) -> List[torch.Tensor]:
+        accs = [leaves[i].to(torch.float32, copy=True) for i in group]
+        steps = plan.step_index(plan.tree_steps, accs[0].device)
         for src, _, dst, _ in steps[:plan.n_tree_reduce_steps]:
-            acc[dst] = acc[dst] + _hop(acc[src], codec, wire_dtype).float()
+            got = _hop([acc[src] for acc in accs], codec, wire_dtype)
+            for acc, g in zip(accs, got):
+                acc[dst] = acc[dst] + g.float()
         for src, _, dst, _ in steps[plan.n_tree_reduce_steps:]:
-            acc[dst] = _hop(acc[src], codec, wire_dtype).float()
+            got = _hop([acc[src] for acc in accs], codec, wire_dtype)
+            for acc, g in zip(accs, got):
+                acc[dst] = g.float()
         # the mean as XLA lowers the JAX package's ``acc / n``: a multiply by
         # the f32 reciprocal (identical for power-of-two n)
-        inv_n = torch.tensor(1.0 / plan.n_nodes, dtype=torch.float32, device=t.device)
-        return _keep_masked(plan, (acc * inv_n).to(t.dtype), t)
+        inv_n = torch.tensor(1.0 / plan.n_nodes, dtype=torch.float32, device=accs[0].device)
+        return [_keep_masked(plan, (acc * inv_n).to(leaves[i].dtype), leaves[i])
+                for i, acc in zip(group, accs)]
 
-    return tree_map(one, theta)
+    return rebuild(_by_groups(hop_groups("tree_allreduce", plan, leaves, codec), one))
 
 
 def _dissemination_body(plan: GossipPlan, theta: PyTree, codec: Optional[Codec] = None,
@@ -257,23 +322,33 @@ def _dissemination_body(plan: GossipPlan, theta: PyTree, codec: Optional[Codec] 
     if plan.n_nodes == 1:
         return theta, ef
     n = plan.n_nodes
+    leaves, rebuild = tree_flatten(theta)
+    residuals = tree_flatten(ef)[0] if codec is not None and ef is not None else None
 
-    contrib, new_ef = theta, None
-    if codec is not None and ef is not None:
-        comp = tree_map(lambda t, r: t.float() + r, theta, ef)
-        dec = tree_map(codec.roundtrip, comp)
-        new_ef = tree_map(lambda c, d: c - d, comp, dec)
-        contrib = tree_map(lambda d, t: d.to(t.dtype), dec, theta)
+    def one(group: List[int]) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+        ts = [leaves[i] for i in group]
+        contrib, new_ef = ts, [None] * len(ts)
+        if residuals is not None:
+            comp = [t.float() + residuals[i] for i, t in zip(group, ts)]
+            dec = codec.roundtrip_group(comp)
+            new_ef = [c - d for c, d in zip(comp, dec)]
+            contrib = [d.to(t.dtype) for d, t in zip(dec, ts)]
+            del comp, dec
+        bufs = []
+        for c in contrib:
+            nodes = torch.arange(c.shape[0], device=c.device)
+            buf = torch.zeros((c.shape[0], n, *c.shape[1:]), dtype=c.dtype, device=c.device)
+            buf[nodes, plan.buffer_rows(c.device)] = c
+            bufs.append(buf)
+        del contrib, buf
+        _apply_perm_steps(plan, plan.diss_steps, bufs, codec)
+        means = [fedavg_mean(buf.reshape(t.shape[0], n, -1)).reshape(t.shape).to(t.dtype)
+                 for t, buf in zip(ts, bufs)]
+        return [(_keep_masked(plan, m, t), e) for m, t, e in zip(means, ts, new_ef)]
 
-    def one(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        nodes = torch.arange(c.shape[0], device=c.device)
-        buf = torch.zeros((c.shape[0], n, *c.shape[1:]), dtype=c.dtype, device=c.device)
-        buf[nodes, plan.buffer_rows(c.device)] = c
-        buf = _apply_perm_steps(plan, plan.diss_steps, buf, codec)
-        mean = fedavg_mean(buf.reshape(c.shape[0], n, -1)).reshape(t.shape).to(t.dtype)
-        return _keep_masked(plan, mean, t)
-
-    return tree_map(one, contrib, theta), new_ef
+    out = _by_groups(hop_groups("dissemination", plan, leaves, codec), one)
+    return (rebuild([o for o, _ in out]),
+            rebuild([e for _, e in out]) if residuals is not None else None)
 
 
 def _segmented_body(plan: GossipPlan, theta: PyTree, codec: Optional[Codec] = None) -> PyTree:
@@ -282,22 +357,31 @@ def _segmented_body(plan: GossipPlan, theta: PyTree, codec: Optional[Codec] = No
     if plan.n_nodes == 1:
         return theta
     n, S = plan.n_nodes, plan.n_segments
+    leaves, rebuild = tree_flatten(theta)
 
-    def one(t: torch.Tensor) -> torch.Tensor:
+    def segments(t: torch.Tensor) -> torch.Tensor:
+        """(N, ...) -> the (N, n·S, L) buffer, each live node's S segments
+        in its own slots."""
         N = t.shape[0]
         flat = t.reshape(N, -1)
-        size = flat.shape[1]
-        pad = (-size) % S
-        segs = torch.nn.functional.pad(flat, (0, pad)).reshape(N, S, -1)  # (N, S, L)
+        segs = torch.nn.functional.pad(flat, (0, (-flat.shape[1]) % S)).reshape(N, S, -1)
         buf = torch.zeros((N, n * S, segs.shape[2]), dtype=t.dtype, device=t.device)
         slots = plan.buffer_rows(t.device)[:, None] * S + torch.arange(S, device=t.device)
         buf[torch.arange(N, device=t.device)[:, None], slots] = segs
-        buf = _apply_perm_steps(plan, plan.seg_steps, buf, codec)
-        models = buf.reshape(N, n, -1)  # (N, n, S·L); the padded tail is zero
-        mean = fedavg_mean(models)[:, :size].reshape(t.shape).to(t.dtype)
-        return _keep_masked(plan, mean, t)
+        return buf
 
-    return tree_map(one, theta)
+    def one(group: List[int]) -> List[torch.Tensor]:
+        bufs = [segments(leaves[i]) for i in group]
+        _apply_perm_steps(plan, plan.seg_steps, bufs, codec)
+        out = []
+        for i, buf in zip(group, bufs):
+            t = leaves[i]
+            models = buf.reshape(t.shape[0], n, -1)  # (N, n, S·L); the padded tail is zero
+            mean = fedavg_mean(models)[:, :t[0].numel()].reshape(t.shape).to(t.dtype)
+            out.append(_keep_masked(plan, mean, t))
+        return out
+
+    return rebuild(_by_groups(hop_groups("segmented", plan, leaves, codec), one))
 
 
 def _disjoint_layers(matching: List[Tuple[int, int]]) -> List[List[Tuple[int, int]]]:
@@ -351,12 +435,20 @@ def _flooding_body(plan: GossipPlan, theta: PyTree, codec: Optional[Codec] = Non
     if plan.n_nodes == 1:
         return theta
 
-    def one(t: torch.Tensor) -> torch.Tensor:
-        tw = t if codec is None else codec.roundtrip(t).to(t.dtype)
-        mean = fedavg_mean(tw.reshape(1, t.shape[0], -1)).to(t.dtype)
-        return mean.reshape(t.shape[1:]).expand_as(t).clone()
+    leaves, rebuild = tree_flatten(theta)
 
-    return tree_map(one, theta)
+    def one(group: List[int]) -> List[torch.Tensor]:
+        ts = [leaves[i] for i in group]
+        if codec is not None:
+            ts = [w.to(t.dtype) for w, t in zip(codec.roundtrip_group(ts), ts)]
+        out = []
+        for i, tw in zip(group, ts):
+            t = leaves[i]
+            mean = fedavg_mean(tw.reshape(1, t.shape[0], -1)).to(t.dtype)
+            out.append(mean.reshape(t.shape[1:]).expand_as(t).clone())
+        return out
+
+    return rebuild(_by_groups(hop_groups("flooding", plan, leaves, codec), one))
 
 
 def _allreduce_ref_body(plan: GossipPlan, theta: PyTree) -> PyTree:

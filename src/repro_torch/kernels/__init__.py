@@ -7,10 +7,11 @@ the kernel (or a raise; there is no fallback).
 
 ``LAUNCHES`` counts kernel launches, one per call of the C entry point, so a
 run can show that its path went through the kernels; ``SHAPES`` counts the
-same launches by shape (the wrapper's key: ``(rows, size, bits)`` for the
-quantizer, ``(rows, size, block, k)`` for top-k, the tensor shape
-elsewhere), so a kernel's time can be weighted by the shapes the path gives
-it.
+same launches by shape (the wrapper's key: ``(rows, size, bits)`` for
+quantize, ``(rows, (size, ...), bits)`` for dequantize, which decodes a
+group of leaves a launch, ``(rows, size, block, k)`` for top-k, the tensor
+shape elsewhere), so a kernel's time can be weighted by the shapes the path
+gives it.
 """
 from collections import Counter
 from typing import Dict, Tuple

@@ -42,6 +42,8 @@ SIGNATURES = {
     "rt_quantize": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
     # codes, scales, out, rows, size, n_chunks, chunk, bits, stream
     "rt_dequantize": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
+    # codes, scales, out, table, n_leaves, total chunks, chunk, bits, stream
+    "rt_dequantize_group": [_P, _P, _P, _P, _I32, _I64, _I32, _I32, _P],
     # x, vals, idx, rows, size, n_blocks, block, k, stream
     "rt_topk_select": [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P],
     # buf, weights, out, batch, n, p, dtype (0 = f32, 1 = bf16), stream

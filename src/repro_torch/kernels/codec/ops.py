@@ -8,12 +8,13 @@ version in :mod:`.ref`. There is no fallback between the two.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from . import ref
-from .quant_pack import dequantize_rows, quantize_rows
+from .group import GroupLayout
+from .quant_pack import dequantize_group, dequantize_rows, quantize_rows
 from .topk_pack import topk_select_rows
 
 
@@ -30,15 +31,16 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"codec ops run on CUDA or CPU tensors, got {t.device}")
 
 
-def quantize_op(x: torch.Tensor, *, bits: int = 8, chunk: int = 1024
+def quantize_op(x: torch.Tensor, *, bits: int = 8, chunk: int = 1024,
+                out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize each row into wire buffers: codes int8 ``(rows, C, chunk)``
     (8-bit) or nibble-packed uint8 ``(rows, C, chunk // 2)`` (4-bit), and f32
-    scales ``(rows, C)``."""
+    scales ``(rows, C)``; into ``out`` (a leaf's arena slices) where given."""
     flat = _rows(x)
     if _on_card(flat):
-        return quantize_rows(flat, bits, chunk)
-    return ref.quantize_rows(flat, bits, chunk)
+        return quantize_rows(flat, bits, chunk, out=out)
+    return ref.quantize_rows(flat, bits, chunk, out=out)
 
 
 def dequantize_op(codes: torch.Tensor, scales: torch.Tensor, *, size: int,
@@ -47,6 +49,16 @@ def dequantize_op(codes: torch.Tensor, scales: torch.Tensor, *, size: int,
     if _on_card(codes):
         return dequantize_rows(codes, scales, size, bits, chunk)
     return ref.dequantize_rows(codes, scales, size, bits, chunk)
+
+
+def dequantize_group_op(codes: torch.Tensor, scales: torch.Tensor, layout: GroupLayout
+                        ) -> List[torch.Tensor]:
+    """Every leaf of a group from its arenas (:class:`.group.GroupLayout`):
+    each leaf's f32 ``(rows, size_l)``, views of one output arena. On the
+    card, one launch for the group."""
+    if _on_card(codes):
+        return dequantize_group(codes, scales, layout)
+    return ref.dequantize_group(codes, scales, layout)
 
 
 def topk_select_op(x: torch.Tensor, *, k: int, block: int = 256

@@ -3,16 +3,19 @@
 Replace ``repro.kernels.codec.quant_pack.quantize_chunks`` and
 ``dequantize_chunks`` (Pallas), with the int4 nibble pack and unpack fused.
 Both are bound by bytes; the source file states the bound and the design.
-These wrappers take CUDA tensors only: :mod:`.ops` dispatches.
+:func:`dequantize_group` decodes every leaf of a group (a gossip hop's
+leaves, laid out by :class:`.group.GroupLayout`) in one launch. These
+wrappers take CUDA tensors only: :mod:`.ops` dispatches.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import count_launch
 from .._build import check, lib
+from .group import MAX_GROUP_LEAVES, GroupLayout, group_layout
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -35,17 +38,27 @@ def _check_chunk(chunk: int, bits: int) -> None:
         raise ValueError(f"bits must be 4 or 8, got {bits}")
 
 
-def quantize_rows(flat: torch.Tensor, bits: int, chunk: int
+def quantize_rows(flat: torch.Tensor, bits: int, chunk: int,
+                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rows, size) f32 -> codes (rows, C, chunk) int8 or (rows, C, chunk // 2)
-    uint8, scales (rows, C) f32; C = ceil(size / chunk), padding per row."""
+    uint8, scales (rows, C) f32; C = ceil(size / chunk), padding per row.
+    ``out``: contiguous (codes, scales) to write, e.g. a leaf's arena slices."""
     _require_cuda(flat, torch.float32, "quantize")
     _check_chunk(chunk, bits)
     rows, size = flat.shape
     n_chunks = -(-size // chunk)
     width, dtype = (chunk, torch.int8) if bits == 8 else (chunk // 2, torch.uint8)
-    codes = torch.empty((rows, n_chunks, width), dtype=dtype, device=flat.device)
-    scales = torch.empty((rows, n_chunks), dtype=torch.float32, device=flat.device)
+    if out is None:
+        codes = torch.empty((rows, n_chunks, width), dtype=dtype, device=flat.device)
+        scales = torch.empty((rows, n_chunks), dtype=torch.float32, device=flat.device)
+    else:
+        codes, scales = out
+        _require_cuda(codes, dtype, "quantize")
+        _require_cuda(scales, torch.float32, "quantize")
+        if codes.shape != (rows, n_chunks, width) or scales.shape != (rows, n_chunks):
+            raise ValueError(f"quantize: out {tuple(codes.shape)} / {tuple(scales.shape)} do "
+                             f"not match ({rows}, {n_chunks}, {width})")
     if codes.numel():
         with torch.cuda.device(flat.device):
             status = lib().rt_quantize(flat.data_ptr(), codes.data_ptr(), scales.data_ptr(),
@@ -57,20 +70,46 @@ def quantize_rows(flat: torch.Tensor, bits: int, chunk: int
 
 def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor, size: int,
                     bits: int, chunk: int) -> torch.Tensor:
-    """Inverse of :func:`quantize_rows`: (rows, size) f32."""
+    """Inverse of :func:`quantize_rows`: (rows, size) f32, as a group of one."""
     _check_chunk(chunk, bits)
-    _require_cuda(codes, torch.int8 if bits == 8 else torch.uint8, "dequantize")
-    _require_cuda(scales, torch.float32, "dequantize")
     rows, n_chunks = scales.shape
     width = chunk if bits == 8 else chunk // 2
     if codes.shape != (rows, n_chunks, width) or n_chunks != -(-size // chunk):
         raise ValueError(f"dequantize: codes {tuple(codes.shape)} / scales "
                          f"{tuple(scales.shape)} do not match size={size}, chunk={chunk}")
-    out = torch.empty((rows, size), dtype=torch.float32, device=codes.device)
-    if out.numel():
+    layout = group_layout(rows, (size,), bits, chunk)
+    return dequantize_group(codes.view(-1, width), scales.view(-1), layout)[0]
+
+
+def dequantize_group(codes: torch.Tensor, scales: torch.Tensor, layout: GroupLayout
+                     ) -> List[torch.Tensor]:
+    """Every leaf of a group in one launch: codes ``(total_chunks, w)`` and
+    scales ``(total_chunks,)`` arenas in, each leaf's ``(rows, size_l)`` f32
+    view of one output arena out."""
+    _check_chunk(layout.chunk, layout.bits)
+    _require_cuda(codes, torch.int8 if layout.bits == 8 else torch.uint8, "dequantize")
+    _require_cuda(scales, torch.float32, "dequantize")
+    if (codes.shape != (layout.total_chunks, layout.width)
+            or scales.shape != (layout.total_chunks,)):
+        raise ValueError(f"dequantize: codes {tuple(codes.shape)} / scales "
+                         f"{tuple(scales.shape)} do not match the group's "
+                         f"({layout.total_chunks}, {layout.width})")
+    if layout.n_leaves > MAX_GROUP_LEAVES:
+        raise ValueError(f"dequantize: {layout.n_leaves} leaves in a group, at most "
+                         f"{MAX_GROUP_LEAVES}")
+    out = torch.empty(layout.n_out, dtype=torch.float32, device=codes.device)
+    if layout.total_chunks:
         with torch.cuda.device(codes.device):
-            status = lib().rt_dequantize(codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                                         rows, size, n_chunks, chunk, bits, _stream(codes))
-        count_launch("dequantize", (rows, size, bits))
+            if layout.n_leaves == 1:  # by value, no table; a large leaf: a CTA a chunk
+                status = lib().rt_dequantize(
+                    codes.data_ptr(), scales.data_ptr(), out.data_ptr(), layout.rows,
+                    layout.sizes[0], layout.n_chunks[0], layout.chunk, layout.bits,
+                    _stream(codes))
+            else:
+                status = lib().rt_dequantize_group(
+                    codes.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                    layout.table(codes.device).data_ptr(), layout.n_leaves,
+                    layout.total_chunks, layout.chunk, layout.bits, _stream(codes))
+        count_launch("dequantize", layout.key)
         check(status, "dequantize")
-    return out
+    return layout.outputs(out)

@@ -10,10 +10,12 @@ CPU path of :mod:`.ops` and the on-card comparisons use them.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .group import GroupLayout
 
 
 def quantize_ref(x: torch.Tensor, qmax: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,28 +99,46 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     lo = (packed & 0xF).to(torch.int8)
     hi = ((packed >> 4) & 0xF).to(torch.int8)
     lo, hi = (torch.where(v >= 8, v - 16, v) for v in (lo, hi))
-    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], 2 * packed.shape[-1])
 
 
-def quantize_rows(flat: torch.Tensor, bits: int, chunk: int
+def quantize_rows(flat: torch.Tensor, bits: int, chunk: int,
+                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rows, size) f32 -> codes (rows, C, chunk) int8 or (rows, C, chunk // 2)
-    uint8, scales (rows, C) f32."""
+    uint8, scales (rows, C) f32; written into ``out`` where it is given."""
     rows = flat.shape[0]
     codes, scales = quantize_ref(chunked(flat, chunk), float(2 ** (bits - 1) - 1))
     if bits == 4:
         codes = pack_int4(codes)
-    return codes.reshape(rows, -1, codes.shape[-1]), scales.reshape(rows, -1)
+    codes, scales = codes.reshape(rows, -1, codes.shape[-1]), scales.reshape(rows, -1)
+    if out is None:
+        return codes, scales
+    out[0].copy_(codes)
+    out[1].copy_(scales)
+    return out
 
 
 def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor, size: int,
                     bits: int, chunk: int) -> torch.Tensor:
     """Inverse of :func:`quantize_rows`: (rows, size) f32."""
-    rows = codes.shape[0]
+    rows, n_chunks = codes.shape[:2]
     if bits == 4:
         codes = unpack_int4(codes)
     out = dequantize_ref(codes.reshape(-1, chunk), scales.reshape(-1))
-    return out.reshape(rows, -1)[:, :size]
+    return out.reshape(rows, n_chunks * chunk)[:, :size]
+
+
+def dequantize_group(codes: torch.Tensor, scales: torch.Tensor, layout: GroupLayout
+                     ) -> List[torch.Tensor]:
+    """The grouped kernel's function: :func:`dequantize_rows` a leaf, into
+    the layout's output arena; each leaf's ``(rows, size_l)`` view."""
+    arena = torch.empty(layout.n_out, dtype=torch.float32, device=codes.device)
+    outs = layout.outputs(arena)
+    for l, (out, size) in enumerate(zip(outs, layout.sizes)):
+        out.copy_(dequantize_rows(layout.codes(codes, l), layout.scales(scales, l), size,
+                                  layout.bits, layout.chunk))
+    return outs
 
 
 def topk_select_rows(flat: torch.Tensor, k: int, block: int

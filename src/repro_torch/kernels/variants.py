@@ -32,10 +32,14 @@ alone). Top-k,
 quantize and dequantize must be bit-identical to the plain versions in
 ``codec/ref.py``: on random data at the payload shapes of the gossip path,
 and on data built to hit the tie rules (equal magnitudes at the k-th place;
-x / scale on exact .5 ties, see :func:`half_ties`). A whole ``--source``
+x / scale on exact .5 ties, see :func:`half_ties`); dequantize also decodes
+whole groups of leaves (whisper-tiny's 26 at one row, and ragged, tiny and
+empty leaves at three rows) in one launch, or, in a ``--source`` file
+without ``rt_dequantize_group``, in one launch a leaf. A whole ``--source``
 codec file also runs whole gossip rounds (``topk_sweep`` for top-k,
 ``quantized_table3`` for the quantizer, 12 rounds each) with its kernels in
-place of the shipped ones, shipped / it / it / shipped. Needs one card.
+place of the shipped ones, shipped / it / it / shipped (the quantizer's only
+where the file has the grouped entry point the round calls). Needs one card.
 """
 from __future__ import annotations
 
@@ -446,10 +450,37 @@ VARIANTS = (
             (("constexpr int kVecs = 8;", "constexpr int kVecs = 4;"),)),
     Variant("quantize: at most 51 registers (5 CTAs, 40 warps an SM)", "quant_pack.cu",
             (("__launch_bounds__(kQuantWarps * 32)", "__launch_bounds__(kQuantWarps * 32, 5)"),)),
+    # dequantize: where a lone leaf takes the CTA body (the first design's
+    # geometry), then the warp body's prefetch, grid waves, registers,
+    # 16-element units (a lane's stores 64 B apart) and loads a lane, one at a
+    # time
+    Variant("dequantize: the warp body for every leaf (no CTA body)", "quant_pack.cu",
+            (("constexpr long long kCtaChunks = 16384;",
+              "constexpr long long kCtaChunks = 1LL << 62;"),)),
+    Variant("dequantize: the CTA body for every lone leaf", "quant_pack.cu",
+            (("constexpr long long kCtaChunks = 16384;", "constexpr long long kCtaChunks = 1;"),)),
+    Variant("dequantize: no prefetch of the next chunk", "quant_pack.cu",
+            (("constexpr bool kPrefetch = true;", "constexpr bool kPrefetch = false;"),)),
+    Variant("dequantize: a grid of 3 waves", "quant_pack.cu",
+            (("constexpr int kWaves = 1;", "constexpr int kWaves = 3;"),)),
+    Variant("dequantize: at most 64 registers (4 CTAs an SM)", "quant_pack.cu",
+            (("__launch_bounds__(kDeqWarps * 32)\ndequantize_kernel",
+              "__launch_bounds__(kDeqWarps * 32, 4)\ndequantize_kernel"),)),
+    Variant("dequantize: 16 elements a load (int8 two 16-byte loads a lane), stores 64 B apart",
+            "quant_pack.cu",
+            (("constexpr int kUnit = 4;", "constexpr int kUnit = 16;"),
+             ("constexpr int kLoads = 8;", "constexpr int kLoads = 2;"))),
+    Variant("dequantize: 4 loads a lane (a chunk in two tiles)", "quant_pack.cu",
+            (("constexpr int kLoads = 8;", "constexpr int kLoads = 4;"),)),
+    Variant("fault: dequantize's leaf search off by one at a leaf's first chunk",
+            "quant_pack.cu",
+            (("if (leaves[mid].chunk0 <= g)", "if (leaves[mid].chunk0 < g)"),)),
 )
 
 KERNELS = {"flash_attention.cu": ("flash_tc_kernel",), "selective_scan.cu": ("scan_kernel",),
-           "topk_pack.cu": ("topk_kernel",), "quant_pack.cu": ("quantize_kernel",),
+           "topk_pack.cu": ("topk_kernel",),
+           # dequantize first: "quantize_kernel" is part of its name
+           "quant_pack.cu": ("dequantize_cta_kernel", "dequantize_kernel", "quantize_kernel"),
            "flash_attention_bwd.cu": ("bwd_tc_kernel",),
            "selective_scan_bwd.cu": ("scan_bwd_kernel",)}
 # ptxas lines to print where a kernel has many instantiations: top-k at block
@@ -856,6 +887,10 @@ def main(argv: List[str] | None = None) -> int:
                                                                  device=dev) * 3),
                        ("the path's 2-row step (2, 5.3 M)", torch.randn(
                            (2, b0), generator=gen, device=dev) * 3),
+                       ("whisper-tiny's embedding (1, 19.96 M)", torch.randn(
+                           (1, 19_955_712), generator=gen, device=dev)),
+                       ("smollm-360m's mesh_smoke payload (1, 180.9 M)", torch.randn(
+                           (1, 180_910_080), generator=gen, device=dev)),
                        ("x / scale on exact .5 ties (8, 64 chunks)",
                         torch.from_numpy(half_ties(8, 64, chunk, bits)).to(dev)),
                        ("one chunk (1, 1024): the launch's fixed cost",
@@ -865,6 +900,15 @@ def main(argv: List[str] | None = None) -> int:
             nc = -(-size // chunk)
             want_c, want_s = codec_ref.quantize_rows(x, bits, chunk)
             want_out = codec_ref.dequantize_rows(want_c, want_s, size, bits, chunk)
+            if bits == 8 and (rows == 1 or size % chunk == 0):
+                # one library call computes dequantize here: int8 x f32 is one
+                # IEEE multiply an element (a lone row's padded tail written too)
+                lib_out = torch.mul(want_c, want_s.unsqueeze(-1)).view(rows, -1)[:, :size]
+                print(f"[quant] int8 {label}: library torch.mul(codes, scales[..., None]) "
+                      f"{median_ms(lambda: torch.mul(want_c, want_s.unsqueeze(-1)), 20):.4f} ms, "
+                      f"{'equal to' if torch.equal(lib_out, want_out) else 'DIFFERS from'} "
+                      "the plain version")
+                del lib_out
             for name, path in runs("quant_pack.cu"):
                 quant, dequant = entry(path, "rt_quantize"), entry(path, "rt_dequantize")
                 codes, scales = torch.full_like(want_c, 99), torch.full_like(want_s, -1.0)
@@ -892,10 +936,77 @@ def main(argv: List[str] | None = None) -> int:
                       f"{median_ms(d_call, 20):.4f} ms, "
                       f"{verdict(deq_same, int((out != want_out).sum()), 'values')}{clean}")
 
+    # dequantize over groups of leaves: one launch a group, or one a leaf in a
+    # file without the grouped entry point
+    if "quant_pack.cu" in only:
+        from ..configs import get_arch
+        from ..dfl.collectives import tree_flatten
+        from ..models import build_model
+        from .codec.group import group_layout
+
+        whisper = build_model(get_arch("whisper-tiny"), device="cuda").init(
+            torch.Generator(device=dev).manual_seed(0))
+        whisper_sizes = tuple(x.numel() for x in tree_flatten(whisper)[0])
+        del whisper
+        group_cases = [(f"whisper-tiny's {len(whisper_sizes)} leaves, one row "
+                        f"({sum(whisper_sizes) / 1e6:.1f} M)", 1, whisper_sizes),
+                       # no empty leaf first: the planted search fault would
+                       # then divide by its 0 chunks and write anywhere
+                       ("ragged, tiny and empty leaves, three rows", 3,
+                        (3, 0, 384, 1000, 1027, 1536, 5000, 4097, 1))]
+    for (label, rows, sizes), bits in ((c, b) for c in (group_cases if "quant_pack.cu" in only
+                                                       else ()) for b in (8, 4)):
+        layout = group_layout(rows, sizes, bits, 1024)
+        codes, scales = layout.arenas(dev)
+        for l, size in enumerate(sizes):
+            x = torch.randn((rows, size), generator=gen, device=dev) * (l + 1)
+            codes_l, scales_l = codec_ref.quantize_rows(x, bits, 1024)
+            layout.codes(codes, l).copy_(codes_l)
+            layout.scales(scales, l).copy_(scales_l)
+        del x, codes_l, scales_l
+        want = codec_ref.dequantize_group(codes, scales, layout)
+        table = layout.table(dev)
+        n_bytes = codes.numel() + 4 * scales.numel() + 4 * rows * sum(sizes)
+        print(f"[dequant group] int{bits} {label}: bound {n_bytes / 3.35e12 * 1e3:.4f} ms "
+              f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s)")
+        for name, path in runs("quant_pack.cu"):
+            # NaN-filled, with slack past the arena that a stray write may use
+            arena = torch.full((layout.n_out + rows * 1024 * 8,), float("nan"), device=dev)
+            outs = layout.outputs(arena)
+            if hasattr(ctypes.CDLL(str(path)), "rt_dequantize_group"):
+                fn = entry(path, "rt_dequantize_group")
+
+                def call(fn=fn, arena=arena):
+                    return fn(codes.data_ptr(), scales.data_ptr(), arena.data_ptr(),
+                              table.data_ptr(), layout.n_leaves, layout.total_chunks, 1024,
+                              bits, stream)
+                launches = "one launch"
+            else:
+                fn = entry(path, "rt_dequantize")
+
+                def call(fn=fn, outs=outs):
+                    status = 0
+                    for l, size in enumerate(sizes):
+                        status = status or fn(
+                            layout.codes(codes, l).data_ptr(), layout.scales(scales, l).data_ptr(),
+                            outs[l].data_ptr(), rows, size, layout.n_chunks[l], 1024, bits,
+                            stream)
+                    return status
+                launches = f"{len(sizes)} launches"
+            status = call()
+            torch.cuda.synchronize()
+            if status != 0:
+                raise RuntimeError(f"{name}: launch returned CUDA error {status}")
+            same = all(torch.equal(o, w) for o, w in zip(outs, want))
+            n_diff = sum(int((o != w).sum()) for o, w in zip(outs, want))
+            print(f"[dequant group] int{bits} {label}: {name}: {median_ms(call, 20):.4f} ms "
+                  f"({launches}), {verdict(same, n_diff, 'values')}")
+        del codes, scales, want, arena, outs
+
     # whole gossip rounds with a --source file's codec kernels in place of the
     # shipped ones (the rest of the path as shipped), alternated
     round_cases = {"topk_pack.cu": ("topk_sweep", ("rt_topk_select",)),
-                   "quant_pack.cu": ("quantized_table3", ("rt_quantize", "rt_dequantize"))}
+                   "quant_pack.cu": ("quantized_table3", ("rt_quantize", "rt_dequantize_group"))}
     whole = [v for v in variants if v.text and v.source in round_cases and v.name in libs]
     if whole:
         from ..scenario import SCENARIOS, run_scenario
@@ -917,6 +1028,10 @@ def main(argv: List[str] | None = None) -> int:
 
         for v in whole:
             scenario, names = round_cases[v.source]
+            missing = [n for n in names if not hasattr(ctypes.CDLL(str(libs[v.name])), n)]
+            if missing:
+                print(f"[rounds] {v.name}: no {missing}, so no {scenario} rounds with its kernels")
+                continue
             swap = {n: entry(libs[v.name], n) for n in names}
             times = [steady_rounds_ms(scenario, s) for s in ({}, swap, swap, {})]
             print(f"[rounds] {scenario}, median of 11 steady rounds: shipped {times[0]:.3f}, "

@@ -22,9 +22,12 @@ from repro.kernels.codec.ops import dequantize_op as jax_dequantize_op  # noqa: 
 from repro.kernels.codec.ops import quantize_op as jax_quantize_op  # noqa: E402
 from repro.kernels.codec.ref import topk_select_ref as jax_topk_ref  # noqa: E402
 from repro.kernels.codec.topk_pack import topk_select_blocks  # noqa: E402
+from repro_torch.compress import codec as codec_module  # noqa: E402
 from repro_torch.compress import make_codec  # noqa: E402
 from repro_torch.kernels.codec import ref  # noqa: E402
+from repro_torch.kernels.codec.group import group_layout  # noqa: E402
 from repro_torch.kernels.codec.ops import (  # noqa: E402
+    dequantize_group_op,
     dequantize_op,
     quantize_op,
     topk_scatter,
@@ -198,3 +201,132 @@ def test_codec_ops_reject_other_devices():
     x = torch.zeros(1, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         quantize_op(x)
+
+
+GROUP_SIZES = (0, 3, 384, 1000, 1027, 1536, 5000)  # ragged, tiny and empty leaves
+
+
+def _group(rows, sizes, bits, seed=0):
+    """Each leaf quantized on its own into the group's arenas; the leaves'
+    inputs, the layout and the arenas."""
+    layout = group_layout(rows, tuple(sizes), bits, 1024)
+    codes, scales = layout.arenas(torch.device("cpu"))
+    xs = [torch.from_numpy(np.stack([_x(s, seed=seed + 10 * r) * (r + 1) for r in range(rows)]))
+          for s in sizes]
+    for l, x in enumerate(xs):
+        quantize_op(x, bits=bits, out=(layout.codes(codes, l), layout.scales(scales, l)))
+    return xs, layout, codes, scales
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+@pytest.mark.parametrize("rows", (1, 2, 3))
+def test_dequantize_group_matches_pallas_and_rows(bits, rows):
+    """One decode for the group: each leaf's rows equal the JAX dequantize_op
+    (Pallas, interpret mode) of that row alone and dequantize_rows of the
+    leaf, bit for bit."""
+    xs, layout, codes, scales = _group(rows, GROUP_SIZES, bits)
+    outs = dequantize_group_op(codes, scales, layout)
+    assert [tuple(o.shape) for o in outs] == [(rows, s) for s in GROUP_SIZES]
+    for l, (out, size) in enumerate(zip(outs, GROUP_SIZES)):
+        c, s = layout.codes(codes, l), layout.scales(scales, l)
+        assert torch.equal(out, ref.dequantize_rows(c, s, size, bits, 1024))
+        for r in range(rows if size else 0):  # the Pallas grid needs a chunk
+            want = jax_dequantize_op(c[r].numpy(), s[r].numpy(), size=size, bits=bits)
+            np.testing.assert_array_equal(out[r].numpy(), np.asarray(want))
+        # the round trip stays within the codec's bound of each row's input
+        if size:
+            bound = make_codec(f"int{bits}").mean_atol(float(xs[l].abs().max()))
+            assert float((out - xs[l]).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+def test_quantize_into_an_arena_slice_matches_alone(bits):
+    """quantize_op(out=...) writes a leaf's slices and nothing else of the
+    arenas, with the codes and scales it gives alone."""
+    sizes = (1027, 3, 5000)
+    layout = group_layout(2, sizes, bits, 1024)
+    codes, scales = layout.arenas(torch.device("cpu"))
+    codes.fill_(99)
+    scales.fill_(-1.0)
+    x = torch.from_numpy(np.stack([_x(3, seed=5), _x(3, seed=6)]))
+    got = quantize_op(x, bits=bits, out=(layout.codes(codes, 1), layout.scales(scales, 1)))
+    want_c, want_s = quantize_op(x, bits=bits)
+    assert torch.equal(layout.codes(codes, 1), want_c)
+    assert torch.equal(layout.scales(scales, 1), want_s)
+    assert got[0].data_ptr() == layout.codes(codes, 1).data_ptr()
+    for l in (0, 2):  # the other leaves' slices are untouched
+        assert bool((layout.codes(codes, l) == 99).all())
+        assert bool((layout.scales(scales, l) == -1.0).all())
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+def test_group_layout_is_leaf_major(bits):
+    """Each leaf's codes, scales and output are one contiguous slice, in leaf
+    order, the outputs on 16-byte boundaries; the device table holds
+    (chunk0, out0, size, n_chunks) a leaf."""
+    rows, sizes = 3, (5, 0, 1024, 1025, 7)
+    layout = group_layout(rows, sizes, bits, 1024)
+    assert layout is group_layout(rows, sizes, bits, 1024)  # cached by its key
+    assert layout.n_chunks == (1, 0, 1, 2, 1)
+    assert layout.chunk0 == [0, 3, 3, 6, 12, 15]
+    assert layout.out0 == [0, 16, 16, 3088, 6164, 6188]
+    assert layout.total_chunks == 15 and layout.n_out == 6188
+    assert all(o % 4 == 0 for o in layout.out0)
+    assert layout.key == (rows, sizes, bits)
+    table = layout.table(torch.device("cpu"))
+    assert table.dtype == torch.int64 and table.tolist() == [
+        [0, 0, 5, 1], [3, 16, 0, 0], [3, 16, 1024, 1], [6, 3088, 1025, 2], [12, 6164, 7, 1]]
+    assert layout.table(torch.device("cpu")) is table
+    codes, scales = layout.arenas(torch.device("cpu"))
+    assert codes.shape == (15, 1024 if bits == 8 else 512) and scales.shape == (15,)
+    for l in range(len(sizes)):
+        c, s = layout.codes(codes, l), layout.scales(scales, l)
+        assert c.is_contiguous() and c.shape == (rows, layout.n_chunks[l], codes.shape[1])
+        assert s.shape == (rows, layout.n_chunks[l])
+    arena = torch.zeros(layout.n_out)
+    outs = layout.outputs(arena)
+    for o, (size, start) in zip(outs, zip(sizes, layout.out0)):
+        assert o.shape == (rows, size) and o.is_contiguous()
+        o.fill_(1.0)
+    assert float(arena.sum()) == rows * sum(sizes)  # disjoint views
+
+
+@pytest.mark.parametrize("name", ("int8", "int4", "topk", "bf16"))
+def test_roundtrip_group_equals_roundtrip_a_leaf(name):
+    """A group's round trip gives each leaf what roundtrip gives it alone:
+    the same values, shape and dtype (a bf16 leaf beside f32 ones)."""
+    codec = make_codec(name)
+    ts = [torch.from_numpy(np.stack([_x(3050, seed=s) for s in range(2)]).reshape(2, 50, 61)),
+          torch.from_numpy(np.stack([_x(1027, seed=s + 7) for s in range(2)])).bfloat16(),
+          torch.from_numpy(np.stack([_x(3, seed=s + 9) for s in range(2)]))]
+    got = codec.roundtrip_group(ts)
+    for g, t in zip(got, ts):
+        want = codec.roundtrip(t)
+        assert g.shape == t.shape and g.dtype == t.dtype
+        assert torch.equal(g, want)
+
+
+def test_roundtrip_group_splits_past_the_kernels_table(monkeypatch):
+    """More leaves than the decode kernel's table holds: one decode each
+    MAX_GROUP_LEAVES leaves, each leaf as it is alone."""
+    monkeypatch.setattr(codec_module, "MAX_GROUP_LEAVES", 2)
+    calls = []
+    real = codec_module.dequantize_group_op
+
+    def counted(codes, scales, layout):
+        calls.append(layout.sizes)
+        return real(codes, scales, layout)
+
+    monkeypatch.setattr(codec_module, "dequantize_group_op", counted)
+    codec = make_codec("int8")
+    ts = [torch.from_numpy(np.stack([_x(size, seed=r) for r in range(2)]))
+          for size in (1027, 0, 384, 5000, 3)]
+    got = codec.roundtrip_group(ts)
+    assert calls == [(1027, 0), (384, 5000), (3,)]
+    for g, t in zip(got, ts):
+        assert torch.equal(g, codec.roundtrip(t))
+
+
+@pytest.mark.parametrize("name", ["fp32", "bf16", "int8", "int4", "topk"])
+def test_only_the_quantizers_decode_a_group_at_once(name):
+    assert make_codec(name).grouped == (name in ("int8", "int4"))

@@ -14,7 +14,9 @@ contracts the decode's multiply and the accumulate into one FMA. Where the mix k
 replaces ``jnp.mean`` (dissemination, segmented, flooding) and for the
 all-reduce reference, the sum order differs: within 1e-6 · max|x|. Lossy
 codecs are also held to the exact mean within ``codec.mean_atol`` (times n
-where each hop re-encodes a partial sum).
+where each hop re-encodes a partial sum). A codec's round over a tree of
+several leaves, hopped a group at a time, must equal (``torch.equal``) the
+same round leaf by leaf.
 """
 import json
 import os
@@ -27,12 +29,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.compress import codec as codec_module  # noqa: E402
 from repro_torch.compress import make_codec  # noqa: E402
+from repro_torch.dfl import collectives  # noqa: E402
 from repro_torch.dfl.collectives import (  # noqa: E402
     CODEC_MODES,
     GossipPlan,
     gossip_collective_bytes,
     gossip_exchange,
+    hop_groups,
+    tree_flatten,
 )
 from repro_torch.dfl.session import plan_for_members  # noqa: E402
 
@@ -278,3 +284,119 @@ def test_caller_params_are_not_written():
         before = w.clone()
         gossip_exchange(mode, plan, {"w": w})
         assert torch.equal(w, before), mode
+
+
+# a tree of several leaves for the grouped hop: sizes no chunk, block or
+# segment count divides, a one-element leaf and a bf16 leaf beside f32 ones
+GROUP_LEAVES = {"w": ((50, 61), np.float32), "b": ((1027,), np.float32),
+                "h": ((7, 33), "bf16"), "one": ((1,), np.float32),
+                "deep": {"x": ((3, 1000), np.float32), "y": ((2, 5, 7), "bf16")}}
+
+
+def _group_tree(n, seed=0):
+    rng = np.random.default_rng(seed + n)
+
+    def leaf(spec):
+        if isinstance(spec, dict):
+            return {k: leaf(v) for k, v in spec.items()}
+        shape, dtype = spec
+        x = torch.from_numpy(rng.normal(size=(n, *shape)).astype(np.float32) * 3)
+        return x.bfloat16() if dtype == "bf16" else x
+
+    return leaf(GROUP_LEAVES)
+
+
+def _leaf_by_leaf(mode, plan, tree, codec, ef=None):
+    """The per-leaf hop: gossip_exchange on each leaf as a tree of one."""
+    leaves, rebuild = tree_flatten(tree)
+    efs = tree_flatten(ef)[0] if ef is not None else [None] * len(leaves)
+    outs, new_efs = [], []
+    for x, e in zip(leaves, efs):
+        if e is None:
+            outs.append(gossip_exchange(mode, plan, {"x": x}, codec=codec)["x"])
+        else:
+            o, ne = gossip_exchange(mode, plan, {"x": x}, codec=codec, ef_state={"x": e})
+            outs.append(o["x"])
+            new_efs.append(ne["x"])
+    return rebuild(outs), (rebuild(new_efs) if ef is not None else None)
+
+
+def _assert_trees_equal(a, b):
+    la, lb = tree_flatten(a)[0], tree_flatten(b)[0]
+    assert len(la) == len(lb)
+    for x, y in zip(la, lb):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        assert torch.equal(x, y)
+
+
+GROUP_CASES = [(n, mode, codec, churn, False) for n in (4, 8) for mode in CODEC_MODES
+               for codec in ("int8", "int4", "topk", "bf16") for churn in (False, True)]
+GROUP_CASES += [(n, "dissemination", codec, churn, True) for n in (4, 8)
+                for codec in ("int8", "topk") for churn in (False, True)]
+
+
+@pytest.mark.parametrize("n,mode,codec,churn,ef", GROUP_CASES, ids=[
+    f"n{n}-{mode}-{codec}{'-ef' if ef else ''}{'-churn' if churn else ''}"
+    for n, mode, codec, churn, ef in GROUP_CASES])
+def test_grouped_hop_equals_leaf_by_leaf(n, mode, codec, churn, ef):
+    """Every codec mode hops the whole tree as one group here (far under the
+    budget) with a quantizer, a leaf at a time with a codec that decodes
+    one leaf a call (top-k, bf16), and must give each leaf (and each
+    error-feedback residual) the bits it gets as a tree of one."""
+    plan = _port_plan(n, churn)
+    tree = _group_tree(n)
+    c = make_codec(codec)
+    leaves = tree_flatten(tree)[0]
+    whole = [list(range(len(leaves)))] if codec in ("int8", "int4") else \
+        [[i] for i in range(len(leaves))]
+    assert hop_groups(mode, plan, leaves, c) == whole
+    if ef:
+        residual = collectives.tree_map(lambda t: 0.1 * torch.ones_like(t, dtype=torch.float32)
+                                        * t.float().sign(), tree)
+        got, got_ef = gossip_exchange(mode, plan, tree, codec=c, ef_state=residual)
+        want, want_ef = _leaf_by_leaf(mode, plan, tree, c, residual)
+        _assert_trees_equal(got_ef, want_ef)
+    else:
+        got = gossip_exchange(mode, plan, tree, codec=c)
+        want = _leaf_by_leaf(mode, plan, tree, c)[0]
+    _assert_trees_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", CODEC_MODES)
+def test_group_budget_splits_the_tree(mode, monkeypatch):
+    """A small budget splits the tree into several groups (a leaf over it
+    alone); each group's hop decodes once, and the round still equals the
+    leaf-by-leaf round."""
+    n, c = 4, make_codec("int8")
+    plan = GossipPlan.build(n)
+    tree = _group_tree(n, seed=3)
+    leaves = tree_flatten(tree)[0]
+    copies = n if mode in ("dissemination", "segmented") else 1
+    sizes = [x.numel() * copies * (x.element_size() if copies > 1 else 4) for x in leaves]
+    monkeypatch.setattr(collectives, "GROUP_BYTES", sizes[1] + sizes[2])
+    groups = hop_groups(mode, plan, leaves, c)
+    assert [i for g in groups for i in g] == list(range(len(leaves)))
+    assert 2 < len(groups) < len(leaves)
+    for g in groups:
+        assert len(g) == 1 or sum(sizes[i] for i in g) <= sizes[1] + sizes[2]
+    calls = []
+    real = codec_module.dequantize_group_op
+
+    def counted(codes, scales, layout):
+        calls.append(layout.sizes)
+        return real(codes, scales, layout)
+
+    monkeypatch.setattr(codec_module, "dequantize_group_op", counted)
+    got = gossip_exchange(mode, plan, tree, codec=c)
+    steps = {"dissemination": len(plan.diss_steps), "segmented": len(plan.seg_steps),
+             "tree_allreduce": len(plan.tree_steps), "flooding": 1}[mode]
+    assert len(calls) == len(groups) * steps  # one decode a group a hop
+    want = _leaf_by_leaf(mode, plan, tree, c)[0]
+    _assert_trees_equal(got, want)
+
+
+def test_without_a_codec_each_leaf_hops_alone():
+    plan = GossipPlan.build(4)
+    leaves = tree_flatten(_group_tree(4))[0]
+    for mode in CODEC_MODES:
+        assert hop_groups(mode, plan, leaves, None) == [[i] for i in range(len(leaves))]

@@ -16,7 +16,9 @@ from repro_torch.compress import make_codec  # noqa: E402
 from repro_torch.dfl.collectives import GossipPlan, gossip_exchange  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.codec import ref  # noqa: E402
+from repro_torch.kernels.codec.group import group_layout  # noqa: E402
 from repro_torch.kernels.codec.ops import (  # noqa: E402
+    dequantize_group_op,
     dequantize_op,
     quantize_op,
     topk_select_op,
@@ -70,6 +72,105 @@ def test_quantize_kernel_handles_unaligned_rows(cuda):
     codes, scales = quantize_op(view, bits=8)
     want_c, want_s = ref.quantize_rows(x.cpu(), 8, 1024)
     assert torch.equal(codes.cpu(), want_c) and torch.equal(scales.cpu(), want_s)
+
+
+def _card_group(cuda, rows, sizes, bits, chunk=1024, offset=0, seed=0):
+    """A group's arenas on the card, each leaf quantized on its own into
+    them; ``offset`` bytes shift the codes arena off 16-byte alignment."""
+    layout = group_layout(rows, tuple(sizes), bits, chunk)
+    codes, scales = layout.arenas(cuda)
+    if offset:
+        base = torch.empty(codes.numel() + offset, dtype=codes.dtype, device=cuda)
+        codes = base[offset:].view(codes.shape)
+    for l, size in enumerate(sizes):
+        x = _x(rows, size, seed=seed + l) * (l + 1)
+        quantize_op(x.to(cuda), bits=bits, chunk=chunk,
+                    out=(layout.codes(codes, l), layout.scales(scales, l)))
+    return layout, codes, scales
+
+
+def _group_matches_plain(layout, codes, scales, launches=1):
+    reset_launches()
+    got = dequantize_group_op(codes, scales, layout)
+    assert LAUNCHES["dequantize"] == launches
+    want = ref.dequantize_group(codes.cpu(), scales.cpu(), layout)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+@pytest.mark.parametrize("rows", (1, 2, 3))
+def test_dequantize_group_kernel_matches_plain(cuda, bits, rows):
+    """One launch for ragged, tiny, empty and misaligned leaves (sizes not a
+    multiple of 4 misalign every later row of the leaf), bit for bit."""
+    sizes = (0, 3, 384, 1000, 0, 1027, 1536, 5000, 4097, 1)
+    _group_matches_plain(*_card_group(cuda, rows, sizes, bits))
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+@pytest.mark.parametrize("chunk", (4, 64, 1020, 4096, 8192))
+@pytest.mark.parametrize("offset", (0, 4))
+def test_dequantize_group_kernel_every_chunk_size(cuda, bits, chunk, offset):
+    """Code widths that are whole 16-byte pieces (in registers, or tiles of
+    a long chunk) and that are not (4 codes a load), and a codes arena off
+    16 bytes."""
+    sizes = (3 * chunk + 3, chunk, 5, 2 * chunk)
+    _group_matches_plain(*_card_group(cuda, 3, sizes, bits, chunk=chunk, offset=offset))
+
+
+def test_dequantize_group_kernel_past_65535_chunks(cuda):
+    """A group of 65,630 chunks: the grid strides, nothing is cut at 2^16."""
+    layout, codes, scales = _card_group(cuda, 2, (33_600_000, 1027), 8)
+    assert layout.total_chunks > 65_535
+    _group_matches_plain(layout, codes, scales)
+
+
+# a lone leaf of at least 16,384 chunks takes the CTA-a-chunk kernel
+CTA_CASES = [(1, 64, 16_384 * 64 + 5), (3, 1024, 5_462 * 1024 - 1), (2, 2048, 8_192 * 2048 + 3)]
+
+
+@pytest.mark.parametrize("bits", (8, 4))
+@pytest.mark.parametrize("rows,chunk,size", CTA_CASES)
+def test_dequantize_lone_large_leaf_matches_plain(cuda, bits, rows, chunk, size):
+    """The CTA kernel, bit for bit, in one launch: ragged rows, sizes that
+    misalign later rows, chunks a CTA decodes in one and two passes."""
+    layout, codes, scales = _card_group(cuda, rows, (size,), bits, chunk=chunk)
+    assert layout.total_chunks >= 16_384
+    _group_matches_plain(layout, codes, scales)
+
+
+def test_dequantize_group_launches_once_a_group(cuda):
+    """The quantizer's round trip of a group: one quantize a non-empty leaf,
+    one dequantize for all; each leaf as it is alone."""
+    codec = make_codec("int8")
+    ts = [_x(3, s, seed=s).to(cuda) for s in (1027, 0, 384, 5000)]
+    ts[2] = ts[2].bfloat16()
+    reset_launches()
+    got = codec.roundtrip_group(ts)
+    assert LAUNCHES["dequantize"] == 1 and LAUNCHES["quantize"] == 3
+    for g, t in zip(got, ts):
+        want = codec.roundtrip(t)
+        assert g.dtype == t.dtype and torch.equal(g, want)
+    reset_launches()
+    plan = GossipPlan.build(4)
+    params = {"w": _x(4, 3050, seed=9).reshape(4, 50, 61).to(cuda), "b": _x(4, 1027).to(cuda)}
+    grouped = gossip_exchange("dissemination", plan, params, codec=codec)
+    assert LAUNCHES["dequantize"] == len(plan.diss_steps)
+    for k, v in params.items():
+        alone = gossip_exchange("dissemination", plan, {k: v}, codec=codec)[k]
+        assert torch.equal(grouped[k], alone)
+
+
+def test_dequantize_group_rejects_bad_inputs(cuda):
+    layout, codes, scales = _card_group(cuda, 1, (1027, 5), 8)
+    with pytest.raises(ValueError):
+        dequantize_group_op(codes[:-1], scales, layout)
+    with pytest.raises(ValueError):
+        dequantize_group_op(codes.view(torch.uint8), scales, layout)
+    big = group_layout(1, (1,) * 1025, 8, 1024)
+    c, s = big.arenas(cuda)
+    with pytest.raises(ValueError, match="at most 1024"):
+        dequantize_group_op(c, s, big)
 
 
 @pytest.mark.parametrize("block", (32, 96, 256, 1024))
