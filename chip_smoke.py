@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round,
-the model serving path (prefill forward + cached decode) and the DFL
-training step (4 stacked nodes, forward, the flash-attention and
-selective-scan backwards, the optimizer and a gossip round), for every
-family: dense, ssm, moe, hybrid, audio (whisper-tiny) and vlm
-(paligemma-3b).
+the model serving path (prefill forward + cached decode), the DFL training
+step (4 stacked nodes, forward, the flash-attention and selective-scan
+backwards, the optimizer and a gossip round), for every family: dense,
+ssm, moe, hybrid, audio (whisper-tiny) and vlm (paligemma-3b), and the
+launcher's sweep path (the codec x protocol grid on 10 nodes).
 
     python3 chip_smoke.py
 
@@ -67,7 +67,9 @@ Phases, each fatal on failure (exit code 1, no result line):
              1500 frames (the last key tile ragged) in the encoder (8, 1500,
              6 / 6, 64) and from its 448 text positions in the
              cross-attention, and causal in the decoder (8, 448), with an f32
-             case of the cross-attention; paligemma-3b's two calls of the
+             case of the cross-attention, and the same three at phase 6's
+             batch of 2 a node (each keyed by its launch shape, so phase 6
+             fails on a flash shape that was not held and timed here); paligemma-3b's two calls of the
              prefix split (MQA 8 / 1 at hd 256) at its prefill (2, 2304) and
              training (1, 2304) batches, causal over every row and
              non-causal over the 256 patches; each timed beside SDPA. The
@@ -86,7 +88,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              stablelm-12b's (1, 2048, 32 / 8, 160) and zamba2-7b's (1, 2048,
              32 / 32, 112) causal in bf16, whisper-tiny's training shapes
              (encoder (8, 1500) and cross-attention 448 x 1500 non-causal,
-             decoder (8, 448) causal) and paligemma-3b's (1, 2304, 8 / 1,
+             decoder (8, 448) causal; and the same three at phase 6's batch
+             of 2 a node, as the forward's are) and paligemma-3b's (1, 2304, 8 / 1,
              256) causal and (1, 256, 8 / 1, 256) non-causal (GQA 8:1 sums 8
              query heads into one dK / dV block): each of dQ, dK and dV within
              BWD_F32_TOL (f32) or
@@ -224,6 +227,37 @@ Phases, each fatal on failure (exit code 1, no result line):
              printed); the
              f32 gradient check at 1 layer over (1, 2048) tokens, the plain
              scan differentiated by autograd as the reference.
+6. sweep   — the launcher's sweep path (``repro_torch.launch.train``):
+             ``--sweep codec_x_protocol`` prints its dry table, which must
+             equal the reference launcher's lines; then each of its 10 cells
+             (fp32, bf16, int8, int4, top-k x dissemination, segmented) and
+             ``async_vs_sync`` cell 6 (flooding, 8 rounds) trains through
+             ``main([... --sweep NAME --cell K])`` at whisper-tiny's full
+             width and depth on 10 stacked nodes x (2, 448) tokens (zero
+             frames, as the launcher makes them), the session planning over
+             the cell's ER(10) overlay, the default lr and warm-up, remat as
+             the config has it, the launch counts set to 0 just before each
+             cell and read just after. Every loss and grad norm finite; the
+             flash forward 2 x 12 x 10 times a round (each layer's forward
+             runs again in the backward under remat) and the backward 12 x
+             10; the cell's codec kernels and the mix launched and no other
+             gossip kernel (fp32 and bf16: the mix alone). Every shape at
+             which a cell launches a gossip kernel was found in phase 2 by a
+             dry round of each cell's trainer and held there against the
+             plain version (bit for bit; the mix within 1e-6 of max|x|) and
+             timed; its launches join rows 1-4's and their loss. Every
+             shape at which a cell launches the flash forward or backward
+             must be one phase 2 held and timed at whisper's batch of 2; the
+             launches join those rows and give their loss. Prints each
+             cell's launches by kernel and shape, losses, round times (host
+             clock, synchronized) and peak memory. Then one round of each
+             cell from seeded unequal nodes (``scenario.runner.fedavg_check``):
+             every live node's masters within the scenario runner's
+             tolerance for the codec of the FedAvg of the masters the same
+             round leaves with its gossip off (top-k: finite only); and, as
+             the negative control, the same check with the trainer's gossip
+             stubbed out must fail for every cell with a bound (fp32, bf16,
+             int8, int4). Prints the worst |masters - FedAvg| of both.
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers (the codec kernels' and the scan backward's also by shape, with
@@ -234,7 +268,9 @@ run from a directory that holds nothing of the repository but this file.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -254,8 +290,46 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 GOSSIP_KERNELS = ("quantize", "dequantize", "topk_select", "gossip_mix")
+# the kernels whose phase-6 launches are held to the shapes phase 2 timed
+SHAPED_KERNELS = (*GOSSIP_KERNELS, "flash_attention", "flash_attention_bwd")
 CODEC_KERNELS = ("quantize", "dequantize", "topk_select")
 MODEL_KERNELS = ("flash_attention", "selective_scan")
+
+# phase 6: the codec x protocol grid and one flooding cell, each trained by
+# the launcher at whisper-tiny's full width and depth on 10 stacked nodes
+# (the cell's own ER(10) overlay), Whisper's 448-token text context, the
+# default lr and warm-up
+SWEEP_NODES = 10
+SWEEP_BPN = 2
+SWEEP_ARGS = ["--arch", "whisper-tiny", "--nodes", str(SWEEP_NODES), "--seq-len", "448",
+              "--batch-per-node", str(SWEEP_BPN)]
+# whisper-tiny's attentions at that batch, as each node's forward and
+# backward call them: (b, s, s_kv, h, kv, hd, causal) for the encoder over
+# its 1500 frames, the cross-attention and the decoder's self-attention
+SWEEP_FLASH = ((SWEEP_BPN, 1500, 1500, 6, 6, 64, False), (SWEEP_BPN, 448, 1500, 6, 6, 64, False),
+               (SWEEP_BPN, 448, 448, 6, 6, 64, True))
+SWEEP_RUNS = [SWEEP_ARGS + ["--sweep", "codec_x_protocol", "--cell", str(k)]
+              for k in range(10)] + [SWEEP_ARGS + ["--sweep", "async_vs_sync", "--cell", "6"]]
+# the reference launcher's dry table of the grid (tests/test_torch_sweep.py
+# holds the port's lines to the reference's on the CPU)
+SWEEP_TABLE = [
+    "sweep 'codec_x_protocol': 10 cells (pass --cell K to train one)",
+    "  [  0] codec=fp32,protocol=dissemination        tx=    90 wire=    1908.0MB",
+    "  [  1] codec=fp32,protocol=segmented            tx=   360 wire=    1908.0MB",
+    "  [  2] codec=bf16,protocol=dissemination        tx=    90 wire=     954.0MB",
+    "  [  3] codec=bf16,protocol=segmented            tx=   360 wire=     954.0MB",
+    "  [  4] codec=int8,protocol=dissemination        tx=    90 wire=     478.9MB",
+    "  [  5] codec=int8,protocol=segmented            tx=   360 wire=     478.9MB",
+    "  [  6] codec=int4,protocol=dissemination        tx=    90 wire=     240.4MB",
+    "  [  7] codec=int4,protocol=segmented            tx=   360 wire=     240.4MB",
+    "  [  8] codec=topk,protocol=dissemination        tx=    90 wire=     193.8MB",
+    "  [  9] codec=topk,protocol=segmented            tx=   360 wire=     193.8MB",
+]
+# the gossip kernels a cell's codec must launch, and must not
+CELL_KERNELS = {"fp32": ("gossip_mix",), "bf16": ("gossip_mix",),
+                "int8": ("quantize", "dequantize", "gossip_mix"),
+                "int4": ("quantize", "dequantize", "gossip_mix"),
+                "topk": ("topk_select", "gossip_mix")}
 
 
 def attention_layers(cfg) -> int:
@@ -490,6 +564,7 @@ def main() -> int:
     from repro_torch.dfl.collectives import (GossipPlan, gossip_exchange, hop_groups,
                                              tree_flatten, tree_map)
     from repro_torch.dfl.trainer import DFLConfig, DFLTrainer
+    from repro_torch.launch import train as launcher
     from repro_torch.launch.serve import serve
     from repro_torch.models import Batch, build_model
     from repro_torch.models import attention as attn_model
@@ -498,6 +573,7 @@ def main() -> int:
     from repro_torch.models.mamba import mamba2_forward
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.scenario import SCENARIOS, run_scenario
+    from repro_torch.scenario.runner import fedavg_check
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -576,7 +652,7 @@ def main() -> int:
     for spec in runs:
         reset_launches()
         run_scenario(spec, device="cuda", seed=1, proxy_elems=4)
-        elems = int(round(spec.payload_mb * 1e6 / 4))
+        elems = int(round(spec.payload_mb() * 1e6 / 4))
         for name in CODEC_KERNELS:
             for key, n in launch_shapes()[name].items():
                 # a round's one leaf: dequantize's key holds the group's sizes
@@ -617,12 +693,36 @@ def main() -> int:
     del whisper_masters, grouped, leaves, got, alone
     for name in ("quantize", "dequantize"):
         path_shapes[name].update(whisper_shapes[name])
+    # phase 6's cells: one dry gossip round of each cell's trainer as the
+    # launcher builds it (the session's plan over the cell's ER(10) overlay,
+    # the masters the step gossips, top-k's error feedback) yields every
+    # shape at which its training round launches a gossip kernel
+    sweep_shapes = {name: Counter() for name in GOSSIP_KERNELS}
+    for argv in SWEEP_RUNS:
+        args = launcher.parse_args(argv)
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, spec = launcher.resolve_scenario(args)
+        run = launcher.build_run(args, spec)
+        run.session._ensure_plan()
+        reset_launches()
+        run.trainer.gossip(run.state.params, run.state.opt_state)
+        for name in GOSSIP_KERNELS:
+            sweep_shapes[name].update(launch_shapes()[name])
+        del run
+        torch.cuda.empty_cache()
+    for name in GOSSIP_KERNELS:
+        print(f"[kernel] {name}: phase 6's launch shapes ({len(sweep_shapes[name])}, from dry "
+              f"rounds of its {len(SWEEP_RUNS)} cells at whisper-tiny's width on "
+              f"{SWEEP_NODES} nodes)")
+    for name in CODEC_KERNELS:
+        path_shapes[name].update(sweep_shapes[name])
+    later = {k for name in ("quantize", "dequantize") for k in whisper_shapes[name]}
+    later |= {k for name in CODEC_KERNELS for k in sweep_shapes[name]}
 
     def by_size(key):  # phase 3's shapes first (the first sets the kernel's
         # headline numbers), the single-row shapes first, int8 before int4
         size = sum(key[1]) if isinstance(key[1], tuple) else key[1]
-        return key in whisper_shapes["quantize"] or key in whisper_shapes["dequantize"], \
-            key[0], size, -key[2]
+        return key in later, key[0], size, -key[2]
 
     for rows, size, bits in sorted(path_shapes["quantize"], key=by_size):
         x = torch.randn((rows, size), generator=gen, device=dev) * 3
@@ -714,9 +814,10 @@ def main() -> int:
     # leaves in single launches; the training runs' other groups before their
     # runs (train_path)
     for rows, sizes, bits in sorted(path_shapes["dequantize"], key=by_size):
-        time_dequantize(rows, sizes, bits)
+        time_dequantize(rows, sizes, bits,
+                        singles=(rows, sizes, bits) not in sweep_shapes["dequantize"])
 
-    for rows, size, block, k in sorted(path_shapes["topk_select"]):
+    for rows, size, block, k in sorted(path_shapes["topk_select"], key=lambda k: (k in later, k)):
         xt = torch.randn((rows, size), generator=gen, device=dev)
         vals, idx = topk_select_op(xt, k=k, block=block)
         pv, pi = codec_ref.topk_select_rows(xt, k, block)
@@ -753,9 +854,10 @@ def main() -> int:
            library_ms=median_ms(lambda: torch.mean(buf, dim=1), 10, cold=False),
            shape=" (10, 10, 5.3 M)")
     del buf, mixed, plain
-    # the mix at whisper-tiny's leaf shapes (the FedAvg of its dissemination):
-    # from a cold L2, as one leaf's mix follows the others' rounds
-    for batch, n, p in sorted(whisper_shapes["gossip_mix"]):
+    # the mix at whisper-tiny's leaf shapes (the FedAvg of its dissemination
+    # on 4 nodes, and of phase 6's protocols on 10): from a cold L2, as one
+    # leaf's mix follows the others' rounds
+    for batch, n, p in sorted(set(whisper_shapes["gossip_mix"]) | set(sweep_shapes["gossip_mix"])):
         buf = torch.randn((batch, n, p), generator=gen, device=dev)
         w = torch.full((n,), 1.0 / n, device=dev)
         mixed, plain = gossip_mix_op(buf, w), gossip_mix_ref(buf, w)
@@ -781,6 +883,13 @@ def main() -> int:
             total += max(0, hi - lo)
         return total
 
+    def sweep_key(b, s, s_kv, h, kv, hd, causal, window, cap, dtype):
+        """The launch shape of a phase-6 flash case (a row phase 6 adds its
+        launches to), else None."""
+        sweep = (b, s, s_kv, h, kv, hd, causal) in SWEEP_FLASH
+        plain = window == 0 and cap == 0.0 and dtype == torch.bfloat16
+        return (b, s, s_kv, h, kv, hd) if sweep and plain else None
+
     flash_cases = [  # b, s, s_kv, h, kv, hd, causal, window, softcap, dtype, tol, how
         (4, 2048, 2048, 15, 5, 64, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
         (1, 8192, 8192, 8, 4, 256, True, 4096, 50.0, torch.bfloat16, 2e-2, "timed"),
@@ -796,6 +905,9 @@ def main() -> int:
         (8, 1500, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
         (8, 448, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
         (8, 448, 448, 6, 6, 64, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        # and at phase 6's batch of 2 a node
+        *[(b, s, s_kv, h, kv, hd, causal, 0, 0.0, torch.bfloat16, 2e-2, "timed")
+          for b, s, s_kv, h, kv, hd, causal in SWEEP_FLASH],
         # paligemma-3b's prefix split at its prefill and training batches:
         # causal over every row, non-causal over the 256 patches (MQA, hd 256)
         (2, 2304, 2304, 8, 1, 256, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
@@ -853,7 +965,8 @@ def main() -> int:
                median_ms(lambda: flash_attention_op(q, k, v, **kw), 5),
                median_ms(lambda: attention_ref(q, k, v, **kw), 3),
                n_bytes, 4 * hd * b * h * visible_pairs(s, s_kv, causal, window),
-               library_ms=lib_ms, shape=shape + units, ops_per_s=BF16_OPS_PER_S)
+               library_ms=lib_ms, shape=shape + units, ops_per_s=BF16_OPS_PER_S,
+               key=sweep_key(b, s, s_kv, h, kv, hd, causal, window, cap, dtype))
     del q, k, v, out, plain
 
     # the forward's LSE output: bit-identical outputs with and without it, at
@@ -931,6 +1044,9 @@ def main() -> int:
         (8, 1500, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16),
         (8, 448, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16),
         (8, 448, 448, 6, 6, 64, True, 0, 0.0, torch.bfloat16),
+        # and at phase 6's batch of 2 a node
+        *[(b, s, s_kv, h, kv, hd, causal, 0, 0.0, torch.bfloat16)
+          for b, s, s_kv, h, kv, hd, causal in SWEEP_FLASH],
         # paligemma-3b's prefix split, one row a node: 8 query heads a kv head
         (1, 2304, 2304, 8, 1, 256, True, 0, 0.0, torch.bfloat16),
         (1, 256, 256, 8, 1, 256, False, 0, 0.0, torch.bfloat16),
@@ -979,7 +1095,8 @@ def main() -> int:
                n_bytes, 10 * hd * b * h * visible_pairs(s, s_kv, causal, window),
                library_ms=lib_ms,
                shape=shape, ops_per_s=BF16_OPS_PER_S if dtype == torch.bfloat16
-               else F32_OPS_PER_S)
+               else F32_OPS_PER_S,
+               key=sweep_key(b, s, s_kv, h, kv, hd, causal, window, cap, dtype))
         del q, k, v, do, out, lse, got, again, want
     torch.cuda.empty_cache()
 
@@ -1112,7 +1229,7 @@ def main() -> int:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         c = spec.codec_obj()
         for r in run.rounds:
-            want_wire = r.transmissions * per_send_wire_mb(c, spec.payload_mb)
+            want_wire = r.transmissions * per_send_wire_mb(c, spec.payload_mb())
             if r.bytes_on_wire_mb != want_wire:
                 fail(f"{spec.name} round {r.round}: bytes_on_wire_mb "
                      f"{r.bytes_on_wire_mb} != {want_wire}")
@@ -1614,6 +1731,115 @@ def main() -> int:
     cfg = get_arch("falcon-mamba-7b").replace(n_layers=2, remat=False)
     data, _ = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
     grad_check(cfg.replace(n_layers=1, dtype="float32"), data, 1)
+
+    # -- 6. the sweep path: the codec x protocol grid through the launcher -------
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launcher.main(["--sweep", "codec_x_protocol"])
+    table = out.getvalue().splitlines()
+    for line in table:
+        print(f"[sweep] {line}")
+    if table != SWEEP_TABLE:
+        fail("the launcher's dry table of codec_x_protocol differs from the reference's")
+    cfg = get_arch("whisper-tiny")
+    per_step = attention_layers(cfg) * SWEEP_NODES
+    # the launcher keeps the config's remat, as the reference's does: each
+    # layer's forward runs again inside the backward
+    fwd_per_step = per_step * (2 if cfg.remat else 1)
+    sweep_launches, sweep_loss = Counter(), Counter()
+    for argv in SWEEP_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            run = launcher.main(argv)
+        counts, run_shapes = launch_counts(), launch_shapes()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        spec, rounds = run.scenario, run.scenario.rounds
+        label = spec.name
+        if not (all(math.isfinite(x) for x in run.losses + run.grad_norms)
+                and len(run.losses) == rounds):
+            fail(f"sweep {label}: losses {run.losses}, grad norms {run.grad_norms}")
+        for kernel, want in (("flash_attention", fwd_per_step * rounds),
+                             ("flash_attention_bwd", per_step * rounds)):
+            if counts[kernel] != want:
+                fail(f"sweep {label}: {kernel} launched {counts[kernel]} times, expected {want} "
+                     f"({attention_layers(cfg)} attention calls x {SWEEP_NODES} nodes x "
+                     f"{rounds} rounds{' x 2 (remat)' if want != per_step * rounds else ''})")
+        want = CELL_KERNELS[spec.codec]
+        wrong = [k for k in GOSSIP_KERNELS if (counts[k] > 0) != (k in want)]
+        if wrong or counts["selective_scan"]:
+            fail(f"sweep {label}: gossip kernels {wrong} launched against the codec's "
+                 f"{want}: {json.dumps(counts)}")
+        sweep_launches.update(counts)
+        for name in SHAPED_KERNELS:
+            timed = shape_rows.get(name, {})
+            untimed = sorted(set(run_shapes[name]) - set(timed))
+            if untimed:
+                fail(f"{name}: shapes launched in sweep {label} but not timed: {untimed}")
+            for key, n in run_shapes[name].items():
+                row = timed[key]
+                row["launches"] = row.get("launches", 0) + n
+                row["loss_ms"] = row["launches"] * (row["ms"] - row["bound_ms"])
+                sweep_loss[name] += n * (row["ms"] - row["bound_ms"])
+            if run_shapes[name] and name in GOSSIP_KERNELS:
+                hist = ", ".join(f"{key} x {n}" for key, n in sorted(run_shapes[name].items()))
+                print(f"[sweep] {label}: {name} {counts[name]} launches at {len(run_shapes[name])}"
+                      f" shapes: {hist}")
+        print(f"[sweep] {label}: {rounds} round(s) of {SWEEP_NODES} nodes x (2, 448), "
+              f"losses {[round(x, 4) for x in run.losses]}, grad norms "
+              f"{[round(x, 4) for x in run.grad_norms]}, round ms "
+              f"{[round(1e3 * t, 1) for t in run.step_s]} (host clock, synchronized), "
+              f"peak {peak_gb:.2f} GB, mst_slots {run.trainer.plan.dissemination.n_slots}, "
+              f"flash {counts['flash_attention']} / bwd {counts['flash_attention_bwd']}, "
+              f"launches {json.dumps({k: counts[k] for k in GOSSIP_KERNELS})} on {card}")
+        del run, log
+        torch.cuda.empty_cache()
+        # one round from seeded unequal nodes, held to the FedAvg of the same
+        # round with its gossip off (top-k: finite outputs only); then the
+        # negative control: with the trainer's gossip stubbed out the check
+        # must fail wherever it has a bound
+        args = launcher.parse_args(argv)
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, spec = launcher.resolve_scenario(args)
+        run = launcher.build_run(args, spec)
+        batch = run.make_batch()
+        ok, finite, worst, t = fedavg_check(run.trainer, run.state, batch, session=run.session)
+        want_ok = None if spec.codec == "topk" else True
+        if ok is not want_ok or not finite:
+            fail(f"sweep {label}: from unequal nodes numerics_ok={ok}, finite={finite}, "
+                 f"max |masters - FedAvg| {worst}")
+        run.trainer.gossip = lambda params, opt_state: (params, opt_state)
+        stub_ok, stub_finite, stub_worst, _ = fedavg_check(run.trainer, run.state, batch,
+                                                           session=run.session)
+        if stub_ok is not (None if want_ok is None else False) or not stub_finite:
+            fail(f"sweep {label}: with its gossip stubbed out the FedAvg check gives "
+                 f"numerics_ok={stub_ok} (finite {stub_finite}, max |masters - FedAvg| "
+                 f"{stub_worst}); it must fail")
+        print(f"[sweep] {label}: from unequal nodes every live node's masters within "
+              f"{worst:.3e} of the FedAvg of the gossip-off round (numerics_ok {ok}); with "
+              f"the gossip stubbed out {stub_worst:.3e} (numerics_ok {stub_ok}); the gossip "
+              f"step {1e3 * sum(t.values()):.1f} ms: nodes' fwd+bwd {1e3 * t['fwd_bwd']:.1f}, "
+              f"optimizer {1e3 * t['optimizer']:.1f}, gossip {1e3 * t['gossip']:.1f} (host "
+              f"clock, synchronized) on {card}")
+        del run, batch
+        torch.cuda.empty_cache()
+    for name in (*GOSSIP_KERNELS, "flash_attention", "flash_attention_bwd"):
+        results[name]["launches"] += sweep_launches[name]
+    for name in GOSSIP_KERNELS:
+        rows = shape_rows.get(name, {}).values()
+        results[name]["loss_ms"] = sum(r.get("loss_ms", 0.0) for r in rows)
+        print(f"[sweep] {name}: {sweep_launches[name]} launches in phase 6 at "
+              f"{len(sweep_shapes[name])} shapes, their loss {sweep_loss[name]:.4f} ms; loss over "
+              f"every phase's shapes {results[name]['loss_ms']:.4f} ms on {card}")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        # phases 4 and 5 launch it at shapes without a row: the loss here is
+        # phase 6's alone
+        for key, row in shape_rows[name].items():
+            print(f"[sweep] {name} {key}: {row.get('launches', 0)} launches x ({row['ms']:.4f} "
+                  f"- {row['bound_ms']:.4f} ms) = {row.get('loss_ms', 0.0):.4f} ms")
+        print(f"[sweep] {name}: {sweep_launches[name]} launches in phase 6 at whisper's "
+              f"{len(shape_rows[name])} shapes, their loss {sweep_loss[name]:.4f} ms on {card}")
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

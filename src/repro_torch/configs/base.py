@@ -99,6 +99,59 @@ class ArchConfig:
     def dt_rank(self) -> int:
         return max(1, self.d_model // 16)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head), the
+        reference's: an arch-named scenario payload is ``param_count x 2``
+        bytes on the wire."""
+        d, hd = self.d_model, self.resolved_head_dim
+        total = self.vocab * d  # embedding (tied head unless final softcap arch)
+        q = d * self.n_heads * hd
+        kv = 2 * d * self.n_kv_heads * hd
+        o = self.n_heads * hd * d
+        attn = q + kv + o
+        mlp = 3 * d * self.d_ff  # gate/up/down
+        for layer in range(self.n_layers):
+            if self.attn_free:
+                total += self._mamba_params()
+                continue
+            if self.family == "hybrid":
+                if self.attn_every and (layer + 1) % self.attn_every == 0:
+                    if not (self.shared_attn and layer + 1 > self.attn_every):
+                        total += attn + mlp
+                else:
+                    total += self._mamba2_params()
+                continue
+            total += attn
+            if self.n_experts:
+                total += d * self.n_experts  # router
+                total += self.n_experts * 3 * d * self.d_ff
+                if self.moe_dense_residual:
+                    total += 3 * d * (self.dense_ff or self.d_ff)
+            else:
+                total += mlp
+            total += 2 * d  # norms
+        if self.is_encoder_decoder:
+            enc = self.n_encoder_layers * (attn + mlp)
+            dec_cross = self.n_layers * attn  # cross-attention
+            total += enc + dec_cross
+        return int(total)
+
+    def _mamba_params(self) -> int:
+        d, di, n, r = self.d_model, self.d_inner, self.ssm_state, self.dt_rank
+        return (
+            d * 2 * di  # in_proj
+            + di * self.conv_width  # conv
+            + di * (r + 2 * n)  # x_proj
+            + r * di + di  # dt_proj
+            + di * n + di  # A_log, D
+            + di * d  # out_proj
+        )
+
+    def _mamba2_params(self) -> int:
+        d, di, n = self.d_model, self.d_inner, self.ssm_state
+        nheads = max(1, di // 64)
+        return d * (2 * di + 2 * n + nheads) + di * self.conv_width + di * d + 2 * nheads
+
     def replace(self, **kw: Any) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 

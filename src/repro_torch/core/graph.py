@@ -1,7 +1,8 @@
 """Graph substrate: adjacency matrices, Prim's MST, BFS coloring, topologies.
 
-A trimmed copy of ``repro.core.graph`` (dense graphs only; the CSR kinds and
-the alternative MST/coloring algorithms are not on the port's path). Pure
+A trimmed copy of ``repro.core.graph`` (dense graphs only; the CSR kinds
+(``SPARSE_TOPOLOGY_KINDS``) and the alternative MST/coloring algorithms are
+not on the port's path and raise by name). Pure
 numpy: it runs on the moderator, and its outputs (MST edges, colors) are the
 static inputs of the slot plans in :mod:`repro_torch.core.plan`.
 """
@@ -195,20 +196,27 @@ def slot_length_for_colors(g: Graph, colors: np.ndarray, model_size_mb: float,
 # costs model the paper's testbed: cheap intra-subnet, expensive inter-subnet.
 # ---------------------------------------------------------------------------
 
-TOPOLOGY_KINDS = ("complete", "erdos_renyi", "watts_strogatz")
+TOPOLOGY_KINDS = ("complete", "erdos_renyi", "watts_strogatz", "barabasi_albert")
+SPARSE_TOPOLOGY_KINDS = ("knn", "ring", "torus", "power_law")
 
 
 @dataclass(frozen=True)
 class TopologySpec:
-    kind: str  # complete | erdos_renyi | watts_strogatz
+    """The reference's fields in its order (so ``to_dict`` matches); ``alpha``
+    and ``max_degree`` only shape the sparse kinds, which the port lacks."""
+
+    kind: str  # complete | erdos_renyi | watts_strogatz | barabasi_albert
     n: int = 10
     seed: int = 0
     p: float = 0.45  # ER edge prob
     k: int = 4  # WS ring degree
     beta: float = 0.3  # WS rewire prob
+    m: int = 2  # BA attachment count
     n_subnets: int = 3
     intra_cost_ms: Tuple[float, float] = (0.4, 1.5)
     inter_cost_ms: Tuple[float, float] = (8.0, 40.0)
+    alpha: float = 2.5  # power_law degree exponent
+    max_degree: int = 64  # power_law per-node degree bound
 
     def subnet(self, node: int) -> int:
         return subnet_of(node, self.n, self.n_subnets)
@@ -228,8 +236,9 @@ def _edge_cost(u: int, v: int, spec: TopologySpec, rng: np.random.Generator) -> 
 def make_topology(spec: TopologySpec) -> Graph:
     """Generate a connected dense topology with subnet-aware costs."""
     if spec.kind not in TOPOLOGY_KINDS:
-        raise ValueError(f"unknown topology kind {spec.kind!r}; the port "
-                         f"generates {TOPOLOGY_KINDS}")
+        raise ValueError(f"unknown topology kind {spec.kind!r}; the port generates "
+                         f"{TOPOLOGY_KINDS} (the sparse kinds {SPARSE_TOPOLOGY_KINDS} "
+                         "are not ported)")
     rng = np.random.default_rng(spec.seed)
     n = spec.n
     edges: set = set()
@@ -247,7 +256,7 @@ def make_topology(spec: TopologySpec) -> Graph:
             for v in range(u + 1, n):
                 if rng.uniform() < spec.p:
                     add(u, v)
-    else:  # watts_strogatz
+    elif spec.kind == "watts_strogatz":
         k = max(2, spec.k - spec.k % 2)
         for u in range(n):
             for j in range(1, k // 2 + 1):
@@ -258,6 +267,22 @@ def make_topology(spec: TopologySpec) -> Graph:
                 if w != u and (min(u, w), max(u, w)) not in edges:
                     edges.discard((u, v))
                     add(u, w)
+    else:  # barabasi_albert: the set's iteration order decides the seed list
+        m = spec.m
+        for u, v in [(i, j) for i in range(m + 1) for j in range(i + 1, m + 1)]:
+            add(u, v)
+        repeated: List[int] = []
+        for u, v in list(edges):
+            repeated += [u, v]
+        for u in range(m + 1, n):
+            chosen: set = set()
+            while len(chosen) < m:
+                pick = repeated[int(rng.integers(0, len(repeated)))]
+                chosen.add(pick)
+            for v in chosen:
+                add(u, v)
+                repeated += [u, v]
+            repeated += [u] * m
 
     # ensure connectivity: link consecutive components through a stub edge
     g = Graph.from_edges(n, [(u, v, 1.0) for u, v in edges])

@@ -1,16 +1,18 @@
 """Communication-plan IR: slot policies compiled into a :class:`SlotPlan`.
 
 A trimmed copy of ``repro.core.plan``: the three policies the gossip round
-lowers (MOSGU dissemination, segmented gossip, tree all-reduce) and the
-reference slot recorder :func:`compile_policy`. A policy emits the sends of
-one colored slot and commits their delivery; the recorder runs it to
-completion. Queue traces, drops and the other executors are not on the
-port's path.
+lowers (MOSGU dissemination, segmented gossip, tree all-reduce), the
+counting units of the sweep tables (flooding, one broadcast exchange, one
+MOSGU exchange), the reference slot recorder :func:`compile_policy`, the
+counting pass :func:`measure_policy` and the protocol registry
+:func:`make_policy`. A policy emits the sends of one slot and commits their
+delivery; the recorder runs it to completion. Queue traces, drops, the
+event-driven interface and the other executors are not on the port's path.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -97,9 +99,14 @@ class CommPolicy:
         """Attach protocol-specific annotations to a freshly compiled plan."""
 
 
-def _color_cycle(colors: np.ndarray) -> List[int]:
-    """Slot colors in ascending order (color 0 first)."""
-    return [int(c) for c in np.unique(np.asarray(colors))]
+def _color_cycle(colors: np.ndarray, first_color: Optional[int] = None) -> List[int]:
+    """Slot colors in ascending order, rotated to start at ``first_color``
+    when it is one of them."""
+    cycle = [int(c) for c in np.unique(np.asarray(colors))]
+    if first_color is not None and first_color in cycle:
+        i0 = cycle.index(first_color)
+        cycle = cycle[i0:] + cycle[:i0]
+    return cycle
 
 
 def _csr(g: Graph) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -122,7 +129,8 @@ class DisseminationPolicy(CommPolicy):
 
     kind = "dissemination"
 
-    def __init__(self, mst: Graph, colors: np.ndarray, segments: int = 1) -> None:
+    def __init__(self, mst: Graph, colors: np.ndarray, first_color: int = 0,
+                 segments: int = 1) -> None:
         if not mst.is_connected():
             raise ValueError("gossip requires a connected MST")
         if segments < 1:
@@ -131,7 +139,7 @@ class DisseminationPolicy(CommPolicy):
         self.colors = np.asarray(colors)
         self.segments = segments
         self.n_payloads = self.n * segments
-        self.color_cycle = _color_cycle(self.colors)
+        self.color_cycle = _color_cycle(self.colors, first_color)
         self._indptr, self._indices, self._deg = _csr(mst)
         self.reset()
 
@@ -220,8 +228,9 @@ class SegmentedGossipPolicy(DisseminationPolicy):
 
     kind = "segmented_gossip"
 
-    def __init__(self, mst: Graph, colors: np.ndarray, segments: int = 4) -> None:
-        super().__init__(mst, colors, segments=segments)
+    def __init__(self, mst: Graph, colors: np.ndarray, segments: int = 4,
+                 first_color: int = 0) -> None:
+        super().__init__(mst, colors, first_color=first_color, segments=segments)
         self.payload_fraction = 1.0 / segments
 
 
@@ -314,6 +323,94 @@ class TreeAllreducePolicy(CommPolicy):
         plan.n_reduce_slots = self._n_reduce_slots
 
 
+class FloodingPolicy(CommPolicy):
+    """Naive flooding on the overlay, rounds-synchronously (one slot per
+    flooding round): every node forwards each model it first received in
+    the last round to all its neighbours. Duplicates count as transfers."""
+
+    kind = "flooding"
+
+    def __init__(self, overlay: Graph) -> None:
+        self.n = overlay.n
+        self.colors = None
+        self._neighbors = {u: overlay.neighbors(u) for u in range(overlay.n)}
+        self.reset()
+
+    def reset(self) -> None:
+        self._received: List[Set[int]] = [{u} for u in range(self.n)]
+        self._fresh: List[Set[int]] = [{u} for u in range(self.n)]
+
+    def done(self) -> bool:
+        return not any(self._fresh)
+
+    def emit(self, slot_idx: int) -> SlotSends:
+        sends = [(u, v, owner) for u in range(self.n) for owner in sorted(self._fresh[u])
+                 for v in self._neighbors[u]]
+        return SlotSends.from_tuples(slot_idx, -1, sends)
+
+    def commit(self, slot_idx: int, sends: SlotSends) -> None:
+        self._fresh = [set() for _ in range(self.n)]
+        for _s, d, owner in sends.tuples():
+            if owner not in self._received[d]:
+                self._received[d].add(owner)
+                self._fresh[d].add(owner)
+
+
+class BroadcastOncePolicy(CommPolicy):
+    """One conventional-broadcast exchange: all N nodes push their model to
+    the other N-1 at once (the paper's per-round unit for the broadcast
+    baseline)."""
+
+    kind = "broadcast_exchange"
+
+    def __init__(self, n: int) -> None:
+        self.n = n
+        self.colors = None
+        self.reset()
+
+    def reset(self) -> None:
+        self._emitted = False
+
+    def done(self) -> bool:
+        return self._emitted
+
+    def emit(self, slot_idx: int) -> SlotSends:
+        sends = [(u, v, u) for u in range(self.n) for v in range(self.n) if v != u]
+        return SlotSends.from_tuples(slot_idx, -1, sends)
+
+    def commit(self, slot_idx: int, sends: SlotSends) -> None:
+        self._emitted = True
+
+
+class MstExchangePolicy(CommPolicy):
+    """One MOSGU exchange step: each node multicasts its own model to its MST
+    neighbours in its color's slot (the paper's per-round unit)."""
+
+    kind = "mosgu_exchange"
+
+    def __init__(self, mst: Graph, colors: np.ndarray) -> None:
+        self.graph = mst
+        self.n = mst.n
+        self.colors = np.asarray(colors)
+        self.color_cycle = _color_cycle(self.colors)
+        self.reset()
+
+    def reset(self) -> None:
+        self._ptr = 0
+
+    def done(self) -> bool:
+        return self._ptr >= len(self.color_cycle)
+
+    def emit(self, slot_idx: int) -> SlotSends:
+        color = self.color_cycle[self._ptr]
+        sends = [(u, v, u) for u in range(self.n) if int(self.colors[u]) == color
+                 for v in self.graph.neighbors(u)]
+        return SlotSends.from_tuples(slot_idx, color, sends)
+
+    def commit(self, slot_idx: int, sends: SlotSends) -> None:
+        self._ptr += 1
+
+
 def compile_policy(policy: CommPolicy, max_slots: int = 100_000) -> SlotPlan:
     """Run a slot policy to completion, recording every slot."""
     policy.reset()
@@ -334,3 +431,51 @@ def compile_policy(policy: CommPolicy, max_slots: int = 100_000) -> SlotPlan:
                     payload_fraction=policy.payload_fraction)
     policy.finalize_plan(plan)
     return plan
+
+
+def measure_policy(policy: CommPolicy, max_slots: int = 1_000_000) -> Dict[str, int]:
+    """Run a slot policy to completion counting slots and transmissions,
+    without recording the sends (the sweep tables' counting pass)."""
+    policy.reset()
+    t = transmissions = max_concurrent = 0
+    while not policy.done():
+        if t >= max_slots:
+            raise RuntimeError(f"{policy.kind} did not converge")
+        sends = policy.emit(t)
+        policy.commit(t, sends)
+        k = len(sends)
+        transmissions += k
+        max_concurrent = max(max_concurrent, k)
+        t += 1
+    return {"n_slots": t, "transmissions": transmissions,
+            "max_concurrent_sends": max_concurrent}
+
+
+PROTOCOL_NAMES = ("dissemination", "mosgu", "segmented", "segmented_gossip",
+                  "flooding", "tree_allreduce", "broadcast_exchange",
+                  "mosgu_exchange")
+
+
+def make_policy(name: str, overlay: Graph, mst_algorithm: str = "prim",
+                coloring_algorithm: str = "bfs", first_color: int = 0,
+                n_segments: int = 4) -> CommPolicy:
+    """A protocol policy by name over ``overlay``: the MST protocols build the
+    MST and its coloring; flooding and the broadcast exchange run on the
+    overlay itself."""
+    from .graph import build_mst, color_graph
+
+    if name == "flooding":
+        return FloodingPolicy(overlay)
+    if name in ("broadcast", "broadcast_exchange"):
+        return BroadcastOncePolicy(overlay.n)
+    mst = build_mst(overlay, mst_algorithm)
+    colors = color_graph(mst, coloring_algorithm)
+    if name in ("dissemination", "mosgu"):
+        return DisseminationPolicy(mst, colors, first_color)
+    if name in ("segmented", "segmented_gossip"):
+        return SegmentedGossipPolicy(mst, colors, segments=n_segments, first_color=first_color)
+    if name == "tree_allreduce":
+        return TreeAllreducePolicy(mst, colors)
+    if name == "mosgu_exchange":
+        return MstExchangePolicy(mst, colors)
+    raise ValueError(f"unknown protocol {name!r}; known: {PROTOCOL_NAMES}")

@@ -215,13 +215,17 @@ class DFLSession:
 
 def run_scenario_rounds(session: DFLSession, state, batch,
                         make_batch: Optional[Callable[[], Any]] = None,
-                        log: Callable[[str], None] = print):
+                        log: Callable[[str], None] = print,
+                        on_round: Optional[Callable[[int, Any], None]] = None):
     """Drive a session for its scenario's round count (churn fires inside
-    :meth:`DFLSession.train_round`)."""
+    :meth:`DFLSession.train_round`); ``on_round(i, metrics)`` runs right
+    after round i."""
     rounds = session.scenario.rounds if session.scenario is not None else 1
     metrics = None
     for i in range(rounds):
         state, metrics = session.train_round(state, batch)
+        if on_round is not None:
+            on_round(i, metrics)
         if make_batch is not None:
             batch = make_batch()
         log(f"round {i + 1:3d} loss={float(metrics['loss']):.4f} "

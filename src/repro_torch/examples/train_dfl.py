@@ -55,7 +55,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     from ..dfl.trainer import DFLConfig, DFLTrainer
     from ..models import Batch, build_model
     from ..optim.optimizers import tree_leaves
-    from ..scenario.spec import get as get_scenario
+    from ..scenario.registry import get as get_scenario
     from ..scenario.spec import resolve_gossip_mode
 
     dev = resolve_device(args.device)

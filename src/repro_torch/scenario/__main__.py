@@ -12,7 +12,7 @@ import json
 import torch
 
 from .runner import run_scenario
-from .spec import SCENARIOS
+from .registry import SCENARIOS
 
 
 def main(argv=None) -> int:

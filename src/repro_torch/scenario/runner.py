@@ -1,11 +1,17 @@
 """Run a scenario's gossip rounds on the card (the counterpart of the JAX
 package's ``jax`` scenario executor).
 
-The plan is built once per membership epoch (churn changes it), then every
-round moves the nodes' parameters along its permutation steps and checks
-that each live node ends with the FedAvg mean of the live nodes, within the
-codec's error bound, while masked nodes keep their own params. Byte
-accounting goes through :func:`gossip_collective_bytes`.
+Each round's members, slots, transmissions and bytes are the counting
+executor's (:class:`~repro_torch.scenario.executors.PlanExecutor`: the
+moderator lifecycle over the overlay, the protocol's policy), except for
+flooding: the device runs it as an all-gather, where every live node
+receives the other live nodes' models in one slot, as the JAX package's
+``jax`` executor counts it, while the plan executor counts a relay flood
+over the overlay's edges. The device plan is built once per membership
+epoch (churn changes it), then every round moves the nodes' parameters
+along its permutation steps and checks that each live node ends with the
+FedAvg mean of the live nodes, within the codec's error bound, while masked
+nodes keep their own params.
 
 ``proxy_elems=None`` runs the payload's full f32 size per node, with random
 parameters from ``seed``; ``proxy_elems=4`` reproduces the JAX executor's
@@ -20,13 +26,16 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from .. import DeviceLike, resolve_device
-from ..dfl.collectives import GossipPlan, gossip_collective_bytes, gossip_exchange
+from ..compress.codec import per_send_wire_mb
+from ..dfl.collectives import GossipPlan, gossip_exchange, tree_flatten, tree_map
 from ..dfl.session import plan_for_members
-from .spec import ScenarioSpec, get, membership_by_round, resolve_gossip_mode
+from .executors import PlanExecutor
+from .registry import get
+from .spec import ScenarioSpec, resolve_gossip_mode
 
 
 @dataclass
-class RoundReport:
+class DeviceRoundReport:
     round: int
     members: List[int]
     n_slots: int
@@ -47,7 +56,7 @@ class ScenarioRun:
     device: str
     payload_mb: float
     elems_per_node: int
-    rounds: List[RoundReport] = field(default_factory=list)
+    rounds: List[DeviceRoundReport] = field(default_factory=list)
 
 
 def _params(spec: ScenarioSpec, elems: int, proxy: bool, seed: int,
@@ -59,7 +68,7 @@ def _params(spec: ScenarioSpec, elems: int, proxy: bool, seed: int,
     return torch.randn((n, elems), generator=gen, device=device)
 
 
-def _check(out: torch.Tensor, w: torch.Tensor, members: Tuple[int, ...], mode: str,
+def check_fedavg(out: torch.Tensor, w: torch.Tensor, members: Tuple[int, ...], mode: str,
            bound: Optional[float], n: int) -> Tuple[Optional[bool], bool]:
     """(numerics_ok, finite), with the JAX executor's rule: live nodes within
     ``max(1e-5, bound·(1 or n))`` (+ rtol 1e-5) of the live nodes' f64 mean,
@@ -91,32 +100,31 @@ def run_scenario(spec_or_name: Union[str, ScenarioSpec], device: DeviceLike = No
                          "churned nodes; use an MST mode for churn scenarios")
     codec = spec.codec_obj()
     overlay = spec.overlay_graph()
-    elems = proxy_elems or int(round(spec.payload_mb * 1e6 / 4))
+    payload_mb = spec.payload_mb()
+    elems = proxy_elems or int(round(payload_mb * 1e6 / 4))
     w = _params(spec, elems, proxy_elems is not None, seed, dev)
     bound = 0.0 if codec is None else codec.mean_atol(float(w.abs().max()))
-    run = ScenarioRun(spec.name, str(dev), spec.payload_mb, elems)
+    run = ScenarioRun(spec.name, str(dev), payload_mb, elems)
     epoch: Optional[Tuple[int, ...]] = None
     plan: Optional[GossipPlan] = None
-    for r, members in enumerate(membership_by_round(spec)):
+    for counted in PlanExecutor().execute(spec).rounds:
+        members = tuple(counted.members)
         if members != epoch:
             plan = plan_for_members(spec.n, members, n_segments=spec.n_segments,
                                     full_graph=overlay)
             plan.prepare(dev)  # index tensors on the card before the timed round
             epoch = members
         out, device_ms = _timed_round(mode, plan, w, codec, dev)
-        numerics_ok, finite = _check(out, w, members, mode, bound, spec.n)
+        numerics_ok, finite = check_fedavg(out, w, members, mode, bound, spec.n)
         del out
-        slot_plan = {"dissemination": plan.dissemination, "segmented": plan.segmented,
-                     "tree_allreduce": plan.tree}.get(mode)
-        if slot_plan is not None:
-            tx, n_slots = slot_plan.total_transmissions(), slot_plan.n_slots
-        else:  # flooding: every node receives the other nodes' models
-            tx, n_slots = len(members) * (len(members) - 1), 1
-        run.rounds.append(RoundReport(
-            round=r, members=list(members), n_slots=n_slots, transmissions=tx,
-            bytes_mb=gossip_collective_bytes(mode, plan, spec.payload_mb * 1e6) / 1e6,
-            bytes_on_wire_mb=gossip_collective_bytes(
-                mode, plan, spec.payload_mb * 1e6, codec=codec) / 1e6,
+        n_slots, tx = counted.n_slots, counted.transmissions
+        bytes_mb, wire_mb = counted.bytes_mb, counted.bytes_on_wire_mb
+        if mode == "flooding":  # the all-gather: each live node receives the others' models
+            n_slots, tx = 1, len(members) * (len(members) - 1)
+            bytes_mb, wire_mb = tx * payload_mb, tx * per_send_wire_mb(codec, payload_mb)
+        run.rounds.append(DeviceRoundReport(
+            round=counted.round, members=list(members), n_slots=n_slots, transmissions=tx,
+            bytes_mb=bytes_mb, bytes_on_wire_mb=wire_mb,
             numerics_ok=numerics_ok, finite=finite, device_ms=device_ms))
     return run
 
@@ -132,3 +140,64 @@ def _timed_round(mode: str, plan: GossipPlan, w: torch.Tensor, codec,
     end.record()
     torch.cuda.synchronize(dev)
     return out, start.elapsed_time(end)
+
+
+def fedavg_check(trainer, state, batch, session=None, seed: int = 1, scale: float = 0.01
+                 ) -> Tuple[Optional[bool], bool, float, Dict[str, float]]:
+    """One step of ``trainer`` from unequal nodes, held to the FedAvg.
+
+    A clone of ``state`` (left as it is) gets a seeded offset of ``scale``
+    x N(0, 1) on each node's masters (and params, their cast). That clone
+    takes one step on ``batch`` twice: with the gossip off (a
+    ``gossip_interval`` of 2 skips step 0's round) and as ``trainer`` steps
+    it, with the plan of ``session``'s membership when one is given. Every
+    live node's masters after the gossip step must lie within
+    :func:`check_fedavg`'s tolerance for the codec of the live nodes' FedAvg
+    of the masters the gossip-off step leaves. ``state`` must be at an even
+    step (a fresh one is at 0). Returns ``(numerics_ok, finite, worst
+    |masters - FedAvg|, times)``: numerics_ok is None for a codec with no
+    deterministic bound (top-k), whose check is finite outputs only; times
+    are the gossip step's seconds by phase (``DFLTrainer``'s ``timed``
+    split: fwd_bwd, optimizer, gossip)."""
+    from ..dfl.trainer import DFLTrainer, TrainState
+
+    if int(state.step) % 2:
+        raise ValueError("the gossip-off step needs an even step")
+    if session is not None:
+        session._ensure_plan()
+
+    def clone(s: TrainState) -> TrainState:
+        return TrainState(params=tree_map(torch.clone, s.params),
+                          opt_state=tree_map(torch.clone, s.opt_state), step=s.step.clone())
+
+    mode, n = trainer.dfl.gossip_mode, trainer.n_nodes
+    gen = torch.Generator(device=trainer.device).manual_seed(seed)
+    start = clone(state)
+    masters = start.opt_state.get("master", start.params)
+    for m, p in zip(tree_flatten(masters)[0], tree_flatten(start.params)[0]):
+        m.add_(scale * torch.randn(m.shape, generator=gen, device=m.device, dtype=m.dtype))
+        if p is not m:
+            p.copy_(m.to(p.dtype))
+    off = DFLTrainer(trainer.model, n, dataclasses.replace(trainer.dfl, gossip_interval=2),
+                     device=trainer.device)
+    off.plan = trainer.plan
+    quiet, _ = off.train_step(clone(start), batch)
+    timed, trainer.timed = trainer.timed, True
+    gossiped, metrics = trainer.train_step(start, batch)
+    trainer.timed = timed
+    members = tuple(int(i) for i in range(n) if trainer.plan.node_slot is None
+                    or trainer.plan.node_slot[i] >= 0)
+    codec = trainer.codec
+    ok, finite, worst = True, True, 0.0
+    key = "master" if "master" in quiet.opt_state else None
+    before = tree_flatten(quiet.opt_state[key] if key else quiet.params)[0]
+    after = tree_flatten(gossiped.opt_state[key] if key else gossiped.params)[0]
+    for w, out in zip(before, after):
+        w, out = w.reshape(n, -1), out.reshape(n, -1)
+        bound = 0.0 if codec is None else codec.mean_atol(float(w.abs().max()))
+        leaf_ok, leaf_finite = check_fedavg(out, w, members, mode, bound, n)
+        finite = finite and leaf_finite
+        ok = None if leaf_ok is None else ok and leaf_ok
+        mean = w[list(members)].double().mean(dim=0)
+        worst = max(worst, float((out[list(members)].double() - mean).abs().max()))
+    return ok, finite, worst, metrics["times"]

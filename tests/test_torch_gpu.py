@@ -1180,3 +1180,69 @@ def test_whisper_decode_step_replays_as_a_cuda_graph(cuda):
         graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
+
+
+# -- the sweep path: phase 6's segmented codec shapes, a 10-node cell --------------
+
+def _whisper_segment_shapes():
+    """(rows, segment length) of every hop of whisper-tiny's leaves in the
+    segmented round on the codec_x_protocol overlay (ER(10), seed 3)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dfl.session import plan_for_members
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.scenario import scenarios
+
+    spec = scenarios.get_sweep("codec_x_protocol").cells()[1].spec
+    plan = plan_for_members(spec.n, range(spec.n), n_segments=spec.n_segments,
+                            full_graph=spec.overlay_graph())
+    rows = sorted({len(step.perm) for step in plan.seg_steps if step.perm})
+    leaves = tree_leaves(build_model(get_arch("whisper-tiny"), device="cpu").init(
+        torch.Generator().manual_seed(0)))
+    sizes = sorted({-(-t.numel() // spec.n_segments) for t in leaves})
+    return [(r, size) for r in rows for size in sizes]
+
+
+@pytest.mark.parametrize("codec", ("int8", "int4", "topk"))
+def test_segmented_whisper_shapes_match_plain(cuda, codec):
+    """Every (rows, segment) shape at which the segmented codec_x_protocol
+    cells launch a codec kernel on whisper-tiny's leaves: bit for bit."""
+    for i, (rows, size) in enumerate(_whisper_segment_shapes()):
+        x = _x(rows, size, seed=i)
+        if codec == "topk":
+            vals, idx = topk_select_op(x.to(cuda), k=13, block=256)
+            want_v, want_i = ref.topk_select_rows(x, 13, 256)
+            assert torch.equal(vals.cpu(), want_v) and torch.equal(idx.cpu(), want_i)
+            continue
+        bits = 8 if codec == "int8" else 4
+        codes, scales = quantize_op(x.to(cuda), bits=bits)
+        want_c, want_s = ref.quantize_rows(x, bits, 1024)
+        assert torch.equal(codes.cpu(), want_c) and torch.equal(scales.cpu(), want_s)
+        out = dequantize_op(codes, scales, size=size, bits=bits)
+        assert torch.equal(out.cpu(), ref.dequantize_rows(want_c, want_s, size, bits, 1024))
+
+
+def test_segmented_int4_cell_from_unequal_nodes_on_card(cuda):
+    """codec_x_protocol cell 7 (int4, segmented) on 10 nodes through the
+    launcher at smoke width: one round from seeded unequal nodes within the
+    runner's int4 tolerance of the gossip-off round's FedAvg, through the
+    codec kernels and the mix."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as launcher
+    from repro_torch.scenario.runner import fedavg_check
+
+    args = launcher.parse_args(["--arch", "whisper-tiny", "--smoke", "--nodes", "10",
+                                "--seq-len", "32", "--sweep", "codec_x_protocol",
+                                "--cell", "7"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, spec = launcher.resolve_scenario(args)
+    run = launcher.build_run(args, spec)
+    assert run.trainer.device.type == "cuda"
+    reset_launches()
+    ok, finite, worst, times = fedavg_check(run.trainer, run.state, run.make_batch(),
+                                            session=run.session)
+    assert ok is True and finite, worst
+    for name in ("quantize", "dequantize", "gossip_mix", "flash_attention"):
+        assert LAUNCHES[name] > 0, name

@@ -83,7 +83,7 @@ def test_round_reports_match_jax_executor(name, jax_side):
 @pytest.mark.parametrize("name", NAMES)
 def test_scenario_table_matches_registry(name):
     reg, ours = scenarios.get(name), SCENARIOS[name]
-    assert ours.payload_mb == reg.payload_mb()
+    assert ours.payload_mb() == reg.payload_mb()
     for f in ("protocol", "n_segments", "codec", "rounds"):
         assert getattr(ours, f) == getattr(reg, f)
     assert [(e.round, e.action, e.node) for e in ours.churn] == \
@@ -96,12 +96,45 @@ def test_scenario_table_matches_registry(name):
 
 def test_membership_matches_jax_lifecycle():
     from repro.scenario.executors import membership_rounds
-    from repro_torch.scenario import membership_by_round
+    from repro_torch.scenario.executors import membership_rounds as port_rounds
 
     for name in NAMES:
-        reg = scenarios.get(name)
-        theirs = [tuple(m) for _, _, m, _ in membership_rounds(reg, reg.overlay_graph())]
-        assert membership_by_round(SCENARIOS[name]) == theirs
+        reg, ours = scenarios.get(name), SCENARIOS[name]
+        theirs = [(r, mod.moderator_id, tuple(m))
+                  for r, mod, m, _ in membership_rounds(reg, reg.overlay_graph())]
+        assert [(r, mod.moderator_id, tuple(m))
+                for r, mod, m, _ in port_rounds(ours, ours.overlay_graph())] == theirs
+        assert [tuple(r.members) for r in run_scenario(name, device="cpu", proxy_elems=4).rounds
+                ] == [m for _, _, m in theirs]
+
+
+@pytest.mark.parametrize("protocol", ("dissemination", "segmented", "tree_allreduce",
+                                      "flooding"))
+@pytest.mark.parametrize("name", NAMES)
+def test_round_counts_are_the_plan_executors(name, protocol):
+    """The runner's members, slots, transmissions and bytes are the plan
+    executor's, but for flooding, which the device runs as an all-gather:
+    m (m - 1) sends of the whole payload in one slot, m the live nodes."""
+    from repro_torch.compress import per_send_wire_mb
+    from repro_torch.scenario.executors import PlanExecutor
+
+    base = SCENARIOS[name]
+    spec = base.replace(protocol=protocol, codec="int4",
+                        churn=() if protocol == "flooding" else base.churn)
+    counted = PlanExecutor().execute(spec).rounds
+    ours = run_scenario(spec, device="cpu", proxy_elems=4).rounds
+    assert [r.members for r in ours] == [c.members for c in counted]
+    for r, c in zip(ours, counted):
+        if protocol == "flooding":
+            m = len(r.members)
+            assert (r.n_slots, r.transmissions) == (1, m * (m - 1))
+            assert r.bytes_mb == r.transmissions * spec.payload_mb()
+            assert r.bytes_on_wire_mb == r.transmissions * per_send_wire_mb(
+                spec.codec_obj(), spec.payload_mb())
+        else:
+            for f in ("n_slots", "transmissions", "bytes_mb", "bytes_on_wire_mb"):
+                assert getattr(r, f) == getattr(c, f), (r.round, f)
+        assert r.numerics_ok and r.finite
 
 
 def test_convert_round_trips_a_jax_stacked_tree(jax_side):

@@ -16,6 +16,7 @@ against the originals.
 * ``core/moderator.py`` and ``data/pipeline.py``: equal outputs to the
   originals (schedule packets, votes, handover; token streams bit for bit).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,7 +41,8 @@ from repro_torch.dfl.session import DFLSession  # noqa: E402
 from repro_torch.dfl.trainer import DFLConfig, DFLTrainer, TrainState  # noqa: E402
 from repro_torch.models import Batch, build_model  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
-from repro_torch.scenario.spec import ChurnEvent, get as get_scenario  # noqa: E402
+from repro_torch.scenario.registry import get as get_scenario  # noqa: E402
+from repro_torch.scenario.spec import ChurnEvent  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 4
@@ -172,7 +174,9 @@ def test_masked_node_keeps_its_own_params_through_the_round():
 def test_scheduled_churn_fires_at_its_round_and_skips_what_cannot():
     model, trainer, _ = _session()
     spec = get_scenario("mesh_smoke")
-    spec = spec.replace(churn=(*spec.churn, ChurnEvent(1, "leave", 9)))
+    # node 9 is past the session's 4 nodes; dataclasses.replace keeps the
+    # 4-node overlay, where ScenarioSpec.replace would reject the event
+    spec = dataclasses.replace(spec, churn=(*spec.churn, ChurnEvent(1, "leave", 9)))
     session = DFLSession(trainer, scenario=spec)
     state = trainer.init_state(torch.Generator().manual_seed(0))
     tok = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (8, 32))).long()

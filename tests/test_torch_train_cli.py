@@ -65,7 +65,7 @@ def _cli(*args, timeout=300):
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     ckpt = tmp_path_factory.mktemp("ckpt")
-    out = _cli("--smoke", "--steps", "3", "--nodes", "4", "--device", "cpu",
+    out = _cli("--smoke", "--steps", "3", "--nodes", "4", "--device", "cpu", "--warmup", "0",
                "--checkpoint-dir", str(ckpt), "--checkpoint-every", "3")
     return out, ckpt
 
@@ -123,7 +123,7 @@ def test_cli_trains_a_moe_arch(arch):
     microbatch) and arctic (Adafactor, 8 microbatches over the 4 nodes'
     rows); the loss of a fixed-seed run falls."""
     out = _cli("--arch", arch, "--smoke", "--steps", "3", "--nodes", "4", "--seq-len", "32",
-               "--batch-per-node", "2", "--device", "cpu")
+               "--batch-per-node", "2", "--device", "cpu", "--warmup", "0")
     assert f"arch={arch}" in out and "nodes=4" in out
     losses = [float(x) for x in re.search(r"done: 3 steps .* loss (.*)", out).group(1).split()]
     assert len(losses) == 3 and all(np.isfinite(losses)) and losses[2] < losses[0], losses
@@ -135,7 +135,7 @@ def test_cli_trains_stablelm_and_the_hybrid(arch):
     shared attention block) smoke variants train from the CLI; the loss
     falls."""
     out = _cli("--arch", arch, "--smoke", "--steps", "3", "--nodes", "4", "--seq-len", "32",
-               "--batch-per-node", "2", "--device", "cpu")
+               "--batch-per-node", "2", "--device", "cpu", "--warmup", "0")
     assert f"arch={arch}" in out and "nodes=4" in out
     losses = [float(x) for x in re.search(r"done: 3 steps .* loss (.*)", out).group(1).split()]
     assert len(losses) == 3 and all(np.isfinite(losses)) and losses[2] < losses[0], losses
