@@ -4,6 +4,7 @@ from .base import (  # noqa: F401
     ArchConfig,
     InputShape,
     get_arch,
+    input_specs,
     list_archs,
     register,
 )

@@ -1,5 +1,6 @@
 """Architecture configs of the port: ``ArchConfig``, the input shapes and the
-registry (``repro.configs.base`` without the ``jax.ShapeDtypeStruct`` specs).
+registry (``repro.configs.base``; :func:`input_specs` gives ``(shape, dtype)``
+pairs in torch dtypes where the JAX package gives ``jax.ShapeDtypeStruct``).
 
 The registry holds the ten architectures of the JAX package's:
 smollm-360m, granite-3-2b, gemma2-2b and stablelm-12b (dense),
@@ -11,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -152,6 +155,15 @@ class ArchConfig:
         nheads = max(1, di // 64)
         return d * (2 * di + 2 * n + nheads) + di * self.conv_width + di * d + 2 * nheads
 
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (6·N_active·D model-FLOPs basis)."""
+        if not self.n_experts:
+            return self.param_count()
+        d = self.d_model
+        expert_all = self.n_layers * self.n_experts * 3 * d * self.d_ff
+        expert_active = self.n_layers * self.top_k * 3 * d * self.d_ff
+        return int(self.param_count() - expert_all + expert_active)
+
     def replace(self, **kw: Any) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
@@ -201,6 +213,37 @@ INPUT_SHAPES: Dict[str, InputShape] = {
     "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
+
+
+def input_specs(
+    arch: ArchConfig, shape: InputShape, dtype: torch.dtype = torch.int32
+) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """``(shape, dtype)`` of every model input (dry-run pattern).
+
+    * train: tokens + labels, (global_batch, seq)
+    * prefill: tokens, (global_batch, seq)
+    * decode: one new token per sequence + cache handled by the caller
+    * audio/vlm: precomputed frontend embeddings (the assignment's stub)
+    """
+    b, s = shape.global_batch, shape.seq_len
+    specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if shape.kind == "train":
+        specs["tokens"] = ((b, s), dtype)
+        specs["labels"] = ((b, s), dtype)
+    elif shape.kind == "prefill":
+        specs["tokens"] = ((b, s), dtype)
+    else:  # decode: one token against a seq_len cache
+        specs["tokens"] = ((b, 1), dtype)
+        specs["cache_positions"] = ((b,), torch.int32)
+    if arch.family == "audio":
+        specs["encoder_frames"] = ((b, arch.n_frames, arch.d_model), torch.bfloat16
+                                   if arch.dtype == "bfloat16" else torch.float32)
+    if arch.family == "vlm" and shape.kind != "decode":
+        specs["patch_embeddings"] = (
+            (b, arch.n_patches, arch.d_model),
+            torch.bfloat16 if arch.dtype == "bfloat16" else torch.float32,
+        )
+    return specs
 
 
 _REGISTRY: Dict[str, ArchConfig] = {}

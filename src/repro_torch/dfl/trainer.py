@@ -85,6 +85,13 @@ def _stack(tree: PyTree, n: int, dtype: Optional[torch.dtype] = None) -> PyTree:
         n, *([1] * t.dim())), tree)
 
 
+def recast(master: PyTree, params: PyTree) -> PyTree:
+    """The parameters re-cast from the masters, as a gossip round leaves
+    them: an f32 leaf is its master itself (``to`` returns it), so the two
+    share one storage."""
+    return tree_map(lambda m, p: m.to(p.dtype), master, params)
+
+
 def _map_batch(fn, batch: Batch) -> Batch:
     """``fn`` of every field of ``batch`` that is set."""
     return Batch(**{f.name: None if getattr(batch, f.name) is None
@@ -282,10 +289,11 @@ class DFLTrainer:
         return coefs, counts
 
     def grads(self, params: PyTree, batch: Batch
-              ) -> Tuple[torch.Tensor, PyTree, List[float], Optional[torch.Tensor]]:
-        """(the step's loss, its gradient, each node's own mean loss, the
-        route mismatch): node i at its row of ``params`` on rows
-        [i·bpn, (i+1)·bpn) of the batch.
+              ) -> Tuple[torch.Tensor, PyTree, List[torch.Tensor], Optional[torch.Tensor]]:
+        """(the step's loss, its gradient, each node's own mean loss (a
+        device scalar: the step reads nothing back to the host), the route
+        mismatch): node i at its row of ``params`` on rows [i·bpn, (i+1)·bpn)
+        of the batch.
 
         The reference differentiates the global batch's masked-mean loss, so
         node i's share weighs by its count of valid labels, not 1 / N (P4):
@@ -324,7 +332,7 @@ class DFLTrainer:
                 mismatch = d if mismatch is None else mismatch + d
         it = iter(acc)
         mean = tree_map(lambda p: next(it).to(p.dtype), params)
-        return loss, mean, [float(x) for x in losses], mismatch
+        return loss, mean, losses, mismatch
 
     # -- the step -------------------------------------------------------------
     def gossip(self, params: PyTree, opt_state: Dict[str, PyTree]
@@ -344,7 +352,7 @@ class DFLTrainer:
         if "master" in opt_state:
             master, new_ef = exchange(opt_state["master"])
             opt_state = dict(opt_state, master=master)
-            params = tree_map(lambda m, p: m.to(p.dtype), master, params)
+            params = recast(master, params)
         else:
             params, new_ef = exchange(params)
         if new_ef is not None:
@@ -352,7 +360,9 @@ class DFLTrainer:
         return params, opt_state
 
     def train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, Any]]:
-        """One local step on every node, then (on a gossip step) one round."""
+        """One local step on every node, then (on a gossip step) one round.
+        With a gossip interval of 1 the step reads nothing back to the host:
+        its metrics are device tensors (``node_losses`` one a node)."""
         dev, dfl = self.device, self.dfl
         t0 = _sync(dev) if self.timed else 0.0
         loss, grads, node_losses, mismatch = self.grads(state.params, batch)
@@ -366,8 +376,9 @@ class DFLTrainer:
         if ef is not None:  # optimizers rebuild their state dict; carry the residual
             opt_state = dict(opt_state, codec_ef=ef)
         t2 = _sync(dev) if self.timed else 0.0
-        step = int(state.step)
-        gossiped = dfl.gossip_interval <= 1 or (step + 1) % dfl.gossip_interval == 0
+        # the host reads the step count only where the interval needs it
+        gossiped = (dfl.gossip_interval <= 1
+                    or (int(state.step) + 1) % dfl.gossip_interval == 0)
         if gossiped:
             params, opt_state = self.gossip(params, opt_state)
         t3 = _sync(dev) if self.timed else 0.0

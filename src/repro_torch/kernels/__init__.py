@@ -12,9 +12,23 @@ quantize, ``(rows, (size, ...), bits)`` for dequantize, which decodes a
 group of leaves a launch, ``(rows, size, block, k)`` for top-k, the tensor
 shape elsewhere), so a kernel's time can be weighted by the shapes the path
 gives it.
+
+Every kernel also has a cost function beside its wrapper, the FLOPs and
+bytes of one launch (:class:`Cost`; each input read once, each output
+written once), the one source of a kernel's cost: ``chip_smoke.py``'s
+bounds and the op counter (``launch/op_analysis.py``) read it. The ops
+bracket each call in :class:`kernel_call`, so a counter sees the kernel
+once, by its cost, whichever route computes it: the kernel, the plain
+version or the fake route. A ``FakeTensor`` (the dry run,
+``launch/dryrun.py``) takes the fake route, whatever device it claims: the
+wrapper allocates the kernel's outputs and workspaces and launches nothing.
 """
 from collections import Counter
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 KERNEL_NAMES = (
     "quantize", "dequantize", "topk_select", "gossip_mix", "flash_attention", "selective_scan",
@@ -43,3 +57,52 @@ def launch_counts() -> Dict[str, int]:
 
 def launch_shapes() -> Dict[str, Dict[Tuple[int, ...], int]]:
     return {name: dict(SHAPES[name]) for name in KERNEL_NAMES}
+
+
+class Cost(NamedTuple):
+    """One launch's operations and the bytes it must move."""
+
+    flops: float
+    bytes: float
+
+
+class kernel_call:
+    """Brackets one call of kernel ``name`` on any route. With a counter
+    active (a dispatch mode with ``enter_kernel(name, cost)`` and
+    ``exit_kernel()``: ``launch.op_analysis.OpCounter``), ``cost_fn(*args)``
+    gives its :class:`Cost` (None: the wrapper launches nothing at these
+    shapes), and the counter takes the call as one launch at that cost, not
+    the aten ops inside it. Without one it costs a look at an empty mode
+    stack."""
+
+    __slots__ = ("name", "cost_fn", "args", "live")
+
+    def __init__(self, name: str, cost_fn: Callable[..., Optional[Cost]], *args: Any) -> None:
+        self.name, self.cost_fn, self.args = name, cost_fn, args
+
+    def __enter__(self) -> None:
+        self.live = [m for m in _get_current_dispatch_mode_stack()
+                     if hasattr(m, "enter_kernel")]
+        if self.live:
+            cost = self.cost_fn(*self.args)
+            for c in self.live:
+                c.enter_kernel(self.name, cost)
+
+    def __exit__(self, *exc: Any) -> None:
+        for c in self.live:
+            c.exit_kernel()
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    return isinstance(t, FakeTensor)
+
+
+def on_card(t: torch.Tensor, name: str) -> bool:
+    """Whether ``t`` goes to the kernel's wrapper: a CUDA tensor (the
+    kernel, or a raise) or a fake one (the fake route); a CPU tensor goes to
+    the plain version. Any other device raises."""
+    if t.device.type == "cuda" or is_fake(t):
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name} runs on CUDA or CPU tensors, got {t.device}")

@@ -15,15 +15,21 @@ and dV from q, k, v, the output, its LSE and dO, in two launches (dQ, then
 dK and dV); bf16 runs on the tensor cores (wgmma fed by TMA), f32 on SIMT
 kernels. The JAX package has no backward kernel (its trainer differentiates
 einsum attention); bound by operations, the source states the bound and the
-design. CUDA tensors only: :mod:`.ops` dispatches.
+design. CUDA tensors only: :mod:`.ops` dispatches. A fake tensor takes the
+fake route: the outputs and the D scratch, no launch.
+
+:func:`flash_cost` and :func:`flash_bwd_cost` give one launch's FLOPs (4 hd
+and 10 hd a visible (query, key) pair a head) and bytes.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+import functools
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from .. import count_launch
+from .. import Cost, count_launch, is_fake
 from .._build import check, lib
 
 _ENTRY = {torch.float32: "rt_flash_attention_f32", torch.bfloat16: "rt_flash_attention_bf16"}
@@ -32,22 +38,67 @@ _ENTRY = {torch.float32: "rt_flash_attention_f32", torch.bfloat16: "rt_flash_att
 HEAD_DIMS = (32, 64, 112, 128, 160, 256)
 
 
+@functools.lru_cache(maxsize=1024)
+def visible_pairs(s_q: int, s_kv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the masks leave visible: keys k < s_kv with
+    k <= q when causal and k > q - window when windowed."""
+    q = np.arange(s_q, dtype=np.int64)
+    hi = np.minimum(q + 1, s_kv) if causal else np.full_like(q, s_kv)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_cost(q: torch.Tensor, k: torch.Tensor, causal: bool, sliding_window: int,
+               lse: bool) -> Optional[Cost]:
+    """One forward launch: q, k, v read and the output (and its LSE) written
+    once; 4 hd operations a visible pair a head (Q K^T and P V). None where
+    the wrapper launches nothing."""
+    b, s_q, h, hd = q.shape
+    s_kv, kvh = k.shape[1], k.shape[2]
+    if not (b * s_q * h * hd and s_kv):
+        return None
+    pairs = visible_pairs(s_q, s_kv, causal, sliding_window)
+    n_bytes = (2 * b * s_q * h + 2 * b * s_kv * kvh) * hd * q.element_size()
+    return Cost(4 * hd * b * h * pairs, n_bytes + (4 * b * h * s_q if lse else 0))
+
+
+def flash_bwd_cost(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   sliding_window: int) -> Optional[Cost]:
+    """One backward launch: q, k, v, the output, its LSE and dO read, dQ,
+    dK and dV written once; 10 hd operations a visible pair a head (S and
+    dP recomputed, dV, dQ, dK)."""
+    b, s_q, h, hd = q.shape
+    s_kv, kvh = k.shape[1], k.shape[2]
+    if not (b * s_q * h * hd and s_kv):
+        return None
+    pairs = visible_pairs(s_q, s_kv, causal, sliding_window)
+    n_bytes = (4 * b * s_q * h + 4 * b * s_kv * kvh) * hd * q.element_size() + 4 * b * h * s_q
+    return Cost(10 * hd * b * h * pairs, n_bytes)
+
+
+def _addr(t: torch.Tensor) -> int:
+    """The address of a tensor's first element; of a fake one, its offset
+    from its storage's base (which the caching allocator aligns to 512 B)."""
+    return t.storage_offset() * t.element_size() if is_fake(t) else t.data_ptr()
+
+
 def _check_tma_layout(*tensors: torch.Tensor) -> None:
     """TMA reads a bf16 tensor from a 16-byte-aligned base with (b, s, h)
     strides that are multiples of 16 bytes (a stride of an extent-1 dim is
     never stepped)."""
     for t in tensors:
         strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
-        if t.data_ptr() % 16 or any(st % 8 for st in strides):
+        if _addr(t) % 16 or any(st % 8 for st in strides):
             raise ValueError(
-                f"flash_attention: a bf16 view with base offset {t.data_ptr() % 16} B and "
+                f"flash_attention: a bf16 view with base offset {_addr(t) % 16} B and "
                 f"strides {tuple(t.stride())}; the tensor-core kernel needs a 16-byte-aligned "
                 "base and (b, s, h) strides that are multiples of 8 elements")
 
 
 def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   sliding_window: int) -> None:
-    if not (q.device.type == "cuda" and k.device == q.device and v.device == q.device):
+    if not ((q.device.type == "cuda" or is_fake(q)) and k.device == q.device
+            and v.device == q.device):
         raise ValueError(f"{name}: expected q, k and v on one CUDA device")
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
@@ -83,7 +134,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, s_q, h, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if out.numel() and s_kv:
+    if out.numel() and s_kv and not is_fake(q):
         with torch.cuda.device(q.device):
             status = getattr(lib(), _ENTRY[q.dtype])(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -116,13 +167,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError("flash_attention_bwd: o and do in q's dtype, lse f32, all on q's device")
     # contiguous, from a 16-byte-aligned base (TMA's rule, and the dQ pass
     # reads o and dO 16 bytes a thread)
-    q, k, v, o, lse, do = (t.contiguous() if t.is_contiguous() and t.data_ptr() % 16 == 0
+    q, k, v, o, lse, do = (t.contiguous() if t.is_contiguous() and _addr(t) % 16 == 0
                            else t.clone(memory_format=torch.contiguous_format)
                            for t in (q, k, v, o, lse, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not (q.numel() and s_kv):
         return dq.zero_(), dk.zero_(), dv.zero_()
     dd = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)  # D, pass 1 -> 2
+    if is_fake(q):
+        return dq, dk, dv
     with torch.cuda.device(q.device):
         status = lib().rt_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),

@@ -6,20 +6,16 @@ requiring a gradient) goes through :class:`FlashAttention`: its forward
 keeps the rows' log-sum-exp beside the output, and its backward is the
 backward kernel on the card (``flash_attention_bwd``) and
 ``attention_bwd_ref`` on the CPU. Any other call launches the forward
-alone, as inference always did.
+alone, as inference always did. A fake tensor takes the kernels' fake
+route; each call is one :class:`~repro_torch.kernels.kernel_call`.
 """
 from __future__ import annotations
 
 import torch
 
-from .flash import flash_attention, flash_attention_bwd
+from .. import kernel_call, on_card
+from .flash import flash_attention, flash_attention_bwd, flash_bwd_cost, flash_cost
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
-
-
-def _device_type(q: torch.Tensor) -> str:
-    if q.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
-    return q.device.type
 
 
 class FlashAttention(torch.autograd.Function):
@@ -29,10 +25,11 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sliding_window: int, softcap: float):
         kw = dict(causal=causal, sliding_window=sliding_window, softcap=softcap)
-        if _device_type(q) == "cuda":
-            out, lse = flash_attention(q, k, v, return_lse=True, **kw)
-        else:
-            out, lse = attention_lse_ref(q, k, v, **kw)
+        with kernel_call("flash_attention", flash_cost, q, k, causal, sliding_window, True):
+            if on_card(q, "flash_attention"):
+                out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            else:
+                out, lse = attention_lse_ref(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
@@ -40,8 +37,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd if q.device.type == "cuda" else attention_bwd_ref
-        dq, dk, dv = bwd(q, k, v, out, lse, do.to(out.dtype), **ctx.kw)
+        do = do.to(out.dtype)
+        kw = ctx.kw
+        with kernel_call("flash_attention_bwd", flash_bwd_cost, q, k, kw["causal"],
+                         kw["sliding_window"]):
+            bwd = flash_attention_bwd if on_card(q, "flash_attention") else attention_bwd_ref
+            dq, dk, dv = bwd(q, k, v, out, lse, do, **kw)
         return dq, dk, dv, None, None, None
 
 
@@ -53,6 +54,7 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kw = dict(causal=causal, sliding_window=sliding_window, softcap=softcap)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, sliding_window, softcap)
-    if _device_type(q) == "cuda":
-        return flash_attention(q, k, v, **kw)
-    return attention_ref(q, k, v, **kw)
+    with kernel_call("flash_attention", flash_cost, q, k, causal, sliding_window, False):
+        if on_card(q, "flash_attention"):
+            return flash_attention(q, k, v, **kw)
+        return attention_ref(q, k, v, **kw)

@@ -4,7 +4,9 @@ Counterparts of ``repro.kernels.codec.ops``. Every op takes a tensor whose
 leading axis is the row (node) axis: row ``i`` is one payload, flattened and
 padded on its own, so one launch encodes every sending node's row. A CUDA
 tensor goes to the Hopper kernel (or raises); a CPU tensor to the plain
-version in :mod:`.ref`. There is no fallback between the two.
+version in :mod:`.ref` (a fake tensor: the kernel's fake route). There is
+no fallback between the two. Each call is one
+:class:`~repro_torch.kernels.kernel_call`.
 """
 from __future__ import annotations
 
@@ -12,10 +14,12 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from .. import kernel_call, on_card
 from . import ref
-from .group import GroupLayout
-from .quant_pack import dequantize_group, dequantize_rows, quantize_rows
-from .topk_pack import topk_select_rows
+from .group import GroupLayout, group_layout
+from .quant_pack import (dequantize_cost, dequantize_group, dequantize_rows, quantize_cost,
+                         quantize_rows)
+from .topk_pack import topk_cost, topk_select_rows
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -24,11 +28,12 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _on_card(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"codec ops run on CUDA or CPU tensors, got {t.device}")
+    return on_card(t, "a codec op")
+
+
+def _leaf_cost(rows: int, size: int, bits: int, chunk: int):
+    """The cost of decoding one leaf: a group of one."""
+    return dequantize_cost(group_layout(rows, (size,), bits, chunk))
 
 
 def quantize_op(x: torch.Tensor, *, bits: int = 8, chunk: int = 1024,
@@ -38,17 +43,19 @@ def quantize_op(x: torch.Tensor, *, bits: int = 8, chunk: int = 1024,
     (8-bit) or nibble-packed uint8 ``(rows, C, chunk // 2)`` (4-bit), and f32
     scales ``(rows, C)``; into ``out`` (a leaf's arena slices) where given."""
     flat = _rows(x)
-    if _on_card(flat):
-        return quantize_rows(flat, bits, chunk, out=out)
-    return ref.quantize_rows(flat, bits, chunk, out=out)
+    with kernel_call("quantize", quantize_cost, *flat.shape, bits, chunk):
+        if _on_card(flat):
+            return quantize_rows(flat, bits, chunk, out=out)
+        return ref.quantize_rows(flat, bits, chunk, out=out)
 
 
 def dequantize_op(codes: torch.Tensor, scales: torch.Tensor, *, size: int,
                   bits: int = 8, chunk: int = 1024) -> torch.Tensor:
     """Inverse of :func:`quantize_op`: f32 ``(rows, size)``."""
-    if _on_card(codes):
-        return dequantize_rows(codes, scales, size, bits, chunk)
-    return ref.dequantize_rows(codes, scales, size, bits, chunk)
+    with kernel_call("dequantize", _leaf_cost, scales.shape[0], size, bits, chunk):
+        if _on_card(codes):
+            return dequantize_rows(codes, scales, size, bits, chunk)
+        return ref.dequantize_rows(codes, scales, size, bits, chunk)
 
 
 def dequantize_group_op(codes: torch.Tensor, scales: torch.Tensor, layout: GroupLayout
@@ -56,9 +63,10 @@ def dequantize_group_op(codes: torch.Tensor, scales: torch.Tensor, layout: Group
     """Every leaf of a group from its arenas (:class:`.group.GroupLayout`):
     each leaf's f32 ``(rows, size_l)``, views of one output arena. On the
     card, one launch for the group."""
-    if _on_card(codes):
-        return dequantize_group(codes, scales, layout)
-    return ref.dequantize_group(codes, scales, layout)
+    with kernel_call("dequantize", dequantize_cost, layout):
+        if _on_card(codes):
+            return dequantize_group(codes, scales, layout)
+        return ref.dequantize_group(codes, scales, layout)
 
 
 def topk_select_op(x: torch.Tensor, *, k: int, block: int = 256
@@ -66,9 +74,10 @@ def topk_select_op(x: torch.Tensor, *, k: int, block: int = 256
     """Block-local top-k of each row: values f32 and indices i32, both
     ``(rows, C, k)``."""
     flat = _rows(x)
-    if _on_card(flat):
-        return topk_select_rows(flat, k, block)
-    return ref.topk_select_rows(flat, k, block)
+    with kernel_call("topk_select", topk_cost, *flat.shape, block, k):
+        if _on_card(flat):
+            return topk_select_rows(flat, k, block)
+        return ref.topk_select_rows(flat, k, block)
 
 
 def topk_scatter(vals: torch.Tensor, idx: torch.Tensor, *, size: int,

@@ -5,7 +5,11 @@ Replace ``repro.kernels.codec.quant_pack.quantize_chunks`` and
 Both are bound by bytes; the source file states the bound and the design.
 :func:`dequantize_group` decodes every leaf of a group (a gossip hop's
 leaves, laid out by :class:`.group.GroupLayout`) in one launch. These
-wrappers take CUDA tensors only: :mod:`.ops` dispatches.
+wrappers take CUDA tensors only: :mod:`.ops` dispatches; a fake tensor
+takes the fake route (the outputs, no launch).
+
+:func:`quantize_cost` and :func:`dequantize_cost` give one launch's
+operations and bytes.
 """
 from __future__ import annotations
 
@@ -13,9 +17,29 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from .. import count_launch
+from .. import Cost, count_launch, is_fake
 from .._build import check, lib
 from .group import MAX_GROUP_LEAVES, GroupLayout, group_layout
+
+
+def quantize_cost(rows: int, size: int, bits: int, chunk: int) -> Optional[Cost]:
+    """One launch on (rows, size) f32: x read, codes and scales written
+    once; 5 operations an element (|x|, the max, the divide, the round, the
+    clamp). None where the wrapper launches nothing."""
+    n_chunks = -(-size // chunk)
+    code_bytes = rows * n_chunks * (chunk if bits == 8 else chunk // 2)
+    if not code_bytes:
+        return None
+    return Cost(5 * rows * size, 4 * rows * size + code_bytes + 4 * rows * n_chunks)
+
+
+def dequantize_cost(layout: GroupLayout) -> Optional[Cost]:
+    """One launch decoding a group: the codes and scales arenas read and
+    every leaf's f32 output written once; one multiply an element."""
+    if not layout.total_chunks:
+        return None
+    n = layout.rows * sum(layout.sizes)
+    return Cost(n, layout.total_chunks * layout.width + 4 * layout.total_chunks + 4 * n)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -23,7 +47,7 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _require_cuda(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
-    if t.device.type != "cuda":
+    if t.device.type != "cuda" and not is_fake(t):
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -59,7 +83,7 @@ def quantize_rows(flat: torch.Tensor, bits: int, chunk: int,
         if codes.shape != (rows, n_chunks, width) or scales.shape != (rows, n_chunks):
             raise ValueError(f"quantize: out {tuple(codes.shape)} / {tuple(scales.shape)} do "
                              f"not match ({rows}, {n_chunks}, {width})")
-    if codes.numel():
+    if codes.numel() and not is_fake(flat):
         with torch.cuda.device(flat.device):
             status = lib().rt_quantize(flat.data_ptr(), codes.data_ptr(), scales.data_ptr(),
                                        rows, size, n_chunks, chunk, bits, _stream(flat))
@@ -98,7 +122,7 @@ def dequantize_group(codes: torch.Tensor, scales: torch.Tensor, layout: GroupLay
         raise ValueError(f"dequantize: {layout.n_leaves} leaves in a group, at most "
                          f"{MAX_GROUP_LEAVES}")
     out = torch.empty(layout.n_out, dtype=torch.float32, device=codes.device)
-    if layout.total_chunks:
+    if layout.total_chunks and not is_fake(codes):
         with torch.cuda.device(codes.device):
             if layout.n_leaves == 1:  # by value, no table; a large leaf: a CTA a chunk
                 status = lib().rt_dequantize(

@@ -1,19 +1,21 @@
-"""Public gossip-mix op: the Hopper kernel on CUDA, the plain version on CPU."""
+"""Public gossip-mix op: the Hopper kernel on CUDA, the plain version on CPU
+(a fake tensor: the kernel's fake route), one
+:class:`~repro_torch.kernels.kernel_call` a call."""
 from __future__ import annotations
 
 import torch
 
-from .gossip_mix import gossip_mix
+from .. import kernel_call, on_card
+from .gossip_mix import gossip_mix, mix_cost
 from .ref import gossip_mix_ref
 
 
 def gossip_mix_op(buffer: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted sum over axis 1 of a ``(batch, n, p)`` buffer: ``(batch, p)``."""
-    if buffer.device.type == "cuda":
-        return gossip_mix(buffer.contiguous(), weights)
-    if buffer.device.type == "cpu":
+    with kernel_call("gossip_mix", mix_cost, buffer):
+        if on_card(buffer, "gossip_mix"):
+            return gossip_mix(buffer.contiguous(), weights)
         return gossip_mix_ref(buffer, weights)
-    raise ValueError(f"gossip_mix runs on CUDA or CPU tensors, got {buffer.device}")
 
 
 def fedavg_mean(buffer: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,11 @@ asks for (the TPU kernel writes x's dtype), the last state returned in f32
 and, when asked, the state entering each 64-step chunk, which the backward
 reads. The backward has no TPU counterpart (XLA differentiates the JAX
 package's jnp scan). Both are bound by bytes; the source files state the
-bounds and the designs. CUDA tensors only: :mod:`.ops` dispatches.
+bounds and the designs. CUDA tensors only: :mod:`.ops` dispatches. A fake
+tensor takes the fake route: the outputs and workspace, no launch.
+
+:func:`scan_cost` and :func:`scan_bwd_cost` give one launch's FLOPs and
+bytes.
 """
 from __future__ import annotations
 
@@ -16,12 +20,56 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import count_launch
+from .. import Cost, count_launch, is_fake
 from .._build import check, lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 32
 CHUNK = 64  # steps a chunk: the forward's h_chunks hold the state entering each
+BWD_BLOCK_CH = 64  # channels a block of the backward (kBlockCh)
+
+
+def scan_cost(dt: torch.Tensor, Bm: torch.Tensor, x: torch.Tensor,
+              out_dtype: Optional[torch.dtype], chunk_states: bool) -> Optional[Cost]:
+    """One forward launch: dt, x, B, C, A_log and D read, y, the last state
+    (and the chunk states) written once; 8 operations a (step, channel,
+    state) and 2 a (step, channel). None where the wrapper launches
+    nothing."""
+    b, s, di = dt.shape
+    n = Bm.shape[-1]
+    if not (b and di):
+        return None
+    y_size = (out_dtype or x.dtype).itemsize
+    n_bytes = ((4 + x.element_size() + y_size) * b * s * di + 2 * 4 * b * s * n
+               + 4 * (di * n + di + b * di * n))
+    if chunk_states:
+        n_bytes += 4 * b * -(-s // CHUNK) * di * n
+    return Cost(8 * b * s * di * n + 2 * b * s * di, n_bytes)
+
+
+def scan_bwd_cost(dt: torch.Tensor, Bm: torch.Tensor, x: torch.Tensor, dy: torch.Tensor,
+                  dh_last: Optional[torch.Tensor]) -> Optional[Cost]:
+    """One backward launch: the forward's inputs, its chunk states, dy (and
+    dh_last) read, ddt, dB, dC, dx, dA_log and dD written once; 18
+    operations a (step, channel, state)."""
+    b, s, di = dt.shape
+    n = Bm.shape[-1]
+    if not (b and di):
+        return None
+    xs = x.element_size()
+    n_bytes = ((4 + xs + dy.element_size() + 4 + xs) * b * s * di
+               + 4 * b * -(-s // CHUNK) * di * n + 4 * 4 * b * s * n + 4 * 2 * (di * n + di))
+    if dh_last is not None:
+        n_bytes += 4 * b * di * n
+    return Cost(18 * b * s * di * n, n_bytes)
+
+
+def scan_bwd_workspace(b: int, s: int, di: int, n: int) -> int:
+    """The f32 elements of the backward's workspace, the source's
+    ``rt_selective_scan_bwd_workspace``: per-block dB / dC partials and
+    per-row dA_log / dD partials."""
+    blocks = -(-di // BWD_BLOCK_CH)
+    return 2 * b * blocks * s * n + b * di * n + b * di
 
 
 def mamba_selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
@@ -44,7 +92,7 @@ def mamba_selective_scan(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     h = torch.empty((b, di, n), dtype=torch.float32, device=x.device)
     hc = (torch.empty((b, -(-s // CHUNK), di, n), dtype=torch.float32, device=x.device)
           if return_chunk_states else None)
-    if b and di:
+    if b and di and not is_fake(x):
         with torch.cuda.device(x.device):
             status = lib().rt_selective_scan(
                 dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(),
@@ -88,19 +136,22 @@ def selective_scan_bwd(dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     dA_log = torch.empty((di, n), dtype=torch.float32, device=dev)
     dD = torch.empty((di,), dtype=torch.float32, device=dev)
     if b and di:
-        work_elems = lib().rt_selective_scan_bwd_workspace(b, s, di, n)
+        fake = is_fake(x)
+        work_elems = (scan_bwd_workspace(b, s, di, n) if fake
+                      else lib().rt_selective_scan_bwd_workspace(b, s, di, n))
         work = torch.empty((work_elems,), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            status = lib().rt_selective_scan_bwd(
-                dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(), A_log.data_ptr(),
-                D.data_ptr(), h_chunks.data_ptr(), dy.data_ptr(),
-                None if dh_last is None else dh_last.data_ptr(),
-                ddt.data_ptr(), dx.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA_log.data_ptr(),
-                dD.data_ptr(), work.data_ptr(), work_elems, b, s, di, n,
-                _DTYPES[x.dtype], _DTYPES[dy.dtype],
-                torch.cuda.current_stream(dev).cuda_stream)
-        count_launch("selective_scan_bwd", (b, s, di, n))
-        check(status, "selective_scan_bwd")
+        if not fake:
+            with torch.cuda.device(dev):
+                status = lib().rt_selective_scan_bwd(
+                    dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(),
+                    A_log.data_ptr(), D.data_ptr(), h_chunks.data_ptr(), dy.data_ptr(),
+                    None if dh_last is None else dh_last.data_ptr(),
+                    ddt.data_ptr(), dx.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                    dA_log.data_ptr(), dD.data_ptr(), work.data_ptr(), work_elems,
+                    b, s, di, n, _DTYPES[x.dtype], _DTYPES[dy.dtype],
+                    torch.cuda.current_stream(dev).cuda_stream)
+            count_launch("selective_scan_bwd", (b, s, di, n))
+            check(status, "selective_scan_bwd")
     else:  # the kernel writes every element otherwise: these are sums over nothing
         for t in (dB, dC, dA_log, dD):
             t.zero_()
@@ -111,7 +162,8 @@ def _check_scan_inputs(name: str, dt, Bm, Cm, x, A_log, D, *more) -> None:
     """The forward's inputs (and the backward's others, None allowed) on
     one CUDA device, with the dtypes and shapes the kernels take."""
     tensors = [t for t in (dt, Bm, Cm, x, A_log, D, *more) if t is not None]
-    if any(t.device.type != "cuda" or t.device != dt.device for t in tensors):
+    if any((t.device.type != "cuda" and not is_fake(t)) or t.device != dt.device
+           for t in tensors):
         raise ValueError(f"{name}: expected every input on one CUDA device")
     if x.dtype not in _DTYPES:
         raise ValueError(f"{name}: x {x.dtype} not in {list(_DTYPES)}")

@@ -942,7 +942,9 @@ def main(argv: List[str] | None = None) -> int:
         from ..configs import get_arch
         from ..dfl.collectives import tree_flatten
         from ..models import build_model
+        from ..launch.roofline import HBM_BW
         from .codec.group import group_layout
+        from .codec.quant_pack import dequantize_cost
 
         whisper = build_model(get_arch("whisper-tiny"), device="cuda").init(
             torch.Generator(device=dev).manual_seed(0))
@@ -966,9 +968,9 @@ def main(argv: List[str] | None = None) -> int:
         del x, codes_l, scales_l
         want = codec_ref.dequantize_group(codes, scales, layout)
         table = layout.table(dev)
-        n_bytes = codes.numel() + 4 * scales.numel() + 4 * rows * sum(sizes)
-        print(f"[dequant group] int{bits} {label}: bound {n_bytes / 3.35e12 * 1e3:.4f} ms "
-              f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s)")
+        n_bytes = dequantize_cost(layout).bytes
+        print(f"[dequant group] int{bits} {label}: bound {n_bytes / HBM_BW * 1e3:.4f} ms "
+              f"({n_bytes / 1e6:.1f} MB at {HBM_BW / 1e12:.2f} TB/s)")
         for name, path in runs("quant_pack.cu"):
             # NaN-filled, with slack past the arena that a stray write may use
             arena = torch.full((layout.n_out + rows * 1024 * 8,), float("nan"), device=dev)

@@ -1,0 +1,219 @@
+"""One-card dry run: trace every (arch × shape) on fake tensors and report
+what one NVIDIA H100 would do (``repro.launch.dryrun`` for the port).
+
+For each pair, with no card needed, it reports:
+  * the peak of live tensor bytes and whether it fits the card's memory
+    (``fits_hbm``). Both count the step's tensors only: they leave out the
+    CUDA context, cuBLAS's workspaces and the caching allocator's rounding,
+    which ``chip_smoke.py`` phase 7 measures on the card,
+  * the FLOPs and bytes of one step and the roofline terms at H100
+    constants (``launch/roofline.py``),
+  * the launches of every hand-written kernel,
+  * for training shapes, the gossip plan's analytic bytes.
+
+Training shapes trace the DFL trainer's state as a gossip round leaves it
+(an f32 parameter shares its master's storage) and one gossiping
+``DFLTrainer.train_step`` (the step itself, not a copy of it); prefill
+traces ``Model.forward``; decode ``init_cache`` and one ``decode_step``.
+The trace runs under a ``FakeTensorMode``, counted by
+``launch/op_analysis.py``'s ``OpCounter``: the tensors carry shapes, dtypes
+and a device but no data, every kernel takes its fake route, and nothing
+touches a card. It states what a step would cost; it is not a run on one.
+
+The fake tensors claim ``cuda`` where a card is visible and the CPU
+elsewhere: without one PyTorch cannot differentiate fake CUDA tensors (a
+build without CUDA lacks the CUDA device guard that indexing and autograd
+ask for; a CUDA build's autograd engine checks the device index). Both
+take the kernels' fake route and count the same.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k --nodes 4
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from typing import Any, Dict, Optional
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from ..compress import make_codec
+from ..configs import INPUT_SHAPES, InputShape, get_arch, input_specs, list_archs
+from ..dfl.collectives import GossipPlan, gossip_collective_bytes, tree_map
+from ..dfl.trainer import DFLConfig, DFLTrainer, recast
+from ..models import Batch, build_model
+from .op_analysis import OpCounter
+from .roofline import HBM_BYTES, Roofline, model_flops_for
+
+MESH = "1xH100"
+GOSSIP_MODES = ("dissemination", "tree_allreduce", "mixing", "flooding", "allreduce_ref")
+
+
+def trace_device() -> torch.device:
+    """``cuda`` where a card is visible, else the CPU (see the module
+    docstring)."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+def card_memory() -> int:
+    """The card's memory where one is present, else the H100's 80 GB."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(0).total_memory
+    return int(HBM_BYTES)
+
+
+def _inputs(cfg, shape: InputShape, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """Zero tensors of :func:`input_specs`' shapes as the launcher feeds the
+    model: token ids int64, the stubbed frontends' embeddings (whisper's
+    frames, paligemma's patches) in f32 (``launch/train.py``'s batches)."""
+    out = {}
+    for name, (dims, dtype) in input_specs(cfg, shape, torch.int64).items():
+        out[name] = torch.zeros(dims, dtype=torch.float32 if dtype.is_floating_point else dtype,
+                                device=dev)
+    return out
+
+
+def dryrun_pair(
+    arch: str,
+    shape_name: str,
+    *,
+    nodes: int = 4,
+    layers: Optional[int] = None,
+    batch: Optional[int] = None,
+    seq: Optional[int] = None,
+    gossip_mode: str = "tree_allreduce",
+    arch_overrides: Optional[Dict[str, Any]] = None,
+    dfl_overrides: Optional[Dict[str, Any]] = None,
+    smoke: bool = False,
+    verbose: bool = True,
+) -> Dict[str, Any]:
+    """One (arch, shape) on one H100. ``layers``, ``batch`` (the global
+    batch: ``nodes`` x rows a node for a training shape) and ``seq`` cut
+    the config and the shape; arch_overrides: ArchConfig.replace kwargs;
+    dfl_overrides: DFLConfig kwargs (codec, lr, warmup, ...); smoke: the
+    config's smoke variant."""
+    cfg = get_arch(arch).smoke_variant() if smoke else get_arch(arch)
+    if arch_overrides:
+        cfg = cfg.replace(**arch_overrides)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    base = INPUT_SHAPES[shape_name]
+    shape = InputShape(base.name, seq or base.seq_len, batch or base.global_batch, base.kind)
+    result: Dict[str, Any] = {
+        "arch": arch, "shape": shape_name, "mesh": MESH, "n_chips": 1,
+        "gossip_mode": gossip_mode, "status": "ok", "n_layers": cfg.n_layers,
+        "global_batch": shape.global_batch, "seq_len": shape.seq_len,
+    }
+    if shape_name in cfg.skip_shapes:
+        result["status"] = "skipped"
+        result["reason"] = "see DESIGN.md §Arch-applicability"
+        return result
+    t0 = time.time()
+    dev = trace_device()
+    result["traced_on"] = f"fake {dev.type}"
+    try:
+        with FakeTensorMode():  # resolve_device gives CUDA inside it
+            model = build_model(cfg, shape_name, device=dev)
+            params = tree_map(lambda t: torch.empty_like(t, device=dev),
+                              model.init(torch.Generator().manual_seed(0)))
+            inputs = _inputs(cfg, shape, dev)
+            if shape.kind == "train":
+                dflc = DFLConfig(gossip_mode=gossip_mode, **(dfl_overrides or {}))
+                trainer = DFLTrainer(model, nodes, dflc, device=dev)
+                state = trainer.state_from_params(params)
+                del params
+                if "master" in state.opt_state:  # the state a gossip round leaves
+                    state.params = recast(state.opt_state["master"], state.params)
+                data = Batch(**inputs)
+                with OpCounter(live=(state, data), device=dev.type) as counter:
+                    state, _ = trainer.train_step(state, data)
+            elif shape.kind == "prefill":
+                data = Batch(**inputs)
+                with torch.inference_mode(), OpCounter(live=(params, data),
+                                                       device=dev.type) as counter:
+                    model.forward(params, data)
+            else:
+                b = shape.global_batch
+                cache = model.init_cache(b, shape.seq_len)
+                tok = inputs["tokens"]
+                pos = torch.full((b,), shape.seq_len - 1, dtype=torch.int64, device=dev)
+                with torch.inference_mode(), OpCounter(live=(params, cache, tok, pos),
+                                                       device=dev.type) as counter:
+                    model.decode_step(params, tok, pos, cache)
+        stats = counter.stats
+        plan = GossipPlan.build(nodes) if shape.kind == "train" else None
+        pbytes = cfg.param_count() * (2 if cfg.dtype == "bfloat16" else 4)
+        coll = 0.0
+        if plan is not None:
+            codec = (dfl_overrides or {}).get("codec")
+            coll = gossip_collective_bytes(gossip_mode, plan, pbytes,
+                                           make_codec(codec) if codec else None) / nodes
+        roof = Roofline(arch, shape_name, MESH, 1, stats.flops, stats.bytes, coll,
+                        float(stats.peak_bytes), model_flops_for(cfg, shape, shape.kind),
+                        dict(stats.launches))
+        result.update(roof.as_dict())
+        result.update(trace_s=round(time.time() - t0, 1), fits_hbm=bool(
+            stats.peak_bytes <= card_memory()), start_memory_bytes=stats.start_bytes,
+            aten_calls=sum(stats.calls_by_op.values()), top_flops=stats.top())
+        if plan is not None:
+            result["gossip"] = {
+                "n_nodes": plan.n_nodes,
+                "mode": gossip_mode,
+                "mst_slots": plan.dissemination.n_slots,
+                "tree_slots": plan.tree.n_slots,
+                "analytic_bytes": {m: gossip_collective_bytes(m, plan, pbytes)
+                                   for m in GOSSIP_MODES},
+            }
+        if verbose:
+            print(f"[{arch} × {shape_name} × {MESH}] OK traced {result['trace_s']}s "
+                  f"peak={stats.peak_bytes / 2**30:.2f}GiB compute={roof.compute_s * 1e3:.2f}ms "
+                  f"memory={roof.memory_s * 1e3:.2f}ms collective={roof.collective_s * 1e3:.2f}ms"
+                  f" -> {roof.bottleneck}")
+    except Exception as e:  # noqa: BLE001 — report, don't crash the sweep
+        result["status"] = "error"
+        result["error"] = f"{type(e).__name__}: {e}"
+        result["traceback"] = traceback.format_exc()[-2000:]
+        if verbose:
+            print(f"[{arch} × {shape_name} × {MESH}] FAILED: {result['error']}")
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None, choices=list_archs() + [None])
+    ap.add_argument("--shape", default=None, choices=list(INPUT_SHAPES) + [None])
+    ap.add_argument("--all", action="store_true", help="sweep all arch × shape")
+    ap.add_argument("--nodes", type=int, default=4, help="stacked DFL nodes (training)")
+    ap.add_argument("--layers", type=int, default=None, help="cut depth")
+    ap.add_argument("--batch", type=int, default=None, help="global batch")
+    ap.add_argument("--seq", type=int, default=None, help="sequence length")
+    ap.add_argument("--gossip", default="tree_allreduce")
+    ap.add_argument("--smoke", action="store_true", help="the configs' smoke variants")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
+    args = ap.parse_args(argv)
+
+    if args.all:
+        pairs = [(a, s) for a in list_archs() for s in INPUT_SHAPES]
+    else:
+        if not args.arch or not args.shape:
+            ap.error("--arch and --shape required unless --all")
+        pairs = [(args.arch, args.shape)]
+    os.makedirs(args.out, exist_ok=True)
+    failed = 0
+    for arch, shape in pairs:
+        res = dryrun_pair(arch, shape, nodes=args.nodes, layers=args.layers,
+                          batch=args.batch, seq=args.seq, gossip_mode=args.gossip,
+                          smoke=args.smoke)
+        failed += res["status"] == "error"
+        with open(os.path.join(args.out, f"{arch}__{shape}__{MESH}.json"), "w") as f:
+            json.dump(res, f, indent=2, default=str)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

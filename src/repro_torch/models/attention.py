@@ -17,6 +17,10 @@ Hopper kernel on the card, its plain version on the CPU):
   rows from P on of a causal call over all of them; autograd sums dK and dV
   over the two.
 
+Positions the forward made with :func:`arange_positions` are known to be
+``arange(s)`` without reading them; any other positions are checked on
+the device (a host read).
+
 A prefix with a window, any other positions, and cross-attention with key
 positions take the masked einsum the JAX package uses everywhere
 (``_attend_block``), as plain PyTorch. Decode self-attention attends one
@@ -25,6 +29,7 @@ the JAX package does.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -69,8 +74,24 @@ def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(scores / cap) if cap > 0 else scores
 
 
+# the positions tensors arange_positions made, by id (an entry leaves with
+# its tensor)
+_ARANGE: "weakref.WeakValueDictionary[int, torch.Tensor]" = weakref.WeakValueDictionary()
+
+
+def arange_positions(b: int, s: int, device: torch.device) -> torch.Tensor:
+    """(b, s) positions ``0, 1, ..., s-1`` a row, which the attention
+    routing knows to be so without reading them."""
+    positions = torch.arange(s, device=device).expand(b, s)
+    _ARANGE[id(positions)] = positions
+    return positions
+
+
 def _is_arange(positions: torch.Tensor) -> bool:
-    """Whether every row of (b, s) positions is ``0, 1, ..., s-1``."""
+    """Whether every row of (b, s) positions is ``0, 1, ..., s-1``: known
+    for :func:`arange_positions`' tensors, else read from the device."""
+    if _ARANGE.get(id(positions)) is positions:
+        return True
     s = positions.shape[-1]
     return bool((positions == torch.arange(s, device=positions.device)).all())
 

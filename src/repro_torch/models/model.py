@@ -278,7 +278,7 @@ class Model:
         encoder_block = self._layer_fn(self._encoder_block)
         x = frames.to(self.dtype)
         b, f, _ = x.shape
-        positions = torch.arange(f, device=x.device).expand(b, f)
+        positions = attn_lib.arange_positions(b, f, x.device)
         for i in range(self.cfg.n_encoder_layers):
             x = encoder_block(_layer(params["enc_blocks"], i), x, positions)
         return rms_norm(x, params["enc_final_norm"])
@@ -349,7 +349,7 @@ class Model:
             x = torch.cat([batch.patch_embeddings.to(self.dtype), x], dim=1)
             prefix_len = batch.patch_embeddings.shape[1]
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = attn_lib.arange_positions(b, s, x.device)
 
         if cfg.family == "moe":
             x, aux = self._moe_layers(params, x, positions, stats)
@@ -388,7 +388,7 @@ class Model:
         decoder_block = self._layer_fn(self._decoder_block)
         x = embed(params["embed"], batch.tokens).to(self.dtype)
         b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
+        positions = attn_lib.arange_positions(b, s, x.device)
         for i in range(self.cfg.n_layers):
             x = decoder_block(_layer(params["blocks"], i), x, positions, enc)
         x = rms_norm(x, params["final_norm"])
@@ -409,7 +409,7 @@ class Model:
         x = embed(params["embed"], tokens).to(self.dtype)
         b, s, _ = x.shape
         stats: List[MoEStats] = []
-        self._moe_layers(params, x, torch.arange(s, device=x.device).expand(b, s), stats)
+        self._moe_layers(params, x, attn_lib.arange_positions(b, s, x.device), stats)
         return torch.stack([st.f for st in stats])
 
     # -- decode: cache + one-token step ---------------------------------------------
