@@ -283,6 +283,27 @@ Phases, each fatal on failure (exit code 1, no result line):
              count; and its own seconds. The dry runs trace in spawned
              processes begun after phase 6, so no timed phase shares the
              host with them.
+8. mesh    — the mesh (``launch/mesh.py``, ``dfl/sharding.py``). (a)
+             smollm-360m and falcon-mamba-7b on a one-rank NCCL mesh: phase
+             4's params (its seed) and tokens as DTensors split by
+             ``param_spec_tree`` (every placement replicated at size 1), the
+             three prefills and the serve loop at the reference CLI's
+             defaults with the cache ``init_cache`` makes on the mesh; the
+             logits bit-identical to phase 4's (or within 1e-5 of max
+             |logit|), the same flash / scan launches a forward and a step.
+             (b) rank 0 of the 16x16 layout under a fake process group of
+             256 ranks with real tensors on the card: falcon-mamba-7b (the
+             scan on its 512 local channels) and qwen3-moe-30b-a3b (flash on
+             2 local heads, experts over "data") at full depth, prefill_32k
+             (decode_32k when the meshed dry run says the prefill does not
+             fit), rank 0's shards made directly; a warm-up, a timed and a
+             counted step, held to the meshed dry run: FLOPs, launches and
+             collectives by kind exactly, the peak within PEAK_TOL as phase 7
+             holds it; prints the step's time, roofline terms and share.
+             (c) the meshed --all table (every arch x INPUT_SHAPES at 16x16
+             and 2x16x16, full depth; training shapes not_ported), traced in
+             phase 7's processes behind its own dry runs. Every kernel of the
+             path must launch in (a) and (b).
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers (the codec kernels' and the scan backward's also by shape, with
@@ -316,6 +337,12 @@ GOSSIP_KERNELS = ("quantize", "dequantize", "topk_select", "gossip_mix")
 SHAPED_KERNELS = (*GOSSIP_KERNELS, "flash_attention", "flash_attention_bwd")
 CODEC_KERNELS = ("quantize", "dequantize", "topk_select")
 MODEL_KERNELS = ("flash_attention", "selective_scan")
+# phase 8 (a): the phase-4 archs served again on a one-rank NCCL mesh
+MESH_SERVE = ("smollm-360m", "falcon-mamba-7b")
+# phase 8 (b): rank 0 of the 16x16 layout, at prefill_32k (decode_32k when
+# the meshed dry run says the prefill does not fit the card)
+MESH_RANK0 = ("falcon-mamba-7b", "qwen3-moe-30b-a3b")
+MESH_LAYOUTS = ("16x16", "2x16x16")
 
 # phase 6: the codec x protocol grid and one flooding cell, each trained by
 # the launcher at whisper-tiny's full width and depth on 10 stacked nodes
@@ -580,6 +607,246 @@ def count_elements(tree) -> int:
     if isinstance(tree, dict):
         return sum(count_elements(v) for v in tree.values())
     return tree.numel()
+
+
+def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors) -> None:
+    """Phase 8: the mesh (``launch/mesh.py``, ``dfl/sharding.py``).
+
+    (a) smollm-360m and falcon-mamba-7b served again on a one-rank NCCL mesh:
+        phase 4's params (drawn again from its seed) and tokens as DTensors
+        (every placement ``Replicate``), the three prefills and the serve loop
+        at the reference CLI's defaults, the cache made by ``init_cache`` on
+        the mesh; the logits bit-identical to phase 4's, the flash / scan
+        launches a forward and a decode step as phase 4's;
+    (b) rank 0 of the 16x16 layout under a fake process group of 256 ranks
+        with real tensors on the card: falcon-mamba-7b (the scan on its
+        local channels) and qwen3-moe-30b-a3b (flash on its local heads,
+        experts over "data") at full depth, prefill_32k (decode_32k where the
+        meshed dry run says the prefill does not fit): its shards made
+        directly, a warm-up, a timed and a counted step; the meshed dry run's
+        FLOPs, kernel launches and collectives exactly, its peak within
+        PEAK_TOL of ``max_memory_allocated`` (with the card memory held
+        beside the step's live tensors, as phase 7 measures it);
+    (c) the meshed ``--all`` table: every arch x INPUT_SHAPES at both
+        layouts, full depth (traced in phase 7's processes).
+    The fake group moves no data: (b) checks shapes, memory, FLOPs and
+    launches, never values."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import INPUT_SHAPES, get_arch, list_archs
+    from repro_torch.dfl.sharding import (batch_axes, batch_spec, distribute_tree,
+                                          local_param_tree, param_shapes, param_spec_tree,
+                                          placements)
+    from repro_torch.kernels import KERNEL_NAMES, launch_counts, reset_launches
+    from repro_torch.launch.dryrun import fake_group, meshed_inputs, run_meshed_step
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Batch, build_model
+
+    t8 = time.perf_counter()
+    dev = torch.device("cuda")
+    card = torch.cuda.get_device_name(0)
+    reset_launches()  # the counts of phase 8's path
+    # -- (a) one NCCL rank -------------------------------------------------------------
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    mesh = make_local_mesh((1, 1))
+    for arch in MESH_SERVE:
+        ref = phase4[arch]
+        cfg = get_arch(arch)
+        kernel, batch = ref["kernel"], ref["batch"]
+        model = build_model(cfg, device="cuda")
+        params = model.init(torch.Generator(device=dev).manual_seed(0))  # phase 4's draws
+        model.set_mesh_context(mesh, batch_axes(mesh, batch))
+        specs = param_spec_tree(cfg, params, mesh)
+        dparams = distribute_tree(mesh, params, specs)
+        del params
+        tokens = distribute_tensor(ref["tokens"].to(dev), mesh,
+                                   placements(mesh, batch_spec(mesh, batch, 2)))
+        before, spans = launch_counts(), []
+        with torch.no_grad():
+            for i in range(n_prefill):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = model.forward(dparams, Batch(tokens=tokens))
+                torch.cuda.synchronize()
+                spans.append(time.perf_counter() - t0)
+                if i == 0:
+                    got = logits.to_local().cpu()
+                del logits
+        n = launch_counts()[kernel] - before[kernel]
+        if n != ref["per_fwd"] * n_prefill:
+            fail(f"mesh {arch}: {kernel} launched {n} times in {n_prefill} meshed forwards, "
+                 f"phase 4 {ref['per_fwd']} a forward")
+        same = torch.equal(got, ref["logits"])
+        err = float((got - ref["logits"]).abs().max() / ref["logits"].abs().max())
+        if not (same or err <= 1e-5):
+            fail(f"mesh {arch}: meshed prefill logits {err:.3e} of max |logit| from phase 4's")
+        ms = statistics.median(spans[1:]) * 1e3
+        print(f"[mesh] (a) {arch} on a 1-rank NCCL mesh (1, 1), {cfg.n_layers} layers: prefill "
+              f"({batch}, {ref['seq']}) {ms:.3f} ms median of {n_prefill - 1} after a warm-up "
+              f"(phase 4 unsharded {ref['prefill_ms']:.3f} ms), {ref['per_fwd']} {kernel} "
+              f"launches a forward; logits {'bit-identical to' if same else 'within'} phase 4's"
+              f"{'' if same else f' ({err:.3e} of max |logit|)'} on {card}")
+        prompts = distribute_tensor(ref["prompts"].to(dev), mesh,
+                                    placements(mesh, batch_spec(mesh, ref["prompts"].shape[0], 2)))
+        before = launch_counts()[kernel]
+        res = serve(model, dparams, prompts, gen=ref["gen"], cache_len=128)
+        n = launch_counts()[kernel] - before
+        if n != ref["per_step"] * res.steps:
+            fail(f"mesh {arch}: {kernel} launched {n} times in {res.steps} meshed decode steps")
+        toks, last = res.tokens.to_local().cpu(), res.logits.to_local().cpu()
+        if not torch.equal(toks, ref["serve_tokens"]):
+            fail(f"mesh {arch}: the meshed serve loop generated other tokens than phase 4's")
+        same = torch.equal(last, ref["serve_logits"])
+        err = float((last - ref["serve_logits"]).abs().max() / ref["serve_logits"].abs().max())
+        if not (same or err <= 1e-5):
+            fail(f"mesh {arch}: meshed decode logits {err:.3e} of max |logit| from phase 4's")
+        step_ms = 1e3 * res.seconds / res.steps
+        print(f"[mesh] (a) {arch}: serve loop batch {prompts.shape[0]}, prompt "
+              f"{prompts.shape[1]}, gen {ref['gen']}, cache 128 (DTensor cache, "
+              f"cache_spec_tree): {res.steps} steps, {step_ms:.3f} ms/step (phase 4 "
+              f"{ref['step_ms']:.3f}), tokens equal to phase 4's, last logits "
+              f"{'bit-identical' if same else f'within {err:.3e}'} on {card}")
+        model.set_mesh_context(None)
+        del dparams, res, model, tokens, prompts
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # -- (b) rank 0 of 16x16 under a fake group, real tensors on the card ----------------
+    fake_group(256)
+    mesh = make_production_mesh()
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[mesh] (b) card memory outside the allocator: "
+          f"{(total - free - torch.cuda.memory_reserved()) / 1e9:.3f} GB on {card}")
+    for arch in MESH_RANK0:
+        shape_name = "prefill_32k"
+        dry = mesh_dry[("16x16", arch, shape_name)]
+        if dry["status"] != "ok":
+            fail(f"meshed dry run of {arch} x {shape_name}: {dry.get('error')}")
+        if not dry["fits_hbm"]:
+            print(f"[mesh] (b) {arch}: the meshed dry run's prefill_32k rank peak "
+                  f"{dry['peak_memory_gb']:.2f} GiB does not fit {total / 1e9:.1f} GB; "
+                  "decode_32k instead")
+            shape_name = "decode_32k"
+            dry = mesh_dry[("16x16", arch, shape_name)]
+            if dry["status"] != "ok":
+                fail(f"meshed dry run of {arch} x {shape_name}: {dry.get('error')}")
+        cfg, shape = get_arch(arch), INPUT_SHAPES[shape_name]
+        model = build_model(cfg, shape_name, device="cuda")
+        model.set_mesh_context(mesh, batch_axes(mesh, shape.global_batch))
+        shapes = param_shapes(model)
+        params = local_param_tree(cfg, mesh, shapes, param_spec_tree(cfg, shapes, mesh),
+                                  device=dev)
+        inputs = meshed_inputs(model, shape, mesh, dev)
+        spans = []
+        with torch.no_grad():
+            for _ in range(2):  # a warm-up, then the timed step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if len(inputs) == 1:
+                    model.forward(params, inputs[0])
+                else:
+                    model.decode_step(params, *inputs)
+                torch.cuda.synchronize()
+                spans.append(time.perf_counter() - t0)
+        live = (params, inputs)
+        torch.cuda.synchronize()
+        held = held_tensors(live)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = launch_counts()
+        counter = run_meshed_step(model, params, inputs)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        now = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        workspaces = now - torch.cuda.memory_allocated()
+        st = counter.stats
+        launches = {k: after[k] - before[k] for k in KERNEL_NAMES if after[k] != before[k]}
+        label = f"{arch} x {shape_name} at 16x16 rank 0"
+        if dry["flops_per_device"] != st.flops:
+            fail(f"{label}: the meshed dry run's FLOPs {dry['flops_per_device']} != the card "
+                 f"step's {st.flops}")
+        if (not dry["kernel_launches"] == dict(st.launches) == launches
+                or shape.kind == "prefill" and not launches):
+            fail(f"{label}: kernel launches, dry run {dry['kernel_launches']}, op counter "
+                 f"{dict(st.launches)}, launch_counts {launches}")
+        if dry["collective_counts"] != dict(st.collectives):
+            fail(f"{label}: collectives, dry run {dry['collective_counts']}, card step "
+                 f"{dict(st.collectives)}")
+        if dry["start_memory_bytes"] != st.start_bytes:
+            fail(f"{label}: live tensors at the start, dry run {dry['start_memory_bytes']} B, "
+                 f"card {st.start_bytes} B")
+        other = base - st.start_bytes
+        held_b = sum(n for n, _ in held.values())
+        predicted = dry["peak_memory_bytes"] + other
+        gap = (peak - predicted) / peak
+        if not abs(gap) <= PEAK_TOL:
+            fail(f"{label}: predicted peak {predicted / 1e9:.3f} GB (the dry run's "
+                 f"{dry['peak_memory_bytes'] / 1e9:.3f} GB and {other / 1e9:.3f} GB held beside), "
+                 f"measured {peak / 1e9:.3f} GB: {100 * gap:.2f}% apart")
+        step_s = spans[-1]
+        bound = max(dry["compute_s"], dry["memory_s"])
+        counted = max(st.flops / PEAK_FLOPS, st.bytes / HBM_BW)
+        print(f"[mesh] (b) {label} ({shape.global_batch} x {shape.seq_len} global, batch axes "
+              f"{dry['batch_axes']}, {cfg.n_layers} layers): FLOPs {st.flops:.6e} (dry run = "
+              f"card), launches {json.dumps(launches)} (dry run = op counter = launch_counts), "
+              f"collectives {json.dumps(dict(st.collectives))} (= dry run) with "
+              f"{json.dumps({k: int(v) for k, v in st.collective_bytes.items()})} B; peak: dry "
+              f"run {dry['peak_memory_bytes']} B + {other} B held beside ({held_b} B of tensors "
+              f"Python holds, {workspaces} B of cuBLAS workspaces) = {predicted / 1e9:.3f} GB, "
+              f"measured {peak / 1e9:.3f} GB ({100 * gap:+.3f}%, tol {100 * PEAK_TOL:.0f}%); "
+              f"step {1e3 * step_s:.1f} ms (warm-up {1e3 * spans[0]:.1f} ms, no data moved "
+              f"between ranks); compute {1e3 * dry['compute_s']:.3f} ms, memory "
+              f"{1e3 * dry['memory_s']:.3f} ms, collective {1e3 * dry['collective_s']:.3f} ms "
+              f"({dry['bottleneck']}); the card's own bound {1e3 * bound:.3f} ms, share "
+              f"{100 * bound / step_s:.2f}% (from the counted step's bytes: "
+              f"{1e3 * counted:.3f} ms, {100 * counted / step_s:.2f}%); bytes {st.bytes:.4e} (dry run "
+              f"{dry['bytes_per_device']:.4e}), the most by "
+              f"{json.dumps({k: f'{v:.3e}' for k, v in st.bytes_by_op.most_common(6)})} (dry "
+              f"run {json.dumps({k: f'{v:.3e}' for k, v in dry['top_bytes'].items()})}) on {smi}")
+        model.set_mesh_context(None)
+        del params, inputs, counter, model, live
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    counts = launch_counts()
+    print(f"[mesh] launches on phase 8's path: {json.dumps(counts)}")
+    for kernel in MODEL_KERNELS:
+        if not counts[kernel]:
+            fail(f"{kernel}: never launched on phase 8's path")
+
+    # -- (c) the meshed --all table ------------------------------------------------------
+    for m in MESH_LAYOUTS:
+        fits = []
+        for arch in list_archs():
+            for shape_name in INPUT_SHAPES:
+                dry = mesh_dry[(m, arch, shape_name)]
+                if dry["status"] == "error":
+                    fail(f"meshed dry run of {arch} x {shape_name} x {m}: {dry.get('error')}\n"
+                         f"{dry.get('traceback')}")
+                if dry["status"] != "ok":
+                    print(f"[mesh --all] {m} {arch} x {shape_name}: {dry['status']} "
+                          f"({dry['reason']})")
+                    continue
+                fits.append(f"{arch}/{shape_name}={dry['fits_hbm']}")
+                print(f"[mesh --all] {m} {arch} x {shape_name} ({dry['traced_on']}, "
+                      f"{dry['global_batch']} x {dry['seq_len']}, {dry['n_layers']} layers, batch "
+                      f"axes {dry['batch_axes']}): rank peak {dry['peak_memory_bytes'] / 1e9:.2f} "
+                      f"GB, fits_hbm {dry['fits_hbm']} ({total / 1e9:.1f} GB); FLOPs "
+                      f"{dry['flops_per_device']:.4e}, bytes {dry['bytes_per_device']:.4e}, "
+                      f"collective bytes {dry['collective_bytes_per_device']:.4e} "
+                      f"{json.dumps(dry['collective_counts'])}; compute "
+                      f"{1e3 * dry['compute_s']:.2f} ms, memory {1e3 * dry['memory_s']:.2f} ms, "
+                      f"collective {1e3 * dry['collective_s']:.2f} ms ({dry['bottleneck']}); "
+                      f"launches {json.dumps(dry['kernel_launches'])}; traced in "
+                      f"{dry['trace_s']} s")
+        print(f"[mesh --all] {m} fits_hbm: {', '.join(fits)}")
+    print(f"[mesh] phase 8 (a) and (b): {time.perf_counter() - t8:.1f} s on {card}")
 
 
 def main() -> int:
@@ -1325,11 +1592,15 @@ def main() -> int:
 
     def held_tensors(live):
         """The card's storages that Python holds outside ``live``, as
-        {address: (bytes, shape and dtype of a tensor on it)}."""
+        {address: (bytes, shape and dtype of a tensor on it)}; a DTensor
+        by its local tensor."""
+        from torch.distributed.tensor import DTensor
+
         mine = {t.untyped_storage().data_ptr() for t in op_tensors(live)}
         held = {}
         for obj in gc.get_objects():
-            if isinstance(obj, torch.Tensor) and obj.is_cuda and obj.layout == torch.strided:
+            if (isinstance(obj, torch.Tensor) and not isinstance(obj, DTensor) and obj.is_cuda
+                    and obj.layout == torch.strided):
                 st = obj.untyped_storage()
                 if st.data_ptr() not in mine:
                     held.setdefault(st.data_ptr(),
@@ -1389,6 +1660,7 @@ def main() -> int:
     n_prefill = 3
     reset_launches()
     serve_launches = Counter()
+    phase4 = {}  # phase 8's references: the MESH_SERVE archs' logits and inputs
     for arch, layers, batch, kernel, decode in serve_runs:
         # whisper's 448 text positions, Whisper's text context (arXiv:2212.04356)
         seq = 448 if arch == "whisper-tiny" else 2048
@@ -1419,6 +1691,9 @@ def main() -> int:
                 spans.append(time.perf_counter() - t0)
                 if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
                     fail(f"{arch}: non-finite prefill logits")
+                if arch in MESH_SERVE and arch not in phase4:
+                    phase4[arch] = dict(logits=logits.cpu(), tokens=tokens.cpu(), batch=batch,
+                                        seq=seq, kernel=kernel)
                 del logits
         after = launch_counts()
         n = after[kernel] - before[kernel]
@@ -1480,6 +1755,10 @@ def main() -> int:
         if not bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()):
             fail(f"{arch}: generated ids outside the vocab")
         step_ms = 1e3 * res.seconds / res.steps
+        if arch in MESH_SERVE:
+            phase4[arch].update(prompts=prompts.cpu(), gen=gen, serve_tokens=res.tokens.cpu(),
+                                serve_logits=res.logits.cpu(), prefill_ms=prefill_ms,
+                                step_ms=step_ms, per_fwd=per_fwd, per_step=per_step)
         print(f"[serve] {arch}: serve loop batch {b_dec}, prompt {prompt_len}, gen {gen}, "
               f"cache 128: {res.steps} decode steps in {res.seconds:.3f} s, {step_ms:.3f} "
               f"ms/step, {b_dec * res.steps / res.seconds:.1f} tok/s, peak "
@@ -2010,6 +2289,15 @@ def main() -> int:
         dry_futs = [pool.apply_async(dry_worker, (run["dry"],)) for run in counted_runs]
         all_futs.update({p: pool.apply_async(dry_worker, (dict(arch=p[0], shape_name=p[1]),))
                          for p in all_pairs[4:]})
+        # phase 8's meshed dry runs, queued behind phase 7's (rank 0 of each
+        # production layout, full depth; (b)'s pairs first)
+        mesh_pairs = [(m, a, sh) for m in MESH_LAYOUTS for a in list_archs()
+                      for sh in INPUT_SHAPES]
+        mesh_pairs.sort(key=lambda p: (p[0] != "16x16" or p[1] not in MESH_RANK0
+                                       or p[2] not in ("prefill_32k", "decode_32k")))
+        mesh_futs = {p: pool.apply_async(dry_worker, (dict(arch=p[1], shape_name=p[2],
+                                                           mesh=p[0]),))
+                     for p in mesh_pairs}
         # the scan backward's workspace as the fake route allocates it,
         # against the source's own count
         for shape in ((1, 2048, 8192, 16), (2, 2048, 8192, 16), (2, 1000, 1024, 32)):
@@ -2089,9 +2377,15 @@ def main() -> int:
                   f"{1e3 * dry['collective_s']:.2f} ms; useful FLOPs "
                   f"{dry['useful_flops_ratio']:.3f}; launches "
                   f"{json.dumps(dry['kernel_launches'])}; traced in {dry['trace_s']} s")
-    print(f"[dryrun] the dry runs ({len(dry_futs)} counted configs, {len(all_futs)} --all pairs) "
-          f"in {n_workers} processes; card memory they allocated: {card_bytes} B")
-    print(f"[dryrun] phase 7: {time.perf_counter() - t7:.1f} s after phase 6")
+        print(f"[dryrun] phase 7: {time.perf_counter() - t7:.1f} s after phase 6")
+        mesh_dry = {p: fut.get() for p, fut in mesh_futs.items()}
+    print(f"[dryrun] the dry runs ({len(dry_futs)} counted configs, {len(all_futs)} --all pairs, "
+          f"{len(mesh_dry)} meshed pairs for phase 8) in {n_workers} processes; card memory they "
+          f"allocated: {max([card_bytes] + [d.get('card_bytes', 0) for d in mesh_dry.values()])} B")
+    print(f"[dryrun] phases 7 and 8 (c)'s dry runs: {time.perf_counter() - t7:.1f} s after phase 6")
+
+    # -- 8. the mesh ------------------------------------------------------------------------
+    phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors)
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

@@ -22,12 +22,20 @@ once, by its cost, whichever route computes it: the kernel, the plain
 version or the fake route. A ``FakeTensor`` (the dry run,
 ``launch/dryrun.py``) takes the fake route, whatever device it claims: the
 wrapper allocates the kernel's outputs and workspaces and launches nothing.
+
+A DTensor never reaches a wrapper (the wrappers launch on ``data_ptr()``):
+the ops take a DTensor through ``local_map`` (:func:`run_local`), so each
+rank runs the same kernel on its plain local shards, and the launch counts,
+the fake route and a counter's costs all see local shapes. :func:`on_card`
+raises by name for a DTensor on any device.
 """
 from collections import Counter
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 KERNEL_NAMES = (
@@ -100,9 +108,30 @@ def is_fake(t: torch.Tensor) -> bool:
 def on_card(t: torch.Tensor, name: str) -> bool:
     """Whether ``t`` goes to the kernel's wrapper: a CUDA tensor (the
     kernel, or a raise) or a fake one (the fake route); a CPU tensor goes to
-    the plain version. Any other device raises."""
+    the plain version. A DTensor, or any other device, raises."""
+    if isinstance(t, DTensor):
+        raise TypeError(f"{name}: a DTensor reached the kernel's op; a meshed call runs "
+                        "each rank's local shards through the op's local_map route")
     if t.device.type == "cuda" or is_fake(t):
         return True
     if t.device.type == "cpu":
         return False
     raise ValueError(f"{name} runs on CUDA or CPU tensors, got {t.device}")
+
+
+def run_local(fn: Callable[..., Any], mesh: Any, in_placements: Tuple[Any, ...],
+              out_placements: Any, *args: Any) -> Any:
+    """``fn`` on each rank's local shards of ``args`` (``local_map``): every
+    tensor argument is first redistributed to its entry of ``in_placements``
+    (None for a non-tensor argument; a plain tensor is taken as replicated),
+    and the outputs come back as DTensors with ``out_placements``."""
+    def place(a: Any, p: Any) -> Any:
+        if p is None or not isinstance(a, torch.Tensor):
+            return a
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return a if tuple(a.placements) == tuple(p) else a.redistribute(mesh, p)
+
+    args = tuple(place(a, p) for a, p in zip(args, in_placements))
+    return local_map(fn, out_placements=out_placements, in_placements=in_placements,
+                     device_mesh=mesh)(*args)

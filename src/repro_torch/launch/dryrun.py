@@ -26,9 +26,24 @@ build without CUDA lacks the CUDA device guard that indexing and autograd
 ask for; a CUDA build's autograd engine checks the device index). Both
 take the kernels' fake route and count the same.
 
+With ``--mesh 16x16`` or ``--mesh 2x16x16`` (``--multi-pod``, the JAX
+spelling) it traces rank 0 of the JAX dry run's production layouts
+(``launch/mesh.py``) instead: a ``"fake"`` process group of 256 or 512
+ranks (collectives move no data), the params, batch and cache DTensors made
+from rank 0's own shards by the spec trees (``dfl/sharding.py``), and one
+prefill or decode step of the meshed model. Every count is the rank's: its
+FLOPs, bytes and peak, its kernel launches on its local heads and channels,
+its collectives by kind with their bytes (the roofline's collective term).
+A training shape on a mesh reports ``not_ported`` (the multi-rank trainer is
+ROADMAP A7b). Files end ``__singlepod.json`` or ``__multipod.json``, as the
+JAX dry run's. A mesh traced on the CPU is a ``cpu`` DeviceMesh, on which
+DTensor moves a shard from one dimension to another as an all-gather (gloo
+has no all-to-all); on the card it is an all-to-all.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k --nodes 4
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh 16x16
 """
 from __future__ import annotations
 
@@ -37,20 +52,28 @@ import json
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..compress import make_codec
 from ..configs import INPUT_SHAPES, InputShape, get_arch, input_specs, list_archs
 from ..dfl.collectives import GossipPlan, gossip_collective_bytes, tree_map
+from ..dfl.sharding import (batch_axes, batch_spec, local_param_tree, local_zeros_tree,
+                            param_shapes, param_spec_tree)
 from ..dfl.trainer import DFLConfig, DFLTrainer, recast
 from ..models import Batch, build_model
-from .op_analysis import OpCounter
-from .roofline import HBM_BYTES, Roofline, model_flops_for
+from .mesh import make_production_mesh
+from .op_analysis import OpCounter, tensors
+from .roofline import HBM_BYTES, Roofline, model_flops_for, wire_bytes
 
 MESH = "1xH100"
+MESHES = {"16x16": (False, 256), "2x16x16": (True, 512)}  # name -> (multi_pod, ranks)
+MESH_TAGS = {"16x16": "singlepod", "2x16x16": "multipod"}
+NOT_PORTED = ("training over a mesh is ROADMAP A7b (the multi-rank trainer: PermSteps "
+              "over torch.distributed and the node axes' gradient mean)")
 GOSSIP_MODES = ("dissemination", "tree_allreduce", "mixing", "flooding", "allreduce_ref")
 
 
@@ -78,10 +101,26 @@ def _inputs(cfg, shape: InputShape, dev: torch.device) -> Dict[str, torch.Tensor
     return out
 
 
+def fake_group(ranks: int) -> None:
+    """A ``"fake"`` default process group of at least ``ranks`` ranks, this
+    process its rank 0 (one is made, or a smaller fake one remade)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_world_size() >= ranks:
+            return
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"the dry run needs {ranks} ranks; the process group has "
+                               f"{dist.get_world_size()}")
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=ranks)
+
+
 def dryrun_pair(
     arch: str,
     shape_name: str,
     *,
+    mesh: str = MESH,
     nodes: int = 4,
     layers: Optional[int] = None,
     batch: Optional[int] = None,
@@ -92,9 +131,10 @@ def dryrun_pair(
     smoke: bool = False,
     verbose: bool = True,
 ) -> Dict[str, Any]:
-    """One (arch, shape) on one H100. ``layers``, ``batch`` (the global
-    batch: ``nodes`` x rows a node for a training shape) and ``seq`` cut
-    the config and the shape; arch_overrides: ArchConfig.replace kwargs;
+    """One (arch, shape) on one H100, or (``mesh`` "16x16" / "2x16x16") on
+    rank 0 of that layout (:func:`meshed_pair`). ``layers``, ``batch`` (the
+    global batch: ``nodes`` x rows a node for a training shape) and ``seq``
+    cut the config and the shape; arch_overrides: ArchConfig.replace kwargs;
     dfl_overrides: DFLConfig kwargs (codec, lr, warmup, ...); smoke: the
     config's smoke variant."""
     cfg = get_arch(arch).smoke_variant() if smoke else get_arch(arch)
@@ -104,6 +144,8 @@ def dryrun_pair(
         cfg = cfg.replace(n_layers=layers)
     base = INPUT_SHAPES[shape_name]
     shape = InputShape(base.name, seq or base.seq_len, batch or base.global_batch, base.kind)
+    if mesh != MESH:
+        return meshed_pair(arch, cfg, shape, mesh, verbose=verbose)
     result: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": MESH, "n_chips": 1,
         "gossip_mode": gossip_mode, "status": "ok", "n_layers": cfg.n_layers,
@@ -183,6 +225,103 @@ def dryrun_pair(
     return result
 
 
+def meshed_pair(arch: str, cfg, shape: InputShape, mesh_name: str, *,
+                verbose: bool = True) -> Dict[str, Any]:
+    """One (arch, shape) on rank 0 of the ``mesh_name`` layout: the prefill
+    or decode step of the meshed model on rank 0's shards, traced on fake
+    tensors under a fake process group (see the module docstring)."""
+    multi_pod, ranks = MESHES[mesh_name]
+    result: Dict[str, Any] = {
+        "arch": arch, "shape": shape.name, "mesh": mesh_name, "n_chips": ranks,
+        "status": "ok", "n_layers": cfg.n_layers, "global_batch": shape.global_batch,
+        "seq_len": shape.seq_len,
+    }
+    if shape.name in cfg.skip_shapes:
+        result.update(status="skipped", reason="see DESIGN.md §Arch-applicability")
+        return result
+    if shape.kind == "train":
+        result.update(status="not_ported", reason=NOT_PORTED)
+        if verbose:
+            print(f"[{arch} × {shape.name} × {mesh_name}] not ported: {NOT_PORTED}")
+        return result
+    t0 = time.time()
+    dev = trace_device()
+    result["traced_on"] = f"fake {dev.type}"
+    model = None
+    try:
+        fake_group(ranks)
+        dmesh = make_production_mesh(multi_pod=multi_pod, device=dev)
+        with FakeTensorMode():
+            model = build_model(cfg, shape.name, device=dev)
+            b = shape.global_batch
+            model.set_mesh_context(dmesh, batch_axes(dmesh, b))
+            shapes = param_shapes(model)
+            params = local_param_tree(cfg, dmesh, shapes, param_spec_tree(cfg, shapes, dmesh),
+                                      device=dev)
+            counter = run_meshed_step(model, params, meshed_inputs(model, shape, dmesh, dev))
+        stats = counter.stats
+        roof = Roofline(arch, shape.name, mesh_name, ranks, stats.flops, stats.bytes,
+                        wire_bytes(stats.collective_bytes), float(stats.peak_bytes),
+                        model_flops_for(cfg, shape, shape.kind), dict(stats.launches),
+                        dict(stats.collectives))
+        result.update(roof.as_dict())
+        result.update(trace_s=round(time.time() - t0, 1),
+                      fits_hbm=bool(stats.peak_bytes <= card_memory()),
+                      start_memory_bytes=stats.start_bytes,
+                      collective_bytes_by_kind=dict(stats.collective_bytes),
+                      batch_axes=list(batch_axes(dmesh, shape.global_batch)),
+                      aten_calls=sum(stats.calls_by_op.values()), top_flops=stats.top(),
+                      top_bytes=dict(stats.bytes_by_op.most_common(6)))
+        if verbose:
+            print(f"[{arch} × {shape.name} × {mesh_name}] OK traced {result['trace_s']}s "
+                  f"rank peak={stats.peak_bytes / 2**30:.2f}GiB "
+                  f"compute={roof.compute_s * 1e3:.2f}ms memory={roof.memory_s * 1e3:.2f}ms "
+                  f"collective={roof.collective_s * 1e3:.2f}ms -> {roof.bottleneck}")
+    except Exception as e:  # noqa: BLE001 — report, don't crash the sweep
+        result["status"] = "error"
+        result["error"] = f"{type(e).__name__}: {e}"
+        result["traceback"] = traceback.format_exc()[-2000:]
+        if verbose:
+            print(f"[{arch} × {shape.name} × {mesh_name}] FAILED: {result['error']}")
+    finally:
+        if model is not None:
+            model.set_mesh_context(None)
+    return result
+
+
+def meshed_inputs(model, shape: InputShape, dmesh, dev: torch.device) -> Tuple[Any, ...]:
+    """A meshed step's inputs, zero, made from each rank's shards split on
+    the batch axes (:func:`batch_spec`), in :func:`_inputs`' dtypes: (the
+    ``Batch``,) for a prefill; (tokens, positions at the cache's last slot,
+    ``init_cache``'s cache) for a decode step."""
+    shapes = _inputs(model.cfg, shape, torch.device("meta"))
+    specs = {k: batch_spec(dmesh, v.shape[0], v.ndim) for k, v in shapes.items()}
+    data = local_zeros_tree(dmesh, shapes, specs, device=dev)
+    if shape.kind == "prefill":
+        return (Batch(**data),)
+    b = shape.global_batch
+    pos = local_zeros_tree(dmesh, torch.zeros((b,), dtype=torch.int64, device="meta"),
+                           batch_spec(dmesh, b, 1), device=dev)
+    with torch.no_grad():
+        pos = pos + (shape.seq_len - 1)
+    return data["tokens"], pos, model.init_cache(b, shape.seq_len)
+
+
+def run_meshed_step(model, params, inputs: Tuple[Any, ...]) -> OpCounter:
+    """One prefill (``Model.forward``) or decode step (``decode_step``) of a
+    meshed model on :func:`meshed_inputs`, under the op counter (its live
+    tensors: the params and the inputs); returns the counter. The dry run
+    calls it on fake tensors, ``chip_smoke.py`` on the card's."""
+    dev = next(iter(tensors(params))).device
+    with torch.no_grad():  # DTensor views cannot cross into inference mode
+        with OpCounter(live=(params, inputs), device=dev.type) as counter:
+            if len(inputs) == 1:
+                model.forward(params, inputs[0])
+            else:
+                model.decode_step(params, *inputs)
+    return counter
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None, choices=list_archs() + [None])
@@ -194,8 +333,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seq", type=int, default=None, help="sequence length")
     ap.add_argument("--gossip", default="tree_allreduce")
     ap.add_argument("--smoke", action="store_true", help="the configs' smoke variants")
+    ap.add_argument("--mesh", default=MESH, choices=[MESH, *MESHES],
+                    help="one card (default) or rank 0 of a production layout")
+    ap.add_argument("--multi-pod", action="store_true", help="--mesh 2x16x16")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
+    mesh = "2x16x16" if args.multi_pod else args.mesh
 
     if args.all:
         pairs = [(a, s) for a in list_archs() for s in INPUT_SHAPES]
@@ -206,11 +349,12 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     failed = 0
     for arch, shape in pairs:
-        res = dryrun_pair(arch, shape, nodes=args.nodes, layers=args.layers,
+        res = dryrun_pair(arch, shape, mesh=mesh, nodes=args.nodes, layers=args.layers,
                           batch=args.batch, seq=args.seq, gossip_mode=args.gossip,
                           smoke=args.smoke)
         failed += res["status"] == "error"
-        with open(os.path.join(args.out, f"{arch}__{shape}__{MESH}.json"), "w") as f:
+        tag = MESH_TAGS.get(mesh, mesh)
+        with open(os.path.join(args.out, f"{arch}__{shape}__{tag}.json"), "w") as f:
             json.dump(res, f, indent=2, default=str)
     return 1 if failed else 0
 

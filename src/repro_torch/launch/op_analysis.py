@@ -21,7 +21,20 @@ or on fake ones (``launch/dryrun.py``), and accumulates:
   * kernel launches — each hand-written kernel once a call, by its cost
     function (``repro_torch.kernels.Cost``), whichever route computes it;
     the aten ops inside a plain version are not counted, so one step counts
-    the same on the CPU, on the card and on fake tensors.
+    the same on the CPU, on the card and on fake tensors,
+  * collectives — each ``_c10d_functional`` collective (and DTensor's
+    ``shard_dim_alltoall``) by kind, with the bytes of its output: the
+    gathered buffer of an all-gather, the reduced one of an all-reduce, the
+    rank's shard of a reduce-scatter (``hlo_analysis``'s result-shape rule);
+    the peak adds the copy of its input an all-to-all holds while it runs.
+
+On a mesh every count is one rank's. A dispatch mode sees a DTensor op once,
+at global shapes, and not the local ops and collectives DTensor issues for
+it; the counter defers such an op to DTensor (returns ``NotImplemented``),
+whose local ops and collectives then come back to it on the rank's own
+tensors. Live DTensors count their local shards. DTensor also runs an op
+once on fake tensors of the global shapes to learn its output's shape (the
+first time it sees the op's placements); the counter ignores those runs.
 """
 from __future__ import annotations
 
@@ -32,6 +45,8 @@ from collections import Counter
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._sharding_prop import ShardingPropagator
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -53,7 +68,9 @@ _SCATTERS = {_aten.index_put_.default, _aten.index_put.default,
 
 def tensors(obj: Any) -> Iterator[torch.Tensor]:
     """The tensors in nested dicts, lists, tuples and dataclasses."""
-    if isinstance(obj, torch.Tensor):
+    if isinstance(obj, DTensor):
+        yield obj.to_local()
+    elif isinstance(obj, torch.Tensor):
         yield obj
     elif isinstance(obj, dict):
         for v in obj.values():
@@ -77,6 +94,8 @@ class OpStats:
     bytes_by_op: Counter = dataclasses.field(default_factory=Counter)
     calls_by_op: Counter = dataclasses.field(default_factory=Counter)
     launches: Counter = dataclasses.field(default_factory=Counter)
+    collectives: Counter = dataclasses.field(default_factory=Counter)  # kind -> calls
+    collective_bytes: Counter = dataclasses.field(default_factory=Counter)  # kind -> bytes
     start_bytes: int = 0  # live bytes handed in at the start
     peak_bytes: int = 0  # the most live bytes at once
 
@@ -95,31 +114,72 @@ class OpCounter(TorchDispatchMode):
         super().__init__()
         self.stats = OpStats()
         self.device = device
-        self._live: Dict[int, Tuple[int, Any]] = {}  # id(storage) -> (bytes, weakref)
+        # id(storage) -> (its allocation [bytes, storage objects on it], weakref)
+        self._live: Dict[int, Tuple[List[int], Any]] = {}
         self._bytes = 0
         self._depth = 0  # > 0 inside a kernel's call (kernels.kernel_call)
+        self._shadow = 0  # > 0 inside DTensor's shape propagation
+        self._patched = None
         for t in tensors(live):
             self._track(t)
         self.stats.start_bytes = self.stats.peak_bytes = self._bytes
 
+    # -- DTensor's shape propagation --------------------------------------------------
+    def __enter__(self):
+        meta = getattr(ShardingPropagator, _PROPAGATE, None)
+        if meta is not None and self._patched is None:
+            counter = self
+
+            @functools.wraps(meta)
+            def shadowed(*args, **kwargs):
+                counter._shadow += 1
+                try:
+                    return meta(*args, **kwargs)
+                finally:
+                    counter._shadow -= 1
+
+            setattr(ShardingPropagator, _PROPAGATE, shadowed)
+            self._patched = meta
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        if self._patched is not None:
+            setattr(ShardingPropagator, _PROPAGATE, self._patched)
+            self._patched = None
+        return super().__exit__(*exc)
+
     # -- memory ------------------------------------------------------------------
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, alias_of: Optional[torch.Tensor] = None,
+               compact: bool = False) -> None:
+        """Count ``t``'s storage from now until it is freed; with
+        ``alias_of``, a storage object that holds the same memory as that
+        tensor's (a collective's wait on a fake tensor gives a new one),
+        counted once for both; ``compact``: count t's own bytes, not its
+        storage's (DTensor's fake all-to-all returns a slice of a buffer
+        ``group size`` times larger, where the card allocates the slice)."""
         if self.device is not None and t.device.type != self.device:
             return
         st = t.untyped_storage()
         key = id(st)
         if key in self._live:
             return
-        n = st.nbytes()
+        base = self._live.get(id(alias_of.untyped_storage())) if alias_of is not None else None
+        if base is not None:
+            alloc = base[0]
+            alloc[1] += 1
+        else:
+            alloc = [_nbytes(t) if compact else st.nbytes(), 1]
+            self._bytes += alloc[0]
+            if self._bytes > self.stats.peak_bytes:
+                self.stats.peak_bytes = self._bytes
         # the storage's Python object lives as long as its storage
-        self._live[key] = (n, weakref.ref(st, functools.partial(self._free, key)))
-        self._bytes += n
-        if self._bytes > self.stats.peak_bytes:
-            self.stats.peak_bytes = self._bytes
+        self._live[key] = (alloc, weakref.ref(st, functools.partial(self._free, key)))
 
     def _free(self, key: int, _ref: Any = None) -> None:
-        n, _ = self._live.pop(key, (0, None))
-        self._bytes -= n
+        alloc, _ = self._live.pop(key, ([0, 1], None))
+        alloc[1] -= 1
+        if not alloc[1]:
+            self._bytes -= alloc[0]
 
     @property
     def live_bytes(self) -> int:
@@ -142,7 +202,11 @@ class OpCounter(TorchDispatchMode):
 
     # -- aten ops --------------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor's local ops and collectives come back here
         kwargs = kwargs or {}
+        if self._shadow:  # DTensor learning an output's global shape
+            return func(*args, **kwargs)
         info = _info(func)
         if info.composite and torch.is_inference_mode_enabled():
             # autograd decomposes a composite op (matmul, to, reshape)
@@ -152,14 +216,25 @@ class OpCounter(TorchDispatchMode):
                 return func.decompose(*args, **kwargs)
         out = func(*args, **kwargs)
         outs = _flat(out)
-        if outs and not info.view:
+        if info.alias:  # a collective's wait: its output is its input's memory
+            for t in outs:
+                self._track(t, alias_of=_flat(args)[0])
+        elif outs and not info.view:
             ins = _flat(args) + _flat(kwargs.values())
             # a new storage is an allocation; an in-place op or an out=
             # argument hands back one of its inputs' storages
             seen = {id(t.untyped_storage()) for t in ins} if info.mutable else ()
             for t in outs:
                 if not seen or id(t.untyped_storage()) not in seen:
-                    self._track(t)
+                    self._track(t, compact=info.collective is not None)
+        if info.collective is not None:
+            st = self.stats
+            st.collectives[info.collective] += 1
+            st.collective_bytes[info.collective] += sum(_nbytes(t) for t in outs)
+            if info.name == "shard_dim_alltoall":
+                # the card's implementation holds one more copy of the input
+                # (its chunks made contiguous) beside the output while it runs
+                st.peak_bytes = max(st.peak_bytes, self._bytes + _nbytes(_flat(args)[0]))
         if self._depth == 0:
             st = self.stats
             st.calls_by_op[info.name] += 1
@@ -189,6 +264,8 @@ class _OpInfo(NamedTuple):
     mutable: bool  # in place, or an out= argument
     traffic: bool  # moves bytes (not a view or a bare allocation)
     composite: bool  # has a CompositeImplicitAutograd decomposition
+    collective: Optional[str]  # the collective's kind (roofline's names), or None
+    alias: bool  # the output is the input's memory (a collective's wait)
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,8 +277,30 @@ def _info(func) -> _OpInfo:
                      func.name(), torch._C.DispatchKey.CompositeImplicitAutograd))
     view = bool(func.is_view)
     traffic = func.namespace == "aten" and not view and func not in _NO_TRAFFIC
+    key = (func.namespace, packet.__name__)
     return _OpInfo(packet.__name__, formula, view, bool(func._schema.is_mutable), traffic,
-                   composite)
+                   composite, _COLLECTIVES.get(key), key in _ALIASES)
+
+
+# the ShardingPropagator method that runs an op on global fake tensors
+_PROPAGATE = "_propagate_tensor_meta_non_cached"
+
+# the collectives a rank issues, by (namespace, op), named as the JAX
+# roofline's HLO kinds
+_COLLECTIVES = {
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_reduce_"): "all-reduce",
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
+    ("_c10d_functional_autograd", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional_autograd", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional_autograd", "all_to_all_single"): "all-to-all",
+}
+# ops whose output is their input's memory: a collective's wait, and the
+# wrapper that defers it (a fake tensor's wait gives a new storage object)
+_ALIASES = {("_c10d_functional", "wait_tensor"), ("_c10d_functional", "_wrap_tensor_autograd")}
 
 
 def _nbytes(t: torch.Tensor) -> int:

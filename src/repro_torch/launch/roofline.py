@@ -4,11 +4,16 @@ Three terms, in seconds, from an :class:`~repro_torch.launch.op_analysis.OpStats
 
   compute    = FLOPs                    / 989e12 op/s (dense bf16)
   memory     = bytes (operands+outputs) / 3.35e12 B/s (HBM3)
-  collective = the plan's bytes a node  / 450e9 B/s (NVLink 4, one direction)
+  collective = wire bytes               / 450e9 B/s (NVLink 4, one direction)
 
 On one card the stacked nodes' gossip is HBM traffic, already in the
 memory term, so :attr:`Roofline.bottleneck` weighs compute against memory;
-the collective term is what the plan's bytes would cost between cards.
+the collective term is what the plan's bytes would cost between cards. On a
+mesh (``n_chips`` > 1, one rank's counts) the wire bytes are the rank's
+counted collectives weighted as the JAX roofline weighs HLO collectives
+(:data:`WIRE_WEIGHT`: an all-reduce's two phases 2x, the rest 1x), and the
+bottleneck weighs all three terms. One link rate prices every axis: a
+16-wide "model" axis spans two 8-card NVLink domains, which it does not see.
 """
 from __future__ import annotations
 
@@ -22,6 +27,14 @@ F32_FLOPS = 67e12
 HBM_BW = 3.35e12
 LINK_BW = 450e9
 HBM_BYTES = 80e9
+WIRE_WEIGHT = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
+               "all-to-all": 1.0, "collective-permute": 1.0}
+
+
+def wire_bytes(collective_bytes: Dict[str, float]) -> float:
+    """A rank's bytes on the wire: each collective kind's bytes by its
+    :data:`WIRE_WEIGHT`."""
+    return sum(b * WIRE_WEIGHT[kind] for kind, b in collective_bytes.items())
 
 
 @dataclass
@@ -36,6 +49,7 @@ class Roofline:
     peak_memory_per_device: float
     model_flops: float  # 6·N·D (train) / 2·N·D (forward)
     kernel_launches: Dict[str, int] = field(default_factory=dict)
+    collective_counts: Dict[str, int] = field(default_factory=dict)
 
     @property
     def compute_s(self) -> float:
@@ -51,13 +65,17 @@ class Roofline:
 
     @property
     def bound_s(self) -> float:
-        """The least time the card could take: the larger of compute and
-        memory."""
-        return max(self.compute_s, self.memory_s)
+        """The least time the step could take: the larger of compute and
+        memory, and on a mesh the collective term too."""
+        bound = max(self.compute_s, self.memory_s)
+        return max(bound, self.collective_s) if self.n_chips > 1 else bound
 
     @property
     def bottleneck(self) -> str:
-        return "compute" if self.compute_s >= self.memory_s else "memory"
+        terms = {"compute": self.compute_s, "memory": self.memory_s}
+        if self.n_chips > 1:
+            terms["collective"] = self.collective_s
+        return max(terms, key=terms.get)
 
     @property
     def useful_flops_ratio(self) -> float:
@@ -91,6 +109,7 @@ class Roofline:
             "model_flops": self.model_flops,
             "useful_flops_ratio": self.useful_flops_ratio,
             "kernel_launches": dict(self.kernel_launches),
+            "collective_counts": dict(self.collective_counts),
         }
 
 

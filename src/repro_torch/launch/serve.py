@@ -15,6 +15,7 @@ import time
 from dataclasses import dataclass
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.model import Model, Params
 
@@ -31,7 +32,10 @@ def serve(model: Model, params: Params, prompts: torch.Tensor, gen: int,
           cache_len: int) -> ServeResult:
     """Feed ``prompts`` (b, prompt_len) through decode steps (teacher
     forcing), then take ``gen`` greedy tokens; the first generated token
-    comes from the step on the last prompt token."""
+    comes from the step on the last prompt token. A meshed model
+    (``Model.set_mesh_context``) takes DTensor params and prompts and returns
+    DTensor tokens and logits; its loop runs under ``no_grad`` (a DTensor's
+    views cannot cross into inference mode)."""
     b, prompt_len = prompts.shape
     if gen < 1 or prompt_len < 1:
         raise ValueError("serve: needs a prompt token and at least one generated token")
@@ -44,7 +48,7 @@ def serve(model: Model, params: Params, prompts: torch.Tensor, gen: int,
     tok = prompts[:, :1]
     out = []
     steps = prompt_len + gen - 1
-    with torch.inference_mode():
+    with torch.no_grad() if isinstance(prompts, DTensor) else torch.inference_mode():
         for t in range(steps):
             pos = torch.full((b,), t, dtype=torch.int64, device=dev)
             logits, cache = model.decode_step(params, tok, pos, cache)

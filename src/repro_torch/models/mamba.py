@@ -16,6 +16,10 @@ over time steps and not the associative scan's (b, chunk, heads, 64, n)
 intermediates. The selective-scan kernel is Mamba1's (a decay per channel
 and state, at most 32 states) and does not take it.
 
+On a mesh the JAX package's hints pin the post-conv activations and dt to
+``d_inner`` over "model" (Mamba1; Mamba2's x and y by heads), so the scan
+op runs each rank's channels (``kernels/scan/ops.py``).
+
 The one-token decode steps stay plain PyTorch, as the JAX package's are.
 Projections are separate weights (wx / wz / wB / wC / wdt_in, and wdt for
 Mamba2), as in the JAX package.
@@ -26,9 +30,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from ..kernels import run_local
 
 from ..kernels.scan.ops import selective_scan_op
-from .layers import Params, dense_init
+from .layers import Params, dense_init, gather_tokens, reduce_partial, shard_hint
 
 
 def init_mamba1(gen: torch.Generator, d_model: int, d_inner: int, d_state: int,
@@ -70,21 +77,25 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, cache: Optional[torch.Tensor]
 def _mamba1_ssm_inputs(params: Params, xc: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dt (b, s, di), B and C (b, s, n), all f32, from the post-conv
-    activations xc (b, s, di)."""
-    dt_low = (xc @ params["wdt_in"]).float()
+    activations xc (b, s, di). On a mesh, ``wdt_in``, ``wB`` and ``wC`` are
+    row-parallel over a ``d_inner``-split xc: their partial sums are reduced
+    before dt's column-parallel ``dt_proj`` and the scan."""
+    dt_low = reduce_partial((xc @ params["wdt_in"]).float())
     dt = F.softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])
-    Bm = (xc @ params["wB"]).float()
-    Cm = (xc @ params["wC"]).float()
+    Bm = reduce_partial((xc @ params["wB"]).float())
+    Cm = reduce_partial((xc @ params["wC"]).float())
     return dt, Bm, Cm
 
 
 def mamba1_forward(params: Params, x: torch.Tensor, d_state: int, dt_rank: int) -> torch.Tensor:
     """Full-sequence Mamba1 block. x: (b, s, d_model)."""
+    x = gather_tokens(x)
     xi = x @ params["wx"]
     z = x @ params["wz"]
     xc, _ = _causal_conv(xi, params["conv_w"])
-    xc = F.silu(xc)
+    xc = shard_hint(F.silu(xc), "batch", None, "model")
     dt, Bm, Cm = _mamba1_ssm_inputs(params, xc)
+    dt = shard_hint(dt, "batch", None, "model")
     y, _ = selective_scan_op(dt, Bm, Cm, xc, params["A_log"], params["D"],
                              out_dtype=torch.float32)
     y = (y * F.silu(z.float())).to(x.dtype)
@@ -179,7 +190,12 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tens
     dt x)^T B; a (chunks + 1)-square decay matrix over the chunk totals
     carries the states across chunks, and a chunk's rows read the state it
     starts from through C, decayed to each row. s is padded with dt = 0
-    steps (no decay, no input) to whole chunks."""
+    steps (no decay, no input) to whole chunks.
+
+    DTensors (a meshed block) run each rank's batch rows and heads
+    (``local_map``): the recurrence is per head, B and C are shared."""
+    if isinstance(xh, DTensor):
+        return _ssd_local(xh, dt, A, Bm, Cm)
     b, s, H, P = xh.shape
     n, chunk = Bm.shape[-1], SSD_CHUNK
     pad = (-s) % chunk
@@ -205,15 +221,34 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tens
     return y.permute(0, 2, 3, 1, 4).reshape(b, c * chunk, H, P)[:, :s]
 
 
+def _ssd_local(xh: DTensor, dt: DTensor, A: DTensor, Bm: DTensor, Cm: DTensor) -> DTensor:
+    """:func:`ssd_scan` on each rank's batch rows and heads, placed by xh's
+    placements (batch, heads or replicated a mesh dimension)."""
+    mesh = xh.device_mesh
+    r = Replicate()
+    by = {Shard(0): (Shard(0), r, Shard(0)),  # batch: (dt, A, B and C)
+          Shard(2): (Shard(2), Shard(0), r),  # heads
+          r: (r, r, r)}
+    px = tuple(xh.placements)
+    if any(p not in by for p in px):
+        raise ValueError(f"ssd_scan: xh splits on batch or heads only, got {px}")
+    pdt, pa, pbc = (tuple(by[p][i] for p in px) for i in range(3))
+    return run_local(ssd_scan, mesh, (px, pdt, pa, pbc, pbc), (px,), xh, dt, A, Bm, Cm)
+
+
 def mamba2_forward(params: Params, x: torch.Tensor, d_state: int) -> torch.Tensor:
     """Full-sequence Mamba2 block. x: (b, s, d_model)."""
     b, s, _ = x.shape
     d_inner = params["out_proj"].shape[0]
+    x = gather_tokens(x)
     xc, z, Bm, Cm, dt, _ = _mamba2_inputs(params, x)
+    xc = shard_hint(xc, "batch", None, "model")
     xh = xc.reshape(b, s, d_inner // MAMBA2_HEAD_DIM, MAMBA2_HEAD_DIM).float()
+    xh = shard_hint(xh, "batch", None, "model", None)
     A = -torch.exp(params["A_log"])
     y = ssd_scan(xh, dt, A, Bm, Cm) + params["D"][:, None] * xh
-    y = (y.reshape(b, s, d_inner) * F.silu(z.float())).to(x.dtype)
+    y = shard_hint(y.reshape(b, s, d_inner), "batch", None, "model")
+    y = (y * F.silu(z.float())).to(x.dtype)
     return y @ params["out_proj"]
 
 

@@ -26,6 +26,17 @@ are autograd Functions whose backwards are the backward kernels on the card
 layer of a differentiated forward runs under ``torch.utils.checkpoint``, as
 ``jax.checkpoint`` wraps each layer there (its forward then runs twice).
 
+On a mesh (:meth:`Model.set_mesh_context`, the JAX model's) the params,
+batch and cache are DTensors (``dfl/sharding.py``) and the forward and
+decode run on them, under ``layers.mesh_scope``: the layers' hints pin what
+the JAX package pins, the residual stream after each sublayer's add is
+pinned to the sequence over "model" (sequence parallelism) when
+``cfg.seq_parallel``, the moe layers' expert inputs and outputs go to
+``cfg.expert_axis``, and the two kernels run on each rank's local heads and
+channels through ``local_map``.
+:meth:`Model.init_cache` then makes each rank's shards of the cache
+directly. With no mesh nothing of this runs.
+
 Families
   dense : llama-style GQA decoder (smollm, granite), gemma2 (alternating
           local/global layers with softcaps), and the long-context
@@ -58,10 +69,12 @@ Families
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from .. import DeviceLike, resolve_device
@@ -69,15 +82,22 @@ from ..configs.base import ArchConfig
 from . import attention as attn_lib
 from . import mamba as mamba_lib
 from .moe import MoEStats, init_moe, moe_layer
+from ..dfl.sharding import (Spec, axis_sizes, cache_spec_tree, local_zeros_tree,
+                            placements)
 from .layers import (
     Params,
     cross_entropy_loss,
     embed,
+    gather_tokens,
+    get_mesh_ctx,
     init_embedding,
     init_mlp,
     logits_from_embedding,
+    mesh_scope,
     mlp,
+    reduce_partial,
     rms_norm,
+    set_mesh_ctx,
 )
 
 MOE_AUX_WEIGHT = 0.01
@@ -88,6 +108,15 @@ class Batch:
     labels: Optional[torch.Tensor] = None
     encoder_frames: Optional[torch.Tensor] = None
     patch_embeddings: Optional[torch.Tensor] = None
+
+
+def _meshed(fn):
+    """``fn`` inside ``layers.mesh_scope`` (a null context off a mesh)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with mesh_scope():
+            return fn(*args, **kwargs)
+    return run
 
 
 def _layer(tree: Params, i: int) -> Params:
@@ -149,6 +178,47 @@ class Model:
         self.long_context = long_context
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        self.act_spec: Optional[Spec] = None  # set_mesh_context: sequence parallelism
+        self.expert_sharding = None  # (mesh, expert axis, batch axes) for moe_layer
+
+    # -- mesh context -----------------------------------------------------------------
+    def set_mesh_context(self, mesh, batch_axes: Tuple[str, ...] = ()) -> None:
+        """Run on ``mesh`` (None: off any mesh) with the batch split over
+        ``batch_axes``. Sets the layers' mesh context, the moe layers'
+        expert sharding when ``cfg.expert_axis`` is a mesh axis, and, when
+        ``cfg.seq_parallel`` and "model" is wider than 1, the residual
+        stream pinned to (batch axes, "model", None) (:meth:`_shard_acts`):
+        the sequence split over "model" between sublayers (Korthikanti-style
+        sequence parallelism), as the JAX model's ``act_sharding``."""
+        set_mesh_ctx(mesh, tuple(batch_axes))
+        sizes = axis_sizes(mesh) if mesh is not None else {}
+        self.expert_sharding = None
+        if self.cfg.expert_axis in sizes:
+            self.expert_sharding = (mesh, self.cfg.expert_axis, tuple(batch_axes))
+        self.act_spec = None
+        if sizes.get("model", 1) > 1 and self.cfg.seq_parallel:
+            self.act_spec = Spec(tuple(batch_axes) if batch_axes else None, "model", None)
+
+    def _shard_acts(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream x (b, s, d) after a sublayer's add: pinned to
+        ``act_spec`` when its batch and sequence divide, else with any
+        partial sums reduced (a row-parallel output all-reduced, as Megatron
+        does); the identity off a mesh. The JAX model pins at layer ends
+        only and lets XLA place the rest; DTensor keeps a partial sum
+        partial until an op cannot take it, so the port pins after each add."""
+        if not isinstance(x, DTensor):
+            return x
+        mesh = x.device_mesh
+        spec = self.act_spec
+        if spec is not None and x.ndim == 3:
+            sizes = axis_sizes(mesh)
+            n_b = 1
+            for a in spec[0] or ():
+                n_b *= sizes[a]
+            if x.shape[0] % n_b == 0 and x.shape[1] % sizes["model"] == 0:
+                want = placements(mesh, spec)
+                return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+        return reduce_partial(x)
 
     def layer_window(self, local: bool) -> int:
         """Effective sliding window for a layer (0 = full attention)."""
@@ -244,44 +314,46 @@ class Model:
     def _dense_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
                      window: int, prefix_len: int = 0) -> torch.Tensor:
         cfg = self.cfg
-        x = x + attn_lib.attention(
+        x = self._shard_acts(x + attn_lib.attention(
             block["attn"], rms_norm(x, block["ln1"]), positions, causal=True,
             sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta,
-            prefix_len=prefix_len)
-        return x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+            prefix_len=prefix_len))
+        return self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"])))
 
     def _encoder_block(self, block: Params, x: torch.Tensor,
                        positions: torch.Tensor) -> torch.Tensor:
         """A whisper encoder layer: bidirectional self-attention over the
         frames (rope, no softcap, as the JAX package's), then the MLP."""
-        x = x + attn_lib.attention(block["attn"], rms_norm(x, block["ln1"]), positions,
-                                   causal=False, rope_theta=self.cfg.rope_theta)
-        return x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+        x = self._shard_acts(x + attn_lib.attention(
+            block["attn"], rms_norm(x, block["ln1"]), positions, causal=False,
+            rope_theta=self.cfg.rope_theta))
+        return self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"])))
 
     def _decoder_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
                        enc: torch.Tensor) -> torch.Tensor:
         """A whisper decoder layer: causal self-attention, cross-attention to
         the encoder output ``enc`` (K and V projected from it, no rope, every
         frame visible), then the MLP."""
-        x = x + attn_lib.attention(block["attn"], rms_norm(x, block["ln1"]), positions,
-                                   causal=True, rope_theta=self.cfg.rope_theta)
+        x = self._shard_acts(x + attn_lib.attention(
+            block["attn"], rms_norm(x, block["ln1"]), positions, causal=True,
+            rope_theta=self.cfg.rope_theta))
         cross = block["cross"]
         kv = (attn_lib.project_heads(enc, cross["wk"]), attn_lib.project_heads(enc, cross["wv"]))
-        x = x + attn_lib.attention(cross, rms_norm(x, block["ln_cross"]), positions,
-                                   causal=False, use_rope=False, kv_override=kv,
-                                   kv_positions=None)
-        return x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+        x = self._shard_acts(x + attn_lib.attention(
+            cross, rms_norm(x, block["ln_cross"]), positions, causal=False, use_rope=False,
+            kv_override=kv, kv_positions=None))
+        return self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"])))
 
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """whisper's encoder: (b, n_frames, d) frames -> the normed encoder
         output in the model's dtype."""
         encoder_block = self._layer_fn(self._encoder_block)
-        x = frames.to(self.dtype)
+        x = self._shard_acts(frames.to(self.dtype))
         b, f, _ = x.shape
         positions = attn_lib.arange_positions(b, f, x.device)
         for i in range(self.cfg.n_encoder_layers):
             x = encoder_block(_layer(params["enc_blocks"], i), x, positions)
-        return rms_norm(x, params["enc_final_norm"])
+        return gather_tokens(rms_norm(x, params["enc_final_norm"]))
 
     def _layer_fn(self, fn):
         """``fn`` under per-layer remat when the config asks for it and
@@ -291,12 +363,12 @@ class Model:
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
     def _mamba_block(self, block: Params, x: torch.Tensor) -> torch.Tensor:
-        return x + mamba_lib.mamba1_forward(block["body"], rms_norm(x, block["ln"]),
-                                            self.cfg.ssm_state, self.cfg.dt_rank)
+        return self._shard_acts(x + mamba_lib.mamba1_forward(
+            block["body"], rms_norm(x, block["ln"]), self.cfg.ssm_state, self.cfg.dt_rank))
 
     def _mamba2_block(self, block: Params, x: torch.Tensor) -> torch.Tensor:
-        return x + mamba_lib.mamba2_forward(block["body"], rms_norm(x, block["ln"]),
-                                            self.cfg.ssm_state)
+        return self._shard_acts(x + mamba_lib.mamba2_forward(
+            block["body"], rms_norm(x, block["ln"]), self.cfg.ssm_state))
 
     def _super_block(self, mamba_blocks: Params, shared: Params, x: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
@@ -309,12 +381,12 @@ class Model:
     def _moe_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
                    window: int) -> Tuple[torch.Tensor, torch.Tensor, MoEStats]:
         cfg = self.cfg
-        x = x + attn_lib.attention(
+        x = self._shard_acts(x + attn_lib.attention(
             block["attn"], rms_norm(x, block["ln1"]), positions, causal=True,
-            sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
+            sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta))
         y, aux, stats = moe_layer(block["moe"], rms_norm(x, block["ln2"]), cfg.top_k,
-                                  cfg.moe_capacity_factor)
-        return x + y, aux, stats
+                                  cfg.moe_capacity_factor, self.expert_sharding)
+        return self._shard_acts(x + y), aux, stats
 
     def _moe_layers(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
                     stats: Optional[List[MoEStats]]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -330,6 +402,7 @@ class Model:
                 stats.append(st)
         return x, aux
 
+    @_meshed
     def forward(self, params: Params, batch: Batch,
                 stats: Optional[List[MoEStats]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits over the full sequence (b, s, padded vocab) f32,
@@ -348,6 +421,7 @@ class Model:
         if cfg.family == "vlm" and batch.patch_embeddings is not None:
             x = torch.cat([batch.patch_embeddings.to(self.dtype), x], dim=1)
             prefix_len = batch.patch_embeddings.shape[1]
+        x = self._shard_acts(x)
         b, s, _ = x.shape
         positions = attn_lib.arange_positions(b, s, x.device)
 
@@ -386,7 +460,7 @@ class Model:
         decoder over the tokens; logits (b, s, padded vocab) f32, no softcap."""
         enc = self.encode(params, batch.encoder_frames)
         decoder_block = self._layer_fn(self._decoder_block)
-        x = embed(params["embed"], batch.tokens).to(self.dtype)
+        x = self._shard_acts(embed(params["embed"], batch.tokens).to(self.dtype))
         b, s, _ = x.shape
         positions = attn_lib.arange_positions(b, s, x.device)
         for i in range(self.cfg.n_layers):
@@ -414,8 +488,18 @@ class Model:
 
     # -- decode: cache + one-token step ---------------------------------------------
     def init_cache(self, batch: int, cache_len: int) -> Params:
-        """Zeroed decode cache on the model's device, stacked over layers."""
-        cfg, dt, dev = self.cfg, self.dtype, self.device
+        """Zeroed decode cache on the model's device, stacked over layers. On
+        a mesh, DTensors split by ``cache_spec_tree``, each rank's shards
+        made directly (the whole cache is never made)."""
+        mesh, _ = get_mesh_ctx()
+        if mesh is None:
+            return self._init_cache(batch, cache_len, self.device)
+        shapes = self._init_cache(batch, cache_len, torch.device("meta"))
+        return local_zeros_tree(mesh, shapes, cache_spec_tree(self.cfg, shapes, mesh, batch),
+                                device=self.device)
+
+    def _init_cache(self, batch: int, cache_len: int, dev: torch.device) -> Params:
+        cfg, dt = self.cfg, self.dtype
         hd, kv = cfg.resolved_head_dim, cfg.eff_n_kv_heads
 
         def kvc(n_layers: int, length: int) -> Params:
@@ -452,6 +536,7 @@ class Model:
         c = mamba_lib.init_mamba1_cache(batch, cfg.d_inner, cfg.ssm_state, cfg.conv_width, dt, dev)
         return {"mamba": stacked(c, cfg.n_layers)}
 
+    @_meshed
     def decode_step(self, params: Params, tokens: torch.Tensor, positions: torch.Tensor,
                     cache: Params) -> Tuple[torch.Tensor, Params]:
         """tokens: (b, 1); positions: (b,) absolute index of the new token.
@@ -463,12 +548,14 @@ class Model:
             h, c2 = attn_lib.decode_attention(
                 block["attn"], rms_norm(x, block["ln1"]), positions, c, sliding_window=window,
                 softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
-            x = x + h
+            x = self._shard_acts(x + h)
             if cfg.family == "moe":  # the aux loss is not needed here
+                # on a mesh the experts stay on their axis (the JAX decode
+                # leaves their placement to XLA)
                 y, _, _ = moe_layer(block["moe"], rms_norm(x, block["ln2"]), cfg.top_k,
-                                    cfg.moe_capacity_factor)
-                return x + y, c2
-            return x + mlp(block["mlp"], rms_norm(x, block["ln2"])), c2
+                                    cfg.moe_capacity_factor, self.expert_sharding)
+                return self._shard_acts(x + y), c2
+            return self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"]))), c2
 
         if cfg.family in ("dense", "vlm") and cfg.alt_local_global:
             local, glob = [], []
@@ -490,7 +577,7 @@ class Model:
             def mamba2(block: Params, x: torch.Tensor, c: Params):
                 y, c2 = mamba_lib.mamba2_decode(block["body"], rms_norm(x, block["ln"]), c,
                                                 cfg.ssm_state)
-                return x + y, c2
+                return self._shard_acts(x + y), c2
 
             supers, attns = [], []
             for i in range(self.n_super):
@@ -516,13 +603,13 @@ class Model:
                 h, c2 = attn_lib.decode_attention(
                     block["attn"], rms_norm(x, block["ln1"]), positions, _layer(cache["kv"], i),
                     softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
-                x = x + h
+                x = self._shard_acts(x + h)
                 # the one token against every encoder frame: an all-true mask
-                x = x + attn_lib.attention(
+                x = self._shard_acts(x + attn_lib.attention(
                     block["cross"], rms_norm(x, block["ln_cross"]), positions[:, None],
                     causal=False, use_rope=False,
-                    kv_override=(cache["cross_k"][i], cache["cross_v"][i]), kv_positions=None)
-                x = x + mlp(block["mlp"], rms_norm(x, block["ln2"]))
+                    kv_override=(cache["cross_k"][i], cache["cross_v"][i]), kv_positions=None))
+                x = self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"])))
                 kvs.append(c2)
             new_cache = {"kv": _stack(kvs), "cross_k": cache["cross_k"],
                          "cross_v": cache["cross_v"]}
@@ -533,7 +620,7 @@ class Model:
                 y, c2 = mamba_lib.mamba1_decode(block["body"], rms_norm(x, block["ln"]),
                                                 _layer(cache["mamba"], i), cfg.ssm_state,
                                                 cfg.dt_rank)
-                x = x + y
+                x = self._shard_acts(x + y)
                 states.append(c2)
             new_cache = {"mamba": _stack(states)}
 

@@ -11,8 +11,15 @@ counts it rests on.
   whisper-tiny, as the reference's dry run skips it.
 * The dry run's CUDA device: ``resolve_device`` gives it only while the dry
   run's fake mode is active.
+* ``--mesh 16x16``: every arch at 2 layers traces rank 0's prefill and
+  decode (``ok``, with its FLOPs, bytes, collectives and ``fits_hbm``), and
+  its peak and FLOPs are below the one-card dry run's at the same cut; a
+  training shape is ``not_ported`` (ROADMAP A7b). ``2x16x16`` is held in
+  ``tests/test_torch_op_analysis.py``. Files end ``__multipod.json`` /
+  ``__singlepod.json``, as the JAX dry run's.
 """
 import json
+from pathlib import Path
 
 import pytest
 
@@ -36,6 +43,7 @@ from repro_torch.models import Batch, build_model  # noqa: E402
 FAMILIES = {"dense": "smollm-360m", "ssm": "falcon-mamba-7b", "moe": "qwen3-moe-30b-a3b",
             "hybrid": "zamba2-7b", "audio": "whisper-tiny", "vlm": "paligemma-3b"}
 NODES, BATCH, SEQ = 4, 8, 32
+ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {jnp.int32: torch.int32, jnp.int64: torch.int64, jnp.bfloat16: torch.bfloat16,
           jnp.float32: torch.float32}
 
@@ -158,3 +166,84 @@ def test_cli_writes_one_json_a_pair(tmp_path):
     (path,) = tmp_path.glob("*.json")
     assert path.name == "whisper-tiny__prefill_32k__1xH100.json"
     assert json.loads(path.read_text())["status"] == "ok"
+
+
+# -- rank 0 of the production layouts (``--mesh``) ---------------------------------------
+# Each mesh runs in a subprocess: a process group (here the dry run's fake
+# one) is global to its process. Every arch at 2 layers (zamba2-7b with
+# attn_every 2: one super-block; gemma2-2b needs an even count), prefill_32k
+# and decode_32k at their global batches, and train_4k (not ported); the
+# one-card dry run of the same cut beside them.
+MESH_ARCHS = pt_configs.list_archs()
+MESH_SHAPES = ("prefill_32k", "decode_32k", "train_4k")
+_MESH_RUN = """
+import json, sys
+from repro_torch.launch import dryrun
+mesh, archs = sys.argv[1], sys.argv[2].split(",")
+out = {}
+for arch in archs:
+    kw = dict(layers=2, arch_overrides={"attn_every": 2} if arch == "zamba2-7b" else None)
+    for shape in ("prefill_32k", "decode_32k", "train_4k"):
+        if mesh == "1xH100" and shape == "train_4k":
+            continue
+        r = dryrun.dryrun_pair(arch, shape, mesh=mesh, verbose=False, **kw)
+        r.pop("traceback", None) if r["status"] == "ok" else None
+        out[arch + "/" + shape] = r
+print("RESULT " + json.dumps(out, default=str))
+"""
+
+
+def _run_meshes(jobs):
+    """{(mesh, arch/shape): result} of ``_MESH_RUN`` over ``jobs`` (mesh,
+    archs), each a subprocess, all at once."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH="src")
+    procs = [(mesh, subprocess.Popen([sys.executable, "-c", _MESH_RUN, mesh, ",".join(archs)],
+                                     cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))
+             for mesh, archs in jobs]
+    out = {}
+    for mesh, p in procs:
+        stdout, stderr = p.communicate(timeout=600)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("RESULT ")]
+        assert p.returncode == 0 and lines, stderr[-3000:]
+        out.update({(mesh, k): v for k, v in json.loads(lines[-1][7:]).items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def meshed():
+    return _run_meshes([("16x16", MESH_ARCHS), ("1xH100", MESH_ARCHS)])
+
+
+@pytest.mark.parametrize("shape", MESH_SHAPES)
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_meshed_dry_run_16x16(meshed, arch, shape):
+    r = meshed[("16x16", f"{arch}/{shape}")]
+    if shape == "train_4k":
+        assert r["status"] == "not_ported" and "A7b" in r["reason"], r
+        return
+    assert r["status"] == "ok", r.get("error")
+    assert r["mesh"] == "16x16" and r["n_chips"] == 256
+    assert r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
+    assert isinstance(r["fits_hbm"], bool)
+    one = meshed[("1xH100", f"{arch}/{shape}")]
+    assert one["status"] == "ok", one.get("error")
+    assert r["peak_memory_bytes"] < one["peak_memory_bytes"], (r["peak_memory_gb"],
+                                                              one["peak_memory_gb"])
+    assert r["flops_per_device"] < one["flops_per_device"]
+    assert sum(r["collective_counts"].values()) > 0
+    assert r["collective_bytes_per_device"] > 0 and r["collective_s"] > 0
+
+
+def test_meshed_files_are_named_as_the_jax_dry_runs(tmp_path):
+    rc = dryrun.main(["--arch", "whisper-tiny", "--shape", "train_4k", "--multi-pod",
+                      "--out", str(tmp_path)])
+    assert rc == 0
+    (path,) = tmp_path.glob("*.json")
+    assert path.name == "whisper-tiny__train_4k__multipod.json"
+    res = json.loads(path.read_text())
+    assert res["status"] == "not_ported" and res["mesh"] == "2x16x16" and res["n_chips"] == 512

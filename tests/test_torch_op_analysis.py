@@ -7,8 +7,13 @@ of live bytes, and each kernel counted once, by its cost function, on the
 CPU route and on fake tensors. Then the port's smoke prefill against the
 JAX package's: its matmul FLOPs equal the dot FLOPs ``analyze_hlo`` counts
 in the JAX forward compiled on the CPU, less the attention einsums, which
-the port's flash op computes instead (stated analytically below).
+the port's flash op computes instead (stated analytically below). On a
+mesh: one rank's FLOPs, bytes and collectives (a DTensor matmul counted at
+its local shapes with its all-reduce; a config whose every product splits
+over "model" counts the card's FLOPs over 16), and the 2x16x16 dry run of
+every arch with its collective term at the JAX roofline's wire weights.
 """
+import json
 import re
 from pathlib import Path
 
@@ -228,3 +233,127 @@ def test_smoke_prefill_matmul_flops_match_the_jax_hlo_dots(arch):
     matmul = sum(c.stats.flops_by_op[op] for op in ("mm", "bmm", "addmm", "baddbmm"))
     assert dict(c.stats.launches) == {"flash_attention": cfg_t.n_layers}
     assert matmul == dots - attention
+
+
+# -- one rank of a mesh ----------------------------------------------------------------
+# In subprocesses (a process group is global to its process): the dry run
+# at 2x16x16 for every arch at 2 layers, half the archs a process; a config
+# whose every product splits over "model" at batch 1 (no batch split), meshed
+# and on one card; and a DTensor matmul under the counter.
+_MESH_RUN = """
+import json, sys
+import torch
+from repro_torch.launch import dryrun
+from repro_torch.launch.op_analysis import OpCounter
+out = {}
+if sys.argv[1] == "split":
+    # 16 heads and kv heads, d_ff 512, vocab 512: every product splits over 16
+    over = dict(n_heads=16, n_kv_heads=16, head_dim=32)
+    for shape in ("prefill_32k", "decode_32k"):
+        for mesh in ("16x16", "1xH100"):
+            r = dryrun.dryrun_pair("smollm-360m", shape, mesh=mesh, smoke=True, batch=1, seq=64,
+                                   arch_overrides=over, verbose=False)
+            out[mesh + "/" + shape] = r
+    # a row-parallel matmul: x (8, 16) rows on data, w (16, 8) rows on model
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    dryrun.fake_group(4)
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+    x = DTensor.from_local(torch.ones(4, 8), mesh, [Shard(0), Shard(1)], run_check=False)
+    w = DTensor.from_local(torch.ones(8, 8), mesh, [Replicate(), Shard(0)], run_check=False)
+    with torch.no_grad(), OpCounter(live=(x, w)) as c:
+        y = (x @ w).redistribute(mesh, [Shard(0), Replicate()])
+    out["matmul"] = dict(flops=c.stats.flops, collectives=dict(c.stats.collectives),
+                         collective_bytes=dict(c.stats.collective_bytes),
+                         start=c.stats.start_bytes, local=list(y.to_local().shape))
+    # DTensor's all-to-all on fake tensors (the card's path; a CPU mesh
+    # gathers instead): its fake output is a slice of a 2x larger buffer
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed import _functional_collectives as funcol
+    name = funcol._group_or_group_name(funcol._resolve_group((mesh, 1)))
+    with FakeTensorMode():
+        x = torch.empty(8, 6)
+        with OpCounter(live=(x,)) as c:
+            y = torch.ops._dtensor.shard_dim_alltoall(x, 0, 1, name)
+    out["alltoall"] = dict(start=c.stats.start_bytes, peak=c.stats.peak_bytes,
+                           collectives=dict(c.stats.collectives), shape=list(y.shape))
+else:
+    for arch in sys.argv[2].split(","):
+        kw = dict(layers=2, arch_overrides={"attn_every": 2} if arch == "zamba2-7b" else None)
+        for shape in ("prefill_32k", "decode_32k", "train_4k"):
+            r = dryrun.dryrun_pair(arch, shape, mesh="2x16x16", verbose=False, **kw)
+            out[arch + "/" + shape] = r
+print("RESULT " + json.dumps(out, default=str))
+"""
+MESH_ARCHS = pt_configs.list_archs()
+
+
+@pytest.fixture(scope="module")
+def meshed():
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH="src")
+    half = len(MESH_ARCHS) // 2
+    jobs = [("multi", MESH_ARCHS[:half]), ("multi", MESH_ARCHS[half:]), ("split", [])]
+    procs = [subprocess.Popen([sys.executable, "-c", _MESH_RUN, kind, ",".join(archs)],
+                              cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for kind, archs in jobs]
+    out = {}
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=600)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("RESULT ")]
+        assert p.returncode == 0 and lines, stderr[-3000:]
+        out.update(json.loads(lines[-1][7:]))
+    return out
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_meshed_dry_run_2x16x16(meshed, arch, shape):
+    r = meshed[f"{arch}/{shape}"]
+    if shape == "train_4k":
+        assert r["status"] == "not_ported" and "A7b" in r["reason"], r
+        return
+    assert r["status"] == "ok", r.get("error")
+    assert r["mesh"] == "2x16x16" and r["n_chips"] == 512
+    assert r["flops_per_device"] > 0 and r["peak_memory_bytes"] > 0
+    # the collective term: the counted collectives' bytes at the JAX wire weights
+    assert roofline.WIRE_WEIGHT == jax_roofline._WIRE_WEIGHT
+    want = sum(b * jax_roofline._WIRE_WEIGHT[k] for k, b in r["collective_bytes_by_kind"].items())
+    assert r["collective_bytes_per_device"] == want > 0
+    assert set(r["collective_counts"]) == set(r["collective_bytes_by_kind"])
+    assert r["collective_s"] == want / roofline.LINK_BW
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_rank_flops_are_the_card_s_over_the_model_width(meshed, shape):
+    """Batch 1 does not split, so the prefill's products (projections, MLP,
+    readout, flash) split over "model" alone: the card's FLOPs over 16. The
+    decode step's matmuls do too; its attention einsums (bmm) split also
+    over "data", which holds the cache's sequence when the batch cannot
+    (the long_500k rule): over 256."""
+    one, rank = meshed[f"1xH100/{shape}"], meshed[f"16x16/{shape}"]
+    assert one["status"] == rank["status"] == "ok", (one.get("error"), rank.get("error"))
+    assert rank["batch_axes"] == []
+    split = {op: 256 if op == "bmm" else 16 for op in one["top_flops"]}
+    assert {k: v * split[k] for k, v in rank["top_flops"].items()} == one["top_flops"]
+    if shape == "prefill_32k":
+        assert rank["flops_per_device"] * 16 == one["flops_per_device"]
+        assert rank["kernel_launches"] == one["kernel_launches"] == {"flash_attention": 2}
+
+
+def test_counter_counts_a_rank_s_local_ops_and_collectives(meshed):
+    r = meshed["matmul"]
+    # the local (4, 8) @ (8, 8) product alone (not DTensor's (8, 16) @ (16, 8)
+    # shape propagation), and one all-reduce of the (4, 8) f32 partial sums
+    assert r["flops"] == 2 * 4 * 8 * 8
+    assert r["collectives"] == {"all-reduce": 1}
+    assert r["collective_bytes"] == {"all-reduce": 4 * 8 * 4}
+    assert r["start"] == (4 * 8 + 8 * 8) * 4 and r["local"] == [4, 8]
+    # an all-to-all's output counts its own bytes, as the card allocates it,
+    # and its peak the copy of the input it holds beside the output
+    r = meshed["alltoall"]
+    assert r["collectives"] == {"all-to-all": 1} and r["shape"] == [16, 3]
+    assert r["peak"] == r["start"] + 16 * 3 * 4 + 8 * 6 * 4
