@@ -343,6 +343,16 @@ MESH_SERVE = ("smollm-360m", "falcon-mamba-7b")
 # the meshed dry run says the prefill does not fit the card)
 MESH_RANK0 = ("falcon-mamba-7b", "qwen3-moe-30b-a3b")
 MESH_LAYOUTS = ("16x16", "2x16x16")
+# phase 8 (d): rank 0 of 16x16 train_4k, (arch, gossip mode, codec): the
+# meshed trainer at full width on 16 nodes, the global batch cut to 32 rows
+# (2 a node): at 256 every dense rank gathers its rows' whole-vocabulary f32
+# logits (ROADMAP P9) and no depth fits the card
+MESH_TRAIN = (("smollm-360m", "dissemination", "int8"),
+              ("falcon-mamba-7b", "tree_allreduce", "topk"))
+MESH_TRAIN_BATCH = 32
+# P8: qwen3-moe's 16x16 prefill at 2 layers, traced on the card (its peak is
+# the CPU trace's reference in tests/test_torch_dryrun.py)
+P8_PAIR = ("16x16", "qwen3-moe-30b-a3b", "prefill_32k", 2)
 
 # phase 6: the codec x protocol grid and one flooding cell, each trained by
 # the launcher at whisper-tiny's full width and depth on 10 stacked nodes
@@ -609,7 +619,40 @@ def count_elements(tree) -> int:
     return tree.numel()
 
 
-def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors) -> None:
+def fake_group_fill():
+    """A dispatch mode for training under the fake group: there a
+    collective moves no data and leaves its output unwritten (whatever the
+    allocator's block held), and through 64 layers of a backward such values
+    reach inf. Entered below the op counter, it writes each all-gather's
+    output with copies of this rank's input, a reduce-scatter's with the
+    rank's own chunk and an all-to-all's with its input's elements, so the
+    step computes on finite data of the layout's magnitudes. The writes
+    come after the counter has seen the collective and allocate nothing:
+    every count is the step's own. Values stay those of one rank's data,
+    not of 256 ranks'."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Fill(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if func.namespace == "_c10d_functional" and name == "all_gather_into_tensor":
+                n = args[1]
+                out.view(n, -1).copy_(args[0].reshape(1, -1).expand(n, -1))
+            elif func.namespace == "_c10d_functional" and name == "reduce_scatter_tensor":
+                out.view(-1).copy_(args[0].reshape(args[2], -1)[0])
+            elif name in ("all_to_all_single", "shard_dim_alltoall"):
+                out.view(-1).copy_(args[0].reshape(-1))
+            return out
+
+    return Fill()
+
+
+def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors, train_dry) -> None:
     """Phase 8: the mesh (``launch/mesh.py``, ``dfl/sharding.py``).
 
     (a) smollm-360m and falcon-mamba-7b served again on a one-rank NCCL mesh:
@@ -628,9 +671,21 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors) -> None:
         PEAK_TOL of ``max_memory_allocated`` (with the card memory held
         beside the step's live tensors, as phase 7 measures it);
     (c) the meshed ``--all`` table: every arch x INPUT_SHAPES at both
-        layouts, full depth (traced in phase 7's processes).
-    The fake group moves no data: (b) checks shapes, memory, FLOPs and
-    launches, never values."""
+        layouts, full depth (traced in phase 7's processes), the training
+        shape for (d)'s two archs only (arctic-480b's training step alone
+        traces minutes);
+    (d) rank 0 of the 16x16 layout's ``train_4k`` under the fake group with
+        real tensors: the meshed trainer (``MeshDFLTrainer``) for each of
+        MESH_TRAIN at full width, full depth where the meshed dry run says
+        the step fits the card, else the deepest cut that does, the global
+        batch MESH_TRAIN_BATCH; a warm-up, a timed and a counted step; the
+        meshed dry run's FLOPs, launches, collectives by kind (the gossip's
+        point-to-point sends, ``collective-permute``, among them) and bytes
+        exactly, its peak within
+        PEAK_TOL; loss and grad norm finite, each collective's output
+        written with this rank's own data (:func:`fake_group_fill`).
+    The fake group moves no data: (b) and (d) check shapes, memory, FLOPs
+    and launches, never values."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
@@ -640,7 +695,12 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors) -> None:
                                           local_param_tree, param_shapes, param_spec_tree,
                                           placements)
     from repro_torch.kernels import KERNEL_NAMES, launch_counts, reset_launches
-    from repro_torch.launch.dryrun import fake_group, meshed_inputs, run_meshed_step
+    from repro_torch.configs import InputShape
+    from repro_torch.dfl.collectives import P2P_KIND
+    from repro_torch.dfl.trainer import DFLConfig, MeshDFLTrainer
+    from repro_torch.launch.dryrun import (_inputs, fake_group, meshed_inputs,
+                                           meshed_train_state, meshed_train_step,
+                                           run_meshed_step)
     from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
     from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
     from repro_torch.launch.serve import serve
@@ -782,6 +842,8 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors) -> None:
         if dry["start_memory_bytes"] != st.start_bytes:
             fail(f"{label}: live tensors at the start, dry run {dry['start_memory_bytes']} B, "
                  f"card {st.start_bytes} B")
+        if dry["bytes_per_device"] != st.bytes:
+            fail(f"{label}: bytes, dry run {dry['bytes_per_device']}, card step {st.bytes}")
         other = base - st.start_bytes
         held_b = sum(n for n, _ in held.values())
         predicted = dry["peak_memory_bytes"] + other
@@ -806,25 +868,134 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors) -> None:
               f"{1e3 * dry['memory_s']:.3f} ms, collective {1e3 * dry['collective_s']:.3f} ms "
               f"({dry['bottleneck']}); the card's own bound {1e3 * bound:.3f} ms, share "
               f"{100 * bound / step_s:.2f}% (from the counted step's bytes: "
-              f"{1e3 * counted:.3f} ms, {100 * counted / step_s:.2f}%); bytes {st.bytes:.4e} (dry run "
-              f"{dry['bytes_per_device']:.4e}), the most by "
+              f"{1e3 * counted:.3f} ms, {100 * counted / step_s:.2f}%); bytes {st.bytes:.6e} (= dry "
+              f"run), the most by "
               f"{json.dumps({k: f'{v:.3e}' for k, v in st.bytes_by_op.most_common(6)})} (dry "
               f"run {json.dumps({k: f'{v:.3e}' for k, v in dry['top_bytes'].items()})}) on {smi}")
         model.set_mesh_context(None)
         del params, inputs, counter, model, live
         torch.cuda.empty_cache()
+
+    # -- (d) rank 0 of 16x16 train_4k: the meshed trainer on real tensors ----------------
+    for arch, mode, codec in MESH_TRAIN:
+        label = f"{arch} x train_4k at 16x16 rank 0 ({mode}, {codec})"
+        for key in train_dry[arch]:  # full depth first, then the cuts
+            dry = mesh_dry[key]
+            if dry["status"] != "ok":
+                fail(f"meshed dry run of {label}: {dry.get('error')}\n{dry.get('traceback')}")
+            if dry["fits_hbm"]:
+                break
+            print(f"[mesh] (d) {label}: the meshed dry run's rank peak at {dry['n_layers']} "
+                  f"layers, {dry['peak_memory_bytes'] / 1e9:.2f} GB, does not fit "
+                  f"{total / 1e9:.1f} GB")
+        else:
+            fail(f"{label}: no traced depth fits the card")
+        cfg = get_arch(arch).replace(n_layers=dry["n_layers"])
+        base = INPUT_SHAPES["train_4k"]
+        shape = InputShape(base.name, base.seq_len, MESH_TRAIN_BATCH, base.kind)
+        model = build_model(cfg, "train_4k", device="cuda")
+        shapes = param_shapes(model)
+        trainer = MeshDFLTrainer(model, mesh, DFLConfig(gossip_mode=mode, codec=codec))
+        batch = Batch(**_inputs(cfg, shape, dev))
+        state = meshed_train_state(trainer, local_param_tree(
+            cfg, mesh, shapes, param_spec_tree(cfg, shapes, mesh), device=dev))
+        spans, metrics = [], []
+        fill = fake_group_fill()
+        with fill:
+            for _ in range(2):  # a warm-up, then the timed step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+                spans.append(time.perf_counter() - t0)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        live = (state, batch)
+        torch.cuda.synchronize()
+        held = held_tensors(live)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = launch_counts()
+        del live
+        with fill:
+            counter, gossip, m = meshed_train_step(trainer, state, batch)
+        del state
+        torch.cuda.synchronize()
+        after = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        now = torch.cuda.memory_allocated()
+        torch._C._cuda_clearCublasWorkspaces()
+        workspaces = now - torch.cuda.memory_allocated()
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        st = counter.stats
+        launches = {k: after[k] - before[k] for k in KERNEL_NAMES if after[k] != before[k]}
+        if not all(math.isfinite(x) for pair in metrics for x in pair):
+            fail(f"{label}: loss / grad norm not finite: {metrics}")
+        if dry["flops_per_device"] != st.flops:
+            fail(f"{label}: the meshed dry run's FLOPs {dry['flops_per_device']} != the card "
+                 f"step's {st.flops}")
+        if not dry["kernel_launches"] == dict(st.launches) == launches:
+            fail(f"{label}: kernel launches, dry run {dry['kernel_launches']}, op counter "
+                 f"{dict(st.launches)}, launch_counts {launches}")
+        if (dry["collective_counts"] != dict(st.collectives)
+                or dry["collective_bytes_by_kind"] != dict(st.collective_bytes)):
+            fail(f"{label}: collectives, dry run {dry['collective_counts']} "
+                 f"{dry['collective_bytes_by_kind']}, card step {dict(st.collectives)} "
+                 f"{dict(st.collective_bytes)}")
+        p2p = st.collective_bytes.get(P2P_KIND, 0.0)
+        if p2p != gossip["rank_p2p_bytes"] or not p2p:
+            fail(f"{label}: point-to-point bytes {p2p} != the rank's share "
+                 f"{gossip['rank_p2p_bytes']}")
+        if dry["bytes_per_device"] != st.bytes:
+            fail(f"{label}: bytes, dry run {dry['bytes_per_device']}, card step {st.bytes}")
+        if dry["start_memory_bytes"] != st.start_bytes:
+            fail(f"{label}: live tensors at the start, dry run {dry['start_memory_bytes']} B, "
+                 f"card {st.start_bytes} B")
+        other = base - st.start_bytes
+        held_b = sum(n for n, _ in held.values())
+        predicted = dry["peak_memory_bytes"] + other
+        gap = (peak - predicted) / peak
+        if not abs(gap) <= PEAK_TOL:
+            fail(f"{label}: predicted peak {predicted / 1e9:.3f} GB (the dry run's "
+                 f"{dry['peak_memory_bytes'] / 1e9:.3f} GB and {other / 1e9:.3f} GB held beside), "
+                 f"measured {peak / 1e9:.3f} GB: {100 * gap:.2f}% apart")
+        step_s = spans[-1]
+        bound = max(dry["compute_s"], dry["memory_s"])
+        print(f"[mesh] (d) {label}, {cfg.n_layers} layers, {shape.global_batch} x "
+              f"{shape.seq_len} global ({gossip['n_nodes']} nodes): loss / grad norm "
+              f"{json.dumps(metrics)} (warm-up, timed, counted); FLOPs {st.flops:.6e}, bytes "
+              f"{st.bytes:.6e} (= dry run), launches {json.dumps(launches)} (dry run = op counter "
+              f"= launch_counts), collectives {json.dumps(dict(st.collectives))} with "
+              f"{json.dumps({k: int(v) for k, v in st.collective_bytes.items()})} B (= dry run; "
+              f"the gossip's {P2P_KIND} = the rank's share {int(gossip['rank_p2p_bytes'])} B); "
+              f"peak: dry run "
+              f"{dry['peak_memory_bytes']} B + {other} B held beside ({held_b} B of tensors "
+              f"Python holds, {workspaces} B of cuBLAS workspaces) = {predicted / 1e9:.3f} GB, "
+              f"measured {peak / 1e9:.3f} GB ({100 * gap:+.3f}%, tol {100 * PEAK_TOL:.0f}%); "
+              f"step {1e3 * step_s:.1f} ms (warm-up {1e3 * spans[0]:.1f} ms, no data moved "
+              f"between ranks); compute {1e3 * dry['compute_s']:.3f} ms, memory "
+              f"{1e3 * dry['memory_s']:.3f} ms, collective {1e3 * dry['collective_s']:.3f} ms "
+              f"({dry['bottleneck']}); the card's own bound {1e3 * bound:.3f} ms, share "
+              f"{100 * bound / step_s:.2f}% on {smi}")
+        del trainer, model, counter, batch
+        gc.collect()
+        torch.cuda.empty_cache()
     dist.destroy_process_group()
     counts = launch_counts()
     print(f"[mesh] launches on phase 8's path: {json.dumps(counts)}")
-    for kernel in MODEL_KERNELS:
+    for kernel in KERNEL_NAMES:
         if not counts[kernel]:
             fail(f"{kernel}: never launched on phase 8's path")
 
     # -- (c) the meshed --all table ------------------------------------------------------
+    train_archs = [a for a, _, _ in MESH_TRAIN]
     for m in MESH_LAYOUTS:
         fits = []
         for arch in list_archs():
             for shape_name in INPUT_SHAPES:
+                if (m, arch, shape_name) not in mesh_dry:
+                    print(f"[mesh --all] {m} {arch} x {shape_name}: not traced here (training is "
+                          f"traced for {', '.join(train_archs)} only; see PERF.md)")
+                    continue
                 dry = mesh_dry[(m, arch, shape_name)]
                 if dry["status"] == "error":
                     fail(f"meshed dry run of {arch} x {shape_name} x {m}: {dry.get('error')}\n"
@@ -834,6 +1005,9 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors) -> None:
                           f"({dry['reason']})")
                     continue
                 fits.append(f"{arch}/{shape_name}={dry['fits_hbm']}")
+                if "gossip" in dry:
+                    print(f"[mesh --all] {m} {arch} x {shape_name} gossip: "
+                          f"{json.dumps(dry['gossip'])}")
                 print(f"[mesh --all] {m} {arch} x {shape_name} ({dry['traced_on']}, "
                       f"{dry['global_batch']} x {dry['seq_len']}, {dry['n_layers']} layers, batch "
                       f"axes {dry['batch_axes']}): rank peak {dry['peak_memory_bytes'] / 1e9:.2f} "
@@ -846,7 +1020,14 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors) -> None:
                       f"launches {json.dumps(dry['kernel_launches'])}; traced in "
                       f"{dry['trace_s']} s")
         print(f"[mesh --all] {m} fits_hbm: {', '.join(fits)}")
-    print(f"[mesh] phase 8 (a) and (b): {time.perf_counter() - t8:.1f} s on {card}")
+    p8 = mesh_dry[P8_PAIR]
+    if p8["status"] != "ok":
+        fail(f"meshed dry run of {P8_PAIR}: {p8.get('error')}")
+    print(f"[mesh] P8: {P8_PAIR[1]} x {P8_PAIR[2]} at {P8_PAIR[0]}, {P8_PAIR[3]} layers, traced "
+          f"on the card ({p8['traced_on']}): rank peak {int(p8['peak_memory_bytes'])} B, "
+          f"collectives {json.dumps(p8['collective_counts'])} "
+          f"{json.dumps({k: int(v) for k, v in p8['collective_bytes_by_kind'].items()})} B")
+    print(f"[mesh] phase 8 (a), (b) and (d): {time.perf_counter() - t8:.1f} s on {card}")
 
 
 def main() -> int:
@@ -1622,12 +1803,22 @@ def main() -> int:
         overrides = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                      if getattr(cfg, f.name) != getattr(full, f.name)}
         torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
         held = held_tensors(live)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         before, shapes_before = launch_counts(), launch_shapes()
-        with OpCounter(live=live, device="cuda") as counter:
-            out = fn()
+        # qwen3-moe's int8 round asks for one 18.55 GiB buffer, which 36–39 GiB
+        # of free blocks split among segments still in use has refused: the
+        # counted step maps its new segments expandably (allocations, and so
+        # the peak, are the same)
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        try:
+            with OpCounter(live=live, device="cuda") as counter:
+                out = fn()
+        finally:
+            torch.cuda.memory._set_allocator_settings("expandable_segments:False")
         torch.cuda.synchronize()
         after, shapes_after = launch_counts(), launch_shapes()
         peak, stats = torch.cuda.max_memory_allocated(), torch.cuda.memory_stats()
@@ -2291,13 +2482,27 @@ def main() -> int:
                          for p in all_pairs[4:]})
         # phase 8's meshed dry runs, queued behind phase 7's (rank 0 of each
         # production layout, full depth; (b)'s pairs first)
+        train_archs = {a for a, _, _ in MESH_TRAIN}
         mesh_pairs = [(m, a, sh) for m in MESH_LAYOUTS for a in list_archs()
-                      for sh in INPUT_SHAPES]
+                      for sh in INPUT_SHAPES if sh != "train_4k" or a in train_archs]
         mesh_pairs.sort(key=lambda p: (p[0] != "16x16" or p[1] not in MESH_RANK0
                                        or p[2] not in ("prefill_32k", "decode_32k")))
-        mesh_futs = {p: pool.apply_async(dry_worker, (dict(arch=p[1], shape_name=p[2],
-                                                           mesh=p[0]),))
-                     for p in mesh_pairs}
+        # (d)'s steps: full depth, then half, at MESH_TRAIN_BATCH rows; P8's pair
+        train_dry = {}
+        jobs = {}
+        for arch, mode, codec in MESH_TRAIN:
+            full = get_arch(arch).n_layers
+            train_dry[arch] = [("16x16", arch, "train_4k", "d", n) for n in (full, full // 2)]
+            for key in train_dry[arch]:
+                jobs[key] = dict(arch=arch, shape_name="train_4k", mesh="16x16",
+                                 batch=MESH_TRAIN_BATCH, layers=key[-1], gossip_mode=mode,
+                                 dfl_overrides={"codec": codec})
+        jobs[P8_PAIR] = dict(arch=P8_PAIR[1], shape_name=P8_PAIR[2], mesh=P8_PAIR[0],
+                             layers=P8_PAIR[3])
+        mesh_futs = {k: pool.apply_async(dry_worker, (kw,)) for k, kw in jobs.items()}
+        mesh_futs.update({p: pool.apply_async(dry_worker, (dict(arch=p[1], shape_name=p[2],
+                                                                mesh=p[0]),))
+                          for p in mesh_pairs})
         # the scan backward's workspace as the fake route allocates it,
         # against the source's own count
         for shape in ((1, 2048, 8192, 16), (2, 2048, 8192, 16), (2, 1000, 1024, 32)):
@@ -2318,6 +2523,11 @@ def main() -> int:
             if dry["start_memory_bytes"] != st.start_bytes:
                 fail(f"{label}: the dry run's live tensors at the start, "
                      f"{dry['start_memory_bytes']} B, differ from the card's {st.start_bytes} B")
+            if dry["bytes_per_device"] != st.bytes:
+                diff = {k: (dry["bytes_by_op"].get(k, 0), v) for k, v in st.bytes_by_op.items()
+                        if dry["bytes_by_op"].get(k, 0) != v}
+                fail(f"{label}: the dry run's bytes {dry['bytes_per_device']} != the counted "
+                     f"step's {st.bytes} (by op, dry run and card: {diff})")
             # the card's bytes requested at the step's peak, less the tensors
             # Python held beside it and cuBLAS's workspaces
             requested = run["requested_peak"] - run["held"] - run["workspaces"]
@@ -2353,7 +2563,7 @@ def main() -> int:
                   f"{run['requested_peak']} B requested (less what is held beside: the dry run's "
                   f"peak exactly), {measured - run['requested_peak']} B the allocator's "
                   f"rounding; bytes "
-                  f"{dry['bytes_per_device']:.6e}; compute {1e3 * roof.compute_s:.3f} ms, "
+                  f"{dry['bytes_per_device']:.6e} (= counted); compute {1e3 * roof.compute_s:.3f} ms, "
                   f"memory {1e3 * roof.memory_s:.3f} ms, collective "
                   f"{1e3 * roof.collective_s:.3f} ms; bound {1e3 * roof.bound_s:.3f} ms "
                   f"({roof.bottleneck}); step {run['step_ms']:.1f} ms (unprofiled, steady); "
@@ -2385,7 +2595,7 @@ def main() -> int:
     print(f"[dryrun] phases 7 and 8 (c)'s dry runs: {time.perf_counter() - t7:.1f} s after phase 6")
 
     # -- 8. the mesh ------------------------------------------------------------------------
-    phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors)
+    phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors, train_dry)
 
     print(smi)
     print(json.dumps({"kernels": [results[k] for k in KERNEL_NAMES]}))

@@ -70,6 +70,33 @@ class Codec:
         rows each); one decode for all where :attr:`grouped`."""
         return [self.roundtrip(t) for t in ts]
 
+    # -- a group's wire between ranks -----------------------------------------------
+    def wire_shapes(self, shape: Sequence[int]) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+        """The (shape, dtype) of each buffer :meth:`encode` makes of a
+        ``(rows, *payload)`` tensor of f32."""
+        return [(tuple(shape), torch.float32)]
+
+    def encode_group(self, ts: Sequence[torch.Tensor]) -> Wire:
+        """The buffers that cross the wire for one hop's leaves ``ts`` (the
+        same rows each): each leaf's :meth:`encode`, in leaf order."""
+        return tuple(b for t in ts for b in self.encode(t))
+
+    def empty_group(self, ts: Sequence[torch.Tensor]) -> Wire:
+        """Zero-filled receive buffers for :meth:`encode_group` of leaves
+        shaped and placed as ``ts``."""
+        return tuple(torch.zeros(shape, dtype=dtype, device=t.device)
+                     for t in ts for shape, dtype in self.wire_shapes(t.shape))
+
+    def decode_group(self, enc: Wire, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Inverse of :meth:`encode_group`: each leaf in the shape and dtype
+        of its entry of ``ts``."""
+        out, i = [], 0
+        for t in ts:
+            n = len(self.wire_shapes(t.shape))
+            out.append(self.decode(enc[i:i + n], t.shape[1:], t.dtype))
+            i += n
+        return out
+
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"{type(self).__name__}({self.name!r})"
 
@@ -101,6 +128,9 @@ class Bf16Codec(Codec):
 
     def mean_atol(self, max_abs: float) -> Optional[float]:
         return max_abs * 2.0 ** -8
+
+    def wire_shapes(self, shape: Sequence[int]) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+        return [(tuple(shape), torch.bfloat16)]
 
     def encode(self, t: torch.Tensor) -> Wire:
         return (t.to(torch.bfloat16),)
@@ -154,19 +184,36 @@ class UniformQuantCodec(Codec):
         """Each leaf quantized on its own into the group's arenas, then one
         decode for all of them (one each ``MAX_GROUP_LEAVES``, the decode
         kernel's table); the same values as :meth:`roundtrip` a leaf."""
-        rows = ts[0].shape[0]
-        if any(t.shape[0] != rows for t in ts):
-            raise ValueError("roundtrip_group: the leaves' row counts differ")
         if len(ts) > MAX_GROUP_LEAVES:
             return [out for i in range(0, len(ts), MAX_GROUP_LEAVES)
                     for out in self.roundtrip_group(ts[i:i + MAX_GROUP_LEAVES])]
-        layout = group_layout(rows, tuple(_numel(t.shape[1:]) for t in ts), self.bits,
-                              self.chunk)
+        return self.decode_group(self.encode_group(ts), ts)
+
+    def _layout(self, ts: Sequence[torch.Tensor]):
+        rows = ts[0].shape[0]
+        if any(t.shape[0] != rows for t in ts):
+            raise ValueError("a group's leaves differ in their row counts")
+        if len(ts) > MAX_GROUP_LEAVES:
+            raise ValueError(f"a group holds at most {MAX_GROUP_LEAVES} leaves")
+        return group_layout(rows, tuple(_numel(t.shape[1:]) for t in ts), self.bits,
+                            self.chunk)
+
+    def encode_group(self, ts: Sequence[torch.Tensor]) -> Wire:
+        """The group's two arenas, codes and scales, each leaf quantized on
+        its own into its slices."""
+        layout = self._layout(ts)
         codes, scales = layout.arenas(ts[0].device)
         for l, t in enumerate(ts):
             quantize_op(t, bits=self.bits, chunk=self.chunk,
                         out=(layout.codes(codes, l), layout.scales(scales, l)))
-        outs = dequantize_group_op(codes, scales, layout)
+        return codes, scales
+
+    def empty_group(self, ts: Sequence[torch.Tensor]) -> Wire:
+        return tuple(torch.zeros_like(a) for a in self._layout(ts).arenas(ts[0].device))
+
+    def decode_group(self, enc: Wire, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Every leaf of the group in one decode."""
+        outs = dequantize_group_op(enc[0], enc[1], self._layout(ts))
         return [o.reshape(t.shape).to(t.dtype) for o, t in zip(outs, ts)]
 
 
@@ -190,6 +237,11 @@ class TopKCodec(Codec):
     def wire_bytes(self, n_elements: int) -> int:
         n_blocks = -(-n_elements // self.block)
         return 8 * self.k * n_blocks
+
+    def wire_shapes(self, shape: Sequence[int]) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+        blocks = -(-_numel(shape[1:]) // self.block)
+        return [((shape[0], blocks, self.k), torch.float32),
+                ((shape[0], blocks, self.k), torch.int32)]
 
     def encode(self, t: torch.Tensor) -> Wire:
         return topk_select_op(t, k=self.k, block=self.block)

@@ -1,5 +1,5 @@
-"""MOSGU gossip round on stacked node replicas (the port of
-``repro.dfl.collectives``).
+"""MOSGU gossip round on stacked node replicas or between ranks (the port
+of ``repro.dfl.collectives``).
 
 All N node replicas of a parameter leaf sit in one tensor with a leading
 node axis, ``(N, ...)``, on one device. The moderator's slot plan (MST + BFS
@@ -27,14 +27,35 @@ written. With a codec that decodes several leaves at once (the quantizers),
 a body hops a group of leaves at a time (:func:`hop_groups`): each step
 encodes every leaf of the group and decodes them in one call
 (:meth:`Codec.roundtrip_group`), with the same values as leaf by leaf.
+
+Between ranks (a plan built by :meth:`GossipPlan.build_mesh` from a
+``DeviceMesh`` and the config's node axes, the counterpart of the JAX
+package's ``shard_map`` bodies), a rank holds its own local shard of each
+leaf and no node axis. Each permutation step runs as point-to-point
+transfers (``torch.distributed.batch_isend_irecv``) between the ranks that
+hold the same shard on the sending and the receiving node; with a codec the
+encoded buffers cross the wire (a group's int8 / int4 arenas, top-k's
+values and indices) and the receiver decodes them. Receive buffers start
+zero-filled, as a ``ppermute`` target that nothing reaches holds zeros.
+Flooding is an all-gather and ``allreduce_ref`` an all-reduce over the node
+axes (functional collectives, which an op counter sees). A dispatch mode
+does not see point-to-point calls, so each step tells the active counters
+its sends and their bytes under the kind :data:`P2P_KIND`, the JAX
+roofline's name for the ``collective-permute`` a ``ppermute`` lowers to
+(:func:`rank_gossip_bytes` is the same count from the plan).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import unset_fake_temporarily
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 from ..compress.codec import Codec, per_send_wire_mb
 from ..core.graph import Graph, build_mst, color_graph
@@ -49,6 +70,9 @@ from ..core.schedule import (
 from ..kernels.mixing.ops import fedavg_mean
 
 PyTree = Any
+# the op counter's kind for the gossip's point-to-point sends (the JAX
+# roofline's HLO kind of a ppermute)
+P2P_KIND = "collective-permute"
 
 # A group's round buffers sum to at most this; a larger leaf hops alone.
 # A launch's fixed cost matters below a few million elements, far under it.
@@ -98,6 +122,50 @@ def make_node_graph(n_nodes: int, n_pods: int = 1, inter_pod_cost: float = 10.0,
 
 
 @dataclass
+class MeshNodes:
+    """A rank's place among the DFL nodes of a ``DeviceMesh``: the node axes
+    (the config's that the mesh has, in mesh order), this rank's node id
+    (row-major over them, the JAX package's ``_node_index``) and, by node
+    id, the global rank that holds this rank's coordinates on every other
+    axis (its peer on that node)."""
+
+    mesh: Any
+    axes: Tuple[str, ...]
+    node: int
+    ranks: List[int]
+    n_pods: int = 1
+    _group: Any = field(default=None, repr=False, compare=False)
+
+    @classmethod
+    def of(cls, mesh: Any, node_axes: Sequence[str]) -> "MeshNodes":
+        names = list(mesh.mesh_dim_names)
+        axes = tuple(a for a in names if a in node_axes)
+        if [a for a in node_axes if a in names] != list(axes):
+            raise ValueError(f"node axes {tuple(node_axes)} out of the mesh's order {names}")
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not part of the mesh")
+        index = tuple(slice(None) if n in axes else coord[i] for i, n in enumerate(names))
+        with unset_fake_temporarily():  # the mesh's rank grid is a real tensor
+            grid = np.asarray(mesh.mesh.tolist())
+        ranks = [int(r) for r in grid[index].reshape(-1)]
+        node = ranks.index(dist.get_rank())
+        n_pods = int(mesh.size(names.index("pod"))) if "pod" in axes else 1
+        return cls(mesh, axes, node, ranks, n_pods)
+
+    def group(self) -> Any:
+        """The node axes' process group, for the functional collectives: a
+        mesh dimension, or the node axes flattened into one."""
+        if self._group is None:
+            names = list(self.mesh.mesh_dim_names)
+            if len(self.axes) == 1:
+                self._group = (self.mesh, names.index(self.axes[0]))
+            else:
+                self._group = self.mesh[self.axes]._flatten()
+        return self._group
+
+
+@dataclass
 class GossipPlan:
     """Everything the gossip round needs, all static."""
 
@@ -118,6 +186,8 @@ class GossipPlan:
     node_slot: Optional[np.ndarray] = None
     # physical node count (the node axis); equals n_nodes without churn
     phys_n_nodes: int = 0
+    # between ranks: this rank's node on the mesh (None: stacked nodes)
+    nodes: Optional[MeshNodes] = None
     _index_cache: Dict[Any, Any] = field(default_factory=dict, repr=False, compare=False)
 
     def __post_init__(self) -> None:
@@ -147,6 +217,18 @@ class GossipPlan:
             seg_steps=plan_to_perm_steps(seg) if seg is not None else [],
             n_segments=n_segments,
         )
+
+    @classmethod
+    def build_mesh(cls, mesh: Any, node_axes: Sequence[str], n_segments: int = 4
+                   ) -> "GossipPlan":
+        """The plan over the nodes of ``mesh``: ``node_axes`` that the mesh
+        has, node ids row-major over them, inter-pod links priced over the
+        "pod" axis (``GossipPlan.build(mesh, node_axes)`` of the JAX
+        package). Its rounds run between ranks on each rank's shards."""
+        nodes = MeshNodes.of(mesh, node_axes)
+        plan = cls.build(len(nodes.ranks), n_segments, nodes.n_pods)
+        plan.nodes = nodes
+        return plan
 
     def step_index(self, steps: List[PermStep], device: torch.device
                    ) -> List[Tuple[torch.Tensor, ...]]:
@@ -463,6 +545,299 @@ def _allreduce_ref_body(plan: GossipPlan, theta: PyTree) -> PyTree:
     return tree_map(one, theta)
 
 
+# ---------------------------------------------------------------------------
+# gossip between ranks: each rank holds its own shard of every leaf
+# ---------------------------------------------------------------------------
+
+
+def _report_p2p(sends: int, n_bytes: int) -> None:
+    """Tell the active op counters (a dispatch mode does not see
+    point-to-point calls) that this rank sent ``sends`` buffers of
+    ``n_bytes`` in all."""
+    for m in _get_current_dispatch_mode_stack():
+        if hasattr(m, "count_collective"):
+            m.count_collective(P2P_KIND, sends, n_bytes)
+
+
+def _wire(rows: List[torch.Tensor], codec: Optional[Codec], wire_dtype) -> List[torch.Tensor]:
+    """The buffers that cross the wire for a group's payloads (one each
+    leaf, no node axis)."""
+    if codec is not None:
+        return list(codec.encode_group([r[None] for r in rows]))
+    return [(r.to(wire_dtype) if wire_dtype is not None else r).contiguous() for r in rows]
+
+
+def _wire_empty(like: List[torch.Tensor], codec: Optional[Codec], wire_dtype
+                ) -> List[torch.Tensor]:
+    """Zero-filled receive buffers for :func:`_wire` of payloads shaped as
+    ``like`` (zeros, not ``empty``: under a fake process group nothing
+    arrives, and a top-k decode of stale indices would write anywhere)."""
+    if codec is not None:
+        return list(codec.empty_group([t[None] for t in like]))
+    return [torch.zeros(t.shape, dtype=wire_dtype or t.dtype, device=t.device) for t in like]
+
+
+def _unwire(got: List[torch.Tensor], like: List[torch.Tensor], codec: Optional[Codec]
+            ) -> List[torch.Tensor]:
+    if codec is not None:
+        return [d[0] for d in codec.decode_group(tuple(got), [t[None] for t in like])]
+    return got
+
+
+def _mesh_step(plan: GossipPlan, perm: Sequence[Tuple[int, int]],
+               send: Callable[[], List[torch.Tensor]], like: List[torch.Tensor],
+               codec: Optional[Codec] = None, wire_dtype=None) -> Optional[List[torch.Tensor]]:
+    """One permutation step on this rank: the wire form of ``send()`` goes
+    to the rank of this node's target in ``perm`` (if any), and what this
+    node's source sends arrives, decoded in ``like``'s shapes and dtypes
+    (the wire dtype's without a codec). None when no source targets this
+    node."""
+    nodes = plan.nodes
+    me = nodes.node
+    dst = next((d for s_, d in perm if s_ == me), None)
+    src = next((s_ for s_, d in perm if d == me), None)
+    ops: List[Any] = []
+    if dst is not None:
+        out = _wire(send(), codec, wire_dtype)
+        ops += [dist.P2POp(dist.isend, b, nodes.ranks[dst]) for b in out]
+        _report_p2p(len(out), sum(b.numel() * b.element_size() for b in out))
+    got = None
+    if src is not None:
+        got = _wire_empty(like, codec, wire_dtype)
+        ops += [dist.P2POp(dist.irecv, b, nodes.ranks[src]) for b in got]
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return None if got is None else _unwire(got, like, codec)
+
+
+def _mesh_row(plan: GossipPlan) -> Tuple[int, bool]:
+    """This node's buffer row and whether it is a live member."""
+    me = plan.nodes.node
+    if plan.node_slot is None:
+        return me, True
+    slot = int(plan.node_slot[me])
+    return max(slot, 0), slot >= 0
+
+
+def _mesh_tree(plan: GossipPlan, theta: PyTree, wire_dtype=None,
+               codec: Optional[Codec] = None) -> PyTree:
+    """:func:`_tree_allreduce_body` between ranks."""
+    if plan.n_nodes == 1:
+        return theta
+    leaves, rebuild = tree_flatten(theta)
+    _, member = _mesh_row(plan)
+
+    def one(group: List[int]) -> List[torch.Tensor]:
+        accs = [leaves[i].to(torch.float32, copy=True) for i in group]
+        for k, step in enumerate(plan.tree_steps):
+            got = _mesh_step(plan, step.perm, lambda: accs, accs, codec, wire_dtype)
+            if got is None:
+                continue
+            if k < plan.n_tree_reduce_steps:
+                accs = [a + g.float() for a, g in zip(accs, got)]
+            else:
+                accs = [g.float() for g in got]
+        inv_n = torch.tensor(1.0 / plan.n_nodes, dtype=torch.float32, device=accs[0].device)
+        return [(acc * inv_n).to(leaves[i].dtype) if member else leaves[i]
+                for i, acc in zip(group, accs)]
+
+    return rebuild(_by_groups(hop_groups("tree_allreduce", plan, leaves, codec), one))
+
+
+def _mesh_dissemination(plan: GossipPlan, theta: PyTree, codec: Optional[Codec] = None,
+                        ef: Optional[PyTree] = None) -> Tuple[PyTree, Optional[PyTree]]:
+    """:func:`_dissemination_body` between ranks: this rank's (N, ...)
+    buffer of every node's shard, then the mix kernel's mean."""
+    if plan.n_nodes == 1:
+        return theta, ef
+    n, me = plan.n_nodes, plan.nodes.node
+    row, member = _mesh_row(plan)
+    leaves, rebuild = tree_flatten(theta)
+    residuals = tree_flatten(ef)[0] if codec is not None and ef is not None else None
+
+    def one(group: List[int]) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+        ts = [leaves[i] for i in group]
+        contrib, new_ef = ts, [None] * len(ts)
+        if residuals is not None:
+            comp = [t.float() + residuals[i] for i, t in zip(group, ts)]
+            dec = [d[0] for d in codec.roundtrip_group([c[None] for c in comp])]
+            new_ef = [c - d for c, d in zip(comp, dec)]
+            contrib = [d.to(t.dtype) for d, t in zip(dec, ts)]
+            del comp, dec
+        bufs = []
+        for c in contrib:
+            buf = torch.zeros((n, *c.shape), dtype=c.dtype, device=c.device)
+            buf[row] = c
+            bufs.append(buf)
+        del contrib
+        for step in plan.diss_steps:
+            send, recv = int(step.send_payload[me]), int(step.recv_payload[me])
+            got = _mesh_step(plan, step.perm, lambda: [b[send] for b in bufs],
+                             [b[0] for b in bufs], codec)
+            if got is not None:
+                for b, g in zip(bufs, got):
+                    b[recv] = g.to(b.dtype)
+        means = [fedavg_mean(b.reshape(1, n, -1)).reshape(t.shape).to(t.dtype)
+                 for t, b in zip(ts, bufs)]
+        return [(m if member else t, e) for m, t, e in zip(means, ts, new_ef)]
+
+    out = _by_groups(hop_groups("dissemination", plan, leaves, codec), one)
+    return (rebuild([o for o, _ in out]),
+            rebuild([e for _, e in out]) if residuals is not None else None)
+
+
+def _mesh_segmented(plan: GossipPlan, theta: PyTree, codec: Optional[Codec] = None) -> PyTree:
+    """:func:`_segmented_body` between ranks."""
+    if plan.n_nodes == 1:
+        return theta
+    n, S, me = plan.n_nodes, plan.n_segments, plan.nodes.node
+    row, member = _mesh_row(plan)
+    leaves, rebuild = tree_flatten(theta)
+
+    def segments(t: torch.Tensor) -> torch.Tensor:
+        flat = t.reshape(-1)
+        segs = torch.nn.functional.pad(flat, (0, (-flat.shape[0]) % S)).reshape(S, -1)
+        buf = torch.zeros((n * S, segs.shape[1]), dtype=t.dtype, device=t.device)
+        buf[row * S:(row + 1) * S] = segs
+        return buf
+
+    def one(group: List[int]) -> List[torch.Tensor]:
+        bufs = [segments(leaves[i]) for i in group]
+        for step in plan.seg_steps:
+            send, recv = int(step.send_payload[me]), int(step.recv_payload[me])
+            got = _mesh_step(plan, step.perm, lambda: [b[send] for b in bufs],
+                             [b[0] for b in bufs], codec)
+            if got is not None:
+                for b, g in zip(bufs, got):
+                    b[recv] = g.to(b.dtype)
+        out = []
+        for i, buf in zip(group, bufs):
+            t = leaves[i]
+            mean = fedavg_mean(buf.reshape(1, n, -1))[0, :t.numel()].reshape(t.shape)
+            out.append(mean.to(t.dtype) if member else t)
+        return out
+
+    return rebuild(_by_groups(hop_groups("segmented", plan, leaves, codec), one))
+
+
+def _mesh_mixing(plan: GossipPlan, theta: PyTree) -> PyTree:
+    """:func:`_mixing_body` between ranks: each layer of node-disjoint
+    pairs swaps every leaf once."""
+    if plan.n_nodes == 1:
+        return theta
+    leaves, rebuild = tree_flatten(theta)
+    for m in plan.mixing_matchings:
+        for layer in _disjoint_layers(m):
+            perm = [(u, v) for u, v in layer] + [(v, u) for u, v in layer]
+            got = _mesh_step(plan, perm, lambda: leaves, leaves)
+            if got is not None:
+                leaves = [(0.5 * t.float() + 0.5 * g.float()).to(t.dtype)
+                          for t, g in zip(leaves, got)]
+    return rebuild(leaves)
+
+
+def _mesh_flooding(plan: GossipPlan, theta: PyTree, codec: Optional[Codec] = None) -> PyTree:
+    """:func:`_flooding_body` between ranks: an all-gather over the node
+    axes, then the mean."""
+    if plan.n_nodes == 1:
+        return theta
+    import torch.distributed._functional_collectives as funcol
+
+    leaves, rebuild = tree_flatten(theta)
+    n_phys = len(plan.nodes.ranks)
+
+    def one(group: List[int]) -> List[torch.Tensor]:
+        ts = [leaves[i] for i in group]
+        if codec is not None:
+            ts = [w[0].to(t.dtype) for w, t in
+                  zip(codec.roundtrip_group([t[None] for t in ts]), ts)]
+        out = []
+        for i, tw in zip(group, ts):
+            t = leaves[i]
+            allm = funcol.all_gather_tensor(tw.reshape(-1).contiguous(), 0, plan.nodes.group())
+            allm = funcol.wait_tensor(allm)
+            out.append(fedavg_mean(allm.reshape(1, n_phys, -1)).to(t.dtype).reshape(t.shape))
+        return out
+
+    return rebuild(_by_groups(hop_groups("flooding", plan, leaves, codec), one))
+
+
+def _mesh_allreduce_ref(plan: GossipPlan, theta: PyTree) -> PyTree:
+    """:func:`_allreduce_ref_body` between ranks: an f32 all-reduce over the
+    node axes (the sum in the backend's order), over n_nodes."""
+    if plan.n_nodes == 1:
+        return theta
+    import torch.distributed._functional_collectives as funcol
+
+    def one(t: torch.Tensor) -> torch.Tensor:
+        total = funcol.wait_tensor(funcol.all_reduce(t.float(), "sum", plan.nodes.group()))
+        return (total / plan.n_nodes).to(t.dtype)
+
+    return tree_map(one, theta)
+
+
+def _mesh_exchange(mode: str, plan: GossipPlan, params: PyTree, wire_dtype, codec, ef_state):
+    if ef_state is not None:
+        return _mesh_dissemination(plan, params, codec=codec, ef=ef_state)
+    if mode == "tree_allreduce":
+        return _mesh_tree(plan, params, wire_dtype=wire_dtype, codec=codec)
+    if mode == "dissemination":
+        return _mesh_dissemination(plan, params, codec=codec)[0]
+    if mode == "segmented":
+        return _mesh_segmented(plan, params, codec=codec)
+    if mode == "flooding":
+        return _mesh_flooding(plan, params, codec=codec)
+    if mode == "mixing":
+        return _mesh_mixing(plan, params)
+    return _mesh_allreduce_ref(plan, params)
+
+
+def _wire_nbytes(numel: int, dtype: torch.dtype, codec: Optional[Codec], wire_dtype) -> int:
+    """The bytes :func:`_wire` sends for one payload of ``numel`` elements
+    in ``dtype``."""
+    if codec is None:
+        return numel * (wire_dtype or dtype).itemsize
+    if codec.grouped:
+        from ..kernels.codec.group import group_layout
+
+        layout = group_layout(1, (numel,), codec.bits, codec.chunk)
+        return layout.total_chunks * (layout.width + 4)
+    return sum(math.prod(shape) * dt.itemsize for shape, dt in codec.wire_shapes((1, numel)))
+
+
+def rank_gossip_bytes(mode: str, plan: GossipPlan, params: PyTree, wire_dtype=None,
+                      codec: Optional[Codec] = None, node: Optional[int] = None) -> float:
+    """The bytes one rank of ``node`` (this rank's by default) sends point
+    to point in one round of ``mode`` over its shards ``params``: its
+    node's transmissions in the plan, each carrying every leaf's wire form
+    (a segment of it for segmented gossip; tree hops carry f32 partial
+    sums). Flooding and ``allreduce_ref`` send none (they are collectives).
+    Summed over every node, with a raw wire, it is
+    :func:`gossip_collective_bytes` of the shards' bytes."""
+    if plan.n_nodes == 1 or mode in ("flooding", "allreduce_ref"):
+        return 0.0
+    me = plan.nodes.node if node is None else node
+    if codec is not None and getattr(codec, "name", "") == "fp32":
+        codec = None
+    leaves = tree_flatten(params)[0]
+    if mode == "mixing":
+        sends = sum(any(me in pair for pair in layer) for m in plan.mixing_matchings
+                    for layer in _disjoint_layers(m))
+        return float(sends * sum(_wire_nbytes(t.numel(), t.dtype, None, None) for t in leaves))
+    steps = {"dissemination": plan.diss_steps, "segmented": plan.seg_steps,
+             "tree_allreduce": plan.tree_steps}[mode]
+    sends = sum(any(s_ == me for s_, _ in step.perm) for step in steps)
+    if mode == "tree_allreduce":
+        per = sum(_wire_nbytes(t.numel(), torch.float32, codec, wire_dtype) for t in leaves)
+    elif mode == "segmented":
+        per = sum(_wire_nbytes(-(-t.numel() // plan.n_segments), t.dtype, codec, None)
+                  for t in leaves)
+    else:
+        per = sum(_wire_nbytes(t.numel(), t.dtype, codec, None) for t in leaves)
+    return float(sends * per)
+
+
 GOSSIP_BODIES: Dict[str, Callable] = {
     "tree_allreduce": _tree_allreduce_body,
     "dissemination": lambda plan, theta: _dissemination_body(plan, theta)[0],
@@ -478,7 +853,9 @@ CODEC_MODES = ("dissemination", "segmented", "tree_allreduce", "flooding")
 
 def gossip_exchange(mode: str, plan: GossipPlan, params: PyTree, wire_dtype=None,
                     codec: Optional[Codec] = None, ef_state: Optional[PyTree] = None):
-    """Apply one MOSGU communication round to stacked ``(N, ...)`` params.
+    """Apply one MOSGU communication round to stacked ``(N, ...)`` params,
+    or, with a plan from :meth:`GossipPlan.build_mesh`, to this rank's
+    shards (no node axis) between ranks.
 
     ``codec`` puts each hop's encoded buffers on the wire instead of raw
     tensors. ``ef_state`` — f32 residuals mirroring ``params`` — enables
@@ -499,6 +876,9 @@ def gossip_exchange(mode: str, plan: GossipPlan, params: PyTree, wire_dtype=None
         if mode != "dissemination":
             raise ValueError("error feedback is supported for the "
                              "dissemination mode only")
+    if plan.nodes is not None:
+        return _mesh_exchange(mode, plan, params, wire_dtype, codec, ef_state)
+    if ef_state is not None:
         return _dissemination_body(plan, params, codec=codec, ef=ef_state)
     if mode == "tree_allreduce":
         return _tree_allreduce_body(plan, params, wire_dtype=wire_dtype, codec=codec)

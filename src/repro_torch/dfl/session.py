@@ -8,6 +8,10 @@ a :class:`~repro_torch.dfl.trainer.DFLTrainer`.
   recomputes MST, coloring and slot plan (:func:`plan_for_members`), and the
   trainer gossips over the new plan. The JAX session recompiles its step
   there; eager PyTorch has nothing to recompile.
+* On a mesh (``MeshDFLTrainer``) the plans run over the mesh's nodes, inter-pod
+  links priced over its "pod" axis, as the JAX session's
+  ``_plan_for_members(mesh, node_axes, ...)``; the new plan keeps the
+  rank's place among them.
 * A leaving node's replica does not vanish from the node axis; it is masked
   out of the gossip graph: the MST spans only the healthy members, the
   FedAvg divides by their count, and masked nodes keep training locally,
@@ -114,7 +118,7 @@ class DFLSession:
 
     # -- M: manage connectivity ------------------------------------------------
     def _report_all(self) -> None:
-        g = make_node_graph(self.trainer.n_nodes)
+        g = make_node_graph(self.trainer.n_nodes, self._n_pods())
         for u in sorted(self.members):
             costs = {v: float(g.adj[u, v]) for v in sorted(self.members) if v != u}
             self.moderator.receive_report(ConnectivityReport(u, f"node{u}", costs))
@@ -161,6 +165,10 @@ class DFLSession:
         self.moderator = self.moderator.handover(nxt)
         return nxt
 
+    def _n_pods(self) -> int:
+        nodes = self.trainer.plan.nodes
+        return nodes.n_pods if nodes is not None else 1
+
     # -- O/S: replan on churn ------------------------------------------------------
     def _ensure_plan(self) -> None:
         if not self._dirty:
@@ -173,8 +181,10 @@ class DFLSession:
                 # the declared overlay maps 1:1 onto the nodes: gossip the
                 # scenario's schedule, not the default cost model
                 full_graph = self.scenario.overlay_graph()
+        nodes = self.trainer.plan.nodes  # between ranks: this rank's node on the mesh
         self.trainer.plan = plan_for_members(n, self.members, n_segments=n_segments,
-                                             full_graph=full_graph)
+                                             full_graph=full_graph, n_pods=self._n_pods())
+        self.trainer.plan.nodes = nodes
         self._dirty = False
 
     # -- GU: one communication round --------------------------------------------

@@ -47,12 +47,16 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+
 from .. import DeviceLike, resolve_device
 from ..compress import make_codec
 from ..models.layers import cross_entropy_loss
 from ..models.model import MOE_AUX_WEIGHT, Batch, Model
-from ..optim.optimizers import Optimizer, clip_by_global_norm, make_optimizer
-from .collectives import GossipPlan, gossip_exchange, tree_map
+from ..optim.optimizers import Optimizer, clip_by_global_norm, make_optimizer, tree_leaves
+from .collectives import GossipPlan, gossip_exchange, tree_flatten, tree_map
+from .sharding import batch_axes, batch_spec, distribute_tree, param_spec_tree, placements
 
 PyTree = Any
 
@@ -386,6 +390,242 @@ class DFLTrainer:
                                    "node_losses": node_losses, "gossip": gossiped}
         if mismatch is not None:
             metrics["route_mismatch"] = mismatch
+        if self.timed:
+            metrics["times"] = {"fwd_bwd": t1 - t0, "optimizer": t2 - t1, "gossip": t3 - t2}
+        return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics
+
+
+# ---------------------------------------------------------------------------
+# the trainer on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _local(tree: PyTree) -> PyTree:
+    """Each DTensor leaf's local shard (anything else as it is)."""
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
+
+
+def _like(local: torch.Tensor, ref: DTensor) -> DTensor:
+    """``local`` as a DTensor placed and shaped as ``ref``."""
+    return DTensor.from_local(local, ref.device_mesh, ref.placements, run_check=False,
+                              shape=ref.shape, stride=ref.stride())
+
+
+def _zeros_as(ref: DTensor, dtype: torch.dtype) -> DTensor:
+    return _like(torch.zeros(ref.to_local().shape, dtype=dtype, device=ref.to_local().device),
+                 ref)
+
+
+def _factor_state(p: DTensor) -> Dict[str, DTensor]:
+    """Adafactor's state of one leaf as DTensors: ``vr`` (the leaf without
+    its last dim) and ``vc`` (without the one before), each split where the
+    leaf is on the dimensions it keeps."""
+    mesh, nd, local = p.device_mesh, p.dim(), p.to_local()
+
+    def drop(dim: int) -> DTensor:
+        pl = []
+        for q in p.placements:
+            if isinstance(q, Shard) and q.dim == dim:
+                pl.append(Replicate())
+            elif isinstance(q, Shard) and q.dim > dim:
+                pl.append(Shard(q.dim - 1))
+            else:
+                pl.append(q)
+        shape = tuple(p.shape[:dim]) + tuple(p.shape[dim + 1:])
+        lshape = tuple(local.shape[:dim]) + tuple(local.shape[dim + 1:])
+        z = torch.zeros(lshape, dtype=torch.float32, device=local.device)
+        return DTensor.from_local(z, mesh, pl, run_check=False, shape=torch.Size(shape),
+                                  stride=_contiguous_stride(shape))
+
+    if nd >= 2:
+        return {"vr": drop(nd - 1), "vc": drop(nd - 2)}
+    return {"v": _zeros_as(p, torch.float32)}
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.insert(0, n)
+        n *= size
+    return tuple(stride)
+
+
+class MeshDFLTrainer(DFLTrainer):
+    """The DFL step on a ``DeviceMesh`` (the JAX trainer's ``mesh`` form):
+    one rank of one node, which holds its own shard of every leaf.
+
+    State. Parameters, fp32 masters, the moments and the codec's residual
+    are DTensors placed by ``param_spec_tree``: split over "model", experts
+    over ``cfg.expert_axis``, replicated over the node axes (a rank's
+    shards are made directly, ``dfl/sharding.py::local_param_tree``, or
+    split from whole tensors, :meth:`state_from_params`).
+
+    Step. ``train_loss`` over each of ``cfg.microbatches`` contiguous
+    slices of the global batch (each split over the batch axes by
+    ``batch_spec``), the gradients averaged in f32 (one slice: in the
+    parameters' dtype), as the reference's scan accumulates them; a moe
+    model's aux loss is the slice's, over every rank's rows. DTensor reduces
+    a replicated leaf's gradient over the ranks that hold the batch: every
+    node applies the same clipped mean gradient (R9), and the moments stay
+    equal across nodes. ``clip_by_global_norm``'s norm sums each leaf's
+    squares over the ranks that split it. The optimizer's elementwise passes
+    run on the local shards (Adafactor's factored means on the DTensors,
+    since they reduce over split dimensions), then gossip runs between
+    ranks (:meth:`GossipPlan.build_mesh`) on the local shards of the masters
+    (re-cast into the parameters) or of the parameters. A lossy wire leaves
+    the replicas along the node axes unequal, as the reference's
+    ``shard_map`` does; nothing broadcasts them back.
+
+    The residual stream stays whole over "model" between sublayers (the
+    layers tensor-parallel without Megatron's sequence split, which the
+    JAX model pins): DTensor cannot place the backward matmul of a
+    sequence-split activation flattened to rows (a strided shard; PyTorch
+    2.13 fails it, ROADMAP P10). The forward and backward run under
+    ``implicit_replication``: a plain constant a layer makes (a mask, a
+    padding) is whole on every rank."""
+
+    def __init__(self, model: Model, mesh: Any, dfl: Optional[DFLConfig] = None,
+                 optimizer: Optional[Optimizer] = None, timed: bool = False):
+        self.mesh = mesh
+        plan = GossipPlan.build_mesh(mesh, model.cfg.node_axes)
+        dev = model.device
+        if dev.type != mesh.device_type:
+            raise ValueError(f"the model runs on {dev}, the mesh on {mesh.device_type}")
+        super().__init__(model, plan.n_nodes, dfl, optimizer, device=dev, timed=timed)
+        self.plan = plan
+        self.factored = self.opt.name == "adafactor"
+
+    # -- init -----------------------------------------------------------------
+    def init_state(self, gen: torch.Generator) -> TrainState:
+        """Every node from one whole ``Model.init`` draw, split: the stacked
+        trainer's values (a full-size model makes each rank's shards
+        directly instead, ``dfl/sharding.py::local_param_tree``)."""
+        return self.state_from_params(self.model.init(gen))
+
+    def state_from_params(self, params: PyTree) -> TrainState:
+        """The state of every node starting from ``params``: whole tensors
+        (split by the spec tree, each rank keeping its shard) or DTensors."""
+        leaves = tree_flatten(params)[0]
+        if not all(isinstance(t, DTensor) for t in leaves):
+            params = distribute_tree(self.mesh, params, param_spec_tree(self.cfg, params,
+                                                                        self.mesh))
+        local = _local(params)
+        opt_state = self.opt.init(local)
+        if self.factored:
+            opt_state = {"f": tree_map(_factor_state, params)}
+        else:
+            opt_state = {k: tree_map(_like, v, params) for k, v in opt_state.items()}
+        if self.error_feedback:
+            opt_state["codec_ef"] = tree_map(lambda p: _zeros_as(p, torch.float32), params)
+        return TrainState(params=params, opt_state=opt_state,
+                          step=torch.zeros((), dtype=torch.int32, device=self.device))
+
+    # -- gradients ---------------------------------------------------------------
+    def shard_batch(self, batch: Batch) -> Batch:
+        """A global batch (whole tensors on every rank) as DTensors split
+        over the batch axes (each rank keeps its rows; nothing moves)."""
+        def split(t: torch.Tensor) -> DTensor:
+            t = t.to(self.device)
+            spec = batch_spec(self.mesh, t.shape[0], t.dim())
+            return distribute_tensor(t, self.mesh, placements(self.mesh, spec),
+                                     src_data_rank=None)
+
+        return _map_batch(split, batch)
+
+    def mesh_grads(self, params: PyTree, batch: Batch
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor], List[DTensor]]:
+        """(the step's loss, each leaf's local gradient, the leaves): the
+        reference's microbatched ``value_and_grad`` of ``train_loss`` over
+        the global batch, each gradient reduced to its leaf's placements."""
+        g_rows = batch.tokens.shape[0]
+        mb = self._slices(g_rows)
+        rows = g_rows // mb
+        leaves, rebuild = tree_flatten(params)
+        acc: Optional[List[torch.Tensor]] = None
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.model.set_mesh_context(self.mesh, batch_axes(self.mesh, rows))
+        self.model.act_spec = None  # no sequence split (the class docstring)
+        try:
+            for j in range(mb):
+                part = self.shard_batch(_map_batch(lambda t: t[j * rows:(j + 1) * rows], batch))
+                live = [t.detach().requires_grad_(True) for t in leaves]
+                with implicit_replication():  # a plain constant (a mask, a pad) is whole
+                    l = self.model.train_loss(rebuild(live), part)
+                    g = torch.autograd.grad(l, live)
+                g = [x.redistribute(self.mesh, p.placements).to_local()
+                     for x, p in zip(g, leaves)]
+                l = l.detach().full_tensor() if isinstance(l, DTensor) else l.detach()
+                if mb == 1:
+                    acc, loss = list(g), l.float()
+                    break
+                if acc is None:
+                    acc = [x.float() / mb for x in g]
+                else:
+                    for a, x in zip(acc, g):
+                        a.add_(x.float() / mb)
+                loss = loss + l.float() / mb
+                del g, live, part
+        finally:
+            self.model.set_mesh_context(None)
+        grads = [a.to(p.dtype) for a, p in zip(acc, leaves)]
+        return loss, grads, leaves
+
+    def clip(self, grads: List[torch.Tensor], leaves: List[DTensor], rebuild
+             ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """``clip_by_global_norm`` of local gradients: each leaf's f32 sum of
+        squares summed over the ranks that split it, in the leaves' order."""
+        sqs = []
+        for g, p in zip(grads, leaves):
+            sq = torch.sum(torch.square(g.float()))
+            split = [Partial() if isinstance(q, Shard) else Replicate() for q in p.placements]
+            if any(isinstance(q, Partial) for q in split):
+                sq = DTensor.from_local(sq, self.mesh, split, run_check=False).full_tensor()
+            sqs.append(sq)
+        total = None
+        for sq in tree_leaves(rebuild(sqs)):  # jax.tree.leaves order
+            total = sq if total is None else total + sq
+        norm = torch.sqrt(total)
+        scale = torch.clamp(self.dfl.max_grad_norm / torch.clamp(norm, min=1e-9), max=1.0)
+        return [(g.float() * scale).to(g.dtype) for g in grads], norm
+
+    # -- the step -------------------------------------------------------------
+    def train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, Any]]:
+        """One step of this rank on the global ``batch`` (whole tensors, the
+        same on every rank), then (on a gossip step) one round between
+        ranks."""
+        dev, dfl = self.device, self.dfl
+        t0 = _sync(dev) if self.timed else 0.0
+        loss, grads, leaves = self.mesh_grads(state.params, batch)
+        t1 = _sync(dev) if self.timed else 0.0
+        rebuild = tree_flatten(state.params)[1]
+        grads, gnorm = self.clip(grads, leaves, rebuild)
+        ef = state.opt_state.get("codec_ef")
+        opt_in = {k: v for k, v in state.opt_state.items() if k != "codec_ef"}
+        if self.factored:  # the factored means reduce over split dimensions
+            dgrads = rebuild([_like(g, p) for g, p in zip(grads, leaves)])
+            params, opt_state = self.opt.update(state.params, dgrads, opt_in, state.step)
+            params = tree_map(lambda n, p: n.redistribute(self.mesh, p.placements).to_local(),
+                              params, state.params)
+            del dgrads
+        else:
+            params, opt_state = self.opt.update(_local(state.params), rebuild(grads),
+                                                _local(opt_in), state.step)
+        del grads, opt_in
+        state.params, state.opt_state = None, None
+        if ef is not None:
+            opt_state = dict(opt_state, codec_ef=_local(ef))
+        t2 = _sync(dev) if self.timed else 0.0
+        gossiped = (dfl.gossip_interval <= 1
+                    or (int(state.step) + 1) % dfl.gossip_interval == 0)
+        if gossiped:
+            params, opt_state = self.gossip(params, opt_state)
+        t3 = _sync(dev) if self.timed else 0.0
+        like = rebuild(leaves)
+        params = tree_map(_like, params, like)
+        opt_state = {k: v if self.factored and k == "f" else tree_map(_like, v, like)
+                     for k, v in opt_state.items()}
+        metrics: Dict[str, Any] = {"loss": loss, "grad_norm": gnorm, "node_losses": [loss],
+                                   "gossip": gossiped}
         if self.timed:
             metrics["times"] = {"fwd_bwd": t1 - t0, "optimizer": t2 - t1, "gossip": t3 - t2}
         return TrainState(params=params, opt_state=opt_state, step=state.step + 1), metrics

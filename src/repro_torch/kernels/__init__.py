@@ -34,7 +34,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
@@ -101,6 +101,31 @@ class kernel_call:
             c.exit_kernel()
 
 
+class whole_op:
+    """Brackets one elementwise aten op that a trace may see decomposed:
+    with a counter active (a dispatch mode with ``enter_op(name, bytes)``),
+    the op counts once, moving ``tensors`` tensors of ``x``'s size (its
+    operands read and its output written; a rank's local bytes for a
+    DTensor), and not the ops it dispatches. On fake CUDA tensors the card's
+    PyTorch hands ``softplus`` to a counter as ``gt``, ``exp``, ``log1p``
+    and ``where``, where its real tensors run one kernel."""
+
+    __slots__ = ("name", "n_bytes", "live")
+
+    def __init__(self, name: str, x: torch.Tensor, tensors: int = 2) -> None:
+        local = x.to_local() if isinstance(x, DTensor) else x
+        self.name, self.n_bytes = name, tensors * local.numel() * local.element_size()
+
+    def __enter__(self) -> None:
+        self.live = [m for m in _get_current_dispatch_mode_stack() if hasattr(m, "enter_op")]
+        for c in self.live:
+            c.enter_op(self.name, self.n_bytes)
+
+    def __exit__(self, *exc: Any) -> None:
+        for c in self.live:
+            c.exit_kernel()
+
+
 def is_fake(t: torch.Tensor) -> bool:
     return isinstance(t, FakeTensor)
 
@@ -124,7 +149,8 @@ def run_local(fn: Callable[..., Any], mesh: Any, in_placements: Tuple[Any, ...],
     """``fn`` on each rank's local shards of ``args`` (``local_map``): every
     tensor argument is first redistributed to its entry of ``in_placements``
     (None for a non-tensor argument; a plain tensor is taken as replicated),
-    and the outputs come back as DTensors with ``out_placements``."""
+    and the outputs come back as DTensors with ``out_placements``; the
+    gradients go back as :func:`grad_placements` places them."""
     def place(a: Any, p: Any) -> Any:
         if p is None or not isinstance(a, torch.Tensor):
             return a
@@ -134,4 +160,18 @@ def run_local(fn: Callable[..., Any], mesh: Any, in_placements: Tuple[Any, ...],
 
     args = tuple(place(a, p) for a, p in zip(args, in_placements))
     return local_map(fn, out_placements=out_placements, in_placements=in_placements,
+                     in_grad_placements=grad_placements(in_placements),
                      device_mesh=mesh)(*args)
+
+
+def grad_placements(in_placements: Tuple[Any, ...]) -> Tuple[Any, ...]:
+    """The placements of each input's gradient out of a ``local_map``: an
+    input replicated over a mesh dimension that another input splits gets
+    each rank's share of its gradient there, a partial sum (a norm's
+    scale, the router, the scan's A and D on batch-split rows, a kv head
+    read by query heads split over "model"); as placed elsewhere."""
+    split = {i for p in in_placements if p is not None
+             for i, q in enumerate(p) if isinstance(q, Shard)}
+    return tuple(None if p is None else tuple(
+        Partial() if i in split and isinstance(q, Replicate) else q for i, q in enumerate(p))
+        for p in in_placements)

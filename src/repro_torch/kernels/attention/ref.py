@@ -73,9 +73,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   softcap: float = 0.0) -> torch.Tensor:
     """q (b, s_q, H, hd); k, v (b, s_kv, KV, hd) with KV dividing H (query
     head h reads kv head h // (H / KV)). Scores, softcap, mask and softmax
-    in f32; the output in q's dtype, (b, s_q, H, hd)."""
+    in f32; the output in q's dtype, (b, s_q, H, hd), contiguous as the
+    kernels write it."""
     p, vf = _probs(q, k, v, causal, sliding_window, softcap)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype).contiguous()
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -87,7 +88,7 @@ def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s, _ = _scores(q, k, causal, sliding_window, softcap)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhqk,bkhd->bqhd", p, _expand(v, q.shape[2])).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, _expand(v, q.shape[2])).to(q.dtype).contiguous()
     return out, lse
 
 
@@ -127,7 +128,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torc
         g = n_heads // n_kv
         dk = dk.unflatten(2, (n_kv, g)).sum(dim=3)
         dv = dv.unflatten(2, (n_kv, g)).sum(dim=3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
+            dv.to(v.dtype).contiguous())
 
 
 def rounding_units(out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

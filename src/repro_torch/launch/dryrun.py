@@ -34,11 +34,19 @@ from rank 0's own shards by the spec trees (``dfl/sharding.py``), and one
 prefill or decode step of the meshed model. Every count is the rank's: its
 FLOPs, bytes and peak, its kernel launches on its local heads and channels,
 its collectives by kind with their bytes (the roofline's collective term).
-A training shape on a mesh reports ``not_ported`` (the multi-rank trainer is
-ROADMAP A7b). Files end ``__singlepod.json`` or ``__multipod.json``, as the
-JAX dry run's. A mesh traced on the CPU is a ``cpu`` DeviceMesh, on which
-DTensor moves a shard from one dimension to another as an all-gather (gloo
-has no all-to-all); on the card it is an all-to-all.
+A training shape traces rank 0's whole step of the meshed trainer
+(``dfl/trainer.py::MeshDFLTrainer``): its microbatches, the gradients'
+reductions, the optimizer and the gossip round between ranks, whose
+point-to-point sends count under the kind ``collective-permute`` (the JAX
+roofline's name for a ``ppermute``); the ``gossip`` block adds the plan's
+nodes and slots, each mode's analytic bytes and the rank's point-to-point
+share (``rank_p2p_bytes``). A pair whose rank peak exceeds the card says so
+(``reason``). Files end ``__singlepod.json`` or ``__multipod.json``, as the
+JAX dry run's. A mesh traced on the CPU is a ``cpu`` DeviceMesh; under the
+fake group DTensor's move of a shard between dimensions is made the card's
+all-to-all there (:func:`card_alltoall`; its own CPU route gathers, gloo
+having no all-to-all), so the CPU trace has the card's collectives and
+peak.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-360m --shape train_4k --nodes 4
@@ -48,6 +56,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -60,10 +69,10 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from ..compress import make_codec
 from ..configs import INPUT_SHAPES, InputShape, get_arch, input_specs, list_archs
-from ..dfl.collectives import GossipPlan, gossip_collective_bytes, tree_map
+from ..dfl.collectives import GossipPlan, gossip_collective_bytes, rank_gossip_bytes, tree_map
 from ..dfl.sharding import (batch_axes, batch_spec, local_param_tree, local_zeros_tree,
                             param_shapes, param_spec_tree)
-from ..dfl.trainer import DFLConfig, DFLTrainer, recast
+from ..dfl.trainer import DFLConfig, DFLTrainer, MeshDFLTrainer, TrainState, recast
 from ..models import Batch, build_model
 from .mesh import make_production_mesh
 from .op_analysis import OpCounter, tensors
@@ -72,8 +81,6 @@ from .roofline import HBM_BYTES, Roofline, model_flops_for, wire_bytes
 MESH = "1xH100"
 MESHES = {"16x16": (False, 256), "2x16x16": (True, 512)}  # name -> (multi_pod, ranks)
 MESH_TAGS = {"16x16": "singlepod", "2x16x16": "multipod"}
-NOT_PORTED = ("training over a mesh is ROADMAP A7b (the multi-rank trainer: PermSteps "
-              "over torch.distributed and the node axes' gradient mean)")
 GOSSIP_MODES = ("dissemination", "tree_allreduce", "mixing", "flooding", "allreduce_ref")
 
 
@@ -116,6 +123,33 @@ def fake_group(ranks: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=ranks)
 
 
+@contextlib.contextmanager
+def card_alltoall(mesh_device: str):
+    """On a ``cpu`` mesh under the ``"fake"`` group, DTensor's move of a
+    shard between dimensions as the card makes it: one all-to-all
+    (``_dtensor::shard_dim_alltoall``), where DTensor's CPU route gathers
+    the whole tensor and keeps a chunk (gloo has no all-to-all). The trace
+    then has the card's collectives by kind and its peak; the identity on
+    any other mesh."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import placement_types
+
+    if mesh_device != "cpu" or dist.get_backend() != "fake":
+        yield
+        return
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        group = funcol._group_or_group_name(funcol._resolve_group((mesh, mesh_dim)))
+        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim, group)
+
+    saved = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = saved
+
+
 def dryrun_pair(
     arch: str,
     shape_name: str,
@@ -145,7 +179,8 @@ def dryrun_pair(
     base = INPUT_SHAPES[shape_name]
     shape = InputShape(base.name, seq or base.seq_len, batch or base.global_batch, base.kind)
     if mesh != MESH:
-        return meshed_pair(arch, cfg, shape, mesh, verbose=verbose)
+        return meshed_pair(arch, cfg, shape, mesh, gossip_mode=gossip_mode,
+                           dfl_overrides=dfl_overrides, verbose=verbose)
     result: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": MESH, "n_chips": 1,
         "gossip_mode": gossip_mode, "status": "ok", "n_layers": cfg.n_layers,
@@ -201,7 +236,8 @@ def dryrun_pair(
         result.update(roof.as_dict())
         result.update(trace_s=round(time.time() - t0, 1), fits_hbm=bool(
             stats.peak_bytes <= card_memory()), start_memory_bytes=stats.start_bytes,
-            aten_calls=sum(stats.calls_by_op.values()), top_flops=stats.top())
+            aten_calls=sum(stats.calls_by_op.values()), top_flops=stats.top(),
+            bytes_by_op=dict(stats.bytes_by_op))
         if plan is not None:
             result["gossip"] = {
                 "n_nodes": plan.n_nodes,
@@ -219,17 +255,20 @@ def dryrun_pair(
     except Exception as e:  # noqa: BLE001 — report, don't crash the sweep
         result["status"] = "error"
         result["error"] = f"{type(e).__name__}: {e}"
-        result["traceback"] = traceback.format_exc()[-2000:]
+        result["traceback"] = traceback.format_exc()[-6000:]
         if verbose:
             print(f"[{arch} × {shape_name} × {MESH}] FAILED: {result['error']}")
     return result
 
 
 def meshed_pair(arch: str, cfg, shape: InputShape, mesh_name: str, *,
+                gossip_mode: str = "tree_allreduce",
+                dfl_overrides: Optional[Dict[str, Any]] = None,
                 verbose: bool = True) -> Dict[str, Any]:
     """One (arch, shape) on rank 0 of the ``mesh_name`` layout: the prefill
-    or decode step of the meshed model on rank 0's shards, traced on fake
-    tensors under a fake process group (see the module docstring)."""
+    or decode step of the meshed model, or the meshed trainer's step
+    (:func:`meshed_train_step`), on rank 0's shards, traced on fake tensors
+    under a fake process group (see the module docstring)."""
     multi_pod, ranks = MESHES[mesh_name]
     result: Dict[str, Any] = {
         "arch": arch, "shape": shape.name, "mesh": mesh_name, "n_chips": ranks,
@@ -239,11 +278,6 @@ def meshed_pair(arch: str, cfg, shape: InputShape, mesh_name: str, *,
     if shape.name in cfg.skip_shapes:
         result.update(status="skipped", reason="see DESIGN.md §Arch-applicability")
         return result
-    if shape.kind == "train":
-        result.update(status="not_ported", reason=NOT_PORTED)
-        if verbose:
-            print(f"[{arch} × {shape.name} × {mesh_name}] not ported: {NOT_PORTED}")
-        return result
     t0 = time.time()
     dev = trace_device()
     result["traced_on"] = f"fake {dev.type}"
@@ -251,14 +285,24 @@ def meshed_pair(arch: str, cfg, shape: InputShape, mesh_name: str, *,
     try:
         fake_group(ranks)
         dmesh = make_production_mesh(multi_pod=multi_pod, device=dev)
-        with FakeTensorMode():
+        with FakeTensorMode(), card_alltoall(dev.type):
             model = build_model(cfg, shape.name, device=dev)
             b = shape.global_batch
             model.set_mesh_context(dmesh, batch_axes(dmesh, b))
             shapes = param_shapes(model)
             params = local_param_tree(cfg, dmesh, shapes, param_spec_tree(cfg, shapes, dmesh),
                                       device=dev)
-            counter = run_meshed_step(model, params, meshed_inputs(model, shape, dmesh, dev))
+            if shape.kind == "train":
+                trainer = MeshDFLTrainer(model, dmesh, DFLConfig(gossip_mode=gossip_mode,
+                                                                 **(dfl_overrides or {})))
+                state = meshed_train_state(trainer, params)
+                del params
+                counter, result["gossip"], _ = meshed_train_step(
+                    trainer, state, Batch(**_inputs(cfg, shape, dev)))
+                del state
+            else:
+                counter = run_meshed_step(model, params,
+                                          meshed_inputs(model, shape, dmesh, dev))
         stats = counter.stats
         roof = Roofline(arch, shape.name, mesh_name, ranks, stats.flops, stats.bytes,
                         wire_bytes(stats.collective_bytes), float(stats.peak_bytes),
@@ -271,7 +315,11 @@ def meshed_pair(arch: str, cfg, shape: InputShape, mesh_name: str, *,
                       collective_bytes_by_kind=dict(stats.collective_bytes),
                       batch_axes=list(batch_axes(dmesh, shape.global_batch)),
                       aten_calls=sum(stats.calls_by_op.values()), top_flops=stats.top(),
-                      top_bytes=dict(stats.bytes_by_op.most_common(6)))
+                      top_bytes=dict(stats.bytes_by_op.most_common(6)),
+                      bytes_by_op=dict(stats.bytes_by_op))
+        if not result["fits_hbm"]:
+            result["reason"] = (f"rank peak {stats.peak_bytes / 1e9:.2f} GB over the card's "
+                                f"{card_memory() / 1e9:.1f} GB")
         if verbose:
             print(f"[{arch} × {shape.name} × {mesh_name}] OK traced {result['trace_s']}s "
                   f"rank peak={stats.peak_bytes / 2**30:.2f}GiB "
@@ -280,7 +328,7 @@ def meshed_pair(arch: str, cfg, shape: InputShape, mesh_name: str, *,
     except Exception as e:  # noqa: BLE001 — report, don't crash the sweep
         result["status"] = "error"
         result["error"] = f"{type(e).__name__}: {e}"
-        result["traceback"] = traceback.format_exc()[-2000:]
+        result["traceback"] = traceback.format_exc()[-6000:]
         if verbose:
             print(f"[{arch} × {shape.name} × {mesh_name}] FAILED: {result['error']}")
     finally:
@@ -305,6 +353,47 @@ def meshed_inputs(model, shape: InputShape, dmesh, dev: torch.device) -> Tuple[A
     with torch.no_grad():
         pos = pos + (shape.seq_len - 1)
     return data["tokens"], pos, model.init_cache(b, shape.seq_len)
+
+
+def meshed_train_state(trainer: MeshDFLTrainer, params) -> TrainState:
+    """The meshed trainer's state from ``params`` (rank 0's DTensors) as a
+    gossip round leaves it: an f32 parameter shares its master's storage."""
+    state = trainer.state_from_params(params)
+    if "master" in state.opt_state:
+        state.params = recast(state.opt_state["master"], state.params)
+    return state
+
+
+def meshed_train_step(trainer: MeshDFLTrainer, state: TrainState, batch: Batch
+                      ) -> Tuple[OpCounter, Dict[str, Any], Dict[str, Any]]:
+    """One gossiping step of the meshed trainer on the global ``batch``
+    under the op counter (its live tensors: ``state`` and the batch; the
+    step consumes the state). Returns the counter, the plan's ``gossip``
+    block (its nodes and slots, each mode's analytic bytes,
+    ``gossip_collective_bytes``, and this rank's point-to-point share of the
+    step's mode, ``rank_gossip_bytes``) and the step's metrics. The dry run
+    calls it on fake tensors, ``chip_smoke.py`` on the card's."""
+    plan, cfg, dflc = trainer.plan, trainer.cfg, trainer.dfl
+    theta = state.opt_state.get("master", state.params)
+    pbytes = cfg.param_count() * (2 if cfg.dtype == "bfloat16" else 4)
+    wire = torch.bfloat16 if dflc.wire_dtype == "bfloat16" else None
+    gossip = {
+        "n_nodes": plan.n_nodes,
+        "node_axes": list(plan.nodes.axes),
+        "mode": dflc.gossip_mode,
+        "codec": dflc.codec or "fp32",
+        "mst_slots": plan.dissemination.n_slots,
+        "tree_slots": plan.tree.n_slots,
+        "analytic_bytes": {m: gossip_collective_bytes(m, plan, pbytes) for m in GOSSIP_MODES},
+        "rank_p2p_bytes": rank_gossip_bytes(dflc.gossip_mode, plan,
+                                            tree_map(lambda t: t.to_local(), theta),
+                                            wire_dtype=wire, codec=trainer.codec),
+    }
+    del theta
+    dev = next(iter(tensors(state))).device
+    with OpCounter(live=(state, batch), device=dev.type) as counter:
+        state, metrics = trainer.train_step(state, batch)
+    return counter, gossip, metrics
 
 
 def run_meshed_step(model, params, inputs: Tuple[Any, ...]) -> OpCounter:

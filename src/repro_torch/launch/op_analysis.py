@@ -27,6 +27,9 @@ or on fake ones (``launch/dryrun.py``), and accumulates:
     gathered buffer of an all-gather, the reduced one of an all-reduce, the
     rank's shard of a reduce-scatter (``hlo_analysis``'s result-shape rule);
     the peak adds the copy of its input an all-to-all holds while it runs.
+    Point-to-point sends do not pass the dispatcher: the gossip reports
+    them (:meth:`OpCounter.count_collective`, kind ``collective-permute``,
+    the JAX roofline's name for a ppermute; the bytes sent).
 
 On a mesh every count is one rank's. A dispatch mode sees a DTensor op once,
 at global shapes, and not the local ops and collectives DTensor issues for
@@ -199,6 +202,23 @@ class OpCounter(TorchDispatchMode):
 
     def exit_kernel(self) -> None:
         self._depth -= 1
+
+    # -- what the dispatcher does not see ------------------------------------------------
+    def count_collective(self, kind: str, calls: int, n_bytes: float) -> None:
+        """``calls`` transfers of ``n_bytes`` in all that bypass the
+        dispatcher (the gossip's point-to-point sends)."""
+        self.stats.collectives[kind] += calls
+        self.stats.collective_bytes[kind] += n_bytes
+
+    def enter_op(self, name: str, n_bytes: float) -> None:
+        """One aten op ``name`` moving ``n_bytes``, counted whole: the ops it
+        dispatches until :meth:`exit_kernel` are not (see
+        :class:`repro_torch.kernels.whole_op`)."""
+        self._depth += 1
+        st = self.stats
+        st.bytes += n_bytes
+        st.bytes_by_op[name] += n_bytes
+        st.calls_by_op[name] += 1
 
     # -- aten ops --------------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):

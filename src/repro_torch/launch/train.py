@@ -20,9 +20,24 @@ dry table line for line) and exits without touching a device:
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --nodes 4 \\
       --sweep codec_x_protocol --cell 7 --device cpu
 
-``--nodes`` takes the place of the JAX launcher's ``--mesh``: one device
-holds every node. When it equals the scenario's node count the session
-plans over the scenario's own overlay. Without ``--device cpu`` it runs on
+``--nodes N`` stacks N nodes on one device. ``--mesh AxB[xC]`` is the JAX
+launcher's: a ``DeviceMesh`` over the ranks of the default process group,
+axes ``("pod", "data", "model")[-len(dims):]``, the nodes those of the
+config's node axes the mesh has (their count comes from the plan), and the
+multi-rank trainer (``dfl/trainer.py::MeshDFLTrainer``): each rank holds
+its shards and gossip runs point to point between ranks. It needs
+``prod(dims)`` ranks, so the caller starts them (``torchrun``, which the
+launcher joins from its environment, or a spawner that initializes the group
+first), and refuses ``--nodes``. With ``--device cpu`` the group is gloo's on
+the CPU; otherwise each rank takes ``cuda:LOCAL_RANK`` and needs a group
+that moves CUDA tensors (NCCL), and fails by name without one. Rank 0
+logs; a checkpoint is one file a node, each node's shards gathered over
+the other axes and written by that node's first rank (the stacked run's
+files). When the node count equals the scenario's, the session plans over
+the scenario's own overlay:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2x2 \
+      --device cpu --smoke --steps 3 Without ``--device cpu`` it runs on
 the card. ``--warmup`` defaults to 100, the reference's ``DFLConfig``
 default, so one command line trains on one lr schedule in both packages
 (the cosine warm-up gives lr 0 at step 0 only). ``--trace PATH`` records
@@ -37,6 +52,7 @@ and the tests share both.
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Tuple
@@ -49,7 +65,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch-per-node", type=int, default=2)
-    ap.add_argument("--nodes", type=int, default=1, help="DFL nodes stacked on the device")
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="DFL nodes stacked on the device (default 1)")
+    ap.add_argument("--mesh", default="",
+                    help="e.g. 2x2 (data x model) or 2x2x2 (pod x data x model): one rank a "
+                         "mesh device, in a process group the caller starts")
     ap.add_argument("--gossip", default="tree_allreduce")
     ap.add_argument("--codec", default="", help="gossip wire codec: bf16, int8, int4, topk")
     ap.add_argument("--scenario", default="",
@@ -86,6 +106,7 @@ class TrainRun:
     state: Any  # the latest TrainState
     make_batch: Callable[[], Any]
     session: Any = None  # DFLSession of a scenario run
+    mesh: Any = None  # the DeviceMesh of a --mesh run
     losses: List[float] = field(default_factory=list)
     grad_norms: List[float] = field(default_factory=list)
     # each step's (or scenario round's) seconds by host clock; on the card
@@ -105,6 +126,17 @@ def print_dry_table(sweep) -> None:
         print(f"  [{row['cell']:3d}] {coords:40s} "
               f"tx={row['transmissions']:6d} "
               f"wire={row['bytes_on_wire_mb']:10.1f}MB")
+
+
+def _lead_print() -> Callable[..., None]:
+    """``print`` on the process that logs: rank 0 of a started group (or of
+    torchrun's environment before the group starts), else a no-op."""
+    import os
+
+    import torch.distributed as dist
+
+    rank = dist.get_rank() if dist.is_initialized() else int(os.environ.get("RANK", 0))
+    return print if rank == 0 else (lambda *_, **__: None)
 
 
 def resolve_scenario(args: argparse.Namespace) -> Tuple[bool, Any]:
@@ -132,17 +164,19 @@ def resolve_scenario(args: argparse.Namespace) -> Tuple[bool, Any]:
             raise SystemExit(f"--cell {args.cell} outside [0, {len(cells)}) for sweep "
                              f"{sweep.name!r}")
         scenario = cells[args.cell].spec
-        print(f"sweep {sweep.name!r} cell {args.cell}: {scenario.name}")
+        log = _lead_print()
+        log(f"sweep {sweep.name!r} cell {args.cell}: {scenario.name}")
         args.gossip = resolve_gossip_mode(scenario.protocol)
         args.steps = scenario.rounds
-        print(f"cell scenario: protocol={scenario.protocol} "
+        log(f"cell scenario: protocol={scenario.protocol} "
               f"codec={scenario.codec} rounds={scenario.rounds}")
     elif args.scenario:
         scenario = registry.get(args.scenario)
         args.gossip = resolve_gossip_mode(scenario.protocol)
         args.steps = scenario.rounds
-        print(f"scenario {scenario.name!r}: protocol={scenario.protocol} codec={scenario.codec} "
-              f"rounds={scenario.rounds} churn={len(scenario.churn)} events")
+        _lead_print()(f"scenario {scenario.name!r}: protocol={scenario.protocol} "
+                      f"codec={scenario.codec} rounds={scenario.rounds} "
+                      f"churn={len(scenario.churn)} events")
     return False, scenario
 
 
@@ -156,10 +190,20 @@ def build_run(args: argparse.Namespace, scenario=None) -> TrainRun:
     from ..configs import get_arch
     from ..data import DataConfig, FederatedData
     from ..dfl.session import DFLSession
-    from ..dfl.trainer import DFLConfig, DFLTrainer
+    from ..dfl.trainer import DFLConfig, DFLTrainer, MeshDFLTrainer
     from ..models import Batch, build_model
 
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        if args.nodes is not None:
+            raise SystemExit("--nodes and --mesh are mutually exclusive: on a mesh the node "
+                             "count comes from the plan over the config's node axes")
+        mesh = make_mesh(args.mesh, args.device)
+        dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+            if mesh.device_type == "cuda" else torch.device("cpu")
+    else:
+        args.nodes = args.nodes or 1
+        dev = resolve_device(args.device)
     codec = args.codec
     if scenario is not None:  # the scenario's wire codec ("" = raw fp32)
         codec = scenario.codec if scenario.codec != "fp32" else ""
@@ -169,7 +213,11 @@ def build_run(args: argparse.Namespace, scenario=None) -> TrainRun:
     model = build_model(cfg, device=dev)
     dfl = DFLConfig(gossip_mode=args.gossip, gossip_interval=args.gossip_interval, lr=args.lr,
                     warmup=args.warmup, total_steps=args.steps, codec=codec)
-    trainer = DFLTrainer(model, args.nodes, dfl, device=dev)
+    if mesh is not None:
+        trainer = MeshDFLTrainer(model, mesh, dfl)
+        args.nodes = trainer.n_nodes
+    else:
+        trainer = DFLTrainer(model, args.nodes, dfl, device=dev)
     state = trainer.init_state(torch.Generator(device=dev).manual_seed(0))
     data = FederatedData(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                                     batch_per_node=args.batch_per_node, n_nodes=args.nodes))
@@ -191,7 +239,37 @@ def build_run(args: argparse.Namespace, scenario=None) -> TrainRun:
 
     session = DFLSession(trainer, scenario=scenario) if scenario is not None else None
     return TrainRun(args=args, scenario=scenario, codec=codec, cfg=cfg, model=model,
-                    trainer=trainer, state=state, make_batch=make_batch, session=session)
+                    trainer=trainer, state=state, make_batch=make_batch, session=session,
+                    mesh=mesh)
+
+
+def make_mesh(spec: str, device: Optional[str]):
+    """The ``--mesh AxB[xC]`` DeviceMesh over the default process group,
+    joined from torchrun's environment when none is initialized; fails by
+    name without enough ranks or without a group that runs on the device."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from .mesh import make_local_mesh
+
+    dims = tuple(int(x) for x in spec.split("x"))
+    axes = ("pod", "data", "model")[-len(dims):]
+    cpu = device == "cpu"
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:  # torchrun
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("gloo" if cpu else "nccl")
+    if dist.is_initialized():
+        backend = dist.get_backend()
+        if cpu and backend == "nccl":
+            raise RuntimeError("--mesh with --device cpu needs a gloo process group, the "
+                               "default group is NCCL's")
+        if not cpu and backend not in ("nccl", "fake"):
+            raise RuntimeError(f"--mesh on the card needs an NCCL process group: {backend} "
+                               "moves no CUDA tensors point to point (pass --device cpu)")
+    return make_local_mesh(dims, axes, device="cpu" if cpu else "cuda")
 
 
 def train(run: TrainRun) -> TrainRun:
@@ -206,10 +284,13 @@ def train(run: TrainRun) -> TrainRun:
 
     args, trainer, cfg = run.args, run.trainer, run.cfg
     dev = trainer.device
-    n_params = sum(t[0].numel() for t in tree_leaves(run.state.params))
-    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M nodes={args.nodes} "
-          f"mst_slots={trainer.plan.dissemination.n_slots} gossip={args.gossip} "
-          f"codec={run.codec or 'fp32'} device={dev}")
+    lead = 0 if run.mesh is None else 1  # the stacked node axis
+    n_params = sum(math.prod(t.shape[lead:]) for t in tree_leaves(run.state.params))
+    log = _lead_print()
+    log(f"arch={cfg.name} params={n_params / 1e6:.1f}M nodes={trainer.n_nodes} "
+        f"mst_slots={trainer.plan.dissemination.n_slots} gossip={args.gossip} "
+        f"codec={run.codec or 'fp32'} device={dev}"
+        + (f" mesh={args.mesh}" if run.mesh is not None else ""))
 
     def now() -> float:
         if dev.type == "cuda":
@@ -229,8 +310,8 @@ def train(run: TrainRun) -> TrainRun:
         from ..dfl.session import run_scenario_rounds
 
         run.state, _ = run_scenario_rounds(run.session, run.state, batch, run.make_batch,
-                                           on_round=lambda i, m: record(m))
-        print(f"done: {run.scenario.rounds} scenario rounds in {marks[-1] - marks[0]:.1f}s")
+                                           on_round=lambda i, m: record(m), log=log)
+        log(f"done: {run.scenario.rounds} scenario rounds in {marks[-1] - marks[0]:.1f}s")
         _flush_trace(args.trace)
         return run
 
@@ -242,16 +323,26 @@ def train(run: TrainRun) -> TrainRun:
         record(metrics)
         batch = run.make_batch()
         if (i + 1) % args.log_every == 0 or i == 0:
-            print(f"step {i + 1:5d} loss={run.losses[-1]:.4f} "
-                  f"gnorm={run.grad_norms[-1]:.3f} "
-                  f"({(marks[-1] - marks[0]) / (i + 1):.2f}s/step)")
+            log(f"step {i + 1:5d} loss={run.losses[-1]:.4f} "
+                f"gnorm={run.grad_norms[-1]:.3f} "
+                f"({(marks[-1] - marks[0]) / (i + 1):.2f}s/step)")
         if args.checkpoint_dir and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
-            for node in range(args.nodes):
-                save_pytree(node_checkpoint_path(args.checkpoint_dir, node, i + 1),
-                            tree_map(lambda t: t[node], run.state.params),
-                            {"step": i + 1, "arch": cfg.name, "node": node})
-    print(f"done: {args.steps} steps in {marks[-1] - marks[0]:.1f}s, loss "
-          + " ".join(f"{x:.4f}" for x in run.losses))
+            meta = {"step": i + 1, "arch": cfg.name}
+            if run.mesh is None:
+                for node in range(args.nodes):
+                    save_pytree(node_checkpoint_path(args.checkpoint_dir, node, i + 1),
+                                tree_map(lambda t: t[node], run.state.params),
+                                dict(meta, node=node))
+            else:  # every rank gathers; each node's first rank writes its file
+                whole = tree_map(lambda t: t.full_tensor(), run.state.params)
+                nodes = trainer.plan.nodes
+                names = run.mesh.mesh_dim_names
+                if all(c == 0 for a, c in zip(names, run.mesh.get_coordinate())
+                       if a not in nodes.axes):
+                    save_pytree(node_checkpoint_path(args.checkpoint_dir, nodes.node, i + 1),
+                                whole, dict(meta, node=nodes.node))
+    log(f"done: {args.steps} steps in {marks[-1] - marks[0]:.1f}s, loss "
+        + " ".join(f"{x:.4f}" for x in run.losses))
     _flush_trace(args.trace)
     return run
 

@@ -143,6 +143,9 @@ def logits_from_embedding(params: Params, x: torch.Tensor, vocab: int,
     pv = table.shape[0]
     if pv != vocab:
         keep = torch.arange(pv, device=logits.device) < vocab
+        if isinstance(logits, DTensor):  # (a plain mask has no gradient placement)
+            keep = DTensor.from_local(keep, logits.device_mesh,
+                                      [Replicate()] * logits.device_mesh.ndim, run_check=False)
         logits = torch.where(keep, logits, torch.full_like(logits, -1e9))
     return logits
 

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..kernels import run_local
+from ..kernels import run_local, whole_op
 
 from ..kernels.scan.ops import selective_scan_op
 from .layers import Params, dense_init, gather_tokens, reduce_partial, shard_hint
@@ -57,15 +57,45 @@ def init_mamba1(gen: torch.Generator, d_model: int, d_inner: int, d_state: int,
     }
 
 
+class _Softplus(torch.autograd.Function):
+    """``F.softplus`` and its backward (``aten.softplus_backward``, as
+    autograd takes it), each one op to a counter however the trace
+    dispatches it (:class:`~repro_torch.kernels.whole_op`)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        with whole_op("softplus", x):
+            return F.softplus(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        # in x's layout: a fake trace computes the op by a decomposition
+        # whose output strides need not follow a permuted g as the kernel's do
+        g = g.contiguous()
+        with whole_op("softplus_backward", x, 3):
+            return torch.ops.aten.softplus_backward(g, x, 1.0, 20.0)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Softplus.apply(x)
+    with whole_op("softplus", x):
+        return F.softplus(x)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, cache: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv along seq. x (b, s, di); w (width, di); cache
     (b, width-1, di) holds the previous inputs. Returns (out, new cache)."""
     width = w.shape[0]
-    if cache is None:
-        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
-    else:
+    if cache is not None:
         pad = cache.to(x.dtype)
+    elif isinstance(x, DTensor):  # placed as x (a plain tensor is not whole on a rank)
+        pad = torch.zeros_like(x[:, :width - 1])
+    else:
+        pad = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
     xp = torch.cat([pad, x], dim=1)  # (b, s + width - 1, di)
     s = x.shape[1]
     out = 0
@@ -81,7 +111,7 @@ def _mamba1_ssm_inputs(params: Params, xc: torch.Tensor
     row-parallel over a ``d_inner``-split xc: their partial sums are reduced
     before dt's column-parallel ``dt_proj`` and the scan."""
     dt_low = reduce_partial((xc @ params["wdt_in"]).float())
-    dt = F.softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])
+    dt = _softplus(dt_low @ params["dt_proj"].float() + params["dt_bias"])
     Bm = reduce_partial((xc @ params["wB"]).float())
     Cm = reduce_partial((xc @ params["wC"]).float())
     return dt, Bm, Cm
@@ -162,7 +192,7 @@ def _mamba2_inputs(params: Params, x: torch.Tensor, conv_cache: Optional[torch.T
     z = x @ params["wz"]
     Bm = (x @ params["wB"]).float()
     Cm = (x @ params["wC"]).float()
-    dt = F.softplus((x @ params["wdt"]).float() + params["dt_bias"])
+    dt = _softplus((x @ params["wdt"]).float() + params["dt_bias"])
     return xc, z, Bm, Cm, dt, new_conv
 
 

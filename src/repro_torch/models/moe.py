@@ -124,6 +124,21 @@ def dispatch_combine(xg: torch.Tensor, router: torch.Tensor, top_k: int, capacit
     return dispatch, combine, sel.sum(dim=(0, 1, 2, 3)), probs.sum(dim=(0, 1, 2))
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    DTensor's backward of the reshape ahead of it views the gradient by its
+    global strides, which the permuted local gradient does not have
+    (PyTorch 2.13 on gloo: "view size is not compatible")."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def shard_moe(t: torch.Tensor, e_dim: int, expert_sharding) -> torch.Tensor:
     """The expert dimension on the expert-parallel axis, the batch on the
     node axes that remain; the identity without ``expert_sharding`` (mesh,
@@ -169,7 +184,10 @@ def moe_layer(params: Params, x: torch.Tensor, top_k: int, capacity_factor: floa
     # every expert's slots as one batch of matmuls: (e, b G c, d)
     xe = xe.permute(2, 0, 1, 3, 4).reshape(n_experts, b * G * capacity, d)
     h = F.silu(torch.bmm(xe, params["wg"])) * torch.bmm(xe, params["wi"])
-    ye = torch.bmm(h, params["wo"]).reshape(n_experts, b, G, capacity, d).permute(1, 2, 0, 3, 4)
+    ye = torch.bmm(h, params["wo"]).reshape(n_experts, b, G, capacity, d)
+    if isinstance(ye, DTensor):
+        ye = _ContiguousGrad.apply(ye)
+    ye = ye.permute(1, 2, 0, 3, 4)
     ye = shard_hint(shard_moe(ye, 2, expert_sharding), "batch", None, None, None, None)
     y = torch.einsum("bgecd,bgsec->bgsd", ye, combine).reshape(b, s, d)
 

@@ -11,12 +11,35 @@ counts it rests on.
   whisper-tiny, as the reference's dry run skips it.
 * The dry run's CUDA device: ``resolve_device`` gives it only while the dry
   run's fake mode is active.
+* Total bytes (``bytes_per_device``) of the dry steps equal the real CPU
+  steps' (P7: the attention plain versions return the kernels' contiguous
+  layout, so no copy appears on the CPU alone). The Mamba mixers traced on
+  fake tensors under ``no_grad`` count the bytes of the same mixers on real
+  ones, with one ``softplus`` each; on the card's PyTorch fake CUDA tensors
+  hand ``softplus`` to the counter decomposed, and ``kernels.whole_op``
+  counts it once either way (a decomposition's parts under it are held
+  here). This CPU-only build makes fake CUDA tensors but cannot index them,
+  so the mixers trace on fake CPU tensors; phases 7 and 8 of
+  ``chip_smoke.py`` hold the card's bytes.
 * ``--mesh 16x16``: every arch at 2 layers traces rank 0's prefill and
   decode (``ok``, with its FLOPs, bytes, collectives and ``fits_hbm``), and
-  its peak and FLOPs are below the one-card dry run's at the same cut; a
-  training shape is ``not_ported`` (ROADMAP A7b). ``2x16x16`` is held in
-  ``tests/test_torch_op_analysis.py``. Files end ``__multipod.json`` /
-  ``__singlepod.json``, as the JAX dry run's.
+  its peak and FLOPs are below the one-card dry run's at the same cut; the
+  training step (the meshed trainer) is ``ok`` with a ``gossip`` block whose
+  node count is the JAX config's node axes on the mesh, and a pair that does
+  not fit says why. smollm-360m (16 / 32 nodes) and qwen3-moe-30b-a3b (1 / 2:
+  its node axes are "pod") at ``16x16`` and ``2x16x16``: the rank's
+  point-to-point bytes (kind ``collective-permute``) equal its share of the
+  plan (``rank_gossip_bytes``), and the shares of every node sum to
+  ``gossip_collective_bytes``. ``2x16x16`` prefill and
+  decode are held in ``tests/test_torch_op_analysis.py``. Files end
+  ``__multipod.json`` / ``__singlepod.json``, as the JAX dry run's.
+* P8: qwen3-moe-30b-a3b's 16x16 prefill traced on the CPU (a ``cpu`` mesh
+  under the fake group) moves its experts by all-to-alls as the card does,
+  and its rank peak is within ``PEAK_TOL`` of the card's trace.
+
+Time limit: the meshed traces run in three subprocesses at once, each cut at
+600 s (``_run_meshes``); the whole file took 275 s with 4 workers on a loaded
+8-core host.
 """
 import json
 from pathlib import Path
@@ -108,6 +131,7 @@ def test_dry_train_step_counts_as_a_cpu_step(family, monkeypatch):
     assert res["status"] == "ok", res.get("traceback")
     stats = _cpu_step(pt_configs.get_arch(arch).smoke_variant())
     assert res["flops_per_device"] == stats.flops
+    assert res["bytes_per_device"] == stats.bytes
     assert res["kernel_launches"] == dict(stats.launches)
     assert res["start_memory_bytes"] == stats.start_bytes  # the steady state's tensors
     assert res["kernel_launches"]  # every family's step runs a kernel
@@ -126,6 +150,7 @@ def test_dry_codec_step_counts_as_a_cpu_step(codec):
     stats = _cpu_step(pt_configs.get_arch("smollm-360m").smoke_variant(),
                       DFLConfig(gossip_mode="dissemination", codec=codec))
     assert res["flops_per_device"] == stats.flops
+    assert res["bytes_per_device"] == stats.bytes
     assert res["kernel_launches"] == dict(stats.launches)
     assert res["start_memory_bytes"] == stats.start_bytes
     assert res["kernel_launches"]["gossip_mix"] > 0
@@ -214,9 +239,24 @@ def _run_meshes(jobs):
     return out
 
 
+GOSSIP_ARCHS = ("smollm-360m", "qwen3-moe-30b-a3b")
+MESH_SIZES = {"16x16": {"data": 16, "model": 16}, "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+
 @pytest.fixture(scope="module")
 def meshed():
-    return _run_meshes([("16x16", MESH_ARCHS), ("1xH100", MESH_ARCHS)])
+    return _run_meshes([("16x16", MESH_ARCHS), ("1xH100", MESH_ARCHS),
+                        ("2x16x16", GOSSIP_ARCHS)])
+
+
+def _jax_nodes(arch, mesh):
+    """The JAX package's DFL node count of ``arch`` on a production layout:
+    the product of its node axes that the mesh has."""
+    sizes = MESH_SIZES[mesh]
+    n = 1
+    for a in jax_configs.get_arch(arch).node_axes:
+        n *= sizes.get(a, 1)
+    return n
 
 
 @pytest.mark.parametrize("shape", MESH_SHAPES)
@@ -224,7 +264,14 @@ def meshed():
 def test_meshed_dry_run_16x16(meshed, arch, shape):
     r = meshed[("16x16", f"{arch}/{shape}")]
     if shape == "train_4k":
-        assert r["status"] == "not_ported" and "A7b" in r["reason"], r
+        assert r["status"] == "ok", r.get("error")
+        assert r["gossip"]["n_nodes"] == _jax_nodes(arch, "16x16"), r["gossip"]
+        assert r["flops_per_device"] > 0 and r["kernel_launches"], r
+        assert isinstance(r["fits_hbm"], bool)
+        if not r["fits_hbm"]:
+            assert "over the card" in r["reason"], r
+        assert (r["collective_bytes_by_kind"].get("collective-permute", 0.0)
+                == r["gossip"]["rank_p2p_bytes"])
         return
     assert r["status"] == "ok", r.get("error")
     assert r["mesh"] == "16x16" and r["n_chips"] == 256
@@ -246,4 +293,146 @@ def test_meshed_files_are_named_as_the_jax_dry_runs(tmp_path):
     (path,) = tmp_path.glob("*.json")
     assert path.name == "whisper-tiny__train_4k__multipod.json"
     res = json.loads(path.read_text())
-    assert res["status"] == "not_ported" and res["mesh"] == "2x16x16" and res["n_chips"] == 512
+    assert res["status"] == "ok" and res["mesh"] == "2x16x16" and res["n_chips"] == 512
+    assert res["gossip"]["n_nodes"] == _jax_nodes("whisper-tiny", "2x16x16") == 32
+
+
+def _local_masters(arch, mesh):
+    """Rank 0's f32 master shards of ``arch`` at 2 layers on a layout, as
+    meta tensors (the tree gossip sends f32 partial sums)."""
+    from repro_torch.dfl.sharding import local_shape, map_specs, param_shapes, param_spec_tree
+
+    cfg = pt_configs.get_arch(arch).replace(n_layers=2)
+    shapes = param_shapes(build_model(cfg, "train_4k", device="cpu"))
+
+    class Duck:
+        shape = MESH_SIZES[mesh]
+
+    specs = param_spec_tree(cfg, shapes, Duck())
+    return map_specs(lambda sp, t: torch.empty(local_shape(Duck(), sp, t.shape),
+                                               dtype=torch.float32, device="meta"),
+                     specs, shapes)
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", GOSSIP_ARCHS)
+def test_meshed_train_gossip_is_the_ranks_share(meshed, arch, mesh):
+    from repro_torch.dfl.collectives import (GossipPlan, gossip_collective_bytes,
+                                             rank_gossip_bytes, tree_flatten)
+
+    r = meshed[(mesh, f"{arch}/train_4k")]
+    assert r["status"] == "ok", r.get("error")
+    g = r["gossip"]
+    n = _jax_nodes(arch, mesh)
+    assert g["n_nodes"] == n and g["mode"] == "tree_allreduce", g
+    assert set(g["analytic_bytes"]) == set(dryrun.GOSSIP_MODES)
+    p2p = r["collective_bytes_by_kind"].get("collective-permute", 0.0)
+    assert p2p == g["rank_p2p_bytes"]
+    if n == 1:
+        assert p2p == 0.0 and "collective-permute" not in r["collective_counts"]
+        return
+    # the plan of the same nodes (pods priced apart on 2x16x16): rank 0's share,
+    # and every node's shares summing to the round's analytic bytes
+    plan = GossipPlan.build(n, n_pods=MESH_SIZES[mesh].get("pod", 1) if n > 16 else 1)
+    local = _local_masters(arch, mesh)
+    assert p2p == rank_gossip_bytes("tree_allreduce", plan, local, node=0) > 0
+    total = sum(rank_gossip_bytes("tree_allreduce", plan, local, node=i) for i in range(n))
+    shard = sum(t.numel() * 4 for t in tree_flatten(local)[0])
+    # (the analytic formula rounds through MB)
+    assert total == pytest.approx(gossip_collective_bytes("tree_allreduce", plan, shard),
+                                  rel=1e-12)
+    assert g["tree_slots"] == plan.tree.n_slots and g["mst_slots"] == plan.dissemination.n_slots
+
+
+def test_mamba_mixers_count_softplus_once():
+    """P7: the Mamba1 and Mamba2 mixers under ``no_grad`` on fake tensors and
+    on real ones count the same bytes and one ``softplus`` each; and
+    ``whole_op`` counts an op once, at its input and output, when its parts
+    reach the counter decomposed (as the card's fake CUDA tensors hand
+    ``softplus`` over; this CPU-only build makes fake CUDA tensors but cannot
+    index them, so the mixers trace on fake CPU tensors here)."""
+    from repro_torch.kernels import whole_op
+    from repro_torch.models import mamba
+
+    cfg = pt_configs.get_arch("falcon-mamba-7b").smoke_variant()
+    cfg2 = pt_configs.get_arch("zamba2-7b").smoke_variant()
+
+    def run():
+        g = torch.Generator().manual_seed(0)
+        p1 = mamba.init_mamba1(g, cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank,
+                               cfg.conv_width, torch.float32)
+        p2 = mamba.init_mamba2(g, cfg2.d_model, cfg2.d_inner, cfg2.ssm_state, cfg2.conv_width,
+                               torch.float32)
+        x1, x2 = torch.zeros((2, 64, cfg.d_model)), torch.zeros((2, 64, cfg2.d_model))
+        with torch.no_grad(), OpCounter() as counter:
+            mamba.mamba1_forward(p1, x1, cfg.ssm_state, cfg.dt_rank)
+            mamba.mamba2_forward(p2, x2, cfg2.ssm_state)
+        return counter.stats
+
+    real = run()
+    with FakeTensorMode():
+        fake = run()
+    assert fake.bytes == real.bytes and fake.flops == real.flops
+    assert fake.calls_by_op["softplus"] == real.calls_by_op["softplus"] == 2
+
+    x = torch.randn(4, 8)
+    with OpCounter() as counter:
+        with whole_op("softplus", x):  # the parts a decomposition dispatches
+            y = torch.where(x > 20.0, x, torch.log1p(torch.exp(x)))
+    assert torch.allclose(y, torch.nn.functional.softplus(x))
+    st = counter.stats
+    assert dict(st.calls_by_op) == {"softplus": 1} and st.bytes == 2 * x.numel() * 4
+
+
+def test_meshed_train_gathers_whole_vocab_logits_p9(meshed):
+    """ROADMAP P9 (open): the meshed training step gathers each rank's rows
+    of f32 logits over the whole padded vocabulary (the readout's vocab
+    split, then DTensor's all-gather ahead of the log-softmax), where the
+    JAX model keeps the logits split: smollm-360m's 16x16 train_4k step, 16
+    rows of 4096 a rank, moves 12.9 GB in that one all-gather and does not
+    fit the card at 2 layers."""
+    from repro_torch.models.layers import padded_vocab
+
+    r = meshed[("16x16", "smollm-360m/train_4k")]
+    rows, seq = 256 // 16, 4096
+    vocab = padded_vocab(pt_configs.get_arch("smollm-360m").vocab)
+    assert r["collective_counts"]["all-gather"] == 1
+    assert r["collective_bytes_by_kind"]["all-gather"] == rows * seq * vocab * 4
+    assert r["fits_hbm"] is False
+
+
+def test_meshed_train_has_no_sequence_split_p10(meshed):
+    """ROADMAP P10 (open): the meshed trainer runs the layers without
+    Megatron's sequence split (DTensor cannot place the backward matmul of a
+    sequence-split activation flattened to rows), so its dense step
+    all-reduces each row-parallel output where the prefill reduce-scatters."""
+    train = meshed[("16x16", "smollm-360m/train_4k")]["collective_counts"]
+    prefill = meshed[("16x16", "smollm-360m/prefill_32k")]["collective_counts"]
+    assert prefill.get("reduce-scatter", 0) > 0
+    assert "reduce-scatter" not in train and train["all-reduce"] > 0
+
+
+# P8: rank 0 of qwen3-moe-30b-a3b's 16x16 prefill_32k at 2 layers as the card
+# traces it (fake CUDA tensors, a cuda mesh; chip_smoke.py phase 8's "[mesh]
+# P8" line on an NVIDIA H100 80GB HBM3): its rank peak and collectives by
+# kind. The card's PyTorch 2.11 makes 7 all-reduces, this build's 2.13 5: two
+# f32 scalars of the moe routing sums that 2.13 does not reduce
+CARD_P8 = {"peak": 14035068940, "all-reduces": 7,
+           "collectives": {"all-gather": 5, "reduce-scatter": 2, "all-to-all": 4},
+           "bytes": {"all-reduce": 5637145608, "all-gather": 1342177280,
+                     "reduce-scatter": 33554432, "all-to-all": 10737418240}}
+PEAK_TOL = 0.01  # chip_smoke.py's
+
+
+def test_moe_cpu_trace_has_the_cards_collectives_p8(meshed):
+    r = meshed[("16x16", "qwen3-moe-30b-a3b/prefill_32k")]
+    assert r["status"] == "ok" and r["traced_on"] == "fake cpu", r.get("error")
+    counts, by_kind = r["collective_counts"], r["collective_bytes_by_kind"]
+    assert set(counts) == set(CARD_P8["bytes"])  # the experts move by all-to-alls
+    assert {k: counts[k] for k in CARD_P8["collectives"]} == CARD_P8["collectives"]
+    assert {k: v for k, v in by_kind.items() if k != "all-reduce"} == {
+        k: v for k, v in CARD_P8["bytes"].items() if k != "all-reduce"}
+    fewer = CARD_P8["all-reduces"] - counts["all-reduce"]
+    assert CARD_P8["bytes"]["all-reduce"] - by_kind["all-reduce"] == 4 * fewer
+    assert abs(r["peak_memory_bytes"] - CARD_P8["peak"]) <= PEAK_TOL * CARD_P8["peak"]
+    assert r["fits_hbm"] is True
