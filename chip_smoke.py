@@ -112,13 +112,25 @@ Phases, each fatal on failure (exit code 1, no result line):
              launch counts set to 0 just before and read just after:
              paper_table3 (fp32), quantized_table3 (int8) and an int4
              variant, topk_sweep (3 rounds), mesh_smoke (tree all-reduce with
-             churn, 180.9 M f32 a node) and an int8 variant. Every round must
+             churn, 180.9 M f32 a node) and an int8 variant, and
+             paper_flooding_baseline (flooding on the complete overlay, which
+             the card runs as an all-gather). Every round must
              report numerics_ok (None for top-k, which has no deterministic
              bound), finite outputs and the exact bytes on the wire; every
              gossip kernel must have launched, and every shape a codec
              kernel launched with must have been timed in phase 2. Prints
              each gossip kernel's launches by shape and each codec kernel's
              loss, the sum over shapes of launches x (time - bound).
+   tables  — a host phase after phase 3: the paper's three metrics for
+             paper_table3 (MOSGU) against paper_flooding_baseline on the
+             ``netsim`` executor (the fluid simulator) and the ``plan``
+             executor (the analytic model): mean bandwidth (Table III), mean
+             transfer time (Table IV) and round time (Table V), and the
+             MOSGU / flooding ratios. These are modeled times of the paper's
+             3-subnet testbed, computed on the host; beside them, the card's
+             ``device_ms`` of the same two scenarios' rounds from phase 3.
+             MOSGU's round must be the shorter on both executors. Prints the
+             phase's wall time.
 4. serve   — smollm-360m (32 layers, d 960), falcon-mamba-7b (64 layers,
              d 4096), qwen3-moe-30b-a3b (48 layers, d 2048, 128 experts,
              60.4 GB), stablelm-12b (40 layers, d 5120, 23.3 GB) and
@@ -301,9 +313,11 @@ Phases, each fatal on failure (exit code 1, no result line):
              collectives by kind exactly, the peak within PEAK_TOL as phase 7
              holds it; prints the step's time, roofline terms and share.
              (c) the meshed --all table (every arch x INPUT_SHAPES at 16x16
-             and 2x16x16, full depth; training shapes not_ported), traced in
-             phase 7's processes behind its own dry runs. Every kernel of the
-             path must launch in (a) and (b).
+             and 2x16x16, full depth; training for (d)'s two archs), traced in
+             phase 7's processes behind its own dry runs. (d) rank 0 of 16x16
+             train_4k under the fake group with real tensors, the meshed
+             trainer at the whole 256-row batch (``phase_mesh``). Every kernel
+             of the path must launch in (a), (b) and (d).
 
 Then the card's name and power limit, one JSON line with every kernel's
 numbers (the codec kernels' and the scan backward's also by shape, with
@@ -344,12 +358,16 @@ MESH_SERVE = ("smollm-360m", "falcon-mamba-7b")
 MESH_RANK0 = ("falcon-mamba-7b", "qwen3-moe-30b-a3b")
 MESH_LAYOUTS = ("16x16", "2x16x16")
 # phase 8 (d): rank 0 of 16x16 train_4k, (arch, gossip mode, codec): the
-# meshed trainer at full width on 16 nodes, the global batch cut to 32 rows
-# (2 a node): at 256 every dense rank gathers its rows' whole-vocabulary f32
-# logits (ROADMAP P9) and no depth fits the card
+# meshed trainer at full width on 16 nodes, at train_4k's whole global batch
+# of 256 rows (16 a node), which fits the card because the logits stay split
+# by vocabulary (ROADMAP P9); the sequence split over "model" between
+# sublayers (P10) makes the step reduce-scatter
 MESH_TRAIN = (("smollm-360m", "dissemination", "int8"),
               ("falcon-mamba-7b", "tree_allreduce", "topk"))
-MESH_TRAIN_BATCH = 32
+MESH_TRAIN_BATCH = 256
+# the host phase after phase 3: the paper's MOSGU cell and its flooding
+# baseline, each on the two timing executors
+TABLE_SCENARIOS = ("paper_table3", "paper_flooding_baseline")
 # P8: qwen3-moe's 16x16 prefill at 2 layers, traced on the card (its peak is
 # the CPU trace's reference in tests/test_torch_dryrun.py)
 P8_PAIR = ("16x16", "qwen3-moe-30b-a3b", "prefill_32k", 2)
@@ -652,6 +670,47 @@ def fake_group_fill():
     return Fill()
 
 
+def phase_tables(device_ms, card) -> None:
+    """The paper's Tables III-V metrics of TABLE_SCENARIOS on the netsim
+    and plan executors (modeled testbed times, host only), the MOSGU /
+    flooding ratios, and the card's round ``device_ms`` of phase 3."""
+    import warnings
+
+    from repro_torch.scenario import executors, scenarios
+
+    t0 = time.perf_counter()
+    mosgu, flood = TABLE_SCENARIOS
+    for ex in ("netsim", "plan"):
+        rows = {}
+        for name in TABLE_SCENARIOS:
+            spec = scenarios.get(name)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = executors.get(ex).execute(spec)
+            r = res.rounds[0]
+            rows[name] = r
+            note = f"; contract warning: {caught[0].message}" if caught else ""
+            print(f"[tables] {ex} {name} ({spec.protocol}, {spec.overlay.kind}({spec.n}), "
+                  f"{spec.payload} {spec.payload_mb()} MB): Table III bandwidth "
+                  f"{r.mean_bandwidth_mbps:.4f} MB/s, Table IV mean transfer "
+                  f"{r.mean_transfer_s:.4f} s, Table V round {r.total_time_s:.4f} s, "
+                  f"{r.transmissions} transfers, max concurrency {r.max_concurrency} (modeled "
+                  f"times of the paper's 3-subnet testbed, computed on the host, not the "
+                  f"card's){note}")
+        a, b = rows[mosgu], rows[flood]
+        if not a.total_time_s < b.total_time_s:
+            fail(f"[tables] {ex}: MOSGU's round {a.total_time_s} s is not shorter than "
+                 f"flooding's {b.total_time_s} s")
+        print(f"[tables] {ex} MOSGU / flooding (modeled): bandwidth "
+              f"{a.mean_bandwidth_mbps / b.mean_bandwidth_mbps:.3f}x, transfer time "
+              f"{b.mean_transfer_s / a.mean_transfer_s:.3f}x shorter, round time "
+              f"{b.total_time_s / a.total_time_s:.3f}x shorter")
+    print(f"[tables] on the card (phase 3, the same scenarios at full width): {mosgu} round "
+          f"{device_ms[mosgu]:.3f} ms, {flood} round (all-gather) {device_ms[flood]:.3f} ms on "
+          f"{card}")
+    print(f"[tables] phase wall time {time.perf_counter() - t0:.2f} s")
+
+
 def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors, train_dry) -> None:
     """Phase 8: the mesh (``launch/mesh.py``, ``dfl/sharding.py``).
 
@@ -676,14 +735,16 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors, train_dry) -> Non
         traces minutes);
     (d) rank 0 of the 16x16 layout's ``train_4k`` under the fake group with
         real tensors: the meshed trainer (``MeshDFLTrainer``) for each of
-        MESH_TRAIN at full width, full depth where the meshed dry run says
-        the step fits the card, else the deepest cut that does, the global
-        batch MESH_TRAIN_BATCH; a warm-up, a timed and a counted step; the
+        MESH_TRAIN at full width and depth and the global batch
+        MESH_TRAIN_BATCH (the meshed dry run must say the step fits the
+        card); a warm-up, a timed and a counted step; the
         meshed dry run's FLOPs, launches, collectives by kind (the gossip's
         point-to-point sends, ``collective-permute``, among them) and bytes
         exactly, its peak within
-        PEAK_TOL; loss and grad norm finite, each collective's output
-        written with this rank's own data (:func:`fake_group_fill`).
+        PEAK_TOL; a reduce-scatter among the collectives (the sequence
+        split, ROADMAP P10), printed by kind; loss and grad norm finite,
+        each collective's output written with this rank's own data
+        (:func:`fake_group_fill`).
     The fake group moves no data: (b) and (d) check shapes, memory, FLOPs
     and launches, never values."""
     import torch
@@ -879,17 +940,12 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors, train_dry) -> Non
     # -- (d) rank 0 of 16x16 train_4k: the meshed trainer on real tensors ----------------
     for arch, mode, codec in MESH_TRAIN:
         label = f"{arch} x train_4k at 16x16 rank 0 ({mode}, {codec})"
-        for key in train_dry[arch]:  # full depth first, then the cuts
-            dry = mesh_dry[key]
-            if dry["status"] != "ok":
-                fail(f"meshed dry run of {label}: {dry.get('error')}\n{dry.get('traceback')}")
-            if dry["fits_hbm"]:
-                break
-            print(f"[mesh] (d) {label}: the meshed dry run's rank peak at {dry['n_layers']} "
-                  f"layers, {dry['peak_memory_bytes'] / 1e9:.2f} GB, does not fit "
-                  f"{total / 1e9:.1f} GB")
-        else:
-            fail(f"{label}: no traced depth fits the card")
+        dry = mesh_dry[train_dry[arch]]
+        if dry["status"] != "ok":
+            fail(f"meshed dry run of {label}: {dry.get('error')}\n{dry.get('traceback')}")
+        if not dry["fits_hbm"]:
+            fail(f"{label}: the meshed dry run's rank peak, {dry['peak_memory_bytes'] / 1e9:.2f} "
+                 f"GB, does not fit {total / 1e9:.1f} GB")
         cfg = get_arch(arch).replace(n_layers=dry["n_layers"])
         base = INPUT_SHAPES["train_4k"]
         shape = InputShape(base.name, base.seq_len, MESH_TRAIN_BATCH, base.kind)
@@ -960,6 +1016,11 @@ def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors, train_dry) -> Non
                  f"measured {peak / 1e9:.3f} GB: {100 * gap:.2f}% apart")
         step_s = spans[-1]
         bound = max(dry["compute_s"], dry["memory_s"])
+        if not st.collectives.get("reduce-scatter"):
+            fail(f"{label}: no reduce-scatter in the step (the sequence split, ROADMAP P10)")
+        print(f"[mesh] (d) {label}: the step's collectives by kind: " + ", ".join(
+            f"{k} {st.collectives[k]} ({int(st.collective_bytes[k])} B)"
+            for k in sorted(st.collectives)))
         print(f"[mesh] (d) {label}, {cfg.n_layers} layers, {shape.global_batch} x "
               f"{shape.seq_len} global ({gossip['n_nodes']} nodes): loss / grad norm "
               f"{json.dumps(metrics)} (warm-up, timed, counted); FLOPs {st.flops:.6e}, bytes "
@@ -1159,7 +1220,8 @@ def main() -> int:
     runs = [base["paper_table3"], base["quantized_table3"],
             base["quantized_table3"].replace(name="quantized_table3_int4", codec="int4"),
             base["topk_sweep"], base["mesh_smoke"],
-            base["mesh_smoke"].replace(name="mesh_smoke_int8", codec="int8")]
+            base["mesh_smoke"].replace(name="mesh_smoke_int8", codec="int8"),
+            base["paper_flooding_baseline"]]
     path_shapes = {name: Counter() for name in CODEC_KERNELS}
     for spec in runs:
         reset_launches()
@@ -1711,6 +1773,7 @@ def main() -> int:
 
     # -- 3. the main path: scenario rounds at full width ------------------------
     reset_launches()
+    path_ms = {}  # each scenario's first round on the card, for the tables phase
     for spec in runs:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1733,6 +1796,7 @@ def main() -> int:
                   f"numerics_ok {r.numerics_ok}, round {r.device_ms:.3f} ms on {card}")
         print(f"[path] {spec.name}: {wall:.2f} s wall for {len(run.rounds)} round(s), "
               f"peak {peak_gb:.2f} GB")
+        path_ms[spec.name] = run.rounds[0].device_ms
         if spec.name == "quantized_table3" and run.rounds[0].bytes_on_wire_mb != 478.86336:
             fail("quantized_table3 bytes_on_wire_mb != 478.86336")
     counts, shapes = launch_counts(), launch_shapes()
@@ -1766,6 +1830,7 @@ def main() -> int:
     for name in CODEC_KERNELS:
         add_shape_launches(name, shapes[name], "path")
     torch.cuda.empty_cache()
+    phase_tables(path_ms, card)
 
     # phase 7's real side: one call of a phase-4 or phase-5 run counted on the
     # card, held in phase 7 against the dry run of the same config
@@ -2487,16 +2552,14 @@ def main() -> int:
                       for sh in INPUT_SHAPES if sh != "train_4k" or a in train_archs]
         mesh_pairs.sort(key=lambda p: (p[0] != "16x16" or p[1] not in MESH_RANK0
                                        or p[2] not in ("prefill_32k", "decode_32k")))
-        # (d)'s steps: full depth, then half, at MESH_TRAIN_BATCH rows; P8's pair
+        # (d)'s steps: full depth at MESH_TRAIN_BATCH rows; P8's pair
         train_dry = {}
         jobs = {}
         for arch, mode, codec in MESH_TRAIN:
-            full = get_arch(arch).n_layers
-            train_dry[arch] = [("16x16", arch, "train_4k", "d", n) for n in (full, full // 2)]
-            for key in train_dry[arch]:
-                jobs[key] = dict(arch=arch, shape_name="train_4k", mesh="16x16",
-                                 batch=MESH_TRAIN_BATCH, layers=key[-1], gossip_mode=mode,
-                                 dfl_overrides={"codec": codec})
+            key = train_dry[arch] = ("16x16", arch, "train_4k", "d", get_arch(arch).n_layers)
+            jobs[key] = dict(arch=arch, shape_name="train_4k", mesh="16x16",
+                             batch=MESH_TRAIN_BATCH, layers=key[-1], gossip_mode=mode,
+                             dfl_overrides={"codec": codec})
         jobs[P8_PAIR] = dict(arch=P8_PAIR[1], shape_name=P8_PAIR[2], mesh=P8_PAIR[0],
                              layers=P8_PAIR[3])
         mesh_futs = {k: pool.apply_async(dry_worker, (kw,)) for k, kw in jobs.items()}

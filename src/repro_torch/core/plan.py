@@ -3,11 +3,14 @@
 A trimmed copy of ``repro.core.plan``: the three policies the gossip round
 lowers (MOSGU dissemination, segmented gossip, tree all-reduce), the
 counting units of the sweep tables (flooding, one broadcast exchange, one
-MOSGU exchange), the reference slot recorder :func:`compile_policy`, the
-counting pass :func:`measure_policy` and the protocol registry
-:func:`make_policy`. A policy emits the sends of one slot and commits their
-delivery; the recorder runs it to completion. Queue traces, drops, the
-event-driven interface and the other executors are not on the port's path.
+MOSGU exchange), :class:`ReplayPolicy` (a compiled plan replayed), the
+reference slot recorder :func:`compile_policy`, the counting pass
+:func:`measure_policy` and the protocol registry :func:`make_policy`. A
+policy emits the sends of one slot and commits their delivery; the recorder
+runs it to completion. Flooding is also event-driven (``sync = "event"``:
+``initial_sends`` / ``on_delivered``), as the fluid simulator
+(:mod:`repro_torch.core.netsim`) and the timing model run it. Queue traces,
+drops and the queue engine are not on the port's path.
 """
 from __future__ import annotations
 
@@ -79,6 +82,7 @@ class CommPolicy:
     """A slot-synchronous protocol: ``emit`` a slot's sends, ``commit`` them."""
 
     kind: str = "abstract"
+    sync: str = "slot"  # "slot" (barrier-synchronized) | "event" (reactive)
     payload_fraction: float = 1.0
     n: int = 0
     colors: Optional[np.ndarray] = None
@@ -324,11 +328,14 @@ class TreeAllreducePolicy(CommPolicy):
 
 
 class FloodingPolicy(CommPolicy):
-    """Naive flooding on the overlay, rounds-synchronously (one slot per
-    flooding round): every node forwards each model it first received in
-    the last round to all its neighbours. Duplicates count as transfers."""
+    """Naive flooding on the overlay: every node forwards each model it
+    first receives to all its neighbours. Duplicates count as transfers.
+    The slot interface runs it rounds-synchronously (one slot per flooding
+    round); the fluid simulator runs it event-driven (forward on first
+    receipt). Either way every node forwards each model once."""
 
     kind = "flooding"
+    sync = "event"
 
     def __init__(self, overlay: Graph) -> None:
         self.n = overlay.n
@@ -354,6 +361,40 @@ class FloodingPolicy(CommPolicy):
             if owner not in self._received[d]:
                 self._received[d].add(owner)
                 self._fresh[d].add(owner)
+
+    def initial_sends(self) -> List[Send]:
+        return [(u, v, u) for u in range(self.n) for v in self._neighbors[u]]
+
+    def on_delivered(self, src: int, dst: int, payload: int) -> List[Send]:
+        if payload in self._received[dst]:
+            return []
+        self._received[dst].add(payload)
+        return [(dst, v, payload) for v in self._neighbors[dst]]
+
+
+class ReplayPolicy(CommPolicy):
+    """Replays an already-compiled :class:`SlotPlan`, slot for slot."""
+
+    def __init__(self, plan: SlotPlan) -> None:
+        self.plan = plan
+        self.kind = plan.kind
+        self.n = plan.n
+        self.colors = plan.colors
+        self.payload_fraction = plan.payload_fraction
+        self.reset()
+
+    def reset(self) -> None:
+        self._ptr = 0
+
+    def done(self) -> bool:
+        return self._ptr >= len(self.plan.slots)
+
+    def emit(self, slot_idx: int) -> SlotSends:
+        slot = self.plan.slots[self._ptr]
+        return SlotSends.from_tuples(slot_idx, slot.color, slot.sends)
+
+    def commit(self, slot_idx: int, sends: SlotSends) -> None:
+        self._ptr += 1
 
 
 class BroadcastOncePolicy(CommPolicy):

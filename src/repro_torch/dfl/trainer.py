@@ -476,13 +476,15 @@ class MeshDFLTrainer(DFLTrainer):
     the replicas along the node axes unequal, as the reference's
     ``shard_map`` does; nothing broadcasts them back.
 
-    The residual stream stays whole over "model" between sublayers (the
-    layers tensor-parallel without Megatron's sequence split, which the
-    JAX model pins): DTensor cannot place the backward matmul of a
-    sequence-split activation flattened to rows (a strided shard; PyTorch
-    2.13 fails it, ROADMAP P10). The forward and backward run under
-    ``implicit_replication``: a plain constant a layer makes (a mask, a
-    padding) is whole on every rank."""
+    The layers run as the meshed prefill does: the residual stream split
+    along the sequence over "model" between sublayers (Megatron's sequence
+    parallelism, the JAX model's ``act_sharding``), gathered ahead of the
+    projections and reduce-scattered after the row-parallel ones by explicit
+    autograd Functions on local shards (``models/layers.py``), so no
+    sequence-split tensor is flattened to rows; the logits stay split by
+    vocabulary into the vocab-parallel cross-entropy. The forward and
+    backward run under ``implicit_replication``: a plain constant a layer
+    makes (a mask, a padding) is whole on every rank."""
 
     def __init__(self, model: Model, mesh: Any, dfl: Optional[DFLConfig] = None,
                  optimizer: Optional[Optimizer] = None, timed: bool = False):
@@ -544,7 +546,6 @@ class MeshDFLTrainer(DFLTrainer):
         acc: Optional[List[torch.Tensor]] = None
         loss = torch.zeros((), dtype=torch.float32, device=self.device)
         self.model.set_mesh_context(self.mesh, batch_axes(self.mesh, rows))
-        self.model.act_spec = None  # no sequence split (the class docstring)
         try:
             for j in range(mb):
                 part = self.shard_batch(_map_batch(lambda t: t[j * rows:(j + 1) * rows], batch))

@@ -97,6 +97,7 @@ from .layers import (
     mlp,
     reduce_partial,
     rms_norm,
+    scatter_tokens,
     set_mesh_ctx,
 )
 
@@ -199,26 +200,46 @@ class Model:
         if sizes.get("model", 1) > 1 and self.cfg.seq_parallel:
             self.act_spec = Spec(tuple(batch_axes) if batch_axes else None, "model", None)
 
+    def _act_placements(self, x: torch.Tensor):
+        """The placements ``act_spec`` gives the residual stream x (b, s, d)
+        when its batch and sequence divide; None off a mesh, with no
+        ``act_spec`` or when they do not."""
+        spec = self.act_spec
+        if spec is None or not isinstance(x, DTensor) or x.ndim != 3:
+            return None
+        sizes = axis_sizes(x.device_mesh)
+        n_b = 1
+        for a in spec[0] or ():
+            n_b *= sizes[a]
+        if x.shape[0] % n_b or x.shape[1] % sizes["model"]:
+            return None
+        return placements(x.device_mesh, spec)
+
     def _shard_acts(self, x: torch.Tensor) -> torch.Tensor:
-        """The residual stream x (b, s, d) after a sublayer's add: pinned to
-        ``act_spec`` when its batch and sequence divide, else with any
-        partial sums reduced (a row-parallel output all-reduced, as Megatron
-        does); the identity off a mesh. The JAX model pins at layer ends
-        only and lets XLA place the rest; DTensor keeps a partial sum
-        partial until an op cannot take it, so the port pins after each add."""
+        """The residual stream x (b, s, d): pinned to ``act_spec``
+        (:meth:`_act_placements`), else with any partial sums reduced (a
+        row-parallel output all-reduced, as Megatron does without its
+        sequence split); the identity off a mesh. The JAX model pins at
+        layer ends only and lets XLA place the rest; DTensor keeps a partial
+        sum partial until an op cannot take it, so the port pins after each
+        add."""
         if not isinstance(x, DTensor):
             return x
-        mesh = x.device_mesh
-        spec = self.act_spec
-        if spec is not None and x.ndim == 3:
-            sizes = axis_sizes(mesh)
-            n_b = 1
-            for a in spec[0] or ():
-                n_b *= sizes[a]
-            if x.shape[0] % n_b == 0 and x.shape[1] % sizes["model"] == 0:
-                want = placements(mesh, spec)
-                return x if tuple(x.placements) == want else x.redistribute(mesh, want)
-        return reduce_partial(x)
+        want = self._act_placements(x)
+        if want is None:
+            return reduce_partial(x)
+        return x if tuple(x.placements) == want else x.redistribute(x.device_mesh, want)
+
+    def _residual(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``x + y`` for the residual stream x and a sublayer's output y,
+        pinned (:meth:`_shard_acts`). With the sequence split, y (a
+        row-parallel output partial over "model", or whole there) is first
+        reduce-scattered or sliced along the sequence
+        (``layers.scatter_tokens``, whose backward all-gathers), as
+        Megatron's sequence parallelism does."""
+        if self._act_placements(x) is not None:
+            y = scatter_tokens(y)
+        return self._shard_acts(x + y)
 
     def layer_window(self, local: bool) -> int:
         """Effective sliding window for a layer (0 = full attention)."""
@@ -314,35 +335,35 @@ class Model:
     def _dense_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
                      window: int, prefix_len: int = 0) -> torch.Tensor:
         cfg = self.cfg
-        x = self._shard_acts(x + attn_lib.attention(
+        x = self._residual(x, attn_lib.attention(
             block["attn"], rms_norm(x, block["ln1"]), positions, causal=True,
             sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta,
             prefix_len=prefix_len))
-        return self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"])))
+        return self._residual(x, mlp(block["mlp"], rms_norm(x, block["ln2"])))
 
     def _encoder_block(self, block: Params, x: torch.Tensor,
                        positions: torch.Tensor) -> torch.Tensor:
         """A whisper encoder layer: bidirectional self-attention over the
         frames (rope, no softcap, as the JAX package's), then the MLP."""
-        x = self._shard_acts(x + attn_lib.attention(
+        x = self._residual(x, attn_lib.attention(
             block["attn"], rms_norm(x, block["ln1"]), positions, causal=False,
             rope_theta=self.cfg.rope_theta))
-        return self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"])))
+        return self._residual(x, mlp(block["mlp"], rms_norm(x, block["ln2"])))
 
     def _decoder_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
                        enc: torch.Tensor) -> torch.Tensor:
         """A whisper decoder layer: causal self-attention, cross-attention to
         the encoder output ``enc`` (K and V projected from it, no rope, every
         frame visible), then the MLP."""
-        x = self._shard_acts(x + attn_lib.attention(
+        x = self._residual(x, attn_lib.attention(
             block["attn"], rms_norm(x, block["ln1"]), positions, causal=True,
             rope_theta=self.cfg.rope_theta))
         cross = block["cross"]
         kv = (attn_lib.project_heads(enc, cross["wk"]), attn_lib.project_heads(enc, cross["wv"]))
-        x = self._shard_acts(x + attn_lib.attention(
+        x = self._residual(x, attn_lib.attention(
             cross, rms_norm(x, block["ln_cross"]), positions, causal=False, use_rope=False,
             kv_override=kv, kv_positions=None))
-        return self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"])))
+        return self._residual(x, mlp(block["mlp"], rms_norm(x, block["ln2"])))
 
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """whisper's encoder: (b, n_frames, d) frames -> the normed encoder
@@ -363,11 +384,11 @@ class Model:
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
     def _mamba_block(self, block: Params, x: torch.Tensor) -> torch.Tensor:
-        return self._shard_acts(x + mamba_lib.mamba1_forward(
+        return self._residual(x, mamba_lib.mamba1_forward(
             block["body"], rms_norm(x, block["ln"]), self.cfg.ssm_state, self.cfg.dt_rank))
 
     def _mamba2_block(self, block: Params, x: torch.Tensor) -> torch.Tensor:
-        return self._shard_acts(x + mamba_lib.mamba2_forward(
+        return self._residual(x, mamba_lib.mamba2_forward(
             block["body"], rms_norm(x, block["ln"]), self.cfg.ssm_state))
 
     def _super_block(self, mamba_blocks: Params, shared: Params, x: torch.Tensor,
@@ -381,12 +402,12 @@ class Model:
     def _moe_block(self, block: Params, x: torch.Tensor, positions: torch.Tensor,
                    window: int) -> Tuple[torch.Tensor, torch.Tensor, MoEStats]:
         cfg = self.cfg
-        x = self._shard_acts(x + attn_lib.attention(
+        x = self._residual(x, attn_lib.attention(
             block["attn"], rms_norm(x, block["ln1"]), positions, causal=True,
             sliding_window=window, softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta))
         y, aux, stats = moe_layer(block["moe"], rms_norm(x, block["ln2"]), cfg.top_k,
                                   cfg.moe_capacity_factor, self.expert_sharding)
-        return self._shard_acts(x + y), aux, stats
+        return self._residual(x, y), aux, stats
 
     def _moe_layers(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
                     stats: Optional[List[MoEStats]]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -548,14 +569,14 @@ class Model:
             h, c2 = attn_lib.decode_attention(
                 block["attn"], rms_norm(x, block["ln1"]), positions, c, sliding_window=window,
                 softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
-            x = self._shard_acts(x + h)
+            x = self._residual(x, h)
             if cfg.family == "moe":  # the aux loss is not needed here
                 # on a mesh the experts stay on their axis (the JAX decode
                 # leaves their placement to XLA)
                 y, _, _ = moe_layer(block["moe"], rms_norm(x, block["ln2"]), cfg.top_k,
                                     cfg.moe_capacity_factor, self.expert_sharding)
-                return self._shard_acts(x + y), c2
-            return self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"]))), c2
+                return self._residual(x, y), c2
+            return self._residual(x, mlp(block["mlp"], rms_norm(x, block["ln2"]))), c2
 
         if cfg.family in ("dense", "vlm") and cfg.alt_local_global:
             local, glob = [], []
@@ -577,7 +598,7 @@ class Model:
             def mamba2(block: Params, x: torch.Tensor, c: Params):
                 y, c2 = mamba_lib.mamba2_decode(block["body"], rms_norm(x, block["ln"]), c,
                                                 cfg.ssm_state)
-                return self._shard_acts(x + y), c2
+                return self._residual(x, y), c2
 
             supers, attns = [], []
             for i in range(self.n_super):
@@ -603,13 +624,13 @@ class Model:
                 h, c2 = attn_lib.decode_attention(
                     block["attn"], rms_norm(x, block["ln1"]), positions, _layer(cache["kv"], i),
                     softcap=cfg.attn_logit_softcap, rope_theta=cfg.rope_theta)
-                x = self._shard_acts(x + h)
+                x = self._residual(x, h)
                 # the one token against every encoder frame: an all-true mask
-                x = self._shard_acts(x + attn_lib.attention(
+                x = self._residual(x, attn_lib.attention(
                     block["cross"], rms_norm(x, block["ln_cross"]), positions[:, None],
                     causal=False, use_rope=False,
                     kv_override=(cache["cross_k"][i], cache["cross_v"][i]), kv_positions=None))
-                x = self._shard_acts(x + mlp(block["mlp"], rms_norm(x, block["ln2"])))
+                x = self._residual(x, mlp(block["mlp"], rms_norm(x, block["ln2"])))
                 kvs.append(c2)
             new_cache = {"kv": _stack(kvs), "cross_k": cache["cross_k"],
                          "cross_v": cache["cross_v"]}
@@ -620,7 +641,7 @@ class Model:
                 y, c2 = mamba_lib.mamba1_decode(block["body"], rms_norm(x, block["ln"]),
                                                 _layer(cache["mamba"], i), cfg.ssm_state,
                                                 cfg.dt_rank)
-                x = self._shard_acts(x + y)
+                x = self._residual(x, y)
                 states.append(c2)
             new_cache = {"mamba": _stack(states)}
 

@@ -1,33 +1,46 @@
-"""The counting part of ``repro.scenario.executors``: the moderator
-lifecycle that every executor shares, the capability check, and the
-``plan`` executor that counts a scenario's rounds.
+"""The port's ``repro.scenario.executors``: the moderator lifecycle that
+every executor shares, the capability check, and the two executors that
+run a scenario's rounds on the host.
 
 :func:`membership_rounds` drives the paper's moderator lifecycle (III-A):
 connectivity reports filed from the overlay, each round's churn applied,
 an emergency election when the moderator itself left, the 2-node floor,
-and a round-robin rotation after every round. :class:`PlanExecutor`
+and a round-robin rotation after every round. :class:`Executor.execute`
 builds each membership epoch's policy over the moderator's member subgraph
-(:func:`~repro_torch.core.plan.make_policy`), counts its slots and
-transmissions (:func:`~repro_torch.core.plan.measure_policy`) and its
-bytes through :func:`~repro_torch.compress.per_send_wire_mb`, with the
-reference's operand order, so the numbers are bit-identical to the
-reference's plan executor.
+(:func:`~repro_torch.core.plan.make_policy`) and its per-send wire size
+(:func:`~repro_torch.compress.per_send_wire_mb`), then reports every round:
 
-It has no timing: the reference fills its round times from an analytic
-network model (``repro.core.network.TimingProfile``), which is not ported.
-It declares ``counting_only`` and lacks ``supports_staleness``, so a spec
-with straggler compute or a staleness window raises, as on the reference's
-plan executor. A spec with an overlay optimizer raises by name: its plan is
-built over the working overlay that only ``repro.opt``'s search computes.
+=========  ================================================================
+plan       counting: slots, transmissions and bytes, and the round times of
+           the analytic network model (:class:`~repro_torch.core.network.
+           TimingProfile` over the member-masked underlay, built once per
+           membership epoch; its walk also counts the slots and
+           transmissions) (``counting_only``, ``provides_timing``)
+netsim     the contended fluid underlay
+           (:func:`~repro_torch.core.netsim.simulate_policy`), every round
+           simulated: the paper's Tables III-V metrics (``provides_timing``)
+=========  ================================================================
+
+Bytes take the reference's operand order, so every number equals the
+reference executor's. Neither has ``supports_staleness``: a spec with
+straggler compute or a staleness window raises, as on the reference's plan
+and netsim executors. A spec with an overlay optimizer raises by name: its
+plan is built over the working overlay that only ``repro.opt``'s search
+computes. Not ported: the reference's engine, jax and event executors
+(:mod:`repro_torch.scenario.runner` runs a scenario's rounds on the card,
+the jax executor's counterpart) and its ``PlanCache``, which only buys
+speed across sweep cells.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
-from ..compress.codec import per_send_wire_mb
+from ..compress.codec import Codec, per_send_wire_mb
 from ..core.graph import Graph
 from ..core.moderator import ConnectivityReport, Moderator
-from ..core.plan import make_policy, measure_policy
+from ..core.netsim import SimResult, TestbedSpec, simulate_policy
+from ..core.network import NetworkSpec, TimingProfile, as_network_model
+from ..core.plan import CommPolicy, make_policy, measure_policy
 from .spec import (CAPABILITY_FLAGS, ChurnEvent, RoundReport, ScenarioResult, ScenarioSpec,
                    applicable_churn)
 
@@ -105,17 +118,31 @@ def required_capabilities(spec: ScenarioSpec) -> List[Tuple[str, str]]:
     return out
 
 
-class PlanExecutor:
-    """Counting: each membership epoch's policy over the moderator's member
-    subgraph, its slots and transmissions, and the bytes they carry."""
+def _member_testbed(spec: ScenarioSpec, members: Sequence[int]
+                    ) -> Union[TestbedSpec, NetworkSpec]:
+    """The underlay restricted to the healthy members (dense reindexing,
+    the physical subnet layout and each device's seeded rate kept)."""
+    return spec.testbed().masked(members)
 
-    name = "plan"
+
+class Executor:
+    """One host executor: capability flags, the lifecycle in
+    :meth:`execute`, and two hooks, :meth:`begin_epoch` (membership
+    changed) and :meth:`run_round`."""
+
+    name = "abstract"
     supports_drops = False
     provides_timing = False
     provides_numerics = False
     moves_payloads = False
-    counting_only = True
+    counting_only = False
     supports_staleness = False
+
+    spec: ScenarioSpec
+    payload_mb: float
+    codec: Optional[Codec]
+    policy: CommPolicy
+    wire_send_mb: float
 
     def check_capabilities(self, spec: ScenarioSpec) -> None:
         """Fail when the spec needs a capability this executor lacks, naming
@@ -132,6 +159,24 @@ class PlanExecutor:
             f"scenario {spec.name!r}; executors providing "
             f"{'it' if len(missing) == 1 else 'them all'}: {providers}")
 
+    def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
+        """The epoch's policy over the moderator's member subgraph and its
+        per-send wire size."""
+        spec = self.spec
+        self.policy = make_policy(spec.protocol, mod.build_graph()[0],
+                                  mst_algorithm=spec.mst_algorithm,
+                                  coloring_algorithm=spec.coloring_algorithm,
+                                  n_segments=spec.n_segments)
+        self.wire_send_mb = per_send_wire_mb(self.codec, self.payload_mb,
+                                             self.policy.payload_fraction)
+
+    def run_round(self) -> dict:
+        """The round's counted and timed fields of its :class:`RoundReport`."""
+        raise NotImplementedError
+
+    def finish(self, result: ScenarioResult) -> ScenarioResult:
+        return result
+
     def execute(self, spec: ScenarioSpec) -> ScenarioResult:
         spec.validate()
         self.check_capabilities(spec)
@@ -139,39 +184,93 @@ class PlanExecutor:
             raise ValueError(
                 f"scenario {spec.name!r} declares an overlay optimizer: its plan needs "
                 "repro.opt's annealed overlay, not ported")
-        payload_mb, codec = spec.payload_mb(), spec.codec_obj()
+        self.spec = spec
+        self.payload_mb, self.codec = spec.payload_mb(), spec.codec_obj()
         reports: List[RoundReport] = []
         epoch: Optional[Tuple[int, ...]] = None
         for r, mod, members, applied in membership_rounds(spec, spec.overlay_graph()):
-            if tuple(members) != epoch:  # a new epoch: plan the member subgraph
+            if tuple(members) != epoch:
                 epoch = tuple(members)
-                policy = make_policy(spec.protocol, mod.build_graph()[0],
-                                     mst_algorithm=spec.mst_algorithm,
-                                     coloring_algorithm=spec.coloring_algorithm,
-                                     n_segments=spec.n_segments)
-                stats = measure_policy(policy)
-                wire_send_mb = per_send_wire_mb(codec, payload_mb, policy.payload_fraction)
-            tx = stats["transmissions"]
+                self.begin_epoch(mod, epoch)
             reports.append(RoundReport(
                 round=r, protocol=spec.protocol, members=list(members),
-                moderator=mod.moderator_id, n_slots=stats["n_slots"], transmissions=tx,
-                bytes_mb=tx * payload_mb * policy.payload_fraction,
-                bytes_on_wire_mb=tx * wire_send_mb,
-                churn_applied=[ev.to_dict() for ev in applied]))
-        return ScenarioResult(scenario=spec.name, executor=self.name, protocol=spec.protocol,
-                              payload_mb=payload_mb, rounds=reports, spec=spec.to_dict())
+                moderator=mod.moderator_id, churn_applied=[ev.to_dict() for ev in applied],
+                **self.run_round()))
+        return self.finish(ScenarioResult(
+            scenario=spec.name, executor=self.name, protocol=spec.protocol,
+            payload_mb=self.payload_mb, rounds=reports, spec=spec.to_dict()))
 
 
-# the port's executors by name (the reference also has engine, netsim, jax
-# and event; repro_torch.scenario.runner runs a scenario's rounds on the card)
-EXECUTORS = {"plan": PlanExecutor}
+class PlanExecutor(Executor):
+    """Counting and the analytic round times: each epoch's
+    :class:`TimingProfile` over the member-masked underlay, evaluated at the
+    epoch's per-send wire size; its walk gives the slot and transmission
+    counts (``measure_stats``, the reference's seed of its measure cache)."""
+
+    name = "plan"
+    counting_only = True
+    provides_timing = True
+
+    def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
+        super().begin_epoch(mod, members)
+        profile = TimingProfile.from_policy(self.policy, _member_testbed(self.spec, members))
+        self._stats = profile.measure_stats()
+        self._timing = profile.estimate(self.wire_send_mb)
+
+    def run_round(self) -> dict:
+        tx, est = self._stats["transmissions"], self._timing
+        return dict(n_slots=self._stats["n_slots"], transmissions=tx,
+                    bytes_mb=tx * self.payload_mb * self.policy.payload_fraction,
+                    bytes_on_wire_mb=tx * self.wire_send_mb,
+                    total_time_s=est.total_time_s, mean_transfer_s=est.mean_transfer_s,
+                    mean_bandwidth_mbps=est.mean_bandwidth_mbps,
+                    max_concurrency=est.max_concurrency)
 
 
-def get(name: str) -> PlanExecutor:
+class NetsimExecutor(Executor):
+    """The contended fluid underlay (:func:`simulate_policy`) over the
+    member-masked testbed, compiled once per epoch: the paper's Tables
+    III-V metrics, every round simulated; the raw results go to
+    ``ScenarioResult.sim_results``."""
+
+    name = "netsim"
+    provides_timing = True
+
+    def execute(self, spec: ScenarioSpec) -> ScenarioResult:
+        self._sims: List[SimResult] = []
+        return super().execute(spec)
+
+    def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
+        super().begin_epoch(mod, members)
+        self._stats = measure_policy(self.policy)
+        self._testbed = as_network_model(_member_testbed(self.spec, members))
+
+    def run_round(self) -> dict:
+        sim = simulate_policy(self.policy, self._testbed, self.payload_mb, codec=self.codec)
+        self._sims.append(sim)
+        tx = sim.n_transfers
+        return dict(n_slots=self._stats["n_slots"], transmissions=tx,
+                    bytes_mb=tx * self.payload_mb * self.policy.payload_fraction,
+                    bytes_on_wire_mb=sim.bytes_on_wire_mb, total_time_s=sim.total_time_s,
+                    mean_transfer_s=sim.mean_transfer_s,
+                    mean_bandwidth_mbps=sim.mean_bandwidth_mbps,
+                    max_concurrency=sim.max_concurrency)
+
+    def finish(self, result: ScenarioResult) -> ScenarioResult:
+        result.sim_results = self._sims
+        return result
+
+
+# the port's host executors by name (repro_torch.scenario.runner runs a
+# scenario's rounds on the card)
+EXECUTORS = {"plan": PlanExecutor, "netsim": NetsimExecutor}
+
+
+def get(name: str) -> Executor:
     """A fresh executor instance for ``name``."""
     try:
         return EXECUTORS[name]()
     except KeyError:
         raise ValueError(f"unknown executor {name!r}; the port has {sorted(EXECUTORS)} "
-                         "(the engine, netsim, jax and event executors are not "
-                         "ported)") from None
+                         "(the engine, jax and event executors are not ported; "
+                         "repro_torch.scenario.runner runs a scenario on the card)") from None

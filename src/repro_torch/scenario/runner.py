@@ -16,17 +16,23 @@ nodes keep their own params.
 ``proxy_elems=None`` runs the payload's full f32 size per node, with random
 parameters from ``seed``; ``proxy_elems=4`` reproduces the JAX executor's
 ``arange`` proxy field for field.
+
+:func:`compare_protocols` is the reference runner's function of that name
+(the paper's two-column tables on the fluid simulator), which
+``repro_torch.core.netsim.compare_protocols`` delegates to.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import DeviceLike, resolve_device
 from ..compress.codec import per_send_wire_mb
+from ..core.graph import TopologySpec
+from ..core.netsim import SimResult, TestbedSpec
 from ..dfl.collectives import GossipPlan, gossip_exchange, tree_flatten, tree_map
 from ..dfl.session import plan_for_members
 from .executors import PlanExecutor
@@ -140,6 +146,40 @@ def _timed_round(mode: str, plan: GossipPlan, w: torch.Tensor, codec,
     end.record()
     torch.cuda.synchronize(dev)
     return out, start.elapsed_time(end)
+
+
+def compare_protocols(
+    topology: str,
+    model_mb: float,
+    n: int = 10,
+    seed: int = 0,
+    spec: Optional[TestbedSpec] = None,
+    full_dissemination: bool = False,
+    protocols: Optional[Sequence[str]] = None,
+    n_segments: int = 4,
+) -> Dict[str, SimResult]:
+    """Run protocols on one (topology, model size) on the netsim executor:
+    one single-round cell a protocol of a sweep with a ``protocol`` axis.
+    The default is the paper's two columns, one exchange step a round
+    (broadcast against MOSGU); ``full_dissemination`` runs flooding against
+    MOSGU dissemination until every node holds every model; ``protocols``
+    runs the named policies instead."""
+    from .sweep import SweepSpec, run_sweep
+
+    if protocols is not None:
+        names = {p: p for p in protocols}
+    elif full_dissemination:
+        names = {"broadcast": "flooding", "mosgu": "dissemination"}
+    else:
+        names = {"broadcast": "broadcast_exchange", "mosgu": "mosgu_exchange"}
+    sweep = SweepSpec(
+        name=f"compare/{topology}",
+        base=ScenarioSpec(
+            name=f"compare/{topology}", overlay=TopologySpec(kind=topology, n=n, seed=seed),
+            underlay=spec, payload=model_mb, n_segments=n_segments, rounds=1),
+        grid={"protocol": tuple(names.values())})
+    result = run_sweep(sweep, executor="netsim")
+    return {key: cell.result.sim_results[0] for key, cell in zip(names, result.cells)}
 
 
 def fedavg_check(trainer, state, batch, session=None, seed: int = 1, scale: float = 0.01

@@ -13,15 +13,17 @@ reads of it:
 
 * the trainer and its session read the protocol, codec, rounds, churn,
   ``n_segments`` and the overlay, as the reference's session does;
-* the counting executor (:mod:`repro_torch.scenario.executors`) also reads
-  the payload and the MST / coloring algorithms;
+* the ``plan`` and ``netsim`` executors (:mod:`repro_torch.scenario.executors`)
+  also read the payload, the MST / coloring algorithms and the underlay
+  (:meth:`ScenarioSpec.testbed`: a preset name, a
+  :class:`~repro_torch.core.network.NetworkSpec` or a
+  :class:`~repro_torch.core.netsim.TestbedSpec`; None derives the paper
+  testbed from the overlay), whose round times fill the rounds' timing
+  fields and the totals' ``time_s``;
 * the device runner (:mod:`repro_torch.scenario.runner`) reads what the
   session reads and the payload.
 
-Not ported: explicit cost-matrix overlays and ``NetworkSpec`` /
-``TestbedSpec`` underlays (an underlay is one of the four preset names or
-``None``); the timing that an underlay feeds (``ScenarioResult`` totals
-carry ``time_s`` None).
+Not ported: explicit cost-matrix overlays.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from ..compress.codec import CODEC_NAMES, Codec, make_codec
 from ..core.graph import Graph, TopologySpec, make_topology
+from ..core.netsim import SimResult, TestbedSpec
+from ..core.network import NETWORK_PRESETS, NetworkSpec, get_preset
 from ..opt import OptimizerSpec
 
 # Protocol names a scenario may declare (everything make_policy knows).
@@ -44,10 +48,6 @@ CHURN_ACTIONS = ("leave", "rejoin")
 # Executor capability flags a spec may require (the reference's set).
 CAPABILITY_FLAGS = ("supports_drops", "provides_timing", "provides_numerics",
                     "moves_payloads", "counting_only", "supports_staleness")
-
-# The reference's underlay presets (``repro.core.network.NETWORK_PRESETS``),
-# by name only: the port has no network model.
-NETWORK_PRESETS = ("paper_lan", "wan", "edge", "congested")
 
 # scenario protocol name -> gossip mode of repro_torch.dfl.collectives
 GOSSIP_MODES = {
@@ -120,7 +120,9 @@ class ScenarioSpec:
     codec: str = "fp32"
     rounds: int = 1
     churn: Tuple[ChurnEvent, ...] = ()
-    underlay: Optional[str] = None  # a NETWORK_PRESETS name; None = from the overlay
+    # a preset name (sized to the overlay's n), a NetworkSpec or a TestbedSpec;
+    # None = the paper testbed derived from the overlay
+    underlay: Optional[Union[TestbedSpec, NetworkSpec, str]] = None
     drop_rate: float = 0.0  # transient link-failure probability per transfer
     drop_seed: int = 0
     max_staleness: int = 0  # extra rounds in flight (the event executor's)
@@ -143,6 +145,17 @@ class ScenarioSpec:
     def overlay_graph(self) -> Graph:
         """The declared overlay as a concrete cost graph (deterministic)."""
         return make_topology(self.overlay)
+
+    def testbed(self) -> Union[TestbedSpec, NetworkSpec]:
+        """The physical underlay: the explicit spec, a preset sized to the
+        overlay, or, when omitted, derived from the overlay
+        (:meth:`TestbedSpec.from_overlay`), so subnet layout and cost model
+        are one source."""
+        if isinstance(self.underlay, str):
+            return get_preset(self.underlay, self.n)
+        if self.underlay is not None:
+            return self.underlay
+        return TestbedSpec.from_overlay(self.overlay)
 
     def payload_mb(self) -> float:
         return resolve_payload_mb(self.payload)
@@ -189,10 +202,12 @@ class ScenarioSpec:
         except ValueError:
             raise ValueError(
                 f"unknown codec {self.codec!r}; known: {CODEC_NAMES}") from None
-        if self.underlay is not None and self.underlay not in NETWORK_PRESETS:
+        if isinstance(self.underlay, str) and self.underlay not in NETWORK_PRESETS:
             raise ValueError(
                 f"unknown network preset {self.underlay!r}; known: "
-                f"{sorted(NETWORK_PRESETS)} (NetworkSpec underlays are not ported)")
+                f"{sorted(NETWORK_PRESETS)}")
+        if isinstance(self.underlay, NetworkSpec):
+            self.underlay.validate()
         if isinstance(self.optimizer, dict):
             object.__setattr__(self, "optimizer", OptimizerSpec.from_dict(self.optimizer))
         if self.optimizer is not None:
@@ -210,12 +225,18 @@ class ScenarioSpec:
 
     # -- serialization -------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
+        if self.underlay is None or isinstance(self.underlay, str):
+            underlay: Any = self.underlay
+        elif isinstance(self.underlay, NetworkSpec):
+            underlay = self.underlay.to_dict()
+        else:
+            underlay = dataclasses.asdict(self.underlay)
         d = {
             "name": self.name,
             "overlay": {"type": "TopologySpec",
                         **{f: getattr(self.overlay, f)
                            for f in self.overlay.__dataclass_fields__}},
-            "underlay": self.underlay,
+            "underlay": underlay,
             "protocol": self.protocol,
             "n_segments": self.n_segments,
             "payload": self.payload,
@@ -249,6 +270,23 @@ class ScenarioSpec:
         for key in ("intra_cost_ms", "inter_cost_ms"):
             if isinstance(kw.get(key), list):
                 kw[key] = tuple(kw[key])
+        und = d.get("underlay")
+        underlay: Any
+        if und is None or isinstance(und, str):
+            underlay = und
+        elif und.get("type") == "NetworkSpec":
+            ukw = {k: v for k, v in und.items() if k in NetworkSpec.__dataclass_fields__}
+            if ukw.get("router_edges") is not None:
+                ukw["router_edges"] = tuple(tuple(e) for e in ukw["router_edges"])
+            for key in ("access_range", "node_ids"):
+                if ukw.get(key) is not None:
+                    ukw[key] = tuple(ukw[key])
+            underlay = NetworkSpec(**ukw)
+        else:
+            ukw = {k: v for k, v in und.items() if k in TestbedSpec.__dataclass_fields__}
+            if ukw.get("node_ids") is not None:
+                ukw["node_ids"] = tuple(ukw["node_ids"])
+            underlay = TestbedSpec(**ukw)
         opt = d.get("optimizer")
         return cls(
             name=d.get("name", "custom"),
@@ -259,7 +297,7 @@ class ScenarioSpec:
             codec=d.get("codec", "fp32"),
             rounds=d.get("rounds", 1),
             churn=tuple(ChurnEvent(**ev) for ev in d.get("churn", ())),
-            underlay=d.get("underlay"),
+            underlay=underlay,
             drop_rate=d.get("drop_rate", 0.0),
             drop_seed=d.get("drop_seed", 0),
             max_staleness=d.get("max_staleness", 0),
@@ -277,9 +315,11 @@ class ScenarioSpec:
 
 @dataclass
 class RoundReport:
-    """What one communication round counted (the reference's counting
-    fields; its timing and numerics fields stay None on the plan
-    executor and are not carried)."""
+    """What one communication round counted and, on the ``plan`` and
+    ``netsim`` executors, how long it took on the underlay (the reference's
+    fields but the event executor's clock and the jax executor's numerics,
+    which the port's card runner reports in its own
+    :class:`~repro_torch.scenario.runner.DeviceRoundReport`)."""
 
     round: int
     protocol: str
@@ -291,9 +331,14 @@ class RoundReport:
     bytes_on_wire_mb: float = 0.0  # after the wire codec
     drops: int = 0
     churn_applied: List[Dict[str, Any]] = field(default_factory=list)
+    # timing on the underlay (None where an executor provides none)
+    total_time_s: Optional[float] = None
+    mean_transfer_s: Optional[float] = None
+    mean_bandwidth_mbps: Optional[float] = None
+    max_concurrency: Optional[int] = None
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        return {k: v for k, v in dataclasses.asdict(self).items() if v is not None}
 
 
 @dataclass
@@ -306,6 +351,8 @@ class ScenarioResult:
     payload_mb: float
     rounds: List[RoundReport]
     spec: Dict[str, Any] = field(default_factory=dict)
+    # the fluid simulator's raw results (netsim executor only; not serialized)
+    sim_results: List[SimResult] = field(default_factory=list, repr=False)
 
     @property
     def total_transmissions(self) -> int:
@@ -327,6 +374,11 @@ class ScenarioResult:
     def total_drops(self) -> int:
         return sum(r.drops for r in self.rounds)
 
+    @property
+    def total_time_s(self) -> Optional[float]:
+        times = [r.total_time_s for r in self.rounds if r.total_time_s is not None]
+        return sum(times) if times else None
+
     def to_dict(self) -> Dict[str, Any]:
         return {
             "scenario": self.scenario,
@@ -340,7 +392,8 @@ class ScenarioResult:
                 "bytes_on_wire_mb": round(self.total_bytes_on_wire_mb, 6),
                 "slots": self.total_slots,
                 "drops": self.total_drops,
-                "time_s": None,  # the port has no timing model
+                "time_s": (None if self.total_time_s is None
+                           else round(self.total_time_s, 6)),
             },
             "rounds_detail": [r.to_dict() for r in self.rounds],
             "spec": self.spec,

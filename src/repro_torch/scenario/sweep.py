@@ -10,10 +10,12 @@ link-failure seed. Every cell is made with :meth:`ScenarioSpec.replace`,
 which re-validates. A cell is named ``NAME/axis=value,...``, or
 ``axis[index]`` where the value is not a scalar.
 
-:func:`run_sweep` counts every cell on the plan executor, one cell after
-another. The reference shares plan work across cells through its
-``PlanCache`` and pins its results to the serial loop's, so the serial loop
-gives the same numbers; the cache is not ported.
+:func:`run_sweep` runs every cell on one executor (``plan``: counts and the
+analytic round times; ``netsim``: the fluid simulator), one cell after
+another; :meth:`SweepResult.marginals` averages each axis value's cells.
+The reference shares plan work across cells through its ``PlanCache`` and
+pins its results to the serial loop's, so the serial loop gives the same
+numbers; the cache is not ported.
 """
 from __future__ import annotations
 
@@ -202,6 +204,30 @@ class SweepResult:
     def table(self) -> List[Dict[str, Any]]:
         return [c.row() for c in self.cells]
 
+    def marginals(self) -> Dict[str, Dict[str, Dict[str, Any]]]:
+        """Per-axis aggregates: for each axis value, metrics averaged (and
+        summed) over every cell holding that value."""
+        out: Dict[str, Dict[str, Dict[str, Any]]] = {}
+        for axis, values in self.axes.items():
+            rows: Dict[str, Dict[str, Any]] = {}
+            for value in values:
+                sel = [c.result for c in self.cells
+                       if axis in c.coords and c.coords[axis] == value]
+                if not sel:
+                    continue
+                times = [r.total_time_s for r in sel if r.total_time_s is not None]
+                rows[str(_jsonable(value))] = {
+                    "cells": len(sel),
+                    "total_transmissions": int(sum(r.total_transmissions for r in sel)),
+                    "mean_transmissions": float(np.mean([r.total_transmissions for r in sel])),
+                    "mean_bytes_mb": float(np.mean([r.total_bytes_mb for r in sel])),
+                    "mean_bytes_on_wire_mb": float(np.mean(
+                        [r.total_bytes_on_wire_mb for r in sel])),
+                    "mean_time_s": float(np.mean(times)) if times else None,
+                }
+            out[axis] = rows
+        return out
+
     def to_dict(self) -> Dict[str, Any]:
         return {
             "sweep": self.sweep,
@@ -209,11 +235,13 @@ class SweepResult:
             "axes": {k: [_jsonable(v) for v in vals] for k, vals in self.axes.items()},
             "n_cells": len(self.cells),
             "cells": self.table(),
+            "marginals": self.marginals(),
         }
 
 
 def run_sweep(sweep: SweepSpec, executor: str = "plan") -> SweepResult:
-    """Count every cell of a sweep on the plan executor, one after another."""
+    """Run every cell of a sweep on one executor (``plan`` or ``netsim``),
+    one after another."""
     from .executors import get as get_executor
 
     ex = get_executor(executor)

@@ -385,31 +385,41 @@ def test_mamba_mixers_count_softplus_once():
 
 
 def test_meshed_train_gathers_whole_vocab_logits_p9(meshed):
-    """ROADMAP P9 (open): the meshed training step gathers each rank's rows
-    of f32 logits over the whole padded vocabulary (the readout's vocab
-    split, then DTensor's all-gather ahead of the log-softmax), where the
-    JAX model keeps the logits split: smollm-360m's 16x16 train_4k step, 16
-    rows of 4096 a rank, moves 12.9 GB in that one all-gather and does not
-    fit the card at 2 layers."""
+    """ROADMAP P9 (fixed): the meshed training step keeps its f32 logits
+    split by vocabulary into the vocab-parallel cross-entropy
+    (``models/layers.py::_VocabParallelCE``), as the JAX model does: no
+    all-gather of (rows, seq, padded vocab) f32 (12.9 GB for smollm-360m's
+    16x16 train_4k step, 16 rows of 4096 a rank, before the fix); every
+    all-gather of the step is a sequence gather of the (rows, seq, d) bf16
+    hidden state, and the step fits the card at 2 layers."""
     from repro_torch.models.layers import padded_vocab
 
     r = meshed[("16x16", "smollm-360m/train_4k")]
+    cfg = pt_configs.get_arch("smollm-360m")
     rows, seq = 256 // 16, 4096
-    vocab = padded_vocab(pt_configs.get_arch("smollm-360m").vocab)
-    assert r["collective_counts"]["all-gather"] == 1
-    assert r["collective_bytes_by_kind"]["all-gather"] == rows * seq * vocab * 4
-    assert r["fits_hbm"] is False
+    whole_vocab = rows * seq * padded_vocab(cfg.vocab) * 4
+    hidden = rows * seq * cfg.d_model * 2
+    gathers = r["collective_counts"]["all-gather"]
+    assert r["collective_bytes_by_kind"]["all-gather"] == gathers * hidden < whole_vocab
+    assert r["fits_hbm"] is True
 
 
 def test_meshed_train_has_no_sequence_split_p10(meshed):
-    """ROADMAP P10 (open): the meshed trainer runs the layers without
-    Megatron's sequence split (DTensor cannot place the backward matmul of a
-    sequence-split activation flattened to rows), so its dense step
-    all-reduces each row-parallel output where the prefill reduce-scatters."""
-    train = meshed[("16x16", "smollm-360m/train_4k")]["collective_counts"]
+    """ROADMAP P10 (fixed): the meshed trainer runs the layers with
+    Megatron's sequence split, as the prefill does: each row-parallel output
+    is reduce-scattered along the sequence (``models/layers.py::_SeqScatter``)
+    and the hidden state all-gathered ahead of the projections
+    (``_SeqGather``, a reduce-scatter in the backward), where the step
+    before the fix all-reduced every row-parallel output. The one
+    hidden-sized all-reduce left is the embedding's vocab-split lookup, as
+    in the prefill."""
+    cfg = pt_configs.get_arch("smollm-360m")
+    train = meshed[("16x16", "smollm-360m/train_4k")]
     prefill = meshed[("16x16", "smollm-360m/prefill_32k")]["collective_counts"]
+    hidden = (256 // 16) * 4096 * cfg.d_model * 2
     assert prefill.get("reduce-scatter", 0) > 0
-    assert "reduce-scatter" not in train and train["all-reduce"] > 0
+    assert train["collective_counts"].get("reduce-scatter", 0) > 0
+    assert hidden <= train["collective_bytes_by_kind"]["all-reduce"] < 2 * hidden
 
 
 # P8: rank 0 of qwen3-moe-30b-a3b's 16x16 prefill_32k at 2 layers as the card

@@ -47,6 +47,17 @@ pods (the plan prices the links between pods; flooding and
     ranks prints the reference launcher's lines from rank 0 and writes one
     checkpoint a node (its parameters gathered over "model"); ``--nodes``
     with ``--mesh`` and a mesh larger than the group fail by name.
+(e) The meshed loss and gradients (``MeshDFLTrainer.mesh_grads``) of the
+    smoke dense (smollm-360m; gemma2-2b with its final softcap and
+    alternating windows), ssm (falcon-mamba-7b) and moe (qwen3-moe-30b-a3b)
+    models on (2, 2) and (1, 4) meshes, with the sequence split over "model"
+    between sublayers (ROADMAP P10: gathered and reduce-scattered by
+    ``models/layers.py::_SeqGather`` / ``_SeqScatter``) and the logits kept
+    split by vocabulary into the vocab-parallel cross-entropy (P9,
+    ``_VocabParallelCE``), against ``train_loss`` of the unsharded port on
+    the same params and global batch: the loss within 1e-6 relative and the
+    gradient's global norm, and the norm of its difference, within 1e-6 of
+    that norm (as (b)'s grad norm); each of the three Functions must run.
 """
 import contextlib
 import io
@@ -82,6 +93,9 @@ CASES = ([(m, m, "", "", False, False) for m in MODES]
             ("dissemination-int8-ef", "dissemination", "int8", "", True, False)]
          + [(f"{m}-churn", m, "", "", False, True) for m in MODES]
          + [("dissemination-int8-churn", "dissemination", "int8", "", False, True)])
+# (e)'s gradient cases: meshes and archs
+GRAD_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+GRAD_ARCHS = ("smollm-360m", "gemma2-2b", "falcon-mamba-7b", "qwen3-moe-30b-a3b")
 # (b)'s trainer runs: (arch, gossip mode, codec)
 TRAINER_CASES = (("smollm-360m", "tree_allreduce", ""), ("smollm-360m", "dissemination", "int8"),
                  ("qwen3-moe-30b-a3b", "tree_allreduce", ""), ("arctic-480b", "tree_allreduce", ""))
@@ -326,6 +340,54 @@ def _jax_case(mesh, ref_dir):
                 grad_norm=(float(m["grad_norm"]), float(ref["grad_norm"])), **errs)
 
 
+# -- (e) the meshed loss and gradients against the unsharded port -------------------------
+
+def _grads_case(mesh, arch):
+    from collections import Counter
+
+    from repro_torch.dfl.collectives import tree_flatten
+    from repro_torch.dfl.trainer import DFLConfig, MeshDFLTrainer
+    from repro_torch.models import Batch, build_model, layers
+
+    cfg = _cfg(arch)
+    model = build_model(cfg, device="cpu")
+    init = model.init(torch.Generator().manual_seed(0))
+    tok, lab = _batches(cfg, 8, 1)[0]
+    batch = Batch(tokens=torch.from_numpy(tok), labels=torch.from_numpy(lab))
+    leaves, rebuild = tree_flatten(init)
+    live = [t.detach().requires_grad_(True) for t in leaves]
+    want_loss = model.train_loss(rebuild(live), batch)
+    want = torch.autograd.grad(want_loss, live)
+
+    calls = Counter()
+    patched = (layers._SeqGather, layers._SeqScatter, layers._VocabParallelCE)
+    saved = [c.forward for c in patched]
+
+    def counted(cls, fwd):
+        def forward(ctx, *args):
+            calls[cls.__name__] += 1
+            return fwd(ctx, *args)
+        return staticmethod(forward)
+
+    tr = MeshDFLTrainer(model, mesh, DFLConfig(gossip_mode="tree_allreduce", lr=LR, warmup=0))
+    state = tr.state_from_params(init)
+    for c, f in zip(patched, saved):
+        c.forward = counted(c, f)
+    try:
+        loss, grads, dleaves = tr.mesh_grads(state.params, batch)
+    finally:
+        for c, f in zip(patched, saved):
+            c.forward = staticmethod(f)
+    got = [torch.distributed.tensor.DTensor.from_local(g, mesh, p.placements,
+                                                       run_check=False).full_tensor()
+           for g, p in zip(grads, dleaves)]
+    diff = sum(float((g.double() - w.double()).square().sum()) for g, w in zip(got, want))
+    norm = sum(float(w.double().square().sum()) for w in want)
+    gnorm = sum(float(g.double().square().sum()) for g in got)
+    return dict(loss=(float(loss), float(want_loss)), norm=(gnorm ** 0.5, norm ** 0.5),
+                diff=diff ** 0.5, calls=dict(calls))
+
+
 # -- (d) the launcher ---------------------------------------------------------------------
 
 def _cli_case(ckpt_dir):
@@ -365,6 +427,8 @@ def _worker(rank, path, out_dir, ref_dir):
             for arch, mode, codec in TRAINER_CASES:
                 res["trainer"][f"{name}/{arch}/{mode}{'-' + codec if codec else ''}"] = \
                     _trainer_case(mesh, arch, mode, codec)
+        res["grads"] = {f"{name}/{arch}": _grads_case(make_local_mesh(shape, device="cpu"), arch)
+                        for name, shape in GRAD_MESHES.items() for arch in GRAD_ARCHS}
         res["jax"] = _jax_case(make_local_mesh((2, 2), device="cpu"), ref_dir)
         res["cli"] = _cli_case(os.path.join(out_dir, "ckpt"))
         res["ckpt_dir"] = os.path.join(out_dir, "ckpt")
@@ -472,6 +536,19 @@ def test_meshed_trainer_matches_the_jax_trainer(results):
     assert abs(got - want) <= 1e-5 * abs(want)
     assert abs(gn - gw) <= 1e-4 * gw
     assert r["params"] <= 0.1 * LR and r["master"] <= 0.1 * LR, r
+
+
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
+@pytest.mark.parametrize("mesh", list(GRAD_MESHES))
+def test_meshed_grads_with_sequence_split_and_vocab_parallel_loss(results, mesh, arch):
+    for res in results:
+        r = res["grads"][f"{mesh}/{arch}"]
+        (got, want), (gn, gw) = r["loss"], r["norm"]
+        assert abs(got - want) <= 1e-6 * abs(want), r
+        assert abs(gn - gw) <= 1e-6 * gw and r["diff"] <= 1e-6 * gw, r
+        # P9: the vocab-parallel loss; P10: the sequence split, both ways
+        assert r["calls"].get("_VocabParallelCE", 0) >= 1, r
+        assert r["calls"].get("_SeqGather", 0) > 0 and r["calls"].get("_SeqScatter", 0) > 0, r
 
 
 def test_train_cli_on_a_mesh(results):

@@ -40,7 +40,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWEEPS = ("table3_full", "payload_latency_curve", "codec_x_protocol", "wan_sweep",
           "async_vs_sync", "optimized_vs_mst")
 DRY_TABLES = ("table3_full", "payload_latency_curve", "codec_x_protocol", "wan_sweep")
-SCENARIO_NAMES = ("paper_table3", "quantized_table3", "topk_sweep", "mesh_smoke", "churn_storm")
+SCENARIO_NAMES = ("paper_table3", "quantized_table3", "topk_sweep", "mesh_smoke", "churn_storm",
+                  "paper_flooding_baseline", "hetero_edge", "campus_wan", "segmented_sweep")
 
 
 def _plain(v):
@@ -145,9 +146,9 @@ def test_sweep_totals_match_the_reference_plan_executor(name):
     ours = run_sweep(scenarios.get_sweep(name)).table()
     theirs = jax_run_sweep(jax_scenarios.get_sweep(name), executor="plan").table()
     keys = ("cell", "scenario", "protocol", "payload_mb", "rounds", "transmissions",
-            "bytes_mb", "bytes_on_wire_mb", "slots", "drops")
+            "bytes_mb", "bytes_on_wire_mb", "slots", "drops", "time_s")
     assert [{k: r[k] for k in keys} for r in ours] == [{k: r[k] for k in keys} for r in theirs]
-    assert all(r["time_s"] is None for r in ours)
+    assert all(r["time_s"] is not None and r["time_s"] > 0 for r in ours)
 
 
 @pytest.mark.parametrize("name", DRY_TABLES)
