@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA H100: the MOSGU gossip round,
-the model serving path (prefill forward + cached decode), the DFL training
-step (4 stacked nodes, forward, the flash-attention and selective-scan
-backwards, the optimizer and a gossip round), for every family: dense,
-ssm, moe, hybrid, audio (whisper-tiny) and vlm (paligemma-3b), and the
-launcher's sweep path (the codec x protocol grid on 10 nodes).
+the paper's FIFO queue round with encoded payloads, the model serving path
+(prefill forward + cached decode), the DFL training step (4 stacked nodes,
+forward, the flash-attention and selective-scan backwards, the optimizer
+and a gossip round), for every family: dense, ssm, moe, hybrid, audio
+(whisper-tiny) and vlm (paligemma-3b), and the launcher's sweep path (the
+codec x protocol grid on 10 nodes).
 
     python3 chip_smoke.py
 
@@ -39,7 +40,9 @@ Phases, each fatal on failure (exit code 1, no result line):
              leaf), torch.mul(codes, scales[:, None]) as the library time,
              and through its single-leaf entry point at each quantize shape;
              the FedAvg mix at (10, 10,
-             5.3 M) and at whisper's leaf shapes. Quantize, dequantize and
+             5.3 M) and at whisper's leaf shapes; the codec kernels and the
+             mix also at the engine phase's shapes (one row of 2.9 M or of
+             1.325 M; the mix at (1, 10, each)). Quantize, dequantize and
              top-k must be bit-identical; the mix within rtol 1e-6 of
              max|x|. Prints each
              kernel's median time (CUDA events, L2 flushed before every
@@ -121,6 +124,26 @@ Phases, each fatal on failure (exit code 1, no result line):
              kernel launched with must have been timed in phase 2. Prints
              each gossip kernel's launches by shape and each codec kernel's
              loss, the sum over shapes of launches x (time - bound).
+   engine  — the runtime queue engine (``core/gossip.py``) on the card,
+             after phase 3, with the launch counts set to 0 just before and
+             read just after: lossy_links (ER(10), 10% drops, 2 rounds,
+             dissemination) with fp32, int8 and top-k, and paper_table3's
+             overlay as segmented gossip in 4 segments with fp32 and int8,
+             each through the ``engine`` executor's own epoch policy and
+             drop draws, each node's payload a CUDA f32 tensor at the full
+             width (MobileNetV3-Small's 2.9 M; B0's 5.3 M in 4 parts) from a
+             seeded generator: encoded at the round's start (quantize,
+             top-k), moved with drops and retransmissions, decoded at every
+             node (dequantize) and averaged by ``fedavg`` (gossip_mix).
+             Fails unless the round reports and round_wire_bytes equal the
+             same executor's on the CPU at the same width, both lossy rounds
+             drop a send, the nodes' aggregates are bit-identical and within
+             1e-6 of max |x| of the plain versions' FedAvg of the decoded
+             payloads, top-k's round 1 encodes carry round 0's residual, and
+             every gossip kernel launched, at shapes phase 2 timed. Prints
+             each round's host wall time (the engine's host-paced loop, not
+             comparable with phase 3's device_ms), peak memory and each
+             kernel's launches by shape.
    tables  — a host phase after phase 3: the paper's three metrics for
              paper_table3 (MOSGU) against paper_flooding_baseline on the
              ``netsim`` executor (the fluid simulator) and the ``plan``
@@ -129,8 +152,12 @@ Phases, each fatal on failure (exit code 1, no result line):
              MOSGU / flooding ratios. These are modeled times of the paper's
              3-subnet testbed, computed on the host; beside them, the card's
              ``device_ms`` of the same two scenarios' rounds from phase 3.
-             MOSGU's round must be the shorter on both executors. Prints the
-             phase's wall time.
+             MOSGU's round must be the shorter on both executors. Then
+             lossy_links on the ``event`` executor (drops retransmitted at
+             virtual timestamps) and async_stragglers' steady rounds/s on
+             ``event`` against ``estimate_throughput`` on the same plan,
+             which must agree within the reference's +-15% (modeled testbed
+             seconds). Prints the phase's wall time.
 4. serve   — smollm-360m (32 layers, d 960), falcon-mamba-7b (64 layers,
              d 4096), qwen3-moe-30b-a3b (48 layers, d 2048, 128 experts,
              60.4 GB), stablelm-12b (40 layers, d 5120, 23.3 GB) and
@@ -368,6 +395,11 @@ MESH_TRAIN_BATCH = 256
 # the host phase after phase 3: the paper's MOSGU cell and its flooding
 # baseline, each on the two timing executors
 TABLE_SCENARIOS = ("paper_table3", "paper_flooding_baseline")
+# the engine phase: the queue engine over each scenario's own epoch policy
+# with full-width payloads on the card, each run with these codecs; the
+# paper's cell runs as segmented gossip in ENGINE_SEGMENTS segments
+ENGINE_RUNS = (("lossy_links", ("fp32", "int8", "topk")), ("paper_table3", ("fp32", "int8")))
+ENGINE_SEGMENTS = 4
 # P8: qwen3-moe's 16x16 prefill at 2 layers, traced on the card (its peak is
 # the CPU trace's reference in tests/test_torch_dryrun.py)
 P8_PAIR = ("16x16", "qwen3-moe-30b-a3b", "prefill_32k", 2)
@@ -670,12 +702,209 @@ def fake_group_fill():
     return Fill()
 
 
+def engine_spec(name, codec):
+    """The engine phase's spec: the registry scenario with the run's codec,
+    the paper's cell as segmented gossip."""
+    from repro_torch.scenario import scenarios
+
+    spec = scenarios.get(name).replace(codec=codec)
+    if name == "paper_table3":
+        spec = spec.replace(protocol="segmented", n_segments=ENGINE_SEGMENTS)
+    return spec
+
+
+def engine_widths():
+    """(elements a node, parts a node) of each engine run's payload: one
+    part at the scenario's full f32 width, or ENGINE_SEGMENTS of its
+    segments."""
+    out = {}
+    for name, _ in ENGINE_RUNS:
+        spec = engine_spec(name, None)
+        elems = int(round(spec.payload_mb() * 1e6 / 4))
+        parts = spec.n_segments if spec.protocol == "segmented" else 1
+        if elems % parts:
+            raise ValueError(f"{name}: {elems} elements do not split into {parts} segments")
+        out[name] = (elems // parts, parts, spec.n)
+    return out
+
+
+def engine_launch_shapes():
+    """Each gossip kernel's launch shapes on the engine phase's path: a
+    payload part is one row, a FedAvg stacks the n parts of a segment."""
+    shapes = {"quantize": set(), "dequantize": set(), "topk_select": set(), "gossip_mix": set()}
+    for name, codecs in ENGINE_RUNS:
+        size, _, n = engine_widths()[name]
+        if "int8" in codecs:
+            shapes["quantize"].add((1, size, 8))
+            shapes["dequantize"].add((1, (size,), 8))
+        if "topk" in codecs:
+            shapes["topk_select"].add((1, size, 256, 13))
+        shapes["gossip_mix"].add((1, n, size))
+    return shapes
+
+
+def phase_engine(card, add_shape_launches, results) -> None:
+    """The queue engine on the card: ENGINE_RUNS through the engine
+    executor's epochs, policies and drop draws, with each node's payload a
+    CUDA f32 tensor at the scenario's full width from a seeded generator,
+    encoded at each round's start (the quantize and top-k kernels), moved
+    through the FIFO queues with drops and retransmissions, decoded at every
+    node (dequantize) and averaged by ``fedavg`` (gossip_mix); top-k's
+    residual carried from round 0 into round 1. Each run's counts and wire
+    bytes equal the same executor's on the CPU at the same width; the
+    nodes' aggregates are bit-identical to one another and within 1e-6 of
+    max |x| of the plain versions' FedAvg of the decoded payloads."""
+    import torch
+
+    from repro_torch.compress import make_codec
+    from repro_torch.core.gossip import fedavg
+    from repro_torch.kernels import launch_counts, launch_shapes, reset_launches
+    from repro_torch.kernels.codec import ref as codec_ref
+    from repro_torch.kernels.codec.ops import topk_scatter
+    from repro_torch.kernels.mixing.ref import gossip_mix_ref
+    from repro_torch.scenario.executors import EngineExecutor
+
+    def plain_decode(codec, payload):
+        """An encoded payload part decoded by the plain versions."""
+        leaf = payload.data
+        if codec.name == "fp32":
+            return leaf
+        if codec.name == "topk":
+            return topk_scatter(leaf["values"], leaf["indices"], size=leaf["size"],
+                                block=codec.block).reshape(leaf["shape"])
+        return codec_ref.dequantize_rows(leaf["codes"], leaf["scales"], leaf["size"],
+                                         codec.bits, codec.chunk).reshape(leaf["shape"])
+
+    class SizedEngine(EngineExecutor):
+        """The engine executor with each node's payload ``size`` f32 a part
+        from a seeded generator on its device (fp32 through the identity
+        codec, so its wire bytes are tallied too); on the card each round's
+        aggregates are checked against the plain versions."""
+
+        def __init__(self, device, size, check):
+            super().__init__(device=device)
+            self.size, self.check, self.rounds = size, check, []
+
+        def begin_epoch(self, mod, members):
+            super().begin_epoch(mod, members)
+            self._engine.codec = self.codec or make_codec("fp32")
+            parts = self.spec.n_segments if self.spec.protocol == "segmented" else 1
+            self._proxies = []
+            for u in members:
+                gen = torch.Generator(device=self._device).manual_seed(1000 + u)
+                xs = [torch.randn(self.size, generator=gen, device=self._device)
+                      for _ in range(parts)]
+                self._proxies.append(xs if parts > 1 else xs[0])
+
+        def run_round(self, rctx):
+            engine = self._engine
+            residual = {pid: st[""].clone() for pid, st in engine._ef_states.items()
+                        if isinstance(st, dict)}  # top-k's, before this round's encode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = super().run_round(rctx)
+            aggs = engine.aggregate(fedavg) if self.check else None
+            torch.cuda.synchronize()
+            row = dict(report=rep, wire=engine.round_wire_bytes,
+                       wall_ms=1e3 * (time.perf_counter() - t0))
+            if self.check:
+                row.update(self.held(engine, aggs, residual))
+            self.rounds.append(row)
+            return rep
+
+        def held(self, engine, aggs, residual):
+            codec, store = engine.codec, engine._store
+            parts = self.spec.n_segments if self.spec.protocol == "segmented" else 1
+            worst = 0.0
+            for j in range(parts):
+                xs = [plain_decode(codec, store[pid]) for pid in sorted(store)
+                      if pid % parts == j]
+                scale = max(float(x.abs().max()) for x in xs)
+                n = len(xs)
+                want = gossip_mix_ref(torch.stack(xs).unsqueeze(0),
+                                      torch.full((n,), 1.0 / n, device=xs[0].device))[0]
+                got = [a[j] if parts > 1 else a for a in aggs]
+                if not all(torch.equal(got[0], g) for g in got[1:]):
+                    fail(f"[engine] {self.spec.name} {codec.name} segment {j}: the nodes' "
+                         "aggregates differ")
+                if not all(bool(torch.isfinite(g).all()) for g in got):
+                    fail(f"[engine] {self.spec.name} {codec.name}: a non-finite aggregate")
+                err = float((got[0] - want).abs().max()) / scale
+                if not err <= 1e-6:
+                    fail(f"[engine] {self.spec.name} {codec.name} segment {j}: aggregate "
+                         f"{err:.3e} of max |x| from the plain FedAvg")
+                worst = max(worst, err)
+            if codec.name == "topk" and residual:
+                # the round's encode of node 0 carries the last round's residual
+                x = self._proxies[0] + residual[0]
+                vals, idx = codec_ref.topk_select_rows(x.reshape(1, -1), codec.k, codec.block)
+                leaf = store[0].data
+                if not (torch.equal(vals, leaf["values"]) and torch.equal(idx, leaf["indices"])):
+                    fail(f"[engine] {self.spec.name} topk: node 0's encode does not carry "
+                         "the previous round's residual")
+            return dict(err=worst, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    t_phase = time.perf_counter()
+    reset_launches()  # the counts of the engine phase's path
+    widths = engine_widths()
+    for name, codecs in ENGINE_RUNS:
+        size, parts, n = widths[name]
+        for codec_name in codecs:
+            spec = engine_spec(name, codec_name)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            card_run = SizedEngine("cuda", size, check=True)
+            res = card_run.execute(spec)
+            with_counts = launch_counts()
+            host = SizedEngine("cpu", size, check=False)
+            cpu = host.execute(spec)
+            if launch_counts() != with_counts:
+                fail("[engine] the CPU executor's run launched a kernel")
+            if [r.to_dict() for r in res.rounds] != [r.to_dict() for r in cpu.rounds]:
+                fail(f"[engine] {name} {codec_name}: the card's round reports differ from the "
+                     "CPU executor's")
+            for r, (got, want) in enumerate(zip(card_run.rounds, host.rounds)):
+                rep = got["report"]
+                wire = make_codec(codec_name).wire_bytes(size)
+                if got["wire"] != want["wire"] or got["wire"] != rep.transmissions * wire:
+                    fail(f"[engine] {name} {codec_name} round {r}: round_wire_bytes "
+                         f"{got['wire']} (CPU {want['wire']}, {rep.transmissions} x {wire})")
+                if spec.drop_rate > 0 and rep.drops < 1:
+                    fail(f"[engine] {name} round {r}: no send dropped")
+                print(f"[engine] {name} ({spec.protocol}, {n} nodes x {parts} x {size} f32, "
+                      f"{codec_name}) round {r}: {rep.n_slots} slots, {rep.transmissions} "
+                      f"attempted transfers, {rep.drops} dropped, round_wire_bytes "
+                      f"{got['wire']} (= the CPU executor's), bytes_on_wire_mb "
+                      f"{rep.bytes_on_wire_mb}; aggregates bit-identical across nodes, "
+                      f"{got['err']:.3e} of max |x| from the plain FedAvg; host wall "
+                      f"{got['wall_ms']:.3f} ms (the queue engine's host-paced loop: encode, "
+                      f"slots, decodes and FedAvg, synchronized; not comparable with phase "
+                      f"3's device_ms), peak {got['peak_gb']:.3f} GB on {card}")
+            del card_run, host, res, cpu
+    counts, shapes = launch_counts(), launch_shapes()
+    print(f"[engine] launches: {json.dumps(counts)}")
+    missing = [k for k in GOSSIP_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"[engine] kernels never launched on the engine's path: {missing}")
+    for kernel in GOSSIP_KERNELS:
+        results[kernel]["engine_launches"] = counts[kernel]
+        hist = ", ".join(f"{key} x {k}" for key, k in sorted(shapes[kernel].items()))
+        print(f"[engine] {kernel} launches by shape: {hist}")
+        add_shape_launches(kernel, shapes[kernel], "engine")
+    torch.cuda.empty_cache()
+    print(f"[engine] phase wall time {time.perf_counter() - t_phase:.2f} s on {card}")
+
+
 def phase_tables(device_ms, card) -> None:
     """The paper's Tables III-V metrics of TABLE_SCENARIOS on the netsim
     and plan executors (modeled testbed times, host only), the MOSGU /
-    flooding ratios, and the card's round ``device_ms`` of phase 3."""
+    flooding ratios, the card's round ``device_ms`` of phase 3, then
+    lossy_links and async_stragglers on the event executor, the latter's
+    steady rate held to ``estimate_throughput`` within the reference's
+    +-15%."""
     import warnings
 
+    from repro_torch.core.network import estimate_throughput
     from repro_torch.scenario import executors, scenarios
 
     t0 = time.perf_counter()
@@ -708,6 +937,37 @@ def phase_tables(device_ms, card) -> None:
     print(f"[tables] on the card (phase 3, the same scenarios at full width): {mosgu} round "
           f"{device_ms[mosgu]:.3f} ms, {flood} round (all-gather) {device_ms[flood]:.3f} ms on "
           f"{card}")
+    # the event executor: lossy links retransmitted at virtual timestamps, and
+    # the asynchronous stragglers' steady rate against estimate_throughput
+    lossy = executors.get("event").execute(scenarios.get("lossy_links"))
+    for r in lossy.rounds:
+        if r.drops < 1:
+            fail(f"[tables] event lossy_links round {r.round}: no transfer dropped")
+        print(f"[tables] event lossy_links round {r.round}: Table III bandwidth "
+              f"{r.mean_bandwidth_mbps:.4f} MB/s, Table IV mean transfer {r.mean_transfer_s:.4f} "
+              f"s, round {r.total_time_s:.4f} s (admitted {r.admitted_at_s:.4f} s, completed "
+              f"{r.completed_at_s:.4f} s), {r.transmissions} attempted transfers, {r.drops} "
+              f"dropped and retransmitted (modeled testbed seconds on the event engine's "
+              f"virtual clock, computed on the host)")
+    spec = scenarios.get("async_stragglers")
+    ex = executors.get("event")
+    comp = [r.completed_at_s for r in ex.execute(spec).rounds]
+    warm = spec.max_staleness + 2
+    measured = (comp[-1] - comp[warm - 1]) / (len(comp) - warm)
+    est = estimate_throughput(ex.policy, ex._net, ex.wire_send_mb * 1e6,
+                              max_staleness=spec.max_staleness,
+                              compute_time_s=spec.compute_time_s,
+                              compute_jitter_s=spec.compute_jitter_s)
+    ratio = est.steady_period_s / measured
+    print(f"[tables] event async_stragglers ({spec.rounds} rounds, staleness "
+          f"{spec.max_staleness}, compute {spec.compute_time_s} + U[0, {spec.compute_jitter_s}) "
+          f"s): steady {1.0 / measured:.6f} rounds/s (rounds {warm}-{len(comp) - 1}), "
+          f"estimate_throughput {est.rounds_per_s:.6f} rounds/s (fill {est.fill_latency_s:.4f} "
+          f"s, busiest link {est.bottleneck_busy_s:.4f} s, node span {est.node_span_s:.4f} s), "
+          f"period ratio {ratio:.4f} (modeled testbed seconds)")
+    if not 0.85 <= ratio <= 1.15:
+        fail(f"[tables] async_stragglers: estimate_throughput's period is {ratio:.4f}x the "
+             "event engine's, outside the reference's +-15%")
     print(f"[tables] phase wall time {time.perf_counter() - t0:.2f} s")
 
 
@@ -1292,6 +1552,15 @@ def main() -> int:
         path_shapes[name].update(sweep_shapes[name])
     later = {k for name in ("quantize", "dequantize") for k in whisper_shapes[name]}
     later |= {k for name in CODEC_KERNELS for k in sweep_shapes[name]}
+    # the engine phase's shapes: one payload part a row (v3s's whole payload,
+    # B0's segments) and the FedAvg of the n nodes' parts
+    engine_shapes = engine_launch_shapes()
+    for name in CODEC_KERNELS:
+        for key in engine_shapes[name]:
+            path_shapes[name][key] += 0
+            later.add(key)
+    print(f"[kernel] the engine phase's launch shapes: "
+          f"{ {k: sorted(v) for k, v in engine_shapes.items()} }")
 
     def by_size(key):  # phase 3's shapes first (the first sets the kernel's
         # headline numbers), the single-row shapes first, int8 before int4
@@ -1426,9 +1695,11 @@ def main() -> int:
            shape=" (10, 10, 5.3 M)")
     del buf, mixed, plain
     # the mix at whisper-tiny's leaf shapes (the FedAvg of its dissemination
-    # on 4 nodes, and of phase 6's protocols on 10): from a cold L2, as one
-    # leaf's mix follows the others' rounds
-    for batch, n, p in sorted(set(whisper_shapes["gossip_mix"]) | set(sweep_shapes["gossip_mix"])):
+    # on 4 nodes, and of phase 6's protocols on 10) and at the engine phase's
+    # FedAvg of 10 payload parts: from a cold L2, as one leaf's mix follows the
+    # others' rounds
+    for batch, n, p in sorted(set(whisper_shapes["gossip_mix"]) | set(sweep_shapes["gossip_mix"])
+                              | engine_shapes["gossip_mix"]):
         buf = torch.randn((batch, n, p), generator=gen, device=dev)
         w = torch.full((n,), 1.0 / n, device=dev)
         mixed, plain = gossip_mix_op(buf, w), gossip_mix_ref(buf, w)
@@ -1438,7 +1709,9 @@ def main() -> int:
                1e-6 * float(buf.abs().max()), median_ms(lambda: gossip_mix_op(buf, w), iters),
                median_ms(lambda: gossip_mix_ref(buf, w), iters // 5),
                mix_cost(buf), library_ms=median_ms(lambda: torch.mean(buf, dim=1), iters),
-               shape=f" ({batch}, {n}, {p}) whisper-tiny", key=(batch, n, p))
+               shape=f" ({batch}, {n}, {p}) "
+               + ("engine" if (batch, n, p) in engine_shapes["gossip_mix"] else "whisper-tiny"),
+               key=(batch, n, p))
         del buf, mixed, plain
 
     # flash attention: smollm-360m's causal prefill, gemma2-2b's local layer,
@@ -1830,6 +2103,9 @@ def main() -> int:
     for name in CODEC_KERNELS:
         add_shape_launches(name, shapes[name], "path")
     torch.cuda.empty_cache()
+
+    # -- the queue engine: lossy links and segmented gossip at full width -----------
+    phase_engine(card, add_shape_launches, results)
     phase_tables(path_ms, card)
 
     # phase 7's real side: one call of a phase-4 or phase-5 run counted on the

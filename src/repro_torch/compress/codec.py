@@ -1,4 +1,5 @@
-"""Payload codecs: the exact wire-byte model and the device encode/decode.
+"""Payload codecs: the exact wire-byte model, the payload wire and the
+device encode/decode.
 
 The wire model (:meth:`Codec.wire_bytes`, :meth:`Codec.mean_atol`,
 :func:`per_send_wire_bytes`, :func:`per_send_wire_mb`) is a copy of
@@ -6,6 +7,19 @@ The wire model (:meth:`Codec.wire_bytes`, :meth:`Codec.mean_atol`,
 the bit. The device side replaces the JAX hooks: :meth:`Codec.encode` turns
 a tensor into the buffers that cross the wire, :meth:`Codec.decode` turns
 them back, :meth:`Codec.roundtrip` is both.
+
+The payload wire is the reference's ``Codec.encode(tree, state)`` /
+``decode(payload)``, under other names because ``encode`` / ``decode`` are
+the row codecs': :meth:`Codec.encode_payload` turns a pytree of tensors
+(nested dict / list / tuple; a leaf on any device) into an
+:class:`EncodedPayload` of :class:`WireLeaf` objects with an exact
+``bytes_on_wire == sum(wire_bytes(leaf.numel()))``, threading the codec's
+error-feedback state (:meth:`Codec.init_state`: top-k keeps one residual a
+leaf path); :meth:`Codec.decode_payload` gives back f32 leaves of the input
+shapes. A leaf goes through the row ops as one row: a CUDA leaf launches
+the quantize, dequantize and top-k kernels (or raises), a CPU leaf runs
+their plain versions. This is what the queue engine
+(:class:`repro_torch.core.gossip.GossipEngine`) moves.
 
 Every device method takes a tensor with a leading row axis: row ``i`` is one
 payload (one node's leaf), flattened and padded on its own, so one launch
@@ -23,15 +37,56 @@ of the same payload encoded alone.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import obs
 from ..kernels.codec.group import MAX_GROUP_LEAVES, group_layout
 from ..kernels.codec.ops import (dequantize_group_op, dequantize_op, quantize_op,
                                  topk_scatter, topk_select_op)
 
 Wire = Tuple[torch.Tensor, ...]
+PyTree = Any
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dict / list / tuple trees."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *[t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return type(t0)(tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+def _f32(leaf) -> torch.Tensor:
+    """A leaf as an f32 tensor where it lies (a numpy array on the CPU)."""
+    return torch.as_tensor(leaf).to(torch.float32)
+
+
+@dataclass
+class WireLeaf:
+    """One encoded tensor. Opaque to the tree walkers (a plain dict would be
+    recursed into by :func:`tree_map`)."""
+
+    data: Dict[str, Any]
+
+    def __getitem__(self, key: str) -> Any:
+        return self.data[key]
+
+
+@dataclass
+class EncodedPayload:
+    """One payload as it crosses a link: opaque data + exact byte count."""
+
+    codec: str
+    data: PyTree  # WireLeaf per tensor, mirroring the input tree structure
+    bytes_on_wire: int
+
+    def nbytes(self) -> int:
+        return self.bytes_on_wire
 
 
 class Codec:
@@ -46,10 +101,60 @@ class Codec:
         """Exact bytes on the wire for ``n_elements`` float32 values."""
         raise NotImplementedError
 
+    def ratio(self, n_elements: int = 1 << 20) -> float:
+        """Compression ratio vs raw fp32 (< 1 means smaller on the wire)."""
+        return self.wire_bytes(n_elements) / (4 * n_elements)
+
     def mean_atol(self, max_abs: float) -> Optional[float]:
         """Worst-case per-element error of one encode at input magnitude
         ``max_abs``; ``None`` = no deterministic bound (sparsifiers)."""
         return 0.0 if self.lossless else None
+
+    # -- the payload wire (the reference's encode(tree, state) / decode) -----------
+    def init_state(self) -> Any:
+        """Fresh per-sender residual state (None for stateless codecs)."""
+        return None
+
+    def encode_payload(self, tree: PyTree, state: Any = None) -> Tuple[EncodedPayload, Any]:
+        """Encode a pytree of tensors; returns (payload, new_state)."""
+        total = 0
+
+        def enc(leaf):
+            nonlocal total
+            x = _f32(leaf)
+            data = self._encode_leaf(x)
+            total += self.wire_bytes(x.numel())
+            return WireLeaf(data) if isinstance(data, dict) else data
+
+        rec = obs.get()
+        if rec.enabled:
+            with rec.span(f"encode:{self.name}", cat="codec", track="codec"):
+                data = tree_map(enc, tree)
+            rec.count("codec.encodes")
+            rec.count("codec.encoded_bytes", total)
+            rec.gauge(f"codec.ratio.{self.name}", self.ratio())
+        else:
+            data = tree_map(enc, tree)
+        return EncodedPayload(self.name, data, total), state
+
+    def decode_payload(self, payload: EncodedPayload) -> PyTree:
+        """Inverse of :meth:`encode_payload`: f32 leaves of the input shapes."""
+        if payload.codec != self.name:
+            raise ValueError(
+                f"payload encoded with {payload.codec!r}, decoding with {self.name!r}")
+        rec = obs.get()
+        if rec.enabled:
+            with rec.span(f"decode:{self.name}", cat="codec", track="codec"):
+                out = tree_map(self._decode_leaf, payload.data)
+            rec.count("codec.decodes")
+            return out
+        return tree_map(self._decode_leaf, payload.data)
+
+    def _encode_leaf(self, x: torch.Tensor) -> Any:
+        return x
+
+    def _decode_leaf(self, data: Any) -> torch.Tensor:
+        return data
 
     # -- device side ------------------------------------------------------------
     def encode(self, t: torch.Tensor) -> Wire:
@@ -138,6 +243,13 @@ class Bf16Codec(Codec):
     def decode(self, enc: Wire, shape: Sequence[int], dtype: torch.dtype) -> torch.Tensor:
         return enc[0].to(dtype)
 
+    def _encode_leaf(self, x: torch.Tensor) -> Dict[str, Any]:
+        # the cast rounds to nearest even, as the reference's bit arithmetic
+        return {"bits": x.to(torch.bfloat16), "shape": tuple(x.shape)}
+
+    def _decode_leaf(self, data: WireLeaf) -> torch.Tensor:
+        return data["bits"].to(torch.float32).reshape(data["shape"])
+
 
 class UniformQuantCodec(Codec):
     """Symmetric uniform quantization, one float32 absmax scale per ``chunk``.
@@ -179,6 +291,15 @@ class UniformQuantCodec(Codec):
         out = dequantize_op(codes, scales, size=_numel(shape), bits=self.bits,
                             chunk=self.chunk)
         return out.reshape(codes.shape[0], *shape).to(dtype)
+
+    def _encode_leaf(self, x: torch.Tensor) -> Dict[str, Any]:
+        codes, scales = quantize_op(x.reshape(1, -1), bits=self.bits, chunk=self.chunk)
+        return {"codes": codes, "scales": scales, "shape": tuple(x.shape), "size": x.numel()}
+
+    def _decode_leaf(self, data: WireLeaf) -> torch.Tensor:
+        out = dequantize_op(data["codes"], data["scales"], size=data["size"], bits=self.bits,
+                            chunk=self.chunk)
+        return out.reshape(data["shape"])
 
     def roundtrip_group(self, ts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Each leaf quantized on its own into the group's arenas, then one
@@ -250,6 +371,58 @@ class TopKCodec(Codec):
         vals, idx = enc
         out = topk_scatter(vals, idx, size=_numel(shape), block=self.block)
         return out.reshape(vals.shape[0], *shape).to(dtype)
+
+    # -- the payload wire, one residual a leaf path -------------------------------
+    def init_state(self) -> Any:
+        return {}  # leaf path -> residual tensor, filled lazily
+
+    def encode_payload(self, tree: PyTree, state: Any = None) -> Tuple[EncodedPayload, Any]:
+        """Encode with error feedback: each leaf's residual of the previous
+        encode (keyed by its path, ``"a/0/b"``) is added first, and what this
+        encode drops becomes the leaf's new residual."""
+        new_state: Dict[str, torch.Tensor] = {}
+        total = 0
+        path: List[str] = []
+
+        def enc(leaf):
+            nonlocal total
+            x = _f32(leaf)
+            key = "/".join(path)
+            if state and key in state:
+                x = x + state[key]
+            data, residual = self._encode_leaf_ef(x)
+            new_state[key] = residual
+            total += self.wire_bytes(x.numel())
+            return WireLeaf(data)
+
+        def walk(t):
+            if isinstance(t, dict):
+                return {k: _at(k, t[k]) for k in t}
+            if isinstance(t, (list, tuple)):
+                return type(t)(_at(str(i), x) for i, x in enumerate(t))
+            return enc(t)
+
+        def _at(key, sub):
+            path.append(key)
+            try:
+                return walk(sub)
+            finally:
+                path.pop()
+
+        return EncodedPayload(self.name, walk(tree), total), new_state
+
+    def _encode_leaf_ef(self, x: torch.Tensor) -> Tuple[Dict[str, Any], torch.Tensor]:
+        vals, idx = topk_select_op(x.reshape(1, -1), k=self.k, block=self.block)
+        kept = topk_scatter(vals, idx, size=x.numel(), block=self.block).reshape(x.shape)
+        return ({"values": vals, "indices": idx, "shape": tuple(x.shape), "size": x.numel()},
+                x - kept)
+
+    def _encode_leaf(self, x: torch.Tensor) -> Dict[str, Any]:
+        return self._encode_leaf_ef(x)[0]
+
+    def _decode_leaf(self, data: WireLeaf) -> torch.Tensor:
+        out = topk_scatter(data["values"], data["indices"], size=data["size"], block=self.block)
+        return out.reshape(data["shape"])
 
 
 CODEC_NAMES = ("fp32", "bf16", "int8", "int4", "topk")

@@ -128,10 +128,10 @@ def mst_prim(g: Graph, root: int = 0) -> Graph:
     return Graph.from_edges(n, edges_out)
 
 
-def build_mst(g: Graph, algorithm: str = "prim") -> Graph:
+def build_mst(g: Graph, algorithm: str = "prim", root: int = 0) -> Graph:
     if algorithm != "prim":
         raise ValueError(f"the port implements the 'prim' MST only, got {algorithm!r}")
-    return mst_prim(g)
+    return mst_prim(g, root)
 
 
 def color_bfs(g: Graph, root: int = 0) -> np.ndarray:
@@ -161,10 +161,15 @@ def color_bfs(g: Graph, root: int = 0) -> np.ndarray:
     return colors
 
 
-def color_graph(g: Graph, algorithm: str = "bfs") -> np.ndarray:
+def color_graph(g: Graph, algorithm: str = "bfs", root: int = 0) -> np.ndarray:
     if algorithm != "bfs":
         raise ValueError(f"the port implements the 'bfs' coloring only, got {algorithm!r}")
-    return color_bfs(g)
+    return color_bfs(g, root)
+
+
+def is_proper_coloring(g: Graph, colors: np.ndarray) -> bool:
+    """No edge joins two nodes of one color."""
+    return all(colors[u] != colors[v] for u, v, _ in g.edges())
 
 
 def slot_length_s(ping_max_ms: float, model_size_mb: float, ping_size_bytes: float) -> float:

@@ -1,5 +1,7 @@
-"""Slot plans lowered to permutation steps (a copy of ``repro.core.schedule``'s
-compile wrappers and matching decomposition).
+"""Slot plans and their lowering to permutation steps (the port's copy of
+``repro.core.schedule``): the compile wrappers over
+:func:`~repro_torch.core.plan.compile_policy`, the matching decomposition
+and the per-slot link accounting.
 
 A slot's sends form a multicast forest; a permutation step needs distinct
 sources and distinct targets, so each slot is split into matchings
@@ -10,28 +12,47 @@ one masked write (:mod:`repro_torch.dfl.collectives`).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Set, Tuple
+from typing import Dict, List, Sequence, Set, Tuple
 
 import numpy as np
 
 from .graph import Graph
 from .plan import (
     DisseminationPolicy,
+    FloodingPolicy,
+    SegmentedGossipPolicy,
     Send,
+    Slot,
     SlotPlan,
     TreeAllreducePolicy,
     compile_policy,
 )
 
 
-def compile_dissemination(mst: Graph, colors: np.ndarray) -> SlotPlan:
+def compile_dissemination(mst: Graph, colors: np.ndarray, first_color: int = 0,
+                          max_slots: int = 100_000) -> SlotPlan:
     """Compile the paper's FIFO gossip into a static slot plan."""
-    return compile_policy(DisseminationPolicy(mst, colors))
+    return compile_policy(DisseminationPolicy(mst, colors, first_color), max_slots=max_slots)
 
 
-def compile_tree_allreduce(mst: Graph, colors: np.ndarray) -> SlotPlan:
-    """Reduce partial sums to node 0, then broadcast the mean back down."""
-    return compile_policy(TreeAllreducePolicy(mst, colors))
+def compile_segmented(mst: Graph, colors: np.ndarray, n_segments: int = 4,
+                      first_color: int = 0, max_slots: int = 100_000) -> SlotPlan:
+    """Compile segmented gossip: S per-model segments gossiped independently."""
+    return compile_policy(SegmentedGossipPolicy(mst, colors, segments=n_segments,
+                                                first_color=first_color),
+                          max_slots=max_slots)
+
+
+def compile_tree_allreduce(mst: Graph, colors: np.ndarray, root: int = 0,
+                           max_slots: int = 100_000) -> SlotPlan:
+    """Reduce partial sums to the root, then broadcast the mean back down."""
+    return compile_policy(TreeAllreducePolicy(mst, colors, root), max_slots=max_slots)
+
+
+def compile_flooding(overlay: Graph, max_rounds: int = 10_000) -> SlotPlan:
+    """Naive flooding, rounds-synchronous: all of a round's sends land in one
+    slot (maximal link contention)."""
+    return compile_policy(FloodingPolicy(overlay), max_slots=max_rounds)
 
 
 def decompose_matchings(sends: Sequence[Send]) -> List[List[Send]]:
@@ -87,3 +108,15 @@ def plan_to_perm_steps(plan: SlotPlan) -> List[PermStep]:
                 recv[dst] = payload
             steps.append(PermStep(perm=perm, send_payload=send, recv_payload=recv))
     return steps
+
+
+def link_contention_profile(plan: SlotPlan) -> List[Dict[Tuple[int, int], int]]:
+    """Per slot: how many transfers traverse each undirected link."""
+    out = []
+    for slot in plan.slots:
+        usage: Dict[Tuple[int, int], int] = {}
+        for src, dst, _ in slot.sends:
+            key = (min(src, dst), max(src, dst))
+            usage[key] = usage.get(key, 0) + 1
+        out.append(usage)
+    return out

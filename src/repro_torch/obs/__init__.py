@@ -1,5 +1,6 @@
-"""Observability of the port (``repro.obs``): the recorder and its Perfetto
-export, copied from the JAX package and trimmed to what ``--trace`` needs.
+"""Observability of the port (``repro.obs``): the recorder (spans, counters,
+gauges) and its Perfetto export of the spans, copied from the JAX package
+(its ``RunReport`` is not ported).
 
     from repro_torch import obs
 
@@ -10,15 +11,17 @@ export, copied from the JAX package and trimmed to what ``--trace`` needs.
 ``launch/train.py --trace PATH`` installs a :class:`Recorder` and writes
 the run's spans with :func:`write_trace` (open it in ui.perfetto.dev).
 """
-from .recorder import NULL_RECORDER, NullRecorder, Recorder, get, set_recorder
+from .recorder import NULL_RECORDER, NullRecorder, Recorder, Span, get, recording, set_recorder
 from .trace import chrome_trace, validate_trace, write_trace
 
 __all__ = [
     "NULL_RECORDER",
     "NullRecorder",
     "Recorder",
+    "Span",
     "chrome_trace",
     "get",
+    "recording",
     "set_recorder",
     "validate_trace",
     "write_trace",

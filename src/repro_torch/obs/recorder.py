@@ -1,13 +1,16 @@
-"""The recorder of the port (``repro.obs.recorder``): wall-clock spans with
-a zero-overhead off switch.
+"""The recorder of the port (``repro.obs.recorder``): spans, counters and
+gauges with a zero-overhead off switch.
 
-A copy of the JAX package's recorder, trimmed to what the training
-launcher's ``--trace`` needs: a :class:`Recorder` collects named wall-clock
-spans on named *tracks* (``time.perf_counter`` relative to the recorder's
-origin, so traces start at t=0). The off switch is the module-level
-:data:`NULL_RECORDER`, whose ``span`` is a shared no-op context manager:
-call sites fetch the active recorder once (``rec = get()``) and open
-``with rec.span(...)`` either way.
+A copy of the JAX package's recorder: a :class:`Recorder` collects named
+wall-clock spans on named *tracks* (``time.perf_counter`` relative to the
+recorder's origin, so traces start at t=0), virtual-clock spans filed with
+explicit timestamps (:meth:`Recorder.add_span`: the event engine's virtual
+seconds), monotonic counters (:meth:`Recorder.count`), last-value gauges
+(:meth:`Recorder.gauge`). The off switch is the
+module-level :data:`NULL_RECORDER`: every method a no-op, ``enabled``
+False. Call sites fetch the active recorder once (``rec = get()``) and
+either open ``with rec.span(...)`` regardless or guard their counting with
+``if rec.enabled:``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ __all__ = [
     "NullRecorder",
     "Recorder",
     "get",
+    "recording",
     "set_recorder",
 ]
 
@@ -38,6 +42,10 @@ class Span:
         self.t1 = t1
         self.args = args
 
+    @property
+    def duration_s(self) -> float:
+        return self.t1 - self.t0
+
 
 class _NullSpan:
     """The shared no-op context manager the null recorder hands out."""
@@ -55,20 +63,37 @@ _NULL_SPAN = _NullSpan()
 
 
 class NullRecorder:
-    """Observability off: ``span`` hands out a shared no-op context
-    manager; nothing allocates, nothing accumulates."""
+    """Observability off: every method is a no-op, ``enabled`` is False;
+    ``span`` hands out a shared no-op context manager. Nothing allocates,
+    nothing accumulates."""
+
+    enabled = False
 
     def span(self, name: str, cat: str = "", track: str = "main",
              **args: Any) -> _NullSpan:
         return _NULL_SPAN
 
+    def add_span(self, name: str, t0: float, t1: float, *, track: str = "main",
+                 cat: str = "", args: Optional[Dict[str, Any]] = None) -> None:
+        return None
+
+    def count(self, name: str, value: float = 1.0) -> None:
+        return None
+
+    def gauge(self, name: str, value: float) -> None:
+        return None
+
 
 class Recorder(NullRecorder):
-    """Observability on: collect wall-clock spans for the trace. Not
+    """Observability on: collect spans, counters and gauges. Not
     thread-safe: one per run."""
+
+    enabled = True
 
     def __init__(self) -> None:
         self.spans: List[Span] = []
+        self.counters: Dict[str, float] = {}
+        self.gauges: Dict[str, float] = {}
         self._origin = time.perf_counter()
 
     def now(self) -> float:
@@ -86,6 +111,18 @@ class Recorder(NullRecorder):
         finally:
             self.spans.append(Span(name, cat, track, t0, self.now(),
                                    args or None))
+
+    def add_span(self, name: str, t0: float, t1: float, *, track: str = "main",
+                 cat: str = "", args: Optional[Dict[str, Any]] = None) -> None:
+        """File a span with explicit timestamps: the virtual-clock path (the
+        event engine's seconds). Spans on one track share one clock."""
+        self.spans.append(Span(name, cat, track, float(t0), float(t1), args))
+
+    def count(self, name: str, value: float = 1.0) -> None:
+        self.counters[name] = self.counters.get(name, 0.0) + value
+
+    def gauge(self, name: str, value: float) -> None:
+        self.gauges[name] = float(value)
 
 
 #: The module-level off switch: the active recorder when none is installed.
@@ -106,3 +143,13 @@ def set_recorder(rec: Optional[NullRecorder]) -> NullRecorder:
     prev = _active
     _active = rec if rec is not None else NULL_RECORDER
     return prev
+
+
+@contextmanager
+def recording(rec: Recorder) -> Iterator[Recorder]:
+    """Scoped install: ``with recording(Recorder()) as rec: ...``."""
+    prev = set_recorder(rec)
+    try:
+        yield rec
+    finally:
+        set_recorder(prev)

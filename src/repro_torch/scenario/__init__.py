@@ -1,7 +1,9 @@
 """Scenario layer of the port: the declarative spec, the registry of named
 scenarios and sweeps, the sweep expansion, the host executors (``plan``:
-counts and analytic round times; ``netsim``: the fluid simulator) and the
-runner that drives a scenario's rounds on the card.
+counts and analytic round times; ``engine``: the FIFO queue engine with
+drops and encoded payloads; ``netsim``: the fluid simulator; ``event``: the
+asynchronous event engine) and the runner that drives a scenario's rounds
+on the card.
 
     from repro_torch.scenario import executors, run_sweep, scenarios
 

@@ -1,14 +1,16 @@
 """The port's ``repro.scenario.executors``: the moderator lifecycle that
-every executor shares, the capability check, and the two executors that
+every executor shares, the capability check, and the four executors that
 run a scenario's rounds on the host.
 
 :func:`membership_rounds` drives the paper's moderator lifecycle (III-A):
 connectivity reports filed from the overlay, each round's churn applied,
 an emergency election when the moderator itself left, the 2-node floor,
-and a round-robin rotation after every round. :class:`Executor.execute`
+and a round-robin rotation after every round. :meth:`Executor.execute`
 builds each membership epoch's policy over the moderator's member subgraph
 (:func:`~repro_torch.core.plan.make_policy`) and its per-send wire size
-(:func:`~repro_torch.compress.per_send_wire_mb`), then reports every round:
+(:func:`~repro_torch.compress.per_send_wire_mb`), then hands each round to
+:meth:`Executor.run_round` as a :class:`RoundContext` (round index,
+moderator, members, applied churn) and collects its :class:`RoundReport`:
 
 =========  ================================================================
 plan       counting: slots, transmissions and bytes, and the round times of
@@ -16,26 +18,45 @@ plan       counting: slots, transmissions and bytes, and the round times of
            TimingProfile` over the member-masked underlay, built once per
            membership epoch; its walk also counts the slots and
            transmissions) (``counting_only``, ``provides_timing``)
+engine     :class:`~repro_torch.core.gossip.GossipEngine`, the runtime FIFO
+           queues: seeded transient link failures (:func:`_drop_fn`) kept
+           at the FIFO head and retransmitted; with a codec, each node's
+           proxy payload is encoded, moved and decoded, on the card unless
+           the executor is built with ``device="cpu"``, its error-feedback
+           residuals carried across the rounds of an epoch
+           (``supports_drops``, ``moves_payloads``)
 netsim     the contended fluid underlay
            (:func:`~repro_torch.core.netsim.simulate_policy`), every round
            simulated: the paper's Tables III-V metrics (``provides_timing``)
+event      :class:`~repro_torch.core.events.AsyncEventEngine`, asynchronous
+           rounds on per-node virtual clocks: bounded staleness, seeded
+           straggler compute, drops and churn at virtual timestamps; rounds
+           are registered in :meth:`EventExecutor.run_round` and simulated
+           and back-filled in :meth:`EventExecutor.finish`
+           (``supports_drops``, ``provides_timing``, ``supports_staleness``)
 =========  ================================================================
 
-Bytes take the reference's operand order, so every number equals the
-reference executor's. Neither has ``supports_staleness``: a spec with
-straggler compute or a staleness window raises, as on the reference's plan
-and netsim executors. A spec with an overlay optimizer raises by name: its
-plan is built over the working overlay that only ``repro.opt``'s search
-computes. Not ported: the reference's engine, jax and event executors
-(:mod:`repro_torch.scenario.runner` runs a scenario's rounds on the card,
-the jax executor's counterpart) and its ``PlanCache``, which only buys
-speed across sweep cells.
+Host numbers take the reference's operand order and seeded draw order, so
+every field equals the reference executor's. A spec needing a capability
+an executor lacks raises, naming it and the executors that provide it. A
+spec with an overlay optimizer raises by name: its plan is built over the
+working overlay that only ``repro.opt``'s search computes. Not ported: the
+reference's jax executor (:mod:`repro_torch.scenario.runner` runs a
+scenario's rounds on the card, its counterpart) and its ``PlanCache``,
+which only buys speed across sweep cells.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Type, Union
 
+import numpy as np
+import torch
+
+from .. import DeviceLike, obs, resolve_device
 from ..compress.codec import Codec, per_send_wire_mb
+from ..core.events import AsyncEventEngine, policy_slots
+from ..core.gossip import GossipEngine
 from ..core.graph import Graph
 from ..core.moderator import ConnectivityReport, Moderator
 from ..core.netsim import SimResult, TestbedSpec, simulate_policy
@@ -96,6 +117,37 @@ def membership_rounds(spec: ScenarioSpec, overlay: Graph
         mod = _rotate(mod)
 
 
+def _drop_fn(spec: ScenarioSpec, round_idx: int) -> Optional[Callable[[int, int, int], bool]]:
+    """The round's transient link failures: one draw a send from the
+    ``[drop_seed, round_idx]`` stream, in the engine's send order."""
+    if spec.drop_rate <= 0:
+        return None
+    rng = np.random.default_rng([spec.drop_seed, round_idx])
+
+    def drop(slot_idx: int, src: int, dst: int) -> bool:
+        return bool(rng.random() < spec.drop_rate)
+
+    return drop
+
+
+def _proxy_payloads(spec: ScenarioSpec, members: Sequence[int],
+                    device: torch.device) -> List:
+    """The reference's deterministic per-node proxies (64 f32 values a part,
+    drawn with numpy from ``[drop_seed, node]``), as tensors on ``device``.
+    The queue engine really encodes, moves and decodes them, while byte
+    accounting stays at the declared payload size. Segmented protocols get
+    one part a segment."""
+    segmented = spec.protocol in ("segmented", "segmented_gossip")
+    n_parts = spec.n_segments if segmented else 1
+    out: List = []
+    for u in members:
+        rng = np.random.default_rng([spec.drop_seed, u])
+        parts = [torch.from_numpy(rng.normal(size=(64,)).astype(np.float32)).to(device)
+                 for _ in range(n_parts)]
+        out.append(parts if segmented else parts[0])
+    return out
+
+
 def required_capabilities(spec: ScenarioSpec) -> List[Tuple[str, str]]:
     """The capability flags a spec demands, each with the reason why:
     ``spec.require``; ``drop_rate > 0`` needs ``supports_drops``; any of
@@ -125,10 +177,30 @@ def _member_testbed(spec: ScenarioSpec, members: Sequence[int]
     return spec.testbed().masked(members)
 
 
+@dataclass
+class RoundContext:
+    """One scheduled round, as the lifecycle loop hands it to an executor."""
+
+    round_idx: int
+    moderator: int
+    members: Tuple[int, ...]
+    applied: List[ChurnEvent]
+    spec: ScenarioSpec
+
+    def report(self, **fields) -> RoundReport:
+        """A :class:`RoundReport` with the lifecycle-owned fields filled in."""
+        return RoundReport(
+            round=self.round_idx, protocol=self.spec.protocol, members=list(self.members),
+            moderator=self.moderator, churn_applied=[ev.to_dict() for ev in self.applied],
+            **fields)
+
+
 class Executor:
     """One host executor: capability flags, the lifecycle in
-    :meth:`execute`, and two hooks, :meth:`begin_epoch` (membership
-    changed) and :meth:`run_round`."""
+    :meth:`execute`, and its hooks: :meth:`begin` (once a run),
+    :meth:`begin_epoch` (membership changed), :meth:`run_round` and
+    :meth:`finish`. :meth:`execute` resets every per-run state, so one
+    instance may run scenarios (or sweep cells) one after another."""
 
     name = "abstract"
     supports_drops = False
@@ -137,12 +209,17 @@ class Executor:
     moves_payloads = False
     counting_only = False
     supports_staleness = False
+    CAPABILITY_FLAGS = CAPABILITY_FLAGS
 
     spec: ScenarioSpec
     payload_mb: float
     codec: Optional[Codec]
     policy: CommPolicy
     wire_send_mb: float
+
+    @classmethod
+    def capabilities(cls) -> Dict[str, bool]:
+        return {flag: bool(getattr(cls, flag)) for flag in cls.CAPABILITY_FLAGS}
 
     def check_capabilities(self, spec: ScenarioSpec) -> None:
         """Fail when the spec needs a capability this executor lacks, naming
@@ -151,13 +228,16 @@ class Executor:
                    if not getattr(self, flag)]
         if not missing:
             return
-        providers = sorted(n for n, cls in EXECUTORS.items()
-                           if all(getattr(cls, flag) for flag, _ in missing))
+        providers = sorted(n for n, caps in capability_table().items()
+                           if all(caps[flag] for flag, _ in missing))
         reasons = "; ".join(f"{flag!r} ({why})" for flag, why in missing)
         raise ValueError(
             f"executor {self.name!r} lacks capability {reasons} required by "
             f"scenario {spec.name!r}; executors providing "
             f"{'it' if len(missing) == 1 else 'them all'}: {providers}")
+
+    def begin(self) -> None:
+        """Once a run, after the spec, payload and codec are resolved."""
 
     def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
         """The epoch's policy over the moderator's member subgraph and its
@@ -170,8 +250,7 @@ class Executor:
         self.wire_send_mb = per_send_wire_mb(self.codec, self.payload_mb,
                                              self.policy.payload_fraction)
 
-    def run_round(self) -> dict:
-        """The round's counted and timed fields of its :class:`RoundReport`."""
+    def run_round(self, rctx: RoundContext) -> RoundReport:
         raise NotImplementedError
 
     def finish(self, result: ScenarioResult) -> ScenarioResult:
@@ -186,28 +265,78 @@ class Executor:
                 "repro.opt's annealed overlay, not ported")
         self.spec = spec
         self.payload_mb, self.codec = spec.payload_mb(), spec.codec_obj()
+        self.begin()
+        rec = obs.get()
+        track = f"exec/{self.name}"
         reports: List[RoundReport] = []
         epoch: Optional[Tuple[int, ...]] = None
         for r, mod, members, applied in membership_rounds(spec, spec.overlay_graph()):
             if tuple(members) != epoch:
                 epoch = tuple(members)
-                self.begin_epoch(mod, epoch)
-            reports.append(RoundReport(
-                round=r, protocol=spec.protocol, members=list(members),
-                moderator=mod.moderator_id, churn_applied=[ev.to_dict() for ev in applied],
-                **self.run_round()))
-        return self.finish(ScenarioResult(
+                with rec.span(f"epoch r{r}", cat="plan", track=track, scenario=spec.name,
+                              members=len(epoch)):
+                    self.begin_epoch(mod, epoch)
+            rctx = RoundContext(r, mod.moderator_id, epoch, applied, spec)
+            with rec.span(f"round {r}", cat="round", track=track, scenario=spec.name, round=r):
+                reports.append(self.run_round(rctx))
+        result = self.finish(ScenarioResult(
             scenario=spec.name, executor=self.name, protocol=spec.protocol,
             payload_mb=self.payload_mb, rounds=reports, spec=spec.to_dict()))
+        if rec.enabled:  # after finish, so back-filled reports count right
+            for rep in result.rounds:
+                rec.count("bytes.payload_mb", rep.bytes_mb)
+                rec.count("bytes.wire_mb", rep.bytes_on_wire_mb)
+                rec.count("transmissions", rep.transmissions)
+                rec.count("slots", rep.n_slots)
+                if rep.drops:
+                    rec.count("drops", rep.drops)
+        return result
 
 
+# the port's host executors by name, in the reference's registration order
+# (repro_torch.scenario.runner runs a scenario's rounds on the card)
+EXECUTORS: Dict[str, Type[Executor]] = {}
+
+
+def register(name: str) -> Callable[[Type[Executor]], Type[Executor]]:
+    """Class decorator: register an :class:`Executor` subclass under ``name``."""
+
+    def deco(cls: Type[Executor]) -> Type[Executor]:
+        cls.name = name
+        EXECUTORS[name] = cls
+        return cls
+
+    return deco
+
+
+def get(name: Union[str, Executor]) -> Executor:
+    """A fresh executor instance for ``name`` (an instance passes through)."""
+    if isinstance(name, Executor):
+        return name
+    try:
+        return EXECUTORS[name]()
+    except KeyError:
+        raise ValueError(f"unknown executor {name!r}; the port has {names()} (the jax "
+                         "executor is not ported; repro_torch.scenario.runner runs a "
+                         "scenario on the card)") from None
+
+
+def names() -> List[str]:
+    return list(EXECUTORS)
+
+
+def capability_table() -> Dict[str, Dict[str, bool]]:
+    """name -> capability flags."""
+    return {n: cls.capabilities() for n, cls in EXECUTORS.items()}
+
+
+@register("plan")
 class PlanExecutor(Executor):
     """Counting and the analytic round times: each epoch's
     :class:`TimingProfile` over the member-masked underlay, evaluated at the
     epoch's per-send wire size; its walk gives the slot and transmission
     counts (``measure_stats``, the reference's seed of its measure cache)."""
 
-    name = "plan"
     counting_only = True
     provides_timing = True
 
@@ -217,60 +346,172 @@ class PlanExecutor(Executor):
         self._stats = profile.measure_stats()
         self._timing = profile.estimate(self.wire_send_mb)
 
-    def run_round(self) -> dict:
+    def run_round(self, rctx: RoundContext) -> RoundReport:
         tx, est = self._stats["transmissions"], self._timing
-        return dict(n_slots=self._stats["n_slots"], transmissions=tx,
-                    bytes_mb=tx * self.payload_mb * self.policy.payload_fraction,
-                    bytes_on_wire_mb=tx * self.wire_send_mb,
-                    total_time_s=est.total_time_s, mean_transfer_s=est.mean_transfer_s,
-                    mean_bandwidth_mbps=est.mean_bandwidth_mbps,
-                    max_concurrency=est.max_concurrency)
+        return rctx.report(
+            n_slots=self._stats["n_slots"], transmissions=tx,
+            bytes_mb=tx * self.payload_mb * self.policy.payload_fraction,
+            bytes_on_wire_mb=tx * self.wire_send_mb, total_time_s=est.total_time_s,
+            mean_transfer_s=est.mean_transfer_s, mean_bandwidth_mbps=est.mean_bandwidth_mbps,
+            max_concurrency=est.max_concurrency)
 
 
+@register("engine")
+class EngineExecutor(Executor):
+    """The runtime FIFO queues (:class:`GossipEngine`): seeded transient
+    link failures with retransmission; with a codec, real encoded payloads.
+
+    The engine outlives the round, so a codec's error-feedback residuals
+    persist across rounds, and is rebuilt on churn, like the schedule. The
+    payloads are the reference's small deterministic proxies, on
+    ``device`` (the card unless ``device="cpu"``; no card raises), while
+    byte accounting stays analytic at the declared payload size."""
+
+    supports_drops = True
+    moves_payloads = True
+
+    def __init__(self, device: DeviceLike = None) -> None:
+        self.device = device
+
+    def begin(self) -> None:
+        self._device = resolve_device(self.device)
+
+    def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
+        super().begin_epoch(mod, members)
+        self._engine = GossipEngine(policy=self.policy, codec=self.codec)
+        self._proxies = (_proxy_payloads(self.spec, members, self._device)
+                         if self.codec is not None else None)
+
+    def run_round(self, rctx: RoundContext) -> RoundReport:
+        engine = self._engine
+        engine.drop_fn = _drop_fn(self.spec, rctx.round_idx)
+        first_report = len(engine.reports)
+        n_slots = engine.run_round(rctx.round_idx, self._proxies)
+        round_reports = engine.reports[first_report:]
+        sent = sum(len(rep.sends) for rep in round_reports)
+        drops = sum(len(rep.dropped) for rep in round_reports)
+        attempted = sent + drops  # a dropped transfer still burned wire time
+        return rctx.report(
+            n_slots=n_slots, transmissions=attempted,
+            bytes_mb=attempted * self.payload_mb * self.policy.payload_fraction,
+            bytes_on_wire_mb=attempted * self.wire_send_mb, drops=drops)
+
+
+@register("netsim")
 class NetsimExecutor(Executor):
     """The contended fluid underlay (:func:`simulate_policy`) over the
     member-masked testbed, compiled once per epoch: the paper's Tables
     III-V metrics, every round simulated; the raw results go to
     ``ScenarioResult.sim_results``."""
 
-    name = "netsim"
     provides_timing = True
 
-    def execute(self, spec: ScenarioSpec) -> ScenarioResult:
+    def begin(self) -> None:
         self._sims: List[SimResult] = []
-        return super().execute(spec)
 
     def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
         super().begin_epoch(mod, members)
         self._stats = measure_policy(self.policy)
         self._testbed = as_network_model(_member_testbed(self.spec, members))
 
-    def run_round(self) -> dict:
+    def run_round(self, rctx: RoundContext) -> RoundReport:
         sim = simulate_policy(self.policy, self._testbed, self.payload_mb, codec=self.codec)
         self._sims.append(sim)
         tx = sim.n_transfers
-        return dict(n_slots=self._stats["n_slots"], transmissions=tx,
-                    bytes_mb=tx * self.payload_mb * self.policy.payload_fraction,
-                    bytes_on_wire_mb=sim.bytes_on_wire_mb, total_time_s=sim.total_time_s,
-                    mean_transfer_s=sim.mean_transfer_s,
-                    mean_bandwidth_mbps=sim.mean_bandwidth_mbps,
-                    max_concurrency=sim.max_concurrency)
+        return rctx.report(
+            n_slots=self._stats["n_slots"], transmissions=tx,
+            bytes_mb=tx * self.payload_mb * self.policy.payload_fraction,
+            bytes_on_wire_mb=sim.bytes_on_wire_mb, total_time_s=sim.total_time_s,
+            mean_transfer_s=sim.mean_transfer_s, mean_bandwidth_mbps=sim.mean_bandwidth_mbps,
+            max_concurrency=sim.max_concurrency)
 
     def finish(self, result: ScenarioResult) -> ScenarioResult:
         result.sim_results = self._sims
         return result
 
 
-# the port's host executors by name (repro_torch.scenario.runner runs a
-# scenario's rounds on the card)
-EXECUTORS = {"plan": PlanExecutor, "netsim": NetsimExecutor}
+@register("event")
+class EventExecutor(Executor):
+    """The discrete-event asynchronous engine (:mod:`repro_torch.core.events`):
+    per-node virtual clocks over the same plan IR, a bounded-staleness
+    admission window, seeded straggler compute, drops and churn at virtual
+    timestamps.
 
+    :meth:`run_round` only registers a round (members, the compiled member
+    underlay, the epoch's slot arrays, each node's compute draw); the whole
+    simulation runs in :meth:`finish`, which back-fills every report from
+    the virtual clock, since overlapping rounds are final only when the
+    heap drains. With ``max_staleness=0`` admission is a global barrier and
+    the byte accounting equals the netsim executor's exactly;
+    ``total_time_s`` is the round's inter-completion gap, so the rounds sum
+    to the virtual makespan."""
 
-def get(name: str) -> Executor:
-    """A fresh executor instance for ``name``."""
-    try:
-        return EXECUTORS[name]()
-    except KeyError:
-        raise ValueError(f"unknown executor {name!r}; the port has {sorted(EXECUTORS)} "
-                         "(the engine, jax and event executors are not ported; "
-                         "repro_torch.scenario.runner runs a scenario on the card)") from None
+    supports_drops = True
+    provides_timing = True
+    supports_staleness = True
+
+    def begin(self) -> None:
+        spec = self.spec
+        self._engine = AsyncEventEngine(
+            max_staleness=spec.max_staleness, drop_rate=spec.drop_rate,
+            drop_seed=spec.drop_seed, record_events=spec.record_events or obs.get().enabled)
+        self._pending: List[Tuple[RoundReport, float, float]] = []
+
+    def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
+        super().begin_epoch(mod, members)
+        self._stats = measure_policy(self.policy)
+        self._slots = policy_slots(self.policy)
+        self._net = as_network_model(_member_testbed(self.spec, members))
+
+    def run_round(self, rctx: RoundContext) -> RoundReport:
+        spec = self.spec
+        n = len(rctx.members)
+        # straggler injection: a seeded uniform jitter a (round, node) on top
+        # of the declared compute time
+        compute = np.full(n, spec.compute_time_s)
+        if spec.compute_jitter_s > 0:
+            rng = np.random.default_rng([spec.jitter_seed, rctx.round_idx])
+            compute = compute + rng.random(n) * spec.compute_jitter_s
+        self._engine.add_round(rctx.members, self._net, self._slots, self.wire_send_mb,
+                               compute)
+        report = rctx.report(n_slots=self._stats["n_slots"], transmissions=0, bytes_mb=0.0)
+        self._pending.append((report, self.wire_send_mb, self.policy.payload_fraction))
+        return report
+
+    def finish(self, result: ScenarioResult) -> ScenarioResult:
+        timings = self._engine.run()
+        rec = obs.get()
+        prev_completed = 0.0
+        for (report, wire_mb, fraction), rt in zip(self._pending, timings):
+            tx = rt.attempts
+            report.transmissions = tx
+            report.drops = rt.drops
+            # the netsim executor's operand order and the fluid simulator's
+            # one float a transfer: staleness 0 equals it exactly
+            report.bytes_mb = tx * self.payload_mb * fraction
+            report.bytes_on_wire_mb = float(sum([wire_mb] * tx))
+            report.total_time_s = rt.completed_s - prev_completed
+            if rec.enabled:
+                # the round's virtual span is its inter-completion gap, so the
+                # rounds' spans sum to the scenario's total_time_s
+                rec.add_span(f"round {report.round}", prev_completed, rt.completed_s,
+                             track="rounds", cat="event-round",
+                             args={"round": report.round, "total_time_s": report.total_time_s,
+                                   "admitted_at_s": rt.admitted_s, "attempts": tx,
+                                   "drops": rt.drops})
+            prev_completed = rt.completed_s
+            report.mean_transfer_s = rt.mean_transfer_s()
+            report.mean_bandwidth_mbps = rt.mean_bandwidth_mbps()
+            report.max_concurrency = rt.max_in_flight
+            report.admitted_at_s = rt.admitted_s
+            report.completed_at_s = rt.completed_s
+            for ev in report.churn_applied:
+                # churn takes effect when the window admits the round
+                ev["applied_at_s"] = rt.admitted_s
+        if rec.enabled:
+            for s in self._engine.virtual_spans():
+                rec.add_span(s["name"], s["t0"], s["t1"], track=s["track"], cat=s["cat"],
+                             args=s["args"])
+            rec.count("event.retries", sum(rt.drops for rt in timings))
+            rec.gauge("event.makespan_s", prev_completed)
+        return result

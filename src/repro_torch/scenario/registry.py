@@ -7,9 +7,10 @@
 the reference declares them (payload codes and architecture names, the same
 descriptions), so their ``to_dict`` equals the reference's. The port
 registers the scenarios its runner, trainer and executors drive (the
-paper's cell and its flooding baseline, the codec, churn and underlay
-workloads, segmented gossip, the mesh smoke) and all six of the
-reference's sweeps.
+paper's cell and its flooding baseline, the codec, churn, link-failure and
+underlay workloads, segmented gossip, the 1000-node scale cell, the
+asynchronous stragglers, the mesh smoke) and all six of the reference's
+sweeps; not the sparse 100k / 1M cells.
 """
 from __future__ import annotations
 
@@ -176,6 +177,24 @@ def _churn_storm() -> ScenarioSpec:
             "recomputed on every churn round."))
 
 
+@register("lossy_links")
+def _lossy_links() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="lossy_links",
+        overlay=TopologySpec(kind="erdos_renyi", n=10, seed=5),
+        protocol="dissemination",
+        payload="v3s",
+        rounds=2,
+        drop_rate=0.1,
+        drop_seed=7,
+        executors=("engine", "event"),
+        description=(
+            "10% transient link failures: the queue engine keeps dropped "
+            "entries at the FIFO head and retransmits (paper III-D), and "
+            "the event engine retransmits at the failed delivery's virtual "
+            "timestamp; dissemination still completes every round."))
+
+
 @register("hetero_edge")
 def _hetero_edge() -> ScenarioSpec:
     return ScenarioSpec(
@@ -221,6 +240,20 @@ def _segmented_sweep() -> ScenarioSpec:
             "Segmented gossip (Hu et al.): 4 per-model segments pipelined "
             "through the colored MST — 4x the transfers at 1/4 the bytes "
             "each, same total traffic, higher link utilization."))
+
+
+@register("scale_1000")
+def _scale_1000() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="scale_1000",
+        overlay=TopologySpec(kind="watts_strogatz", n=1000, seed=1),
+        protocol="dissemination",
+        payload=21.2,
+        rounds=1,
+        executors=("plan", "engine"),  # the fluid sim is impractical at N=1000
+        description=(
+            "Sweep scale: the same one-policy definition at N=1000 on the "
+            "vectorized counting path and the runtime queue engine."))
 
 
 @register("mesh_smoke")
@@ -313,6 +346,26 @@ def _wan_sweep() -> SweepSpec:
             "(12 cells, one plan). On the plan executor the whole grid is "
             "one analytic timing profile per underlay; netsim "
             "cross-validates the fluid round times."))
+
+
+@register("async_stragglers")
+def _async_stragglers() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="async_stragglers",
+        overlay=TopologySpec(kind="erdos_renyi", n=10, seed=3),
+        protocol="mosgu",
+        payload="b0",
+        rounds=6,
+        max_staleness=1,
+        compute_time_s=5.0,
+        compute_jitter_s=4.0,
+        executors=("event",),
+        description=(
+            "Asynchronous rounds under straggler injection: per-node "
+            "compute 5-9 s (seeded uniform jitter), a one-round staleness "
+            "window, so fast nodes start round r+1 segment sends while "
+            "stragglers finish round r. Steady-state rounds/sec is the "
+            "metric; estimate_throughput must land within ±15%."))
 
 
 @register_sweep("async_vs_sync")

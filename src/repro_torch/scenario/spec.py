@@ -13,13 +13,15 @@ reads of it:
 
 * the trainer and its session read the protocol, codec, rounds, churn,
   ``n_segments`` and the overlay, as the reference's session does;
-* the ``plan`` and ``netsim`` executors (:mod:`repro_torch.scenario.executors`)
-  also read the payload, the MST / coloring algorithms and the underlay
+* the host executors (:mod:`repro_torch.scenario.executors`) also read the
+  payload, the MST / coloring algorithms and the underlay
   (:meth:`ScenarioSpec.testbed`: a preset name, a
   :class:`~repro_torch.core.network.NetworkSpec` or a
   :class:`~repro_torch.core.netsim.TestbedSpec`; None derives the paper
   testbed from the overlay), whose round times fill the rounds' timing
-  fields and the totals' ``time_s``;
+  fields and the totals' ``time_s``; the ``engine`` and ``event`` executors
+  the link failures, and ``event`` the staleness window, the straggler
+  compute and its jitter, and ``record_events``;
 * the device runner (:mod:`repro_torch.scenario.runner`) reads what the
   session reads and the payload.
 
@@ -315,10 +317,10 @@ class ScenarioSpec:
 
 @dataclass
 class RoundReport:
-    """What one communication round counted and, on the ``plan`` and
-    ``netsim`` executors, how long it took on the underlay (the reference's
-    fields but the event executor's clock and the jax executor's numerics,
-    which the port's card runner reports in its own
+    """What one communication round counted and, on the ``plan``,
+    ``netsim`` and ``event`` executors, how long it took on the underlay
+    (the reference's fields but the jax executor's numerics, which the
+    port's card runner reports in its own
     :class:`~repro_torch.scenario.runner.DeviceRoundReport`)."""
 
     round: int
@@ -326,7 +328,7 @@ class RoundReport:
     members: List[int]  # healthy physical node ids during the round
     moderator: int
     n_slots: int
-    transmissions: int
+    transmissions: int  # attempted transfers (retransmissions included)
     bytes_mb: float  # raw payload bytes moved, MB (payload_fraction applied)
     bytes_on_wire_mb: float = 0.0  # after the wire codec
     drops: int = 0
@@ -336,6 +338,11 @@ class RoundReport:
     mean_transfer_s: Optional[float] = None
     mean_bandwidth_mbps: Optional[float] = None
     max_concurrency: Optional[int] = None
+    # the event executor's virtual clock: when the staleness window admitted
+    # the round and when its last delivery landed (None elsewhere); its
+    # churn entries carry ``applied_at_s``, the admission time
+    admitted_at_s: Optional[float] = None
+    completed_at_s: Optional[float] = None
 
     def to_dict(self) -> Dict[str, Any]:
         return {k: v for k, v in dataclasses.asdict(self).items() if v is not None}

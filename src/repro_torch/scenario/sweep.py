@@ -11,7 +11,8 @@ which re-validates. A cell is named ``NAME/axis=value,...``, or
 ``axis[index]`` where the value is not a scalar.
 
 :func:`run_sweep` runs every cell on one executor (``plan``: counts and the
-analytic round times; ``netsim``: the fluid simulator), one cell after
+analytic round times; ``engine``: the queue engine; ``netsim``: the fluid
+simulator; ``event``: the asynchronous event engine), one cell after
 another; :meth:`SweepResult.marginals` averages each axis value's cells.
 The reference shares plan work across cells through its ``PlanCache`` and
 pins its results to the serial loop's, so the serial loop gives the same
@@ -239,9 +240,11 @@ class SweepResult:
         }
 
 
-def run_sweep(sweep: SweepSpec, executor: str = "plan") -> SweepResult:
-    """Run every cell of a sweep on one executor (``plan`` or ``netsim``),
-    one after another."""
+def run_sweep(sweep: SweepSpec, executor: Any = "plan") -> SweepResult:
+    """Run every cell of a sweep on one executor, one after another:
+    a name (``plan``, ``engine``, ``netsim``, ``event``) or an
+    :class:`~repro_torch.scenario.executors.Executor` instance (e.g.
+    ``EngineExecutor(device="cpu")``), which runs every cell."""
     from .executors import get as get_executor
 
     ex = get_executor(executor)

@@ -102,3 +102,21 @@ def test_serve_batched_decodes_greedy_tokens():
     seqs = re.findall(r"seq\d: \[([\d, ]+)\]", out)
     assert len(seqs) == 2 and all(len(s.split(",")) == 4 for s in seqs)
     assert all(0 <= int(t) < 256000 for s in seqs for t in s.split(","))
+
+
+def test_quickstart_matches_the_reference():
+    """``python -m repro_torch.examples.quickstart --device cpu`` prints the
+    JAX package's ``examples/quickstart.py`` line for line: the MST edges,
+    the colors and slot length, the queue engine's 90 transmissions and the
+    FedAvg of 4.50 (through ``fedavg``), the netsim ratios against
+    flooding, and the churn round's 72 transmissions."""
+    ours = _run("repro_torch.examples.quickstart", "--device", "cpu")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
+    ref = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "quickstart.py")],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    assert ours.splitlines() == ref.stdout.splitlines()
+    assert "  transmissions:    90 (optimal N(N-1) = 90; flooding would need 400)" in ours
+    assert "  FedAvg at node 0: 4.50 (expected 4.50)" in ours
+    assert re.search(r"EfficientNet-B0 .* round 32\.8s -> 11\.6s \(2\.8x\)", ours), ours
+    assert "  new round over 9 nodes: 72 transmissions (= 9*8 = 72)" in ours

@@ -46,7 +46,12 @@ from repro_torch.scenario.spec import ScenarioSpec  # noqa: E402
 
 PRESETS = ("paper_lan", "wan", "edge", "congested")
 CODECS = ("fp32", "int8", "topk")
-SCENARIOS = tuple(scenarios.names())
+# the registry's scenarios that the plan and netsim executors run: lossy_links
+# needs drops, async_stragglers the staleness window, and scale_1000 (N=1000)
+# runs on plan and engine only (tests/test_torch_gossip_engine.py and
+# tests/test_torch_events.py hold them on the engine and event executors)
+ENGINE_AND_EVENT_ONLY = ("async_stragglers", "lossy_links", "scale_1000")
+SCENARIOS = tuple(n for n in scenarios.names() if n not in ENGINE_AND_EVENT_ONLY)
 SIM_FIELDS = ("total_time_s", "mean_transfer_s", "mean_bandwidth_mbps", "n_transfers",
               "max_concurrency", "bytes_on_wire_mb", "per_transfer_s", "send_trace")
 # the +-15% acceptance bound of the analytic timing model (the reference's)
@@ -231,15 +236,16 @@ def test_underlays_on_a_spec_serialize_as_the_reference():
 
 
 def test_executor_registry_and_capabilities():
-    assert sorted(executors.EXECUTORS) == ["netsim", "plan"]
-    with pytest.raises(ValueError, match="unknown executor 'engine'.*not ported"):
-        executors.get("engine")
+    assert sorted(executors.EXECUTORS) == ["engine", "event", "netsim", "plan"]
+    with pytest.raises(ValueError, match="unknown executor 'jax'.*not ported"):
+        executors.get("jax")
     stragglers = scenarios.get("paper_table3").replace(compute_time_s=1.0)
     for ex in ("plan", "netsim"):
         with pytest.raises(ValueError, match=f"executor '{ex}' lacks capability "
                                              "'supports_staleness'"):
             executors.get(ex).execute(stragglers)
-    with pytest.raises(ValueError, match="lacks capability 'supports_drops'.*: \\[\\]"):
+    with pytest.raises(ValueError, match="lacks capability 'supports_drops'.*: "
+                                         "\\['engine', 'event'\\]"):
         executors.get("netsim").execute(scenarios.get("paper_table3").replace(drop_rate=0.1))
 
 

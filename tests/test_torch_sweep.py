@@ -41,7 +41,8 @@ SWEEPS = ("table3_full", "payload_latency_curve", "codec_x_protocol", "wan_sweep
           "async_vs_sync", "optimized_vs_mst")
 DRY_TABLES = ("table3_full", "payload_latency_curve", "codec_x_protocol", "wan_sweep")
 SCENARIO_NAMES = ("paper_table3", "quantized_table3", "topk_sweep", "mesh_smoke", "churn_storm",
-                  "paper_flooding_baseline", "hetero_edge", "campus_wan", "segmented_sweep")
+                  "paper_flooding_baseline", "hetero_edge", "campus_wan", "segmented_sweep",
+                  "lossy_links", "scale_1000", "async_stragglers")
 
 
 def _plain(v):
