@@ -158,6 +158,37 @@ Phases, each fatal on failure (exit code 1, no result line):
              ``event`` against ``estimate_throughput`` on the same plan,
              which must agree within the reference's +-15% (modeled testbed
              seconds). Prints the phase's wall time.
+   plans   — after the tables phase: the sparse planner, the plan cache and
+             the overlay search. (a) Host: scale_100k (a 100k-node k-NN
+             overlay, three leaves in round 1 repaired by the incremental
+             replanner) and scale_1m (a million-node ring) on the plan
+             executor through one PlanCache; every round's slots,
+             transfers and members must equal the JAX package's
+             (PLAN_SCALE) and replan_incremental must be >= 1. (b) Host:
+             optimized_vs_mst (ER(12) B0, underlay wan / edge x no
+             optimizer / annealing 400 steps) on the plan and netsim
+             executors through one cache; the round times must equal the
+             JAX package's (PLAN_TABLE, modeled testbed seconds) and the
+             annealed overlay be >= 1.15x faster analytically and faster in
+             the fluid simulator; prints each search's accepted edits and
+             fingerprint. (c) Card: the four cells through run_scenario at
+             B0's full width (12 nodes x 5.3 M f32, a (12, 12, 5.3 M) round
+             buffer), fp32 and int8, the launch counts set to 0 just
+             before; every round numerics_ok, each device plan the one over
+             the cache's effective overlay (the annealed one for an
+             optimizer cell); prints device_ms and the peak. (d) Card: the
+             reference test's scale_100k shape at n = 300 (k-NN k = 8,
+             mosgu_exchange over Borůvka + Jones-Plassmann, nodes 7 and 42
+             leaving in round 1, so round 1's policy comes from
+             SparsePlanner.replan) through the engine executor with each
+             node's 5.3 M f32 payload on the card, fp32 and int8: the
+             rounds must equal the CPU executor's (PLAN_N300), and every
+             node's aggregate (its tree neighbourhood's mean: one exchange
+             a round) be finite, the same twice, and within 1e-6 of max |x|
+             of the plain versions' FedAvg of the payloads it received.
+             The launch counts are read after (d); quantize, dequantize and
+             the mix must have launched. Prints launches by shape and the
+             phase's wall time.
 4. serve   — smollm-360m (32 layers, d 960), falcon-mamba-7b (64 layers,
              d 4096), qwen3-moe-30b-a3b (48 layers, d 2048, 128 experts,
              60.4 GB), stablelm-12b (40 layers, d 5120, 23.3 GB) and
@@ -357,6 +388,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -400,6 +432,26 @@ TABLE_SCENARIOS = ("paper_table3", "paper_flooding_baseline")
 # paper's cell runs as segmented gossip in ENGINE_SEGMENTS segments
 ENGINE_RUNS = (("lossy_links", ("fp32", "int8", "topk")), ("paper_table3", ("fp32", "int8")))
 ENGINE_SEGMENTS = 4
+# the plans phase (after the tables phase): the sparse planner at scale on the
+# plan executor, each round's (slots, transfers, members) as the JAX
+# package's plan executor gives them
+PLAN_SCALE = {"scale_100k": ((4, 199_998, 100_000), (4, 199_992, 99_997)),
+              "scale_1m": ((4, 1_999_998, 1_000_000),)}
+# optimized_vs_mst's dry table, the JAX package's round times (modeled testbed
+# seconds, 4 decimals): underlay -> (plan MST, plan annealed, netsim MST,
+# netsim annealed); 132 transfers in every cell
+PLAN_TABLE = {"wan": (209.5, 149.5333, 194.8, 149.8167),
+              "edge": (284.9983, 219.4191, 280.165, 217.4191)}
+PLAN_TABLE_TX = 132
+# the reference test's scale_100k shape at n = 300 through the queue engine:
+# (slots, transfers, members) a round
+PLAN_N300 = ((3, 598, 300), (3, 594, 298))
+# f32 a node of the CPU executor's run beside it (the routing it is held to
+# does not depend on the width)
+PLAN_N300_HOST_ELEMS = 4096
+# (sweep, repeats) whose plan-executor run_cells is timed batched and serial
+PLAN_RUN_CELLS = (("table3_full", 5), ("codec_x_protocol", 5), ("optimized_vs_mst", 1))
+PLAN_CODECS = ("fp32", "int8")
 # P8: qwen3-moe's 16x16 prefill at 2 layers, traced on the card (its peak is
 # the CPU trace's reference in tests/test_torch_dryrun.py)
 P8_PAIR = ("16x16", "qwen3-moe-30b-a3b", "prefill_32k", 2)
@@ -743,6 +795,135 @@ def engine_launch_shapes():
     return shapes
 
 
+def plain_decode(codec, payload):
+    """An encoded payload part decoded by the plain versions."""
+    from repro_torch.kernels.codec import ref as codec_ref
+    from repro_torch.kernels.codec.ops import topk_scatter
+
+    leaf = payload.data
+    if codec.name == "fp32":
+        return leaf
+    if codec.name == "topk":
+        return topk_scatter(leaf["values"], leaf["indices"], size=leaf["size"],
+                            block=codec.block).reshape(leaf["shape"])
+    return codec_ref.dequantize_rows(leaf["codes"], leaf["scales"], leaf["size"],
+                                     codec.bits, codec.chunk).reshape(leaf["shape"])
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches made inside are a check's, not the path's: the launch
+    counts and shapes are put back as they were on exit."""
+    from repro_torch.kernels import LAUNCHES, SHAPES
+
+    counts, shapes = dict(LAUNCHES), {k: Counter(v) for k, v in SHAPES.items()}
+    try:
+        yield
+    finally:
+        LAUNCHES.update(counts)
+        for k, v in shapes.items():
+            SHAPES[k].clear()
+            SHAPES[k].update(v)
+
+
+@functools.lru_cache(maxsize=None)
+def sized_engine():
+    """The engine executor with each node's payload ``size`` f32 a part from
+    a seeded generator on its device (fp32 through the identity codec, so its
+    wire bytes are tallied too). Every round keeps its report, its
+    round_wire_bytes, its host wall time and each node's received set. With
+    ``check`` each node's aggregate is held to the plain versions' FedAvg of
+    the payloads that node received: finite, the same when aggregated twice,
+    within 1e-6 of max |x|, and bit-identical across nodes that received the
+    same payloads; with ``complete`` every node must have received every
+    payload (dissemination's promise). Built on first call, so that the port
+    is imported only once the script runs."""
+    import torch
+
+    from repro_torch.compress import make_codec
+    from repro_torch.core.gossip import fedavg
+    from repro_torch.kernels.codec import ref as codec_ref
+    from repro_torch.kernels.mixing.ref import gossip_mix_ref
+    from repro_torch.scenario.executors import EngineExecutor
+
+    class SizedEngine(EngineExecutor):
+        def __init__(self, device, size, check, complete=False, tag="[engine]"):
+            super().__init__(device=device)
+            self.size, self.check, self.complete, self.tag = size, check, complete, tag
+            self.rounds = []
+
+        def begin_epoch(self, mod, members):
+            super().begin_epoch(mod, members)
+            self._engine.codec = self.codec or make_codec("fp32")
+            self.parts = self.spec.n_segments if self.spec.protocol == "segmented" else 1
+            self._proxies = []
+            for u in members:
+                gen = torch.Generator(device=self._device).manual_seed(1000 + u)
+                xs = [torch.randn(self.size, generator=gen, device=self._device)
+                      for _ in range(self.parts)]
+                self._proxies.append(xs if self.parts > 1 else xs[0])
+
+        def run_round(self, rctx):
+            engine = self._engine
+            residual = {pid: st[""].clone() for pid, st in engine._ef_states.items()
+                        if isinstance(st, dict)}  # top-k's, before this round's encode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = super().run_round(rctx)
+            aggs = engine.aggregate(fedavg) if self.check else None
+            torch.cuda.synchronize()
+            row = dict(report=rep, wire=engine.round_wire_bytes,
+                       wall_ms=1e3 * (time.perf_counter() - t0),
+                       received=[sorted(r) for r in engine.received_snapshot()])
+            if self.check:
+                with uncounted():  # the second aggregation only checks the first
+                    again = engine.aggregate(fedavg)
+                row.update(self.held(engine, aggs, again, residual))
+            self.rounds.append(row)
+            return rep
+
+        def held(self, engine, aggs, again, residual):
+            codec, store, parts = engine.codec, engine._store, self.parts
+            what = f"{self.tag} {self.spec.name} {codec.name}"
+            if self.complete and any(set(nd.received) != set(store) for nd in engine.nodes):
+                fail(f"{what}: a node did not receive every payload")
+            firsts, worst = {}, 0.0
+            for nd, agg, agg2 in zip(engine.nodes, aggs, again):
+                for j in range(parts):
+                    got, got2 = (agg[j], agg2[j]) if parts > 1 else (agg, agg2)
+                    if not (torch.equal(got, got2) and bool(torch.isfinite(got).all())):
+                        fail(f"{what} node {nd.node_id}: the aggregate is not finite or "
+                             "differs between two runs")
+                    pids = tuple(pid for pid in sorted(nd.received) if pid % parts == j)
+                    if pids in firsts:
+                        if not torch.equal(firsts[pids], got):
+                            fail(f"{what} segment {j}: two nodes that received the same "
+                                 "payloads aggregate them differently")
+                        continue
+                    firsts[pids] = got
+                    xs = [plain_decode(codec, store[pid]) for pid in pids]
+                    scale = max(float(x.abs().max()) for x in xs)
+                    want = gossip_mix_ref(torch.stack(xs).unsqueeze(0), torch.full(
+                        (len(xs),), 1.0 / len(xs), device=xs[0].device))[0]
+                    worst = max(worst, float((got - want).abs().max()) / scale)
+                    del xs, want
+            if not worst <= 1e-6:
+                fail(f"{what}: an aggregate {worst:.3e} of max |x| from the plain FedAvg of "
+                     "its node's payloads")
+            if codec.name == "topk" and residual:
+                # the round's encode of node 0 carries the last round's residual
+                x = self._proxies[0] + residual[0]
+                vals, idx = codec_ref.topk_select_rows(x.reshape(1, -1), codec.k, codec.block)
+                leaf = store[0].data
+                if not (torch.equal(vals, leaf["values"]) and torch.equal(idx, leaf["indices"])):
+                    fail(f"{what}: node 0's encode does not carry the previous round's "
+                         "residual")
+            return dict(err=worst, degrees=sorted({len(nd.received) for nd in engine.nodes}),
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    return SizedEngine
+
+
 def phase_engine(card, add_shape_launches, results) -> None:
     """The queue engine on the card: ENGINE_RUNS through the engine
     executor's epochs, policies and drop draws, with each node's payload a
@@ -757,92 +938,9 @@ def phase_engine(card, add_shape_launches, results) -> None:
     import torch
 
     from repro_torch.compress import make_codec
-    from repro_torch.core.gossip import fedavg
     from repro_torch.kernels import launch_counts, launch_shapes, reset_launches
-    from repro_torch.kernels.codec import ref as codec_ref
-    from repro_torch.kernels.codec.ops import topk_scatter
-    from repro_torch.kernels.mixing.ref import gossip_mix_ref
-    from repro_torch.scenario.executors import EngineExecutor
 
-    def plain_decode(codec, payload):
-        """An encoded payload part decoded by the plain versions."""
-        leaf = payload.data
-        if codec.name == "fp32":
-            return leaf
-        if codec.name == "topk":
-            return topk_scatter(leaf["values"], leaf["indices"], size=leaf["size"],
-                                block=codec.block).reshape(leaf["shape"])
-        return codec_ref.dequantize_rows(leaf["codes"], leaf["scales"], leaf["size"],
-                                         codec.bits, codec.chunk).reshape(leaf["shape"])
-
-    class SizedEngine(EngineExecutor):
-        """The engine executor with each node's payload ``size`` f32 a part
-        from a seeded generator on its device (fp32 through the identity
-        codec, so its wire bytes are tallied too); on the card each round's
-        aggregates are checked against the plain versions."""
-
-        def __init__(self, device, size, check):
-            super().__init__(device=device)
-            self.size, self.check, self.rounds = size, check, []
-
-        def begin_epoch(self, mod, members):
-            super().begin_epoch(mod, members)
-            self._engine.codec = self.codec or make_codec("fp32")
-            parts = self.spec.n_segments if self.spec.protocol == "segmented" else 1
-            self._proxies = []
-            for u in members:
-                gen = torch.Generator(device=self._device).manual_seed(1000 + u)
-                xs = [torch.randn(self.size, generator=gen, device=self._device)
-                      for _ in range(parts)]
-                self._proxies.append(xs if parts > 1 else xs[0])
-
-        def run_round(self, rctx):
-            engine = self._engine
-            residual = {pid: st[""].clone() for pid, st in engine._ef_states.items()
-                        if isinstance(st, dict)}  # top-k's, before this round's encode
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rep = super().run_round(rctx)
-            aggs = engine.aggregate(fedavg) if self.check else None
-            torch.cuda.synchronize()
-            row = dict(report=rep, wire=engine.round_wire_bytes,
-                       wall_ms=1e3 * (time.perf_counter() - t0))
-            if self.check:
-                row.update(self.held(engine, aggs, residual))
-            self.rounds.append(row)
-            return rep
-
-        def held(self, engine, aggs, residual):
-            codec, store = engine.codec, engine._store
-            parts = self.spec.n_segments if self.spec.protocol == "segmented" else 1
-            worst = 0.0
-            for j in range(parts):
-                xs = [plain_decode(codec, store[pid]) for pid in sorted(store)
-                      if pid % parts == j]
-                scale = max(float(x.abs().max()) for x in xs)
-                n = len(xs)
-                want = gossip_mix_ref(torch.stack(xs).unsqueeze(0),
-                                      torch.full((n,), 1.0 / n, device=xs[0].device))[0]
-                got = [a[j] if parts > 1 else a for a in aggs]
-                if not all(torch.equal(got[0], g) for g in got[1:]):
-                    fail(f"[engine] {self.spec.name} {codec.name} segment {j}: the nodes' "
-                         "aggregates differ")
-                if not all(bool(torch.isfinite(g).all()) for g in got):
-                    fail(f"[engine] {self.spec.name} {codec.name}: a non-finite aggregate")
-                err = float((got[0] - want).abs().max()) / scale
-                if not err <= 1e-6:
-                    fail(f"[engine] {self.spec.name} {codec.name} segment {j}: aggregate "
-                         f"{err:.3e} of max |x| from the plain FedAvg")
-                worst = max(worst, err)
-            if codec.name == "topk" and residual:
-                # the round's encode of node 0 carries the last round's residual
-                x = self._proxies[0] + residual[0]
-                vals, idx = codec_ref.topk_select_rows(x.reshape(1, -1), codec.k, codec.block)
-                leaf = store[0].data
-                if not (torch.equal(vals, leaf["values"]) and torch.equal(idx, leaf["indices"])):
-                    fail(f"[engine] {self.spec.name} topk: node 0's encode does not carry "
-                         "the previous round's residual")
-            return dict(err=worst, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    SizedEngine = sized_engine()
 
     t_phase = time.perf_counter()
     reset_launches()  # the counts of the engine phase's path
@@ -853,7 +951,7 @@ def phase_engine(card, add_shape_launches, results) -> None:
             spec = engine_spec(name, codec_name)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            card_run = SizedEngine("cuda", size, check=True)
+            card_run = SizedEngine("cuda", size, check=True, complete=True)
             res = card_run.execute(spec)
             with_counts = launch_counts()
             host = SizedEngine("cpu", size, check=False)
@@ -866,6 +964,9 @@ def phase_engine(card, add_shape_launches, results) -> None:
             for r, (got, want) in enumerate(zip(card_run.rounds, host.rounds)):
                 rep = got["report"]
                 wire = make_codec(codec_name).wire_bytes(size)
+                if got["received"] != want["received"]:
+                    fail(f"[engine] {name} {codec_name} round {r}: the nodes' received sets "
+                         "differ from the CPU executor's")
                 if got["wire"] != want["wire"] or got["wire"] != rep.transmissions * wire:
                     fail(f"[engine] {name} {codec_name} round {r}: round_wire_bytes "
                          f"{got['wire']} (CPU {want['wire']}, {rep.transmissions} x {wire})")
@@ -969,6 +1070,214 @@ def phase_tables(device_ms, card) -> None:
         fail(f"[tables] async_stragglers: estimate_throughput's period is {ratio:.4f}x the "
              "event engine's, outside the reference's +-15%")
     print(f"[tables] phase wall time {time.perf_counter() - t0:.2f} s")
+
+
+def plans_n300(codec):
+    """The reference test's scale_100k shape at n = 300
+    (``tests/test_sparse.py``): k-NN k = 8, 3 subnets, seed 1, one MOSGU
+    exchange a round over the sparse planner's Borůvka tree and
+    Jones-Plassmann colors, nodes 7 and 42 leaving in round 1 (a replan)."""
+    from repro_torch.core.graph import TopologySpec
+    from repro_torch.scenario import ChurnEvent, ScenarioSpec
+
+    return ScenarioSpec(
+        name="scale_smoke", overlay=TopologySpec(kind="knn", n=300, seed=1, k=8, n_subnets=3),
+        protocol="mosgu_exchange", mst_algorithm="boruvka",
+        coloring_algorithm="jones_plassmann", payload=21.2, rounds=2, codec=codec,
+        churn=(ChurnEvent(1, "leave", 7), ChurnEvent(1, "leave", 42)), executors=("plan",))
+
+
+def phase_plans(card, results, device_ms) -> None:
+    """The sparse planner, the plan cache and the overlay search (host), then
+    the paths they open on the card: (a) scale_100k and scale_1m on the plan
+    executor through one PlanCache, every round's counts held to the JAX
+    package's (PLAN_SCALE) and the incremental replan run; (b)
+    optimized_vs_mst on the plan and netsim executors through one cache, the
+    round times held to the JAX package's (PLAN_TABLE; modeled testbed
+    seconds), the annealed overlay at least 1.15x faster analytically and
+    faster in the fluid simulator; (c) the four cells through
+    ``run_scenario`` on the card at EfficientNet-B0's full width, fp32 and
+    int8, each optimizer cell's device plan the one over the cache's
+    annealed overlay; (d) the n = 300 sparse shape through the queue engine
+    with each node's full-width payload on the card, fp32 and int8, the
+    round-1 policy from ``SparsePlanner.replan``. Launch counts are set to 0
+    before (c) and read after (d)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compress import make_codec
+    from repro_torch.dfl.session import plan_for_members
+    from repro_torch.kernels import launch_counts, launch_shapes, reset_launches
+    from repro_torch.opt import optimize_for_scenario
+    from repro_torch.scenario import executors, run_scenario, run_sweep, scenarios
+    from repro_torch.scenario.cache import PlanCache
+    from repro_torch.scenario.executors import Executor
+
+    t_phase = time.perf_counter()
+    # (a) the sparse planner at scale (host)
+    cache = PlanCache()
+    for name, want in PLAN_SCALE.items():
+        t0 = time.perf_counter()
+        res = executors.get("plan").execute(scenarios.get(name), plan_cache=cache)
+        wall = time.perf_counter() - t0
+        got = tuple((r.n_slots, r.transmissions, len(r.members)) for r in res.rounds)
+        for r in res.rounds:
+            print(f"[plans] (a) {name} round {r.round}: {len(r.members)} members, {r.n_slots} "
+                  f"slots, {r.transmissions} transfers, bytes_mb {r.bytes_mb}, "
+                  f"bytes_on_wire_mb {r.bytes_on_wire_mb} (host, plan executor)")
+        replans = {k: cache.counters[k] for k in ("replan_full", "replan_incremental",
+                                                  "replan_hits", "replan_misses")}
+        print(f"[plans] (a) {name}: {wall:.3f} s host wall, cache {json.dumps(replans)}")
+        if got != want:
+            fail(f"[plans] (a) {name}: rounds {got}, the JAX package's plan executor gives {want}")
+    if cache.counters["replan_incremental"] < 1:
+        fail("[plans] (a) scale_100k's churn epoch was not replanned incrementally")
+
+    # (b) optimized_vs_mst's dry table (host; modeled testbed seconds)
+    t0 = time.perf_counter()
+    sweep = scenarios.get_sweep("optimized_vs_mst")
+    cache = PlanCache()
+    table = {ex: run_sweep(sweep, executor=ex, plan_cache=cache) for ex in ("plan", "netsim")}
+    cells = [c.spec for c in sweep.cells()]
+    for i, spec in enumerate(cells):
+        if spec.optimizer is None:
+            continue
+        opt = optimize_for_scenario(spec)
+        if not np.array_equal(opt.overlay.adj, cache.overlay(spec).adj):
+            fail(f"[plans] (b) {spec.name}: the search's overlay is not the cache's")
+        print(f"[plans] (b) {spec.name}: annealed {opt.steps} steps, {opt.accepted} accepted, "
+              f"score {opt.base_score:.4f} -> {opt.best_score:.4f} s, fingerprint "
+              f"{opt.fingerprint()}, {np.count_nonzero(opt.overlay.adj) // 2} of "
+              f"{np.count_nonzero(spec.overlay_graph().adj) // 2} edges kept")
+    for k, underlay in enumerate(PLAN_TABLE):
+        mst, ann = 2 * k, 2 * k + 1
+        times = [round(table[ex][i].result.rounds[0].total_time_s, 4)
+                 for ex in ("plan", "netsim") for i in (mst, ann)]
+        txs = {table[ex][i].result.rounds[0].transmissions
+               for ex in ("plan", "netsim") for i in (mst, ann)}
+        print(f"[plans] (b) optimized_vs_mst {underlay}: plan round {times[0]} (MST) / "
+              f"{times[1]} (annealed) s, ratio {times[0] / times[1]:.4f}; netsim {times[2]} / "
+              f"{times[3]} s, ratio {times[2] / times[3]:.4f}; {sorted(txs)} transfers "
+              f"(modeled testbed seconds, computed on the host, not the card's)")
+        if tuple(times) != PLAN_TABLE[underlay] or txs != {PLAN_TABLE_TX}:
+            fail(f"[plans] (b) {underlay}: {times}, {txs}; the JAX package gives "
+                 f"{PLAN_TABLE[underlay]}, {PLAN_TABLE_TX}")
+        if not times[0] / times[1] >= 1.15 or not times[3] < times[2]:
+            fail(f"[plans] (b) {underlay}: the annealed overlay is not >= 1.15x faster "
+                 "analytically and faster in the fluid simulator")
+    print(f"[plans] (b) cache {json.dumps(cache.stats())}; {time.perf_counter() - t0:.3f} s "
+          "host wall")
+    # the plan executor's batched run_cells against the serial Executor.run_cells,
+    # each from a cold cache, in the order serial, batched, batched, serial
+    for name, repeats in PLAN_RUN_CELLS:
+        sweep_cells = scenarios.get_sweep(name).cells()
+        walls, rows = {"serial": [], "batched": []}, {}
+        for _ in range(repeats):
+            for mode in ("serial", "batched", "batched", "serial"):
+                ex, cold = executors.get("plan"), PlanCache()
+                t0 = time.perf_counter()
+                out = (ex.run_cells(sweep_cells, plan_cache=cold) if mode == "batched"
+                       else Executor.run_cells(ex, sweep_cells, plan_cache=cold))
+                walls[mode].append(time.perf_counter() - t0)
+                rows[mode] = [r.to_dict() for r in out]
+        if rows["batched"] != rows["serial"]:
+            fail(f"[plans] (b) {name}: the batched run_cells differs from the serial one")
+        print(f"[plans] (b) run_cells {name} ({len(sweep_cells)} cells, cold PlanCache each): "
+              f"batched median {statistics.median(walls['batched']):.6f} s, serial median "
+              f"{statistics.median(walls['serial']):.6f} s over {2 * repeats} runs each "
+              "(host wall on the card's host CPU; rows equal)")
+
+    # (c) the four cells' gossip rounds on the card at full width
+    reset_launches()  # the counts of the plans phase's card path: (c) and (d)
+    for spec0 in cells:
+        for codec in PLAN_CODECS:
+            spec = spec0.replace(codec=codec)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            run = run_scenario(spec, device="cuda", seed=1, plan_cache=cache)
+            wall = time.perf_counter() - t0
+            r = run.rounds[0]
+            want = plan_for_members(spec.n, range(spec.n), n_segments=spec.n_segments,
+                                    full_graph=cache.overlay(spec))
+            (plan,) = run.plans
+            same = (np.array_equal(plan.mst.adj, want.mst.adj)
+                    and [s.perm for s in plan.diss_steps] == [s.perm for s in want.diss_steps]
+                    and all(np.array_equal(a.send_payload, b.send_payload)
+                            for a, b in zip(plan.diss_steps, want.diss_steps)))
+            if not same:
+                fail(f"[plans] (c) {spec.name} {codec}: the device plan is not the one over "
+                     "the cache's overlay")
+            if r.numerics_ok is not True or not r.finite:
+                fail(f"[plans] (c) {spec.name} {codec}: numerics_ok={r.numerics_ok} "
+                     f"finite={r.finite}")
+            overlay = "annealed" if spec.optimizer is not None else "declared"
+            print(f"[plans] (c) {spec.name} {codec}: {run.elems_per_node} f32/node x {spec.n}, "
+                  f"the {overlay} overlay's MST ({len(plan.diss_steps)} permutation steps), "
+                  f"{r.n_slots} slots, {r.transmissions} tx, bytes_on_wire_mb "
+                  f"{r.bytes_on_wire_mb}, numerics_ok {r.numerics_ok}, round {r.device_ms:.3f} "
+                  f"ms on {card} (phase 3's paper_table3 ER(10) B0: "
+                  f"{device_ms['paper_table3']:.3f} ms), {wall:.2f} s wall, peak "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+            del run
+    counts_c = launch_counts()
+
+    # (d) the sparse planner's policy through the queue engine on the card
+    SizedEngine = sized_engine()
+    size = int(round(plans_n300("fp32").payload_mb() * 1e6 / 4))
+    for codec in PLAN_CODECS:
+        spec = plans_n300(codec)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = PlanCache()
+        card_run = SizedEngine("cuda", size, check=True, tag="[plans] (d)")
+        res = card_run.execute(spec, plan_cache=cache)
+        with_counts = launch_counts()
+        # the routing does not depend on the payload's width: the CPU run's is narrow
+        host = SizedEngine("cpu", PLAN_N300_HOST_ELEMS, check=False)
+        cpu = host.execute(spec)
+        if launch_counts() != with_counts:
+            fail("[plans] (d) the CPU executor's run launched a kernel")
+        if [r.to_dict() for r in res.rounds] != [r.to_dict() for r in cpu.rounds]:
+            fail(f"[plans] (d) {codec}: the card's round reports differ from the CPU executor's")
+        for got_row, want_row in zip(card_run.rounds, host.rounds):
+            if got_row["received"] != want_row["received"]:
+                fail(f"[plans] (d) {codec} round {got_row['report'].round}: the nodes' "
+                     "received sets differ from the CPU executor's")
+        got = tuple((r.n_slots, r.transmissions, len(r.members)) for r in res.rounds)
+        if got != PLAN_N300 or cache.counters["replan_incremental"] != 1:
+            fail(f"[plans] (d) {codec}: rounds {got} (want {PLAN_N300}), replan_incremental "
+                 f"{cache.counters['replan_incremental']} (want 1)")
+        wire = make_codec(codec).wire_bytes(size)
+        for row in card_run.rounds:
+            rep = row["report"]
+            if row["wire"] != rep.transmissions * wire:
+                fail(f"[plans] (d) {codec} round {rep.round}: round_wire_bytes {row['wire']} != "
+                     f"{rep.transmissions} x {wire}")
+            print(f"[plans] (d) scale_smoke n=300 ({spec.protocol}, Borůvka + Jones-Plassmann, "
+                  f"{size} f32 a node, {codec}) round {rep.round}: {len(rep.members)} members, "
+                  f"{rep.n_slots} slots, {rep.transmissions} transfers (= the CPU executor's), "
+                  f"round_wire_bytes {row['wire']}, bytes_on_wire_mb {rep.bytes_on_wire_mb}; "
+                  f"payloads a node received {row['degrees']}, each node's received set the "
+                  f"CPU executor's; each node's aggregate "
+                  f"{row['err']:.3e} of max |x| from the plain FedAvg of its payloads, the same "
+                  f"twice; host wall {row['wall_ms']:.3f} ms (encode, slots, every node's "
+                  f"decodes and FedAvg, synchronized), peak {row['peak_gb']:.3f} GB on {card}")
+        print(f"[plans] (d) {codec}: cache replan_full {cache.counters['replan_full']}, "
+              f"replan_incremental {cache.counters['replan_incremental']}")
+        del card_run, host, res, cpu
+        torch.cuda.empty_cache()
+    counts, shapes = launch_counts(), launch_shapes()
+    print(f"[plans] launches (c): {json.dumps(counts_c)}; (c) + (d): {json.dumps(counts)}")
+    path = ("quantize", "dequantize", "gossip_mix")
+    missing = [k for k in path if counts[k] <= 0 or counts_c[k] <= 0]
+    if missing:
+        fail(f"[plans] kernels never launched on the plans phase's path: {missing}")
+    for kernel in path:
+        results[kernel]["plans_launches"] = counts[kernel]
+        hist = ", ".join(f"{key} x {k}" for key, k in sorted(shapes[kernel].items()))
+        print(f"[plans] {kernel} launches by shape: {hist}")
+    print(f"[plans] phase wall time {time.perf_counter() - t_phase:.2f} s on {card}")
 
 
 def phase_mesh(phase4, mesh_dry, n_prefill, smi, held_tensors, train_dry) -> None:
@@ -2107,6 +2416,7 @@ def main() -> int:
     # -- the queue engine: lossy links and segmented gossip at full width -----------
     phase_engine(card, add_shape_launches, results)
     phase_tables(path_ms, card)
+    phase_plans(card, results, path_ms)
 
     # phase 7's real side: one call of a phase-4 or phase-5 run counted on the
     # card, held in phase 7 against the dry run of the same config

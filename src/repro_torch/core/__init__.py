@@ -1,7 +1,8 @@
-"""Numpy control plane of the port: graphs, MST, coloring, the plan IR and
-its slot plans, the moderator, the queue engine and the MOSGU facade, the
-network timing model, the fluid simulator and the event engine (copies of
-``repro.core``; sparse overlays and incremental replanning are not ported).
+"""Numpy control plane of the port: graphs (dense and CSR), MSTs and
+colorings, the sparse planner and its incremental replanning, the plan IR
+and its slot plans, the moderator, the queue engine and the MOSGU facade,
+the network timing model, the fluid simulator and the event engine (copies
+of ``repro.core``).
 """
 from .events import AsyncEventEngine, RoundTiming, plan_slots, policy_slots  # noqa: F401
 from .graph import (  # noqa: F401
@@ -11,6 +12,8 @@ from .graph import (  # noqa: F401
     color_graph,
     is_proper_coloring,
     make_topology,
+    mst_boruvka,
+    mst_kruskal,
     mst_prim,
     slot_length_for_colors,
     slot_length_s,
@@ -49,6 +52,7 @@ from .plan import (  # noqa: F401
     measure_policy,
 )
 from .protocol import MOSGUConfig, MOSGUProtocol  # noqa: F401
+from .replan import MemberPlan, SparsePlanner, plan_equal  # noqa: F401
 from .schedule import (  # noqa: F401
     PermStep,
     Slot,
@@ -61,3 +65,4 @@ from .schedule import (  # noqa: F401
     link_contention_profile,
     plan_to_perm_steps,
 )
+from .sparse import CSRGraph  # noqa: F401

@@ -1,7 +1,9 @@
 """Communication-plan IR: every protocol authored once as a policy.
 
-The port's copy of ``repro.core.plan`` (numpy; the reference's sparse CSR
-overlays are not ported). A policy is a small state machine that *emits*
+The port's copy of ``repro.core.plan`` (numpy). A policy is built over a
+dense :class:`~repro_torch.core.graph.Graph` or a sparse
+:class:`~repro_torch.core.sparse.CSRGraph` (the sparse planner's member
+trees, flooding on a member-induced CSR subgraph). A policy is a small state machine that *emits*
 the sends ``(src, dst, payload)`` of a slot and *commits* their delivery
 outcomes; every executor interprets that one interface:
 
@@ -32,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 
 from .graph import Graph
+from .sparse import CSRGraph
 
 # A directed send: (src, dst, payload). For dissemination the payload is the
 # *payload id* of the model (or model segment) being forwarded; for tree
@@ -223,6 +226,9 @@ def _color_cycle(colors: np.ndarray, first_color: Optional[int] = None) -> List[
 
 def _csr(g: Graph) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """CSR adjacency (indptr, indices, degree) with neighbors ascending."""
+    if isinstance(g, CSRGraph):
+        return (g.indptr.astype(np.int64), g.indices.astype(np.int64),
+                g.degrees.astype(np.int64))
     rows, cols = np.nonzero(g.adj > 0)
     deg = np.bincount(rows, minlength=g.n)
     indptr = np.concatenate(([0], np.cumsum(deg)))
@@ -698,6 +704,19 @@ class MstExchangePolicy(CommPolicy):
 
     def emit(self, slot_idx: int) -> SlotSends:
         color = self.color_cycle[self._ptr]
+        if isinstance(self.graph, CSRGraph):
+            # sparse fast path: the slot's multicast as array gathers, the
+            # same sends in the same (u ascending, neighbours ascending)
+            # order as the dense loop
+            indptr, indices = self.graph.indptr, self.graph.indices
+            active = np.flatnonzero(np.asarray(self.colors) == color)
+            cnt = indptr[active + 1] - indptr[active]
+            total = int(cnt.sum())
+            local = np.arange(total, dtype=np.int64) - np.repeat(
+                np.cumsum(cnt) - cnt, cnt)
+            dst = indices[np.repeat(indptr[active], cnt) + local]
+            src = np.repeat(active, cnt)
+            return SlotSends(slot_idx, color, src, dst, src.copy(), active)
         sends = [(u, v, u) for u in range(self.n)
                  if int(self.colors[u]) == color
                  for v in self.graph.neighbors(u)]

@@ -6,7 +6,8 @@ wall-clock spans on named *tracks* (``time.perf_counter`` relative to the
 recorder's origin, so traces start at t=0), virtual-clock spans filed with
 explicit timestamps (:meth:`Recorder.add_span`: the event engine's virtual
 seconds), monotonic counters (:meth:`Recorder.count`), last-value gauges
-(:meth:`Recorder.gauge`). The off switch is the
+(:meth:`Recorder.gauge`) and timestamped samples (:meth:`Recorder.sample`).
+The off switch is the
 module-level :data:`NULL_RECORDER`: every method a no-op, ``enabled``
 False. Call sites fetch the active recorder once (``rec = get()``) and
 either open ``with rec.span(...)`` regardless or guard their counting with
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 __all__ = [
     "NULL_RECORDER",
@@ -83,6 +84,9 @@ class NullRecorder:
     def gauge(self, name: str, value: float) -> None:
         return None
 
+    def sample(self, name: str, t: float, value: float, track: str = "counters") -> None:
+        return None
+
 
 class Recorder(NullRecorder):
     """Observability on: collect spans, counters and gauges. Not
@@ -94,6 +98,7 @@ class Recorder(NullRecorder):
         self.spans: List[Span] = []
         self.counters: Dict[str, float] = {}
         self.gauges: Dict[str, float] = {}
+        self.samples: List[Tuple[str, str, float, float]] = []
         self._origin = time.perf_counter()
 
     def now(self) -> float:
@@ -123,6 +128,11 @@ class Recorder(NullRecorder):
 
     def gauge(self, name: str, value: float) -> None:
         self.gauges[name] = float(value)
+
+    def sample(self, name: str, t: float, value: float, track: str = "counters") -> None:
+        """One point of a timestamped counter series (the trace's ``"C"``
+        events)."""
+        self.samples.append((name, track, float(t), float(value)))
 
 
 #: The module-level off switch: the active recorder when none is installed.

@@ -4,6 +4,8 @@
 * A recorder track named ``"group/rest"`` becomes thread ``rest`` of
   process ``group`` (tracks with no ``/`` land in the ``"run"`` process).
 * Spans become ``"X"`` complete events (``ts`` / ``dur`` in microseconds).
+* Counter samples (:meth:`Recorder.sample`, the overlay search's objective
+  series) become ``"C"`` events.
 * ``"M"`` metadata events name every process and thread.
 * ``otherData`` names the span clock, which is always ``"wall"`` here.
 
@@ -61,6 +63,11 @@ def chrome_trace(recorder: Recorder) -> Dict[str, Any]:
             ev["args"] = s.args
         events.append(ev)
 
+    for name, track, t, value in recorder.samples:
+        pid, tid = ids(track)
+        events.append({"name": name, "cat": "counter", "ph": "C", "ts": t * 1e6,
+                       "pid": pid, "tid": tid, "args": {"value": value}})
+
     return {
         "traceEvents": events,
         "displayTimeUnit": "ms",
@@ -68,7 +75,7 @@ def chrome_trace(recorder: Recorder) -> Dict[str, Any]:
     }
 
 
-_PHASES = {"X", "M"}
+_PHASES = {"X", "C", "M"}
 _META_NAMES = {"process_name", "thread_name", "process_labels",
                "process_sort_index", "thread_sort_index"}
 
@@ -103,9 +110,15 @@ def validate_trace(obj: Any) -> None:
         ts = ev.get("ts")
         if not isinstance(ts, (int, float)) or ts < 0:
             raise ValueError(f"{where}: 'ts' must be a non-negative number")
-        dur = ev.get("dur")
-        if not isinstance(dur, (int, float)) or dur < 0:
-            raise ValueError(f"{where}: 'X' event needs non-negative 'dur'")
+        if ph == "X":
+            dur = ev.get("dur")
+            if not isinstance(dur, (int, float)) or dur < 0:
+                raise ValueError(f"{where}: 'X' event needs non-negative 'dur'")
+        else:  # a counter sample
+            args = ev.get("args")
+            if not isinstance(args, dict) or not args or not all(
+                    isinstance(v, (int, float)) for v in args.values()):
+                raise ValueError(f"{where}: 'C' event needs numeric 'args'")
     try:
         json.dumps(obj, allow_nan=False)  # rejects NaN/Infinity and stray types
     except (TypeError, ValueError) as e:

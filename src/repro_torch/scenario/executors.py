@@ -5,19 +5,30 @@ run a scenario's rounds on the host.
 :func:`membership_rounds` drives the paper's moderator lifecycle (III-A):
 connectivity reports filed from the overlay, each round's churn applied,
 an emergency election when the moderator itself left, the 2-node floor,
-and a round-robin rotation after every round. :meth:`Executor.execute`
-builds each membership epoch's policy over the moderator's member subgraph
-(:func:`~repro_torch.core.plan.make_policy`) and its per-send wire size
+and a round-robin rotation after every round. On a sparse
+(:class:`~repro_torch.core.sparse.CSRGraph`) overlay a plain membership
+tracker with the same rules replaces the moderator's report table.
+:meth:`Executor.execute` takes the scenario's effective overlay from a
+:class:`~repro_torch.scenario.cache.PlanCache` (the declared graph, or the
+annealed working overlay when the spec declares an optimizer), builds each
+membership epoch's policy through the cache (the moderator's member
+subgraph; on a CSR overlay the sparse planner's member tree, repaired
+incrementally across churn) and its per-send wire size
 (:func:`~repro_torch.compress.per_send_wire_mb`), then hands each round to
 :meth:`Executor.run_round` as a :class:`RoundContext` (round index,
-moderator, members, applied churn) and collects its :class:`RoundReport`:
+moderator, members, applied churn) and collects its :class:`RoundReport`.
+A fresh cache a call is the default; :func:`~repro_torch.scenario.sweep.
+run_sweep` threads one cache through every cell. With a recorder active
+the result carries a :class:`~repro_torch.obs.RunReport`:
 
 =========  ================================================================
 plan       counting: slots, transmissions and bytes, and the round times of
            the analytic network model (:class:`~repro_torch.core.network.
-           TimingProfile` over the member-masked underlay, built once per
-           membership epoch; its walk also counts the slots and
-           transmissions) (``counting_only``, ``provides_timing``)
+           TimingProfile` over the member-masked underlay, cached a plan and
+           underlay; its walk also counts the slots and transmissions),
+           counting only on a CSR overlay; batches a sweep's cells in one
+           numpy pass (:meth:`PlanExecutor.run_cells`)
+           (``counting_only``, ``provides_timing``)
 engine     :class:`~repro_torch.core.gossip.GossipEngine`, the runtime FIFO
            queues: seeded transient link failures (:func:`_drop_fn`) kept
            at the FIFO head and retransmitted; with a codec, each node's
@@ -38,30 +49,30 @@ event      :class:`~repro_torch.core.events.AsyncEventEngine`, asynchronous
 
 Host numbers take the reference's operand order and seeded draw order, so
 every field equals the reference executor's. A spec needing a capability
-an executor lacks raises, naming it and the executors that provide it. A
-spec with an overlay optimizer raises by name: its plan is built over the
-working overlay that only ``repro.opt``'s search computes. Not ported: the
-reference's jax executor (:mod:`repro_torch.scenario.runner` runs a
-scenario's rounds on the card, its counterpart) and its ``PlanCache``,
-which only buys speed across sweep cells.
+an executor lacks raises, naming it and the executors that provide it. The
+reference's jax executor has its counterpart in
+:mod:`repro_torch.scenario.runner`, which runs a scenario's rounds on the
+card over the same cache's effective overlay.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Type, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Type, Union
 
 import numpy as np
 import torch
 
 from .. import DeviceLike, obs, resolve_device
 from ..compress.codec import Codec, per_send_wire_mb
-from ..core.events import AsyncEventEngine, policy_slots
+from ..core.events import AsyncEventEngine
 from ..core.gossip import GossipEngine
 from ..core.graph import Graph
 from ..core.moderator import ConnectivityReport, Moderator
 from ..core.netsim import SimResult, TestbedSpec, simulate_policy
 from ..core.network import NetworkSpec, TimingProfile, as_network_model
-from ..core.plan import CommPolicy, make_policy, measure_policy
+from ..core.plan import CommPolicy
+from ..core.sparse import CSRGraph
+from .cache import PlanCache
 from .spec import (CAPABILITY_FLAGS, ChurnEvent, RoundReport, ScenarioResult, ScenarioSpec,
                    applicable_churn)
 
@@ -97,11 +108,66 @@ def _rotate(mod: Moderator) -> Moderator:
     return mod.handover(mod.elect_next({u: candidate for u in members}))
 
 
-def membership_rounds(spec: ScenarioSpec, overlay: Graph
+class _SparseMembership:
+    """The per-round moderator view on a sparse overlay.
+
+    A :class:`Moderator`'s report table is O(n x degree) dicts, which
+    dominates at n = 100k and cannot be filed at 1M; sparse plans need only
+    the membership trajectory (the MST and coloring come from the sparse
+    planner over the CSR overlay). This tracker keeps the dense lifecycle's
+    rules over a plain member set: churn feasibility by
+    :func:`applicable_churn`, an emergency election to ``members[0]`` when
+    the moderator leaves, and a round-robin rotation."""
+
+    def __init__(self, n: int) -> None:
+        self._current = set(range(n))
+        self.moderator_id = 0
+
+    @property
+    def members(self) -> List[int]:
+        return sorted(self._current)
+
+    def apply_churn(self, churn: Sequence[ChurnEvent], round_idx: int,
+                    n_limit: int) -> List[ChurnEvent]:
+        applied = applicable_churn(churn, round_idx, self.members, n_limit=n_limit)
+        for ev in applied:
+            if ev.action == "leave":
+                self._current.discard(ev.node)
+            else:
+                self._current.add(ev.node)
+        return applied
+
+    def elect(self) -> None:
+        members = self.members
+        if self.moderator_id not in self._current:
+            self.moderator_id = members[0]
+        else:  # round-robin rotation, as the unanimous vote tallies
+            i = members.index(self.moderator_id)
+            self.moderator_id = members[(i + 1) % len(members)]
+
+
+def _sparse_membership_rounds(spec: ScenarioSpec, overlay: CSRGraph):
+    mod = _SparseMembership(overlay.n)
+    for r in range(spec.rounds):
+        applied = mod.apply_churn(spec.churn, r, overlay.n)
+        if mod.moderator_id not in mod._current:
+            mod.elect()  # emergency: the moderator itself left
+        members = mod.members
+        if len(members) < 2:
+            raise ValueError(f"scenario {spec.name!r} dropped below 2 nodes")
+        yield r, mod, members, applied
+        mod.elect()
+
+
+def membership_rounds(spec: ScenarioSpec, overlay: Union[Graph, CSRGraph]
                       ) -> Iterator[Tuple[int, Moderator, List[int], List[ChurnEvent]]]:
     """Yields ``(round_idx, moderator, members, applied_churn)`` after the
     round's churn, the emergency election and the 2-node floor; rotates the
-    moderator when control returns."""
+    moderator when control returns. A CSR overlay gets
+    :class:`_SparseMembership` (the same rules, no report table)."""
+    if isinstance(overlay, CSRGraph):
+        yield from _sparse_membership_rounds(spec, overlay)
+        return
     mod = Moderator(0, spec.mst_algorithm, spec.coloring_algorithm,
                     protocol=spec.protocol, n_segments=spec.n_segments)
     _file_initial_reports(mod, overlay)
@@ -177,6 +243,12 @@ def _member_testbed(spec: ScenarioSpec, members: Sequence[int]
     return spec.testbed().masked(members)
 
 
+def _subgraph_required() -> Graph:
+    raise RuntimeError(
+        "member subgraph missing from the plan cache: the trajectory replay "
+        "files every epoch's subgraph when it first builds it")
+
+
 @dataclass
 class RoundContext:
     """One scheduled round, as the lifecycle loop hands it to an executor."""
@@ -212,8 +284,11 @@ class Executor:
     CAPABILITY_FLAGS = CAPABILITY_FLAGS
 
     spec: ScenarioSpec
+    overlay: Union[Graph, CSRGraph]
     payload_mb: float
     codec: Optional[Codec]
+    cache: PlanCache
+    record_trace: bool = False
     policy: CommPolicy
     wire_send_mb: float
 
@@ -240,13 +315,14 @@ class Executor:
         """Once a run, after the spec, payload and codec are resolved."""
 
     def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
-        """The epoch's policy over the moderator's member subgraph and its
+        """The epoch's policy from the plan cache (over the moderator's member
+        subgraph; through the sparse planner on a CSR overlay) and its
         per-send wire size."""
-        spec = self.spec
-        self.policy = make_policy(spec.protocol, mod.build_graph()[0],
-                                  mst_algorithm=spec.mst_algorithm,
-                                  coloring_algorithm=spec.coloring_algorithm,
-                                  n_segments=spec.n_segments)
+        if isinstance(self.overlay, CSRGraph):
+            self.policy = self.cache.sparse_policy(self.spec, members, self.overlay)
+        else:
+            self.policy = self.cache.policy(self.spec, members,
+                                            lambda: mod.build_graph()[0])
         self.wire_send_mb = per_send_wire_mb(self.codec, self.payload_mb,
                                              self.policy.payload_fraction)
 
@@ -256,21 +332,22 @@ class Executor:
     def finish(self, result: ScenarioResult) -> ScenarioResult:
         return result
 
-    def execute(self, spec: ScenarioSpec) -> ScenarioResult:
+    def execute(self, spec: ScenarioSpec, record_trace: bool = False,
+                plan_cache: Optional[PlanCache] = None) -> ScenarioResult:
         spec.validate()
         self.check_capabilities(spec)
-        if spec.optimizer is not None:
-            raise ValueError(
-                f"scenario {spec.name!r} declares an overlay optimizer: its plan needs "
-                "repro.opt's annealed overlay, not ported")
         self.spec = spec
+        self.record_trace = record_trace
+        self.cache = plan_cache if plan_cache is not None else PlanCache()
+        rec = obs.get()
+        mark = obs.capture_mark(rec, self.cache.snapshot()) if rec.enabled else None
+        self.overlay = self.cache.overlay(spec)
         self.payload_mb, self.codec = spec.payload_mb(), spec.codec_obj()
         self.begin()
-        rec = obs.get()
         track = f"exec/{self.name}"
         reports: List[RoundReport] = []
         epoch: Optional[Tuple[int, ...]] = None
-        for r, mod, members, applied in membership_rounds(spec, spec.overlay_graph()):
+        for r, mod, members, applied in membership_rounds(spec, self.overlay):
             if tuple(members) != epoch:
                 epoch = tuple(members)
                 with rec.span(f"epoch r{r}", cat="plan", track=track, scenario=spec.name,
@@ -282,15 +359,31 @@ class Executor:
         result = self.finish(ScenarioResult(
             scenario=spec.name, executor=self.name, protocol=spec.protocol,
             payload_mb=self.payload_mb, rounds=reports, spec=spec.to_dict()))
-        if rec.enabled:  # after finish, so back-filled reports count right
-            for rep in result.rounds:
-                rec.count("bytes.payload_mb", rep.bytes_mb)
-                rec.count("bytes.wire_mb", rep.bytes_on_wire_mb)
-                rec.count("transmissions", rep.transmissions)
-                rec.count("slots", rep.n_slots)
-                if rep.drops:
-                    rec.count("drops", rep.drops)
+        if rec.enabled:
+            self._observe(rec, mark, result)
         return result
+
+    def _observe(self, rec, mark: Dict[str, Any], result: ScenarioResult) -> None:
+        """Tally the run's byte and traffic counters (after :meth:`finish`,
+        so back-filled reports count right) and attach the RunReport delta
+        to the result."""
+        for rep in result.rounds:
+            rec.count("bytes.payload_mb", rep.bytes_mb)
+            rec.count("bytes.wire_mb", rep.bytes_on_wire_mb)
+            rec.count("transmissions", rep.transmissions)
+            rec.count("slots", rep.n_slots)
+            if rep.drops:
+                rec.count("drops", rep.drops)
+        result.report = obs.build_report(rec, mark, self.cache.snapshot()).to_dict()
+
+    def run_cells(self, cells, plan_cache: Optional[PlanCache] = None,
+                  record_trace: bool = False) -> List[ScenarioResult]:
+        """Run sweep cells one after another on this instance through one
+        shared plan cache (the plan executor overrides it with a batched
+        pass)."""
+        cache = plan_cache if plan_cache is not None else PlanCache()
+        return [self.execute(cell.spec, record_trace=record_trace, plan_cache=cache)
+                for cell in cells]
 
 
 # the port's host executors by name, in the reference's registration order
@@ -333,27 +426,120 @@ def capability_table() -> Dict[str, Dict[str, bool]]:
 @register("plan")
 class PlanExecutor(Executor):
     """Counting and the analytic round times: each epoch's
-    :class:`TimingProfile` over the member-masked underlay, evaluated at the
-    epoch's per-send wire size; its walk gives the slot and transmission
-    counts (``measure_stats``, the reference's seed of its measure cache)."""
+    :class:`TimingProfile` over the member-masked underlay (cached a plan
+    and underlay), evaluated at the epoch's per-send wire size; its walk
+    gives the slot and transmission counts (``measure_stats``, the seed of
+    the measure cache). On a CSR overlay it counts only: the analytic walk
+    needs the dense member-masked underlay."""
 
     counting_only = True
     provides_timing = True
 
     def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
         super().begin_epoch(mod, members)
-        profile = TimingProfile.from_policy(self.policy, _member_testbed(self.spec, members))
-        self._stats = profile.measure_stats()
+        if isinstance(self.overlay, CSRGraph):
+            self._stats = self.cache.measure(self.spec, members, self.policy)
+            self._timing = None
+            return
+        testbed = _member_testbed(self.spec, members)
+        profile = self.cache.timing(
+            self.spec, members, testbed,
+            lambda: TimingProfile.from_policy(self.policy, testbed))
+        self._stats = self.cache.measure(self.spec, members, self.policy,
+                                         stats=profile.measure_stats())
         self._timing = profile.estimate(self.wire_send_mb)
 
     def run_round(self, rctx: RoundContext) -> RoundReport:
         tx, est = self._stats["transmissions"], self._timing
+        timing_fields = {} if est is None else dict(
+            total_time_s=est.total_time_s, mean_transfer_s=est.mean_transfer_s,
+            mean_bandwidth_mbps=est.mean_bandwidth_mbps,
+            max_concurrency=est.max_concurrency)
         return rctx.report(
             n_slots=self._stats["n_slots"], transmissions=tx,
             bytes_mb=tx * self.payload_mb * self.policy.payload_fraction,
-            bytes_on_wire_mb=tx * self.wire_send_mb, total_time_s=est.total_time_s,
-            mean_transfer_s=est.mean_transfer_s, mean_bandwidth_mbps=est.mean_bandwidth_mbps,
-            max_concurrency=est.max_concurrency)
+            bytes_on_wire_mb=tx * self.wire_send_mb, **timing_fields)
+
+    def run_cells(self, cells, plan_cache: Optional[PlanCache] = None,
+                  record_trace: bool = False) -> List[ScenarioResult]:
+        """Every cell's counting in one pass: membership trajectories and plan
+        stats come from the cache (once a unique key), then every (cell,
+        round) row's byte accounting is one vectorized numpy sweep, in
+        :meth:`run_round`'s operand order, so the results equal the serial
+        path's bit for bit. With a recorder active the cells run one by one
+        (each with its own RunReport); a CSR cell always does."""
+        rec = obs.get()
+        if rec.enabled:
+            cells = list(cells)
+            with rec.span(f"run_cells x{len(cells)}", cat="sweep", track="exec/plan"):
+                return Executor.run_cells(self, cells, plan_cache=plan_cache,
+                                          record_trace=record_trace)
+        cache = plan_cache if plan_cache is not None else PlanCache()
+        wire_memo: Dict[Tuple[str, float, float], float] = {}
+        est_memo: Dict[Tuple[int, float], Any] = {}
+        rows: List[Tuple] = []  # (cell_idx, rctx, n_slots, tx, frac, wire, est)
+        cell_meta: List[Tuple[ScenarioSpec, float]] = []
+        sparse_results: Dict[int, ScenarioResult] = {}
+        for ci, cell in enumerate(cells):
+            spec = cell.spec
+            spec.validate()
+            self.check_capabilities(spec)
+            overlay = cache.overlay(spec)
+            if isinstance(overlay, CSRGraph):
+                sparse_results[ci] = self.execute(spec, record_trace=record_trace,
+                                                  plan_cache=cache)
+                cell_meta.append((spec, spec.payload_mb()))
+                continue
+            payload_mb = spec.payload_mb()
+            codec = spec.codec_obj()
+            cell_meta.append((spec, payload_mb))
+
+            def build_trajectory(spec=spec, overlay=overlay):
+                # files each epoch's member subgraph while the moderator is at
+                # hand, so a trajectory hit never needs one
+                out = []
+                for r, mod, members, applied in membership_rounds(spec, overlay):
+                    mt = tuple(members)
+                    cache.subgraph(spec, mt, lambda mod=mod: mod.build_graph()[0])
+                    out.append((r, mod.moderator_id, mt, applied))
+                return out
+
+            for r, moderator, members, applied in cache.trajectory(spec, build_trajectory):
+                pol = cache.policy(spec, members, _subgraph_required)
+                wire_key = (spec.codec, payload_mb, pol.payload_fraction)
+                wire_mb = wire_memo.get(wire_key)
+                if wire_mb is None:
+                    wire_mb = wire_memo[wire_key] = per_send_wire_mb(
+                        codec, payload_mb, pol.payload_fraction)
+                testbed = _member_testbed(spec, members)
+                profile = cache.timing(spec, members, testbed,
+                                       lambda: TimingProfile.from_policy(pol, testbed))
+                stats = cache.measure(spec, members, pol, stats=profile.measure_stats())
+                est_key = (id(profile), wire_mb)
+                est = est_memo.get(est_key)
+                if est is None:
+                    est = est_memo[est_key] = profile.estimate(wire_mb)
+                rows.append((ci, RoundContext(r, moderator, members, applied, spec),
+                             stats["n_slots"], stats["transmissions"],
+                             pol.payload_fraction, wire_mb, est))
+        tx = np.array([row[3] for row in rows], dtype=np.float64)
+        payload = np.array([cell_meta[row[0]][1] for row in rows], dtype=np.float64)
+        frac = np.array([row[4] for row in rows], dtype=np.float64)
+        wire = np.array([row[5] for row in rows], dtype=np.float64)
+        bytes_mb = (tx * payload) * frac
+        bytes_on_wire = tx * wire
+        per_cell: List[List[RoundReport]] = [[] for _ in cells]
+        for i, (ci, rctx, n_slots, tx_i, _frac, _wire, est) in enumerate(rows):
+            per_cell[ci].append(rctx.report(
+                n_slots=n_slots, transmissions=tx_i, bytes_mb=float(bytes_mb[i]),
+                bytes_on_wire_mb=float(bytes_on_wire[i]), total_time_s=est.total_time_s,
+                mean_transfer_s=est.mean_transfer_s,
+                mean_bandwidth_mbps=est.mean_bandwidth_mbps,
+                max_concurrency=est.max_concurrency))
+        return [sparse_results.get(ci) or ScenarioResult(
+            scenario=spec.name, executor=self.name, protocol=spec.protocol,
+            payload_mb=payload_mb, rounds=reps, spec=spec.to_dict())
+            for ci, ((spec, payload_mb), reps) in enumerate(zip(cell_meta, per_cell))]
 
 
 @register("engine")
@@ -411,11 +597,12 @@ class NetsimExecutor(Executor):
 
     def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
         super().begin_epoch(mod, members)
-        self._stats = measure_policy(self.policy)
+        self._stats = self.cache.measure(self.spec, members, self.policy)
         self._testbed = as_network_model(_member_testbed(self.spec, members))
 
     def run_round(self, rctx: RoundContext) -> RoundReport:
-        sim = simulate_policy(self.policy, self._testbed, self.payload_mb, codec=self.codec)
+        sim = simulate_policy(self.policy, self._testbed, self.payload_mb,
+                              record_trace=self.record_trace, codec=self.codec)
         self._sims.append(sim)
         tx = sim.n_transfers
         return rctx.report(
@@ -454,13 +641,14 @@ class EventExecutor(Executor):
         spec = self.spec
         self._engine = AsyncEventEngine(
             max_staleness=spec.max_staleness, drop_rate=spec.drop_rate,
-            drop_seed=spec.drop_seed, record_events=spec.record_events or obs.get().enabled)
+            drop_seed=spec.drop_seed,
+            record_events=self.record_trace or spec.record_events or obs.get().enabled)
         self._pending: List[Tuple[RoundReport, float, float]] = []
 
     def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
         super().begin_epoch(mod, members)
-        self._stats = measure_policy(self.policy)
-        self._slots = policy_slots(self.policy)
+        self._stats = self.cache.measure(self.spec, members, self.policy)
+        self._slots = self.cache.slots(self.spec, members, self.policy)
         self._net = as_network_model(_member_testbed(self.spec, members))
 
     def run_round(self, rctx: RoundContext) -> RoundReport:

@@ -9,8 +9,8 @@ descriptions), so their ``to_dict`` equals the reference's. The port
 registers the scenarios its runner, trainer and executors drive (the
 paper's cell and its flooding baseline, the codec, churn, link-failure and
 underlay workloads, segmented gossip, the 1000-node scale cell, the
-asynchronous stragglers, the mesh smoke) and all six of the reference's
-sweeps; not the sparse 100k / 1M cells.
+sparse 100k and 1M cells, the asynchronous stragglers, the mesh smoke) and
+all six of the reference's sweeps, in the reference's order.
 """
 from __future__ import annotations
 
@@ -254,6 +254,44 @@ def _scale_1000() -> ScenarioSpec:
         description=(
             "Sweep scale: the same one-policy definition at N=1000 on the "
             "vectorized counting path and the runtime queue engine."))
+
+
+@register("scale_100k")
+def _scale_100k() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="scale_100k",
+        overlay=TopologySpec(kind="knn", n=100_000, seed=1, k=8,
+                             n_subnets=100),
+        protocol="mosgu_exchange",
+        mst_algorithm="boruvka",
+        coloring_algorithm="jones_plassmann",
+        payload=21.2,
+        rounds=2,
+        churn=(ChurnEvent(1, "leave", 1234), ChurnEvent(1, "leave", 4242),
+               ChurnEvent(1, "leave", 99_000)),
+        executors=("plan",),  # counting-only at this scale
+        description=(
+            "The sparse-planner scale target: a 100k-node approximate k-NN "
+            "overlay planned entirely in CSR (vectorized Borůvka MST + "
+            "Jones–Plassmann coloring), with round-1 churn exercising the "
+            "incremental replanner. No dense matrix is ever materialized."))
+
+
+@register("scale_1m")
+def _scale_1m() -> ScenarioSpec:
+    return ScenarioSpec(
+        name="scale_1m",
+        overlay=TopologySpec(kind="ring", n=1_000_000, seed=1, k=4),
+        protocol="mosgu_exchange",
+        mst_algorithm="boruvka",
+        coloring_algorithm="jones_plassmann",
+        payload=21.2,
+        rounds=1,
+        executors=("plan",),
+        description=(
+            "Counting-only smoke at the ROADMAP's million-node target: one "
+            "MOSGU exchange round planned on a ring-lattice CSR overlay — "
+            "exists to keep the sparse path honest about O(edges) scaling."))
 
 
 @register("mesh_smoke")

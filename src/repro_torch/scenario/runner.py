@@ -3,7 +3,11 @@ package's ``jax`` scenario executor).
 
 Each round's members, slots, transmissions and bytes are the counting
 executor's (:class:`~repro_torch.scenario.executors.PlanExecutor`: the
-moderator lifecycle over the overlay, the protocol's policy), except for
+moderator lifecycle over the overlay, the protocol's policy), run with the
+same :class:`~repro_torch.scenario.cache.PlanCache` whose effective overlay
+the device plans over: the declared graph, or the annealed working overlay
+when the spec declares an optimizer (as the reference's jax executor plans
+over its executor's ``overlay``). The exception is
 flooding: the device runs it as an all-gather, where every live node
 receives the other live nodes' models in one slot, as the JAX package's
 ``jax`` executor counts it, while the plan executor counts a relay flood
@@ -35,6 +39,7 @@ from ..core.graph import TopologySpec
 from ..core.netsim import SimResult, TestbedSpec
 from ..dfl.collectives import GossipPlan, gossip_exchange, tree_flatten, tree_map
 from ..dfl.session import plan_for_members
+from .cache import PlanCache
 from .executors import PlanExecutor
 from .registry import get
 from .spec import ScenarioSpec, resolve_gossip_mode
@@ -63,6 +68,8 @@ class ScenarioRun:
     payload_mb: float
     elems_per_node: int
     rounds: List[DeviceRoundReport] = field(default_factory=list)
+    # each membership epoch's device plan (MST, colors, permutation steps)
+    plans: List[GossipPlan] = field(default_factory=list, repr=False)
 
 
 def _params(spec: ScenarioSpec, elems: int, proxy: bool, seed: int,
@@ -96,8 +103,11 @@ def check_fedavg(out: torch.Tensor, w: torch.Tensor, members: Tuple[int, ...], m
 
 
 def run_scenario(spec_or_name: Union[str, ScenarioSpec], device: DeviceLike = None,
-                 proxy_elems: Optional[int] = None, seed: int = 0) -> ScenarioRun:
-    """Run every round of a scenario; returns the per-round reports."""
+                 proxy_elems: Optional[int] = None, seed: int = 0,
+                 plan_cache: Optional[PlanCache] = None) -> ScenarioRun:
+    """Run every round of a scenario; returns the per-round reports.
+    ``plan_cache`` shares the overlay, its search and the plans with other
+    runs (a fresh cache when omitted)."""
     spec = get(spec_or_name) if isinstance(spec_or_name, str) else spec_or_name.validate()
     dev = resolve_device(device)
     mode = resolve_gossip_mode(spec.protocol)
@@ -105,7 +115,8 @@ def run_scenario(spec_or_name: Union[str, ScenarioSpec], device: DeviceLike = No
         raise ValueError("the flooding collective (all-gather) cannot mask "
                          "churned nodes; use an MST mode for churn scenarios")
     codec = spec.codec_obj()
-    overlay = spec.overlay_graph()
+    cache = plan_cache if plan_cache is not None else PlanCache()
+    overlay = cache.overlay(spec)
     payload_mb = spec.payload_mb()
     elems = proxy_elems or int(round(payload_mb * 1e6 / 4))
     w = _params(spec, elems, proxy_elems is not None, seed, dev)
@@ -113,12 +124,13 @@ def run_scenario(spec_or_name: Union[str, ScenarioSpec], device: DeviceLike = No
     run = ScenarioRun(spec.name, str(dev), payload_mb, elems)
     epoch: Optional[Tuple[int, ...]] = None
     plan: Optional[GossipPlan] = None
-    for counted in PlanExecutor().execute(spec).rounds:
+    for counted in PlanExecutor().execute(spec, plan_cache=cache).rounds:
         members = tuple(counted.members)
         if members != epoch:
             plan = plan_for_members(spec.n, members, n_segments=spec.n_segments,
                                     full_graph=overlay)
             plan.prepare(dev)  # index tensors on the card before the timed round
+            run.plans.append(plan)
             epoch = members
         out, device_ms = _timed_round(mode, plan, w, codec, dev)
         numerics_ok, finite = check_fedavg(out, w, members, mode, bound, spec.n)

@@ -2,7 +2,9 @@
 ``repro.scenario.spec``.
 
 A :class:`ScenarioSpec` declares one experiment: the overlay (a generated
-:class:`~repro_torch.core.graph.TopologySpec`), the underlay preset, the
+:class:`~repro_torch.core.graph.TopologySpec`, dense or sparse, or an
+explicit cost matrix such as an optimized working overlay), the underlay
+preset, the
 protocol and its segments, the payload (MB, a Table II code or an
 architecture name), the wire codec, the rounds and their churn schedule,
 link failures, the asynchronous-execution knobs, the executor requirements
@@ -24,14 +26,14 @@ reads of it:
   compute and its jitter, and ``record_events``;
 * the device runner (:mod:`repro_torch.scenario.runner`) reads what the
   session reads and the payload.
-
-Not ported: explicit cost-matrix overlays.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 from ..compress.codec import CODEC_NAMES, Codec, make_codec
 from ..core.graph import Graph, TopologySpec, make_topology
@@ -115,7 +117,9 @@ class ScenarioSpec:
     """One declared experiment (the reference's fields and defaults)."""
 
     name: str = "custom"
-    overlay: TopologySpec = field(default_factory=lambda: TopologySpec(kind="erdos_renyi"))
+    # a TopologySpec or an explicit symmetric cost matrix (n x n)
+    overlay: Union[TopologySpec, np.ndarray, Sequence[Sequence[float]]] = field(
+        default_factory=lambda: TopologySpec(kind="erdos_renyi"))
     protocol: str = "dissemination"
     n_segments: int = 4
     payload: Union[float, str] = 21.2  # MB | paper payload code | arch name
@@ -142,11 +146,17 @@ class ScenarioSpec:
     # -- derived views -------------------------------------------------------
     @property
     def n(self) -> int:
-        return self.overlay.n
+        if isinstance(self.overlay, TopologySpec):
+            return self.overlay.n
+        return int(np.asarray(self.overlay).shape[0])
 
     def overlay_graph(self) -> Graph:
-        """The declared overlay as a concrete cost graph (deterministic)."""
-        return make_topology(self.overlay)
+        """The declared overlay as a concrete cost graph (deterministic): a
+        :class:`Graph`, or a :class:`~repro_torch.core.sparse.CSRGraph` for
+        the sparse topology kinds."""
+        if isinstance(self.overlay, TopologySpec):
+            return make_topology(self.overlay)
+        return Graph(np.asarray(self.overlay, dtype=np.float64))
 
     def testbed(self) -> Union[TestbedSpec, NetworkSpec]:
         """The physical underlay: the explicit spec, a preset sized to the
@@ -157,7 +167,9 @@ class ScenarioSpec:
             return get_preset(self.underlay, self.n)
         if self.underlay is not None:
             return self.underlay
-        return TestbedSpec.from_overlay(self.overlay)
+        if isinstance(self.overlay, TopologySpec):
+            return TestbedSpec.from_overlay(self.overlay)
+        return TestbedSpec(n=self.n)
 
     def payload_mb(self) -> float:
         return resolve_payload_mb(self.payload)
@@ -174,9 +186,6 @@ class ScenarioSpec:
 
     # -- validation ----------------------------------------------------------
     def validate(self) -> "ScenarioSpec":
-        if not isinstance(self.overlay, TopologySpec):
-            raise ValueError("the port's scenarios take a TopologySpec overlay; explicit "
-                             "cost-matrix overlays are not ported")
         if self.protocol not in SCENARIO_PROTOCOLS:
             raise ValueError(
                 f"unknown protocol {self.protocol!r}; known: {SCENARIO_PROTOCOLS}")
@@ -227,6 +236,12 @@ class ScenarioSpec:
 
     # -- serialization -------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:
+        if isinstance(self.overlay, TopologySpec):
+            overlay: Any = {"type": "TopologySpec",
+                            **{f: getattr(self.overlay, f)
+                               for f in self.overlay.__dataclass_fields__}}
+        else:
+            overlay = {"type": "cost_matrix", "adj": np.asarray(self.overlay).tolist()}
         if self.underlay is None or isinstance(self.underlay, str):
             underlay: Any = self.underlay
         elif isinstance(self.underlay, NetworkSpec):
@@ -235,9 +250,7 @@ class ScenarioSpec:
             underlay = dataclasses.asdict(self.underlay)
         d = {
             "name": self.name,
-            "overlay": {"type": "TopologySpec",
-                        **{f: getattr(self.overlay, f)
-                           for f in self.overlay.__dataclass_fields__}},
+            "overlay": overlay,
             "underlay": underlay,
             "protocol": self.protocol,
             "n_segments": self.n_segments,
@@ -264,14 +277,19 @@ class ScenarioSpec:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ScenarioSpec":
-        """Reload a :meth:`to_dict` payload (JSON lists back to tuples)."""
+        """Reload a :meth:`to_dict` payload (JSON lists back to tuples; an
+        explicit cost matrix reloads to the identical matrix)."""
         ov = d["overlay"]
-        if not (isinstance(ov, dict) and ov.get("type") == "TopologySpec"):
-            raise ValueError("the port's scenarios take a TopologySpec overlay")
-        kw = {k: v for k, v in ov.items() if k in TopologySpec.__dataclass_fields__}
-        for key in ("intra_cost_ms", "inter_cost_ms"):
-            if isinstance(kw.get(key), list):
-                kw[key] = tuple(kw[key])
+        if isinstance(ov, dict) and ov.get("type") == "TopologySpec":
+            kw = {k: v for k, v in ov.items() if k in TopologySpec.__dataclass_fields__}
+            for key in ("intra_cost_ms", "inter_cost_ms"):
+                if isinstance(kw.get(key), list):
+                    kw[key] = tuple(kw[key])
+            overlay: Any = TopologySpec(**kw)
+        elif isinstance(ov, dict):
+            overlay = np.asarray(ov["adj"], dtype=np.float64)
+        else:
+            overlay = np.asarray(ov, dtype=np.float64)
         und = d.get("underlay")
         underlay: Any
         if und is None or isinstance(und, str):
@@ -292,7 +310,7 @@ class ScenarioSpec:
         opt = d.get("optimizer")
         return cls(
             name=d.get("name", "custom"),
-            overlay=TopologySpec(**kw),
+            overlay=overlay,
             protocol=d.get("protocol", "dissemination"),
             n_segments=d.get("n_segments", 4),
             payload=d.get("payload", 21.2),
@@ -358,6 +376,9 @@ class ScenarioResult:
     payload_mb: float
     rounds: List[RoundReport]
     spec: Dict[str, Any] = field(default_factory=dict)
+    # the run's RunReport (repro_torch.obs.RunReport.to_dict()), attached only
+    # when a recorder was active, so to_dict() keeps its shape otherwise
+    report: Optional[Dict[str, Any]] = None
     # the fluid simulator's raw results (netsim executor only; not serialized)
     sim_results: List[SimResult] = field(default_factory=list, repr=False)
 
@@ -404,6 +425,7 @@ class ScenarioResult:
             },
             "rounds_detail": [r.to_dict() for r in self.rounds],
             "spec": self.spec,
+            **({"report": self.report} if self.report is not None else {}),
         }
 
 

@@ -13,17 +13,19 @@ which re-validates. A cell is named ``NAME/axis=value,...``, or
 :func:`run_sweep` runs every cell on one executor (``plan``: counts and the
 analytic round times; ``engine``: the queue engine; ``netsim``: the fluid
 simulator; ``event``: the asynchronous event engine), one cell after
-another; :meth:`SweepResult.marginals` averages each axis value's cells.
-The reference shares plan work across cells through its ``PlanCache`` and
-pins its results to the serial loop's, so the serial loop gives the same
-numbers; the cache is not ported.
+another through one :class:`~repro_torch.scenario.cache.PlanCache` (MST,
+coloring, policy, timing profile and membership trajectory once a unique
+key; the ``plan`` executor batches the whole grid's counting in one numpy
+pass), with results equal to serial ``execute`` calls; the cache's counters
+land in ``SweepResult.cache_stats``. :meth:`SweepResult.marginals` averages
+each axis value's cells.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -198,9 +200,13 @@ class SweepResult:
     executor: str
     axes: Dict[str, List[Any]]
     cells: List[SweepCellResult]
+    cache_stats: Dict[str, int] = field(default_factory=dict)
 
     def __len__(self) -> int:
         return len(self.cells)
+
+    def __getitem__(self, index: int) -> SweepCellResult:
+        return self.cells[index]
 
     def table(self) -> List[Dict[str, Any]]:
         return [c.row() for c in self.cells]
@@ -229,7 +235,15 @@ class SweepResult:
             out[axis] = rows
         return out
 
+    def reports(self) -> Optional[List[Dict[str, Any]]]:
+        """Per-cell RunReports (``{"cell": i, **report}``), or ``None`` when
+        the grid ran without an active recorder."""
+        if all(c.result.report is None for c in self.cells):
+            return None
+        return [{"cell": c.index, **(c.result.report or {})} for c in self.cells]
+
     def to_dict(self) -> Dict[str, Any]:
+        reports = self.reports()
         return {
             "sweep": self.sweep,
             "executor": self.executor,
@@ -237,19 +251,28 @@ class SweepResult:
             "n_cells": len(self.cells),
             "cells": self.table(),
             "marginals": self.marginals(),
+            "cache": self.cache_stats,
+            **({"reports": reports} if reports is not None else {}),
         }
 
 
-def run_sweep(sweep: SweepSpec, executor: Any = "plan") -> SweepResult:
-    """Run every cell of a sweep on one executor, one after another:
-    a name (``plan``, ``engine``, ``netsim``, ``event``) or an
+def run_sweep(sweep: SweepSpec, executor: Any = "plan", plan_cache: Optional[Any] = None,
+              record_trace: bool = False) -> SweepResult:
+    """Run every cell of a sweep on one executor through one plan cache: a
+    name (``plan``, ``engine``, ``netsim``, ``event``) or an
     :class:`~repro_torch.scenario.executors.Executor` instance (e.g.
-    ``EngineExecutor(device="cpu")``), which runs every cell."""
+    ``EngineExecutor(device="cpu")``), which runs every cell
+    (:meth:`~repro_torch.scenario.executors.Executor.run_cells`). Each
+    cell's result is what a serial ``execute(cell.spec)`` returns."""
+    from .cache import PlanCache
     from .executors import get as get_executor
 
     ex = get_executor(executor)
     cells = sweep.cells()
+    cache = plan_cache if plan_cache is not None else PlanCache()
+    results = ex.run_cells(cells, plan_cache=cache, record_trace=record_trace)
     return SweepResult(
         sweep=sweep.name, executor=ex.name, axes=sweep.axes(),
-        cells=[SweepCellResult(index=c.index, coords=c.coords, spec=c.spec,
-                               result=ex.execute(c.spec)) for c in cells])
+        cells=[SweepCellResult(index=c.index, coords=c.coords, spec=c.spec, result=r)
+               for c, r in zip(cells, results)],
+        cache_stats=cache.stats())

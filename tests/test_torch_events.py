@@ -207,7 +207,9 @@ def test_event_executor_writes_the_references_virtual_spans_and_counters():
     ref_rec = ref_obs.Recorder()
     with ref_obs.recording(ref_rec):
         want = ref_run_scenario(ref_scenarios.get("lossy_links"), executor="event")
-    assert got.to_dict() == {k: v for k, v in want.to_dict().items() if k != "report"}
+    assert {k: v for k, v in got.to_dict().items() if k != "report"} == \
+        {k: v for k, v in want.to_dict().items() if k != "report"}
+    assert got.report["cache"] == want.report["cache"]
     assert _virtual(rec.spans) == _virtual(ref_rec.spans) and _virtual(rec.spans)
     rounds = [s for s in rec.spans if s.track == "rounds"]
     assert sum(s.duration_s for s in rounds) == pytest.approx(got.total_time_s)

@@ -1246,3 +1246,26 @@ def test_segmented_int4_cell_from_unequal_nodes_on_card(cuda):
     assert ok is True and finite, worst
     for name in ("quantize", "dequantize", "gossip_mix", "flash_attention"):
         assert LAUNCHES[name] > 0, name
+
+
+@pytest.mark.parametrize("cell", (1, 3))
+def test_runner_plans_over_the_annealed_overlay_on_card(cuda, cell):
+    """An optimized_vs_mst optimizer cell on the card at a proxy width: the
+    device plan is the one over the plan cache's annealed overlay, every
+    round holds the FedAvg, and the mix launched."""
+    from repro_torch.dfl.session import plan_for_members
+    from repro_torch.scenario import run_scenario, scenarios
+    from repro_torch.scenario.cache import PlanCache
+
+    spec = scenarios.get_sweep("optimized_vs_mst").cells()[cell].spec
+    cache = PlanCache()
+    reset_launches()
+    run = run_scenario(spec, device="cuda", proxy_elems=4096, plan_cache=cache)
+    want = plan_for_members(spec.n, range(spec.n), n_segments=spec.n_segments,
+                            full_graph=cache.overlay(spec))
+    (plan,) = run.plans
+    np.testing.assert_array_equal(plan.mst.adj, want.mst.adj)
+    assert [s.perm for s in plan.diss_steps] == [s.perm for s in want.diss_steps]
+    assert all(r.numerics_ok is True and r.finite and r.device_ms is not None
+               for r in run.rounds)
+    assert LAUNCHES["gossip_mix"] > 0 and cache.counters["opt_misses"] == 1

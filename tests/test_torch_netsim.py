@@ -49,8 +49,11 @@ CODECS = ("fp32", "int8", "topk")
 # the registry's scenarios that the plan and netsim executors run: lossy_links
 # needs drops, async_stragglers the staleness window, and scale_1000 (N=1000)
 # runs on plan and engine only (tests/test_torch_gossip_engine.py and
-# tests/test_torch_events.py hold them on the engine and event executors)
-ENGINE_AND_EVENT_ONLY = ("async_stragglers", "lossy_links", "scale_1000")
+# tests/test_torch_events.py hold them on the engine and event executors);
+# scale_100k and scale_1m are counting-only sparse cells
+# (tests/test_torch_sparse_scale.py)
+ENGINE_AND_EVENT_ONLY = ("async_stragglers", "lossy_links", "scale_1000", "scale_100k",
+                         "scale_1m")
 SCENARIOS = tuple(n for n in scenarios.names() if n not in ENGINE_AND_EVENT_ONLY)
 SIM_FIELDS = ("total_time_s", "mean_transfer_s", "mean_bandwidth_mbps", "n_transfers",
               "max_concurrency", "bytes_on_wire_mb", "per_transfer_s", "send_trace")

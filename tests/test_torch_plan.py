@@ -102,12 +102,23 @@ def test_generated_topologies_match_jax(kind, n, seed):
 
 
 def test_unported_algorithms_raise():
+    """Names neither package knows raise by name; the algorithms the port
+    once lacked (Kruskal, DSatur, the sparse kinds) now give the
+    reference's outputs."""
+    from repro.core.graph import build_mst as jax_build_mst
+    from repro.core.graph import color_graph as jax_color_graph
     from repro_torch.core.graph import TopologySpec, build_mst, color_graph
 
     g = make_topology(TopologySpec(kind="complete", n=4))
-    with pytest.raises(ValueError, match="prim"):
-        build_mst(g, "kruskal")
-    with pytest.raises(ValueError, match="bfs"):
-        color_graph(g, "dsatur")
-    with pytest.raises(ValueError, match="unknown topology kind"):
-        make_topology(TopologySpec(kind="knn", n=4))
+    with pytest.raises(ValueError, match="unknown MST algorithm 'kruskal2'"):
+        build_mst(g, "kruskal2")
+    with pytest.raises(ValueError, match="unknown coloring algorithm 'dsatur2'"):
+        color_graph(g, "dsatur2")
+    with pytest.raises(ValueError, match="unknown topology kind 'knn2'"):
+        make_topology(TopologySpec(kind="knn2", n=4))
+    jg = jax_make_topology(JaxTopologySpec(kind="complete", n=4))
+    np.testing.assert_array_equal(build_mst(g, "kruskal").adj, jax_build_mst(jg, "kruskal").adj)
+    np.testing.assert_array_equal(color_graph(g, "dsatur"), jax_color_graph(jg, "dsatur"))
+    knn = make_topology(TopologySpec(kind="knn", n=4))
+    np.testing.assert_array_equal(knn.indices, jax_make_topology(
+        JaxTopologySpec(kind="knn", n=4)).indices)
