@@ -117,7 +117,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              variant, topk_sweep (3 rounds), mesh_smoke (tree all-reduce with
              churn, 180.9 M f32 a node) and an int8 variant, and
              paper_flooding_baseline (flooding on the complete overlay, which
-             the card runs as an all-gather). Every round must
+             the card runs as an all-gather), each with ``verify="strict"``
+             on a plan cache of its own: every epoch's plan is proven by the
+             static verifier (``repro_torch.verify``) before the first
+             device round, and ``verify_result`` rechecks every round the
+             card reported against the static wire model; a
+             ``VerificationError`` fails. Prints a ``[verify]`` line a
+             scenario (epochs, invariants proven, skipped classes with
+             reasons, rounds rechecked, host seconds). quantized_table3's
+             first round with 1 MB more on the wire must be rejected as
+             ``conservation/bytes-on-wire`` (a planted fault). Every round must
              report numerics_ok (None for top-k, which has no deterministic
              bound), finite outputs and the exact bytes on the wire; every
              gossip kernel must have launched, and every shape a codec
@@ -174,7 +183,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              fingerprint. (c) Card: the four cells through run_scenario at
              B0's full width (12 nodes x 5.3 M f32, a (12, 12, 5.3 M) round
              buffer), fp32 and int8, the launch counts set to 0 just
-             before; every round numerics_ok, each device plan the one over
+             before, each with ``verify="strict"`` on the shared cache (a
+             ``[verify]`` line each; every certificate built once, then a
+             cache hit: the verified stage's counters are printed); every
+             round numerics_ok, each device plan the one over
              the cache's effective overlay (the annealed one for an
              optimizer cell); prints device_ms and the peak. (d) Card: the
              reference test's scale_100k shape at n = 300 (k-NN k = 8,
@@ -545,6 +557,58 @@ def smi_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def strict_run(spec, cache, tag: str):
+    """``run_scenario(spec, device="cuda", seed=1, verify="strict")`` on
+    ``cache``: every epoch's plan is proven before the first device round.
+    A ``VerificationError`` fails. Then ``verify_result`` must recheck every
+    round the card reported against the static wire model, and a second
+    ``verify_scenario_plans`` on the cache returns the run's certificates
+    (cache hits). Prints one ``[verify]`` line: epochs, the invariants
+    proven, the skipped classes with their reasons, the rounds rechecked
+    and the host seconds (the ``verify`` spans of the run's recorder, and
+    the recheck). Returns ``(run, wall seconds of the run, host seconds of
+    verification)``."""
+    from repro_torch import obs
+    from repro_torch.scenario import run_scenario
+    from repro_torch.verify import (INVARIANT_CLASSES, VerificationError, verify_result,
+                                    verify_scenario_plans)
+
+    t0 = time.perf_counter()
+    try:
+        with obs.recording(obs.Recorder()) as rec:
+            run = run_scenario(spec, device="cuda", seed=1, verify="strict", plan_cache=cache)
+    except VerificationError as exc:
+        fail(f"{tag}{spec.name}: static verification rejected the plan: {exc}")
+    wall = time.perf_counter() - t0
+    plan_s = sum(sp.duration_s for sp in rec.spans if sp.cat == "verify")
+    t0 = time.perf_counter()
+    try:
+        rounds = verify_result(spec, run, plan_cache=cache)
+    except VerificationError as exc:
+        fail(f"{tag}{spec.name}: the card's round reports fail conservation: {exc}")
+    recheck_s = time.perf_counter() - t0
+    hits = cache.counters["verified_hits"]
+    out = verify_scenario_plans(spec, plan_cache=cache, mode="strict")
+    certs = out["certificates"]
+    if rounds != len(run.rounds):
+        fail(f"{tag}{spec.name}: verify_result rechecked {rounds} of {len(run.rounds)} rounds")
+    if rec.counters.get("verify.plans") != out["epochs"] or \
+            cache.counters["verified_hits"] - hits != out["epochs"]:
+        fail(f"{tag}{spec.name}: {rec.counters.get('verify.plans')} plans verified in the run, "
+             f"{out['epochs']} epochs")
+    proven = sorted({i for c in certs for i in c.invariants}, key=INVARIANT_CLASSES.index)
+    skipped = {k: v for c in certs for k, v in c.skipped.items()}
+    print(f"[verify] {tag}{spec.name} (codec {spec.codec or 'none'}): {out['epochs']} epoch(s) "
+          "verified before the first round, "
+          f"invariants proven a plan {[len(c.invariants) for c in certs]} of "
+          f"{len(INVARIANT_CLASSES)}; skipped {json.dumps(skipped) if skipped else 'none'}; "
+          f"{rounds} round(s) rechecked by verify_result; host {plan_s:.4f} s verifying "
+          f"+ {recheck_s:.4f} s rechecking")
+    if len(proven) + len(skipped) < len(INVARIANT_CLASSES):
+        fail(f"{tag}{spec.name}: invariant classes neither proven nor skipped")
+    return run, wall, plan_s + recheck_s
 
 
 def bound_ms(cost, ops_per_s: float):
@@ -1096,8 +1160,8 @@ def phase_plans(card, results, device_ms) -> None:
     round times held to the JAX package's (PLAN_TABLE; modeled testbed
     seconds), the annealed overlay at least 1.15x faster analytically and
     faster in the fluid simulator; (c) the four cells through
-    ``run_scenario`` on the card at EfficientNet-B0's full width, fp32 and
-    int8, each optimizer cell's device plan the one over the cache's
+    ``run_scenario(verify="strict")`` on the card at EfficientNet-B0's full
+    width, fp32 and int8, each optimizer cell's device plan the one over the cache's
     annealed overlay; (d) the n = 300 sparse shape through the queue engine
     with each node's full-width payload on the card, fp32 and int8, the
     round-1 policy from ``SparsePlanner.replan``. Launch counts are set to 0
@@ -1109,7 +1173,7 @@ def phase_plans(card, results, device_ms) -> None:
     from repro_torch.dfl.session import plan_for_members
     from repro_torch.kernels import launch_counts, launch_shapes, reset_launches
     from repro_torch.opt import optimize_for_scenario
-    from repro_torch.scenario import executors, run_scenario, run_sweep, scenarios
+    from repro_torch.scenario import executors, run_sweep, scenarios
     from repro_torch.scenario.cache import PlanCache
     from repro_torch.scenario.executors import Executor
 
@@ -1187,16 +1251,17 @@ def phase_plans(card, results, device_ms) -> None:
               f"{statistics.median(walls['serial']):.6f} s over {2 * repeats} runs each "
               "(host wall on the card's host CPU; rows equal)")
 
-    # (c) the four cells' gossip rounds on the card at full width
+    # (c) the four cells' gossip rounds on the card at full width, each plan
+    # proven first on the shared cache
     reset_launches()  # the counts of the plans phase's card path: (c) and (d)
+    verify_s, verified0 = 0.0, cache.counters["verified_misses"]
     for spec0 in cells:
         for codec in PLAN_CODECS:
             spec = spec0.replace(codec=codec)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            run = run_scenario(spec, device="cuda", seed=1, plan_cache=cache)
-            wall = time.perf_counter() - t0
+            run, wall, spent = strict_run(spec, cache, "[plans] (c) ")
+            verify_s += spent
             r = run.rounds[0]
             want = plan_for_members(spec.n, range(spec.n), n_segments=spec.n_segments,
                                     full_graph=cache.overlay(spec))
@@ -1221,6 +1286,13 @@ def phase_plans(card, results, device_ms) -> None:
                   f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
             del run
     counts_c = launch_counts()
+    verified = {k: cache.counters[k] for k in ("verified_hits", "verified_misses")}
+    print(f"[plans] (c) cache {json.dumps(verified)}: {verified['verified_misses'] - verified0} "
+          f"plans verified, {verify_s:.4f} s of host time verifying and rechecking, on {card}")
+    if verified["verified_hits"] <= 0 or \
+            verified["verified_misses"] - verified0 != len(cells) * len(PLAN_CODECS):
+        fail(f"[plans] (c) the verified stage: {verified}, {len(cells) * len(PLAN_CODECS)} "
+             "certificates expected, each built once")
 
     # (d) the sparse planner's policy through the queue engine on the card
     SizedEngine = sized_engine()
@@ -1709,7 +1781,9 @@ def main() -> int:
     from repro_torch.models.mamba import mamba2_forward
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.scenario import SCENARIOS, run_scenario
+    from repro_torch.scenario.cache import PlanCache
     from repro_torch.scenario.runner import fedavg_check
+    from repro_torch.verify import VerificationError, verify_result
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2356,11 +2430,12 @@ def main() -> int:
     # -- 3. the main path: scenario rounds at full width ------------------------
     reset_launches()
     path_ms = {}  # each scenario's first round on the card, for the tables phase
+    verify_s = 0.0  # host seconds of static verification and of the rechecks
     for spec in runs:
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        run = run_scenario(spec, device="cuda", seed=1)
-        wall = time.perf_counter() - t0
+        cache = PlanCache()
+        run, wall, spent = strict_run(spec, cache, "")
+        verify_s += spent
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         c = spec.codec_obj()
         for r in run.rounds:
@@ -2381,7 +2456,22 @@ def main() -> int:
         path_ms[spec.name] = run.rounds[0].device_ms
         if spec.name == "quantized_table3" and run.rounds[0].bytes_on_wire_mb != 478.86336:
             fail("quantized_table3 bytes_on_wire_mb != 478.86336")
+        if spec.name == "quantized_table3":  # a planted fault on the card's own report
+            first = run.rounds[0]
+            bad = dataclasses.replace(run, rounds=[dataclasses.replace(
+                first, bytes_on_wire_mb=first.bytes_on_wire_mb + 1.0)])
+            try:
+                verify_result(spec, bad, plan_cache=cache)
+            except VerificationError as exc:
+                if exc.invariant != "conservation/bytes-on-wire":
+                    fail(f"the planted byte fault raised {exc.invariant}")
+                print(f"[verify] planted fault (quantized_table3 round 0, bytes_on_wire_mb "
+                      f"{first.bytes_on_wire_mb} + 1 MB) rejected: {exc}")
+            else:
+                fail("verify_result accepted a round with 1 MB more on the wire")
     counts, shapes = launch_counts(), launch_shapes()
+    print(f"[verify] phase 3: {verify_s:.4f} s of host time verifying {len(runs)} scenarios "
+          f"(strict, before each run's first round) and rechecking their rounds, on {smi}")
     print(f"[path] launches: {json.dumps(counts)}")
     missing = [k for k in GOSSIP_KERNELS if counts[k] <= 0]
     if missing:

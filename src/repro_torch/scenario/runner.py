@@ -104,10 +104,21 @@ def check_fedavg(out: torch.Tensor, w: torch.Tensor, members: Tuple[int, ...], m
 
 def run_scenario(spec_or_name: Union[str, ScenarioSpec], device: DeviceLike = None,
                  proxy_elems: Optional[int] = None, seed: int = 0,
-                 plan_cache: Optional[PlanCache] = None) -> ScenarioRun:
+                 plan_cache: Optional[PlanCache] = None, verify: str = "off") -> ScenarioRun:
     """Run every round of a scenario; returns the per-round reports.
     ``plan_cache`` shares the overlay, its search and the plans with other
-    runs (a fresh cache when omitted)."""
+    runs (a fresh cache when omitted).
+
+    ``verify`` statically proves every epoch's plan on the run's cache
+    before the first device round (:mod:`repro_torch.verify`):
+    ``"strict"`` raises :class:`~repro_torch.verify.VerificationError` on
+    the first violated invariant, so a violating plan never reaches the
+    card; ``"warn"`` downgrades it to a
+    :class:`~repro_torch.verify.VerificationWarning` and runs anyway; the
+    default ``"off"`` does not import the verifier."""
+    if verify not in ("off", "warn", "strict"):
+        raise ValueError(
+            f"verify must be one of ('off', 'warn', 'strict'), got {verify!r}")
     spec = get(spec_or_name) if isinstance(spec_or_name, str) else spec_or_name.validate()
     dev = resolve_device(device)
     mode = resolve_gossip_mode(spec.protocol)
@@ -116,6 +127,10 @@ def run_scenario(spec_or_name: Union[str, ScenarioSpec], device: DeviceLike = No
                          "churned nodes; use an MST mode for churn scenarios")
     codec = spec.codec_obj()
     cache = plan_cache if plan_cache is not None else PlanCache()
+    if verify != "off":
+        from ..verify import verify_scenario_plans  # lazy: nothing imported when off
+
+        verify_scenario_plans(spec, plan_cache=cache, mode=verify)
     overlay = cache.overlay(spec)
     payload_mb = spec.payload_mb()
     elems = proxy_elems or int(round(payload_mb * 1e6 / 4))

@@ -11,6 +11,9 @@
   average shows.
 * ``python -m repro_torch.examples.serve_batched``: a reduced gemma2's
   prompts through the decode path, then greedy tokens inside the vocab.
+* ``python -m repro_torch.examples.quickstart`` and
+  ``python -m repro_torch.examples.topology_playground``: the JAX
+  package's scripts' lines, the playground's wall-clock figures aside.
 """
 import os
 import re
@@ -120,3 +123,28 @@ def test_quickstart_matches_the_reference():
     assert "  FedAvg at node 0: 4.50 (expected 4.50)" in ours
     assert re.search(r"EfficientNet-B0 .* round 32\.8s -> 11\.6s \(2\.8x\)", ours), ours
     assert "  new round over 9 nodes: 72 transmissions (= 9*8 = 72)" in ours
+
+
+def _strip_walls(text):
+    """The two wall-clock figures aside: the N=1000 engine's and
+    ``table3_full``'s seconds."""
+    text = re.sub(r"(slots simulated in )[\d.]+s", r"\1<wall>", text)
+    return re.sub(r"(cells in )[\d.]+s", r"\1<wall>", text).splitlines()
+
+
+def test_topology_playground_matches_the_reference():
+    """``python -m repro_torch.examples.topology_playground --device cpu``
+    prints the JAX package's ``examples/topology_playground.py`` line for
+    line once its two wall-clock figures are stripped: the per-topology
+    slot / transfer table, the protocol matrix, the N=1000 engine's counts,
+    the MST agreement, the netsim and queue-engine scenario rows (churn
+    included), table3_full's marginals and the underlay curves."""
+    ours = _run("repro_torch.examples.topology_playground", "--device", "cpu")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
+    ref = subprocess.run([sys.executable, os.path.join(ROOT, "examples", "topology_playground.py")],
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    assert _strip_walls(ours) == _strip_walls(ref.stdout)
+    assert ("vectorized engine, N=1000 watts_strogatz: 999000 transmissions over 2064 slots "
+            "simulated in <wall>") in _strip_walls(ours)
+    assert "table3_full: 32 cells in <wall> (8 unique plans, 24 cache hits)" in _strip_walls(ours)
