@@ -28,7 +28,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              launches them with, found by a dry run of its scenarios at the
              proxy size on the card (rows = a step's senders; size = the
              scenario's payload: EfficientNet-B0's 5.3 M f32, MobileNetV2's
-             3.5 M, smollm-360m's 180.9 M for mesh_smoke int8), and at every
+             3.5 M, smollm-360m's 180.9 M for mesh_smoke int8), at every
+             shape the sweeps part launches them with (a dry run of its two
+             sweeps at full width on the card: the segmented cells' segments
+             of 1.325 M, top-k's B0 rows), and at every
              shape phase 5's whisper-tiny int8 dissemination launches them
              with (one round of its 4 nodes' seeded f32 masters on the card:
              a quantize a leaf, a dequantize a group of leaves a hop; the
@@ -40,7 +43,9 @@ Phases, each fatal on failure (exit code 1, no result line):
              leaf), torch.mul(codes, scales[:, None]) as the library time,
              and through its single-leaf entry point at each quantize shape;
              the FedAvg mix at (10, 10,
-             5.3 M) and at whisper's leaf shapes; the codec kernels and the
+             5.3 M), at the sweeps' shapes (each Table II payload's (10, 10,
+             P) up to EfficientNet-B3's 12.0 M, the segmented cells') and at
+             whisper's leaf shapes; the codec kernels and the
              mix also at the engine phase's shapes (one row of 2.9 M or of
              1.325 M; the mix at (1, 10, each)). Quantize, dequantize and
              top-k must be bit-identical; the mix within rtol 1e-6 of
@@ -111,8 +116,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              the training shape from Mamba's initialization (dt log-uniform
              in [1e-3, 1e-1], A = -(1 .. n)), where states live long enough
              that an error in the carries between segments and chunks shows.
-3. path    — the scenarios at full width through ``run_scenario``, with the
-             launch counts set to 0 just before and read just after:
+3. path    — the scenarios at full width through ``run_scenario`` on the
+             registered card executor (``DeviceExecutor(seed=1)``, the
+             reference's ``jax``), with the launch counts set to 0 just
+             before and read just after:
              paper_table3 (fp32), quantized_table3 (int8) and an int4
              variant, topk_sweep (3 rounds), mesh_smoke (tree all-reduce with
              churn, 180.9 M f32 a node) and an int8 variant, and
@@ -122,7 +129,9 @@ Phases, each fatal on failure (exit code 1, no result line):
              static verifier (``repro_torch.verify``) before the first
              device round, and ``verify_result`` rechecks every round the
              card reported against the static wire model; a
-             ``VerificationError`` fails. Prints a ``[verify]`` line a
+             ``VerificationError`` fails. Each run is traced: its
+             RunReport's ``device.round_ms`` counter must equal the sum of
+             its rounds' ``device_ms``. Prints a ``[verify]`` line a
              scenario (epochs, invariants proven, skipped classes with
              reasons, rounds rechecked, host seconds). quantized_table3's
              first round with 1 MB more on the wire must be rejected as
@@ -133,6 +142,24 @@ Phases, each fatal on failure (exit code 1, no result line):
              kernel launched with must have been timed in phase 2. Prints
              each gossip kernel's launches by shape and each codec kernel's
              loss, the sum over shapes of launches x (time - bound).
+   sweeps  — after phase 3, two of the reference's sweeps through
+             ``run_sweep(sweep, executor=DeviceExecutor(seed=1))`` at full
+             width, the launch counts set to 0 just before and read just
+             after: codec_x_protocol (ER(10) seed 3, EfficientNet-B0's 5.3 M
+             f32 a node, {fp32, bf16, int8, int4, top-k} x {dissemination,
+             segmented}: 10 cells) and payload_latency_curve (the same
+             overlay, MOSGU dissemination of the 7 Table II payloads from
+             MobileNetV3-Small to EfficientNet-B3's 12.0 M f32: 7 cells). A
+             cell fails unless numerics_ok is True (None for top-k), every
+             output is finite and its members, slots, transmissions and
+             bytes equal ``run_sweep(..., executor="plan")``'s on the same
+             cache; what the card holds after a sweep beyond what it held
+             before must be less than any cell's parameters (each freed when
+             its cell ends). Every gossip kernel
+             must launch, each at shapes phase 2 held and timed (a dry run
+             of both sweeps at full width there). Prints one line a cell
+             (coordinates, slots, transmissions, bytes_on_wire_mb,
+             numerics_ok, device_ms, peak GB) and the launches by shape.
    engine  — the runtime queue engine (``core/gossip.py``) on the card,
              after phase 3, with the launch counts set to 0 just before and
              read just after: lossy_links (ER(10), 10% drops, 2 rounds,
@@ -188,7 +215,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              cache hit: the verified stage's counters are printed); every
              round numerics_ok, each device plan the one over
              the cache's effective overlay (the annealed one for an
-             optimizer cell); prints device_ms and the peak. (d) Card: the
+             optimizer cell) through the registered card executor; prints
+             device_ms and the peak. (d) Card: the
              reference test's scale_100k shape at n = 300 (k-NN k = 8,
              mosgu_exchange over Borůvka + Jones-Plassmann, nodes 7 and 42
              leaving in round 1, so round 1's policy comes from
@@ -464,6 +492,8 @@ PLAN_N300_HOST_ELEMS = 4096
 # (sweep, repeats) whose plan-executor run_cells is timed batched and serial
 PLAN_RUN_CELLS = (("table3_full", 5), ("codec_x_protocol", 5), ("optimized_vs_mst", 1))
 PLAN_CODECS = ("fp32", "int8")
+# the sweeps part: the reference's sweeps run on the card executor, with their cell counts
+CARD_SWEEPS = {"codec_x_protocol": 10, "payload_latency_curve": 7}
 # P8: qwen3-moe's 16x16 prefill at 2 layers, traced on the card (its peak is
 # the CPU trace's reference in tests/test_torch_dryrun.py)
 P8_PAIR = ("16x16", "qwen3-moe-30b-a3b", "prefill_32k", 2)
@@ -560,28 +590,37 @@ def smi_line() -> str:
 
 
 def strict_run(spec, cache, tag: str):
-    """``run_scenario(spec, device="cuda", seed=1, verify="strict")`` on
-    ``cache``: every epoch's plan is proven before the first device round.
-    A ``VerificationError`` fails. Then ``verify_result`` must recheck every
+    """``run_scenario(spec, executor=DeviceExecutor(seed=1),
+    verify="strict")`` on ``cache``, traced: every epoch's plan is proven
+    before the first device round. A ``VerificationError`` fails. The run's
+    RunReport must count its rounds' device time (``device.round_ms``, the
+    sum of their ``device_ms``). Then ``verify_result`` must recheck every
     round the card reported against the static wire model, and a second
     ``verify_scenario_plans`` on the cache returns the run's certificates
     (cache hits). Prints one ``[verify]`` line: epochs, the invariants
     proven, the skipped classes with their reasons, the rounds rechecked
     and the host seconds (the ``verify`` spans of the run's recorder, and
-    the recheck). Returns ``(run, wall seconds of the run, host seconds of
-    verification)``."""
+    the recheck). Returns ``(the executor's card view of the run, wall
+    seconds of the run, host seconds of verification)``."""
     from repro_torch import obs
-    from repro_torch.scenario import run_scenario
+    from repro_torch.scenario import DeviceExecutor, run_scenario
     from repro_torch.verify import (INVARIANT_CLASSES, VerificationError, verify_result,
                                     verify_scenario_plans)
 
+    ex = DeviceExecutor(seed=1)
     t0 = time.perf_counter()
     try:
         with obs.recording(obs.Recorder()) as rec:
-            run = run_scenario(spec, device="cuda", seed=1, verify="strict", plan_cache=cache)
+            result = run_scenario(spec, executor=ex, verify="strict", plan_cache=cache)
     except VerificationError as exc:
         fail(f"{tag}{spec.name}: static verification rejected the plan: {exc}")
     wall = time.perf_counter() - t0
+    run = ex.run
+    traced_ms = result.report["counters"].get("device.round_ms")
+    if traced_ms is None or not math.isclose(traced_ms, sum(r.device_ms for r in run.rounds),
+                                             rel_tol=1e-9):
+        fail(f"{tag}{spec.name}: the RunReport's device.round_ms {traced_ms} is not the sum "
+             f"of the rounds' device_ms {[r.device_ms for r in run.rounds]}")
     plan_s = sum(sp.duration_s for sp in rec.spans if sp.cat == "verify")
     t0 = time.perf_counter()
     try:
@@ -1058,6 +1097,77 @@ def phase_engine(card, add_shape_launches, results) -> None:
         add_shape_launches(kernel, shapes[kernel], "engine")
     torch.cuda.empty_cache()
     print(f"[engine] phase wall time {time.perf_counter() - t_phase:.2f} s on {card}")
+
+
+def phase_sweeps(card, add_shape_launches, results) -> None:
+    """The sweeps part: each of CARD_SWEEPS through ``run_sweep(sweep,
+    executor=DeviceExecutor(seed=1))`` at full width, one PlanCache a sweep,
+    the launch counts set to 0 before the first and read after the last.
+    Each cell must hold the FedAvg (numerics_ok True; None for top-k), give
+    finite outputs, and count the members, slots, transmissions and bytes
+    of ``run_sweep(..., executor="plan")`` on the same cache; what the card
+    holds after a sweep beyond what it held before must be less than any
+    cell's parameters (each freed when its cell ends). Every gossip kernel
+    must launch, each at shapes phase 2 timed."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, launch_shapes, reset_launches
+    from repro_torch.scenario import DeviceExecutor, run_sweep, scenarios
+    from repro_torch.scenario.cache import PlanCache
+
+    t_phase = time.perf_counter()
+    driven = []
+    reset_launches()
+    for name, n_cells in CARD_SWEEPS.items():
+        sweep, cache, ex = scenarios.get_sweep(name), PlanCache(), DeviceExecutor(seed=1)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = run_sweep(sweep, executor=ex, plan_cache=cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # what stays on the card is the runs' plans (index tensors), less than
+        # any one cell's parameters
+        left = torch.cuda.memory_allocated() - held
+        smallest = min(4 * cell.spec.n * run.elems_per_node
+                       for cell, run in zip(res.cells, ex.runs))
+        if len(res.cells) != n_cells or left >= smallest:
+            fail(f"[sweeps] {name}: {len(res.cells)} cells (want {n_cells}), {left} bytes "
+                 f"still held on the card after the sweep (a cell's parameters: >= {smallest})")
+        driven.append((name, sweep, cache, res, ex.runs, wall))
+    counts, shapes = launch_counts(), launch_shapes()
+    for name, sweep, cache, res, runs, wall in driven:
+        counted = run_sweep(sweep, executor="plan", plan_cache=cache)
+        for cell, plan_cell, run in zip(res.cells, counted.cells, runs):
+            spec = cell.spec
+            coords = ", ".join(f"{k}={v}" for k, v in cell.coords.items())
+            for r, c, dr in zip(cell.result.rounds, plan_cell.result.rounds, run.rounds):
+                got = (r.members, r.n_slots, r.transmissions, r.bytes_mb, r.bytes_on_wire_mb)
+                want = (c.members, c.n_slots, c.transmissions, c.bytes_mb, c.bytes_on_wire_mb)
+                if got != want:
+                    fail(f"[sweeps] {name} cell {cell.index} ({coords}) round {r.round}: "
+                         f"{got[1:]} differ from the plan executor's {want[1:]}")
+                want_ok = None if spec.codec == "topk" else True
+                if r.numerics_ok is not want_ok or not dr.finite:
+                    fail(f"[sweeps] {name} cell {cell.index} ({coords}) round {r.round}: "
+                         f"numerics_ok={r.numerics_ok} finite={dr.finite}")
+                print(f"[sweeps] {name} cell {cell.index} ({coords}): {run.elems_per_node} "
+                      f"f32/node x {len(r.members)}, {r.n_slots} slots, {r.transmissions} tx, "
+                      f"bytes_on_wire_mb {r.bytes_on_wire_mb} (= the plan executor's), "
+                      f"numerics_ok {r.numerics_ok}, finite {dr.finite}, round "
+                      f"{dr.device_ms:.3f} ms, peak {run.peak_bytes / 1e9:.3f} GB on {card}")
+        peak = max(runs, key=lambda run: run.peak_bytes)
+        print(f"[sweeps] {name}: {len(res.cells)} cells in {wall:.2f} s wall, peak "
+              f"{peak.peak_bytes / 1e9:.3f} GB ({peak.scenario}, {peak.elems_per_node} f32 "
+              f"a node), cache {json.dumps(cache.stats())} on {card}")
+    print(f"[sweeps] launches: {json.dumps(counts)}")
+    missing = [k for k in GOSSIP_KERNELS if counts[k] <= 0]
+    if missing:
+        fail(f"[sweeps] kernels never launched on the sweeps' path: {missing}")
+    for name in GOSSIP_KERNELS:
+        results[name]["sweeps_launches"] = counts[name]
+        add_shape_launches(name, shapes[name], "sweeps")
+    print(f"[sweeps] phase wall time {time.perf_counter() - t_phase:.2f} s on {card}")
 
 
 def phase_tables(device_ms, card) -> None:
@@ -1780,7 +1890,8 @@ def main() -> int:
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.mamba import mamba2_forward
     from repro_torch.optim.optimizers import tree_leaves
-    from repro_torch.scenario import SCENARIOS, run_scenario
+    from repro_torch.scenario import (SCENARIOS, DeviceExecutor, run_scenario, run_sweep,
+                                      scenarios)
     from repro_torch.scenario.cache import PlanCache
     from repro_torch.scenario.runner import fedavg_check
     from repro_torch.verify import VerificationError, verify_result
@@ -1868,7 +1979,7 @@ def main() -> int:
     path_shapes = {name: Counter() for name in CODEC_KERNELS}
     for spec in runs:
         reset_launches()
-        run_scenario(spec, device="cuda", seed=1, proxy_elems=4)
+        run_scenario(spec, executor=DeviceExecutor(seed=1, proxy_elems=4))
         elems = int(round(spec.payload_mb() * 1e6 / 4))
         for name in CODEC_KERNELS:
             for key, n in launch_shapes()[name].items():
@@ -1878,6 +1989,21 @@ def main() -> int:
     for name in CODEC_KERNELS:
         print(f"[kernel] {name}: the main path's launch shapes "
               f"{sorted(path_shapes[name].items())} (dry run at the proxy size)")
+    # the sweeps part's shapes: a dry run of its sweeps at full width on the
+    # card (a segmented cell's codec kernels run on its segments, which a
+    # proxy-size run does not show)
+    reset_launches()
+    for name in CARD_SWEEPS:
+        run_sweep(scenarios.get_sweep(name), executor=DeviceExecutor(seed=1))
+    card_sweep_shapes = {name: Counter(launch_shapes()[name]) for name in GOSSIP_KERNELS}
+    torch.cuda.empty_cache()
+    sweeps_later = {k for name in CODEC_KERNELS for k in card_sweep_shapes[name]
+                    if k not in path_shapes[name]}
+    for name in CODEC_KERNELS:
+        path_shapes[name].update(card_sweep_shapes[name])
+    for name in GOSSIP_KERNELS:
+        print(f"[kernel] {name}: the sweeps part's launch shapes "
+              f"{sorted(card_sweep_shapes[name].items())} (dry run at full width)")
     # phase 5's whisper-tiny int8 dissemination: one payload a leaf of the 4
     # nodes' f32 masters, the leaves hopped in groups (one dequantize a group
     # a hop); a round at the real leaf sizes, on seeded masters, must equal
@@ -1934,7 +2060,7 @@ def main() -> int:
     for name in CODEC_KERNELS:
         path_shapes[name].update(sweep_shapes[name])
     later = {k for name in ("quantize", "dequantize") for k in whisper_shapes[name]}
-    later |= {k for name in CODEC_KERNELS for k in sweep_shapes[name]}
+    later |= {k for name in CODEC_KERNELS for k in sweep_shapes[name]} | sweeps_later
     # the engine phase's shapes: one payload part a row (v3s's whole payload,
     # B0's segments) and the FedAvg of the n nodes' parts
     engine_shapes = engine_launch_shapes()
@@ -2078,11 +2204,12 @@ def main() -> int:
            shape=" (10, 10, 5.3 M)")
     del buf, mixed, plain
     # the mix at whisper-tiny's leaf shapes (the FedAvg of its dissemination
-    # on 4 nodes, and of phase 6's protocols on 10) and at the engine phase's
-    # FedAvg of 10 payload parts: from a cold L2, as one leaf's mix follows the
-    # others' rounds
+    # on 4 nodes, and of phase 6's protocols on 10), at the engine phase's
+    # FedAvg of 10 payload parts and at the sweeps part's: from a cold L2, as
+    # one leaf's mix follows the others' rounds
     for batch, n, p in sorted(set(whisper_shapes["gossip_mix"]) | set(sweep_shapes["gossip_mix"])
-                              | engine_shapes["gossip_mix"]):
+                              | engine_shapes["gossip_mix"]
+                              | set(card_sweep_shapes["gossip_mix"])):
         buf = torch.randn((batch, n, p), generator=gen, device=dev)
         w = torch.full((n,), 1.0 / n, device=dev)
         mixed, plain = gossip_mix_op(buf, w), gossip_mix_ref(buf, w)
@@ -2093,7 +2220,9 @@ def main() -> int:
                median_ms(lambda: gossip_mix_ref(buf, w), iters // 5),
                mix_cost(buf), library_ms=median_ms(lambda: torch.mean(buf, dim=1), iters),
                shape=f" ({batch}, {n}, {p}) "
-               + ("engine" if (batch, n, p) in engine_shapes["gossip_mix"] else "whisper-tiny"),
+               + ("engine" if (batch, n, p) in engine_shapes["gossip_mix"] else "whisper-tiny"
+                  if (batch, n, p) in whisper_shapes["gossip_mix"] | sweep_shapes["gossip_mix"]
+                  else "sweeps"),
                key=(batch, n, p))
         del buf, mixed, plain
 
@@ -2492,8 +2621,9 @@ def main() -> int:
         for key, row in timed.items():
             row["launches"] = row.get("launches", 0) + shapes_run.get(key, 0)
             row["loss_ms"] = row["launches"] * (row["ms"] - row["bound_ms"])
-            print(f"[{where}] {name} {key}: {row['launches']} launches x ({row['ms']:.4f} - "
-                  f"{row['bound_ms']:.4f} ms) = {row['loss_ms']:.4f} ms")
+            if shapes_run.get(key, 0) > 0:  # the shapes this run launched
+                print(f"[{where}] {name} {key}: {row['launches']} launches x ({row['ms']:.4f} - "
+                      f"{row['bound_ms']:.4f} ms) = {row['loss_ms']:.4f} ms")
         loss = sum(r["loss_ms"] for r in timed.values())
         results[name]["loss_ms"] = loss
         print(f"[{where}] {name}: loss sum over shapes of launches x (ms - bound_ms) = "
@@ -2503,6 +2633,8 @@ def main() -> int:
         add_shape_launches(name, shapes[name], "path")
     torch.cuda.empty_cache()
 
+    # -- the sweeps: the reference's sweeps through the card executor ------------------
+    phase_sweeps(card, add_shape_launches, results)
     # -- the queue engine: lossy links and segmented gossip at full width -----------
     phase_engine(card, add_shape_launches, results)
     phase_tables(path_ms, card)
@@ -2554,12 +2686,12 @@ def main() -> int:
         # of free blocks split among segments still in use has refused: the
         # counted step maps its new segments expandably (allocations, and so
         # the peak, are the same)
-        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
         try:
             with OpCounter(live=live, device="cuda") as counter:
                 out = fn()
         finally:
-            torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+            torch._C._accelerator_setAllocatorSettings("expandable_segments:False")
         torch.cuda.synchronize()
         after, shapes_after = launch_counts(), launch_shapes()
         peak, stats = torch.cuda.max_memory_allocated(), torch.cuda.memory_stats()

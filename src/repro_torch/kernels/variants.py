@@ -1011,7 +1011,7 @@ def main(argv: List[str] | None = None) -> int:
                    "quant_pack.cu": ("quantized_table3", ("rt_quantize", "rt_dequantize_group"))}
     whole = [v for v in variants if v.text and v.source in round_cases and v.name in libs]
     if whole:
-        from ..scenario import SCENARIOS, run_scenario
+        from ..scenario import SCENARIOS, DeviceExecutor, run_scenario
 
         shipped_lib = _build.lib()
 
@@ -1021,12 +1021,12 @@ def main(argv: List[str] | None = None) -> int:
                                        for n in (*_build.SIGNATURES, "rt_error_string")})
             proxy.__dict__.update(swap)
             _build._lib = proxy
+            ex = DeviceExecutor(device="cuda", seed=1)
             try:
-                run = run_scenario(SCENARIOS[scenario].replace(rounds=12), device="cuda",
-                                   seed=1)
+                run_scenario(SCENARIOS[scenario].replace(rounds=12), executor=ex)
             finally:
                 _build._lib = shipped_lib
-            return statistics.median(r.device_ms for r in run.rounds[1:])
+            return statistics.median(r.device_ms for r in ex.run.rounds[1:])
 
         for v in whole:
             scenario, names = round_cases[v.source]

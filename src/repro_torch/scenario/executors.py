@@ -1,6 +1,6 @@
 """The port's ``repro.scenario.executors``: the moderator lifecycle that
-every executor shares, the capability check, and the four executors that
-run a scenario's rounds on the host.
+every executor shares, the capability check, the four executors that run
+a scenario's rounds on the host and the one that runs them on the card.
 
 :func:`membership_rounds` drives the paper's moderator lifecycle (III-A):
 connectivity reports filed from the overlay, each round's churn applied,
@@ -39,6 +39,12 @@ engine     :class:`~repro_torch.core.gossip.GossipEngine`, the runtime FIFO
 netsim     the contended fluid underlay
            (:func:`~repro_torch.core.netsim.simulate_policy`), every round
            simulated: the paper's Tables III-V metrics (``provides_timing``)
+device     the gossip collectives on the card (:func:`~repro_torch.dfl.
+           collectives.gossip_exchange` over each epoch's device plan, the
+           reference's ``jax`` executor, which ``get("jax")`` also returns):
+           the nodes' (N, P) parameters moved through the Hopper kernels,
+           each live node held to the live nodes' FedAvg within the codec's
+           bound (``provides_numerics``, ``moves_payloads``)
 event      :class:`~repro_torch.core.events.AsyncEventEngine`, asynchronous
            rounds on per-node virtual clocks: bounded staleness, seeded
            straggler compute, drops and churn at virtual timestamps; rounds
@@ -49,14 +55,12 @@ event      :class:`~repro_torch.core.events.AsyncEventEngine`, asynchronous
 
 Host numbers take the reference's operand order and seeded draw order, so
 every field equals the reference executor's. A spec needing a capability
-an executor lacks raises, naming it and the executors that provide it. The
-reference's jax executor has its counterpart in
-:mod:`repro_torch.scenario.runner`, which runs a scenario's rounds on the
-card over the same cache's effective overlay.
+an executor lacks raises, naming it and the executors that provide it.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Type, Union
 
 import numpy as np
@@ -72,9 +76,11 @@ from ..core.netsim import SimResult, TestbedSpec, simulate_policy
 from ..core.network import NetworkSpec, TimingProfile, as_network_model
 from ..core.plan import CommPolicy
 from ..core.sparse import CSRGraph
+from ..dfl.collectives import GossipPlan, gossip_collective_bytes, gossip_exchange
+from ..dfl.session import plan_for_members
 from .cache import PlanCache
 from .spec import (CAPABILITY_FLAGS, ChurnEvent, RoundReport, ScenarioResult, ScenarioSpec,
-                   applicable_churn)
+                   applicable_churn, resolve_gossip_mode)
 
 
 def _file_initial_reports(mod: Moderator, overlay: Graph) -> None:
@@ -386,9 +392,10 @@ class Executor:
                 for cell in cells]
 
 
-# the port's host executors by name, in the reference's registration order
-# (repro_torch.scenario.runner runs a scenario's rounds on the card)
+# the port's executors by name, in the reference's registration order
 EXECUTORS: Dict[str, Type[Executor]] = {}
+# the reference's names for the same entries (its "jax" is the card executor)
+ALIASES = {"jax": "device"}
 
 
 def register(name: str) -> Callable[[Type[Executor]], Type[Executor]]:
@@ -407,11 +414,9 @@ def get(name: Union[str, Executor]) -> Executor:
     if isinstance(name, Executor):
         return name
     try:
-        return EXECUTORS[name]()
+        return EXECUTORS[ALIASES.get(name, name)]()
     except KeyError:
-        raise ValueError(f"unknown executor {name!r}; the port has {names()} (the jax "
-                         "executor is not ported; repro_torch.scenario.runner runs a "
-                         "scenario on the card)") from None
+        raise ValueError(f"unknown executor {name!r}; known: {names()}") from None
 
 
 def names() -> List[str]:
@@ -614,6 +619,174 @@ class NetsimExecutor(Executor):
 
     def finish(self, result: ScenarioResult) -> ScenarioResult:
         result.sim_results = self._sims
+        return result
+
+
+@dataclass
+class DeviceRoundReport:
+    """One card round as the device executor saw it: the counts of its
+    :class:`RoundReport`, and what only the card knows."""
+
+    round: int
+    members: List[int]
+    n_slots: int
+    transmissions: int
+    bytes_mb: float
+    bytes_on_wire_mb: float
+    numerics_ok: Optional[bool]  # None: the codec has no deterministic bound
+    finite: bool  # every output finite, in the input's shape
+    device_ms: Optional[float]  # the round on the card (CUDA events); None on CPU
+
+    def to_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+
+@dataclass
+class ScenarioRun:
+    """The card view of one device executor run (:attr:`DeviceExecutor.runs`)."""
+
+    scenario: str
+    device: str
+    payload_mb: float
+    elems_per_node: int
+    rounds: List[DeviceRoundReport] = field(default_factory=list)
+    # each membership epoch's device plan (MST, colors, permutation steps)
+    plans: List[GossipPlan] = field(default_factory=list, repr=False)
+    # the allocator's peak from the run's start to its end; None on the CPU
+    peak_bytes: Optional[int] = None
+
+
+def _params(n: int, elems: int, proxy: bool, seed: int, device: torch.device) -> torch.Tensor:
+    if proxy:
+        return torch.arange(n * elems, dtype=torch.float32, device=device).reshape(n, elems)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n, elems), generator=gen, device=device)
+
+
+def check_fedavg(out: torch.Tensor, w: torch.Tensor, members: Tuple[int, ...], mode: str,
+                 bound: Optional[float], n: int) -> Tuple[Optional[bool], bool]:
+    """(numerics_ok, finite), with the reference's jax executor's rule: live
+    nodes within ``max(1e-5, bound·(1 or n))`` (+ rtol 1e-5) of the live
+    nodes' f64 mean, masked nodes unchanged within 1e-6."""
+    finite = out.shape == w.shape and bool(torch.isfinite(out).all())
+    if bound is None:
+        return None, finite
+    mean = torch.zeros(w.shape[1], dtype=torch.float64, device=w.device)
+    for m in members:
+        mean += w[m].double()
+    mean /= len(members)
+    atol = max(1e-5, bound * (1 if mode == "dissemination" else n))
+    ok = all(torch.allclose(out[m].double(), mean, rtol=1e-5, atol=atol)
+             for m in members)
+    if mode != "flooding":
+        for m in sorted(set(range(n)) - set(members)):
+            ok = ok and torch.allclose(out[m], w[m], rtol=1e-5, atol=1e-6)
+    return ok, finite
+
+
+def _timed_round(mode: str, plan: GossipPlan, w: torch.Tensor, codec,
+                 dev: torch.device) -> Tuple[torch.Tensor, Optional[float]]:
+    if dev.type != "cuda":
+        return gossip_exchange(mode, plan, {"w": w}, codec=codec)["w"], None
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = gossip_exchange(mode, plan, {"w": w}, codec=codec)["w"]
+    end.record()
+    torch.cuda.synchronize(dev)
+    return out, start.elapsed_time(end)
+
+
+@register("device")
+class DeviceExecutor(Executor):
+    """The gossip collectives on the card, churn-masked: each membership
+    epoch's device plan (:func:`~repro_torch.dfl.session.plan_for_members`
+    over the run's effective overlay: the declared graph, or the annealed
+    one when the spec declares an optimizer) moves the nodes' (N, P) f32
+    parameters along its permutation steps, and every live node must end
+    at the live nodes' FedAvg (within the codec's bound) while masked nodes
+    keep theirs. Flooding runs as an all-gather: every live node receives
+    the other live nodes' models in one slot. Counts and bytes are the
+    device plan's (:func:`~repro_torch.dfl.collectives.
+    gossip_collective_bytes`), as the reference's ``jax`` executor reports
+    them.
+
+    ``proxy_elems=None`` moves the payload's full f32 size a node, drawn
+    from ``seed``; ``proxy_elems=4`` is the reference's ``arange`` proxy.
+    The card view of each run (each round's ``device_ms``, finite outputs,
+    the epoch plans, the run's peak memory) is appended to :attr:`runs`, the
+    last one is :attr:`run`; a traced run on the card counts the rounds'
+    device time as ``device.round_ms``. The parameters are freed when a run
+    ends, so a sweep's peak is its largest cell's."""
+
+    provides_numerics = True
+    moves_payloads = True
+
+    def __init__(self, device: DeviceLike = None, proxy_elems: Optional[int] = None,
+                 seed: int = 0) -> None:
+        self.device = device
+        self.proxy_elems = proxy_elems
+        self.seed = seed
+        self.runs: List[ScenarioRun] = []
+
+    @property
+    def run(self) -> Optional[ScenarioRun]:
+        return self.runs[-1] if self.runs else None
+
+    def begin(self) -> None:
+        spec = self.spec
+        self._device = resolve_device(self.device)
+        self._mode = resolve_gossip_mode(spec.protocol)
+        if self._mode == "flooding" and spec.churn:
+            raise ValueError("the flooding collective (all-gather) cannot mask "
+                             "churned nodes; use an MST mode for churn scenarios")
+        if self._device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self._device)
+        elems = self.proxy_elems or int(round(self.payload_mb * 1e6 / 4))
+        self._w = _params(spec.n, elems, self.proxy_elems is not None, self.seed,
+                          self._device)
+        self._bound = (0.0 if self.codec is None
+                       else self.codec.mean_atol(float(self._w.abs().max())))
+        self.runs.append(ScenarioRun(spec.name, str(self._device), self.payload_mb, elems))
+
+    def begin_epoch(self, mod: Moderator, members: Tuple[int, ...]) -> None:
+        # the epoch's policy through the run's cache, as every executor takes it (the
+        # plan verify proved); the card moves the device plan's permutation steps
+        super().begin_epoch(mod, members)
+        plan = plan_for_members(self.spec.n, members, n_segments=self.spec.n_segments,
+                                full_graph=self.overlay)
+        plan.prepare(self._device)  # index tensors on the card before the timed round
+        self._plan = plan
+        self.run.plans.append(plan)
+
+    def run_round(self, rctx: RoundContext) -> RoundReport:
+        mode, plan, members = self._mode, self._plan, rctx.members
+        out, device_ms = _timed_round(mode, plan, self._w, self.codec, self._device)
+        numerics_ok, finite = check_fedavg(out, self._w, members, mode, self._bound,
+                                           self.spec.n)
+        del out
+        slot_plan = {"dissemination": plan.dissemination, "segmented": plan.segmented,
+                     "tree_allreduce": plan.tree}.get(mode)
+        if slot_plan is not None:
+            n_slots, tx = slot_plan.n_slots, slot_plan.total_transmissions()
+        else:  # flooding = the all-gather: every live node receives m - 1 models
+            n_slots, tx = 1, len(members) * (len(members) - 1)
+        param_bytes = self.payload_mb * 1e6
+        bytes_mb = gossip_collective_bytes(mode, plan, param_bytes) / 1e6
+        wire_mb = gossip_collective_bytes(mode, plan, param_bytes, codec=self.codec) / 1e6
+        if device_ms is not None:
+            obs.get().count("device.round_ms", device_ms)
+        self.run.rounds.append(DeviceRoundReport(
+            round=rctx.round_idx, members=list(members), n_slots=n_slots, transmissions=tx,
+            bytes_mb=bytes_mb, bytes_on_wire_mb=wire_mb, numerics_ok=numerics_ok,
+            finite=finite, device_ms=device_ms))
+        return rctx.report(n_slots=n_slots, transmissions=tx, bytes_mb=bytes_mb,
+                           bytes_on_wire_mb=wire_mb, numerics_ok=numerics_ok)
+
+    def finish(self, result: ScenarioResult) -> ScenarioResult:
+        self._w = None  # the next cell's parameters replace, not join, these
+        if self._device.type == "cuda":
+            self.run.peak_bytes = torch.cuda.max_memory_allocated(self._device)
         return result
 
 

@@ -1,25 +1,13 @@
-"""Run a scenario's gossip rounds on the card (the counterpart of the JAX
-package's ``jax`` scenario executor).
+"""The scenario front door: one declared spec, any registered executor
+(the reference's ``repro.scenario.runner``).
 
-Each round's members, slots, transmissions and bytes are the counting
-executor's (:class:`~repro_torch.scenario.executors.PlanExecutor`: the
-moderator lifecycle over the overlay, the protocol's policy), run with the
-same :class:`~repro_torch.scenario.cache.PlanCache` whose effective overlay
-the device plans over: the declared graph, or the annealed working overlay
-when the spec declares an optimizer (as the reference's jax executor plans
-over its executor's ``overlay``). The exception is
-flooding: the device runs it as an all-gather, where every live node
-receives the other live nodes' models in one slot, as the JAX package's
-``jax`` executor counts it, while the plan executor counts a relay flood
-over the overlay's edges. The device plan is built once per membership
-epoch (churn changes it), then every round moves the nodes' parameters
-along its permutation steps and checks that each live node ends with the
-FedAvg mean of the live nodes, within the codec's error bound, while masked
-nodes keep their own params.
-
-``proxy_elems=None`` runs the payload's full f32 size per node, with random
-parameters from ``seed``; ``proxy_elems=4`` reproduces the JAX executor's
-``arange`` proxy field for field.
+``run_scenario(spec, executor=...)`` looks the executor up in the registry
+(:mod:`repro_torch.scenario.executors`: ``plan``, ``engine``, ``netsim``,
+``device``, ``event``; the reference's ``jax`` names ``device``) and hands
+it the spec; the moderator lifecycle lives once, in
+:meth:`~repro_torch.scenario.executors.Executor.execute`. A card run is
+``run_scenario(spec, executor=DeviceExecutor(seed=1))``; its card view
+(each round's ``device_ms``, the epoch plans) is the executor's ``run``.
 
 :func:`compare_protocols` is the reference runner's function of that name
 (the paper's two-column tables on the fluid simulator), which
@@ -28,151 +16,47 @@ parameters from ``seed``; ``proxy_elems=4`` reproduces the JAX executor's
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from .. import DeviceLike, resolve_device
-from ..compress.codec import per_send_wire_mb
 from ..core.graph import TopologySpec
 from ..core.netsim import SimResult, TestbedSpec
-from ..dfl.collectives import GossipPlan, gossip_exchange, tree_flatten, tree_map
-from ..dfl.session import plan_for_members
+from ..dfl.collectives import tree_flatten, tree_map
+from . import executors
 from .cache import PlanCache
-from .executors import PlanExecutor
+from .executors import Executor, check_fedavg
 from .registry import get
-from .spec import ScenarioSpec, resolve_gossip_mode
+from .spec import ScenarioResult, ScenarioSpec
 
 
-@dataclass
-class DeviceRoundReport:
-    round: int
-    members: List[int]
-    n_slots: int
-    transmissions: int
-    bytes_mb: float
-    bytes_on_wire_mb: float
-    numerics_ok: Optional[bool]  # None: the codec has no deterministic bound
-    finite: bool  # every output finite, in the input's shape
-    device_ms: Optional[float]  # the round on the card (CUDA events); None on CPU
-
-    def to_dict(self) -> Dict:
-        return dataclasses.asdict(self)
-
-
-@dataclass
-class ScenarioRun:
-    scenario: str
-    device: str
-    payload_mb: float
-    elems_per_node: int
-    rounds: List[DeviceRoundReport] = field(default_factory=list)
-    # each membership epoch's device plan (MST, colors, permutation steps)
-    plans: List[GossipPlan] = field(default_factory=list, repr=False)
-
-
-def _params(spec: ScenarioSpec, elems: int, proxy: bool, seed: int,
-            device: torch.device) -> torch.Tensor:
-    n = spec.n
-    if proxy:
-        return torch.arange(n * elems, dtype=torch.float32, device=device).reshape(n, elems)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return torch.randn((n, elems), generator=gen, device=device)
-
-
-def check_fedavg(out: torch.Tensor, w: torch.Tensor, members: Tuple[int, ...], mode: str,
-           bound: Optional[float], n: int) -> Tuple[Optional[bool], bool]:
-    """(numerics_ok, finite), with the JAX executor's rule: live nodes within
-    ``max(1e-5, bound·(1 or n))`` (+ rtol 1e-5) of the live nodes' f64 mean,
-    masked nodes unchanged within 1e-6."""
-    finite = out.shape == w.shape and bool(torch.isfinite(out).all())
-    if bound is None:
-        return None, finite
-    mean = torch.zeros(w.shape[1], dtype=torch.float64, device=w.device)
-    for m in members:
-        mean += w[m].double()
-    mean /= len(members)
-    atol = max(1e-5, bound * (1 if mode == "dissemination" else n))
-    ok = all(torch.allclose(out[m].double(), mean, rtol=1e-5, atol=atol)
-             for m in members)
-    if mode != "flooding":
-        for m in sorted(set(range(n)) - set(members)):
-            ok = ok and torch.allclose(out[m], w[m], rtol=1e-5, atol=1e-6)
-    return ok, finite
-
-
-def run_scenario(spec_or_name: Union[str, ScenarioSpec], device: DeviceLike = None,
-                 proxy_elems: Optional[int] = None, seed: int = 0,
-                 plan_cache: Optional[PlanCache] = None, verify: str = "off") -> ScenarioRun:
-    """Run every round of a scenario; returns the per-round reports.
+def run_scenario(spec: Union[str, ScenarioSpec], executor: Union[str, Executor] = "engine",
+                 record_trace: bool = False, plan_cache: Optional[PlanCache] = None,
+                 verify: str = "off") -> ScenarioResult:
+    """Run a declared scenario (or a registry name) on one executor: a
+    registry name (``executors.names()``, or the reference's ``"jax"``) or
+    an :class:`~repro_torch.scenario.executors.Executor` instance.
     ``plan_cache`` shares the overlay, its search and the plans with other
     runs (a fresh cache when omitted).
 
     ``verify`` statically proves every epoch's plan on the run's cache
-    before the first device round (:mod:`repro_torch.verify`):
-    ``"strict"`` raises :class:`~repro_torch.verify.VerificationError` on
-    the first violated invariant, so a violating plan never reaches the
-    card; ``"warn"`` downgrades it to a
-    :class:`~repro_torch.verify.VerificationWarning` and runs anyway; the
-    default ``"off"`` does not import the verifier."""
+    before the first round (:mod:`repro_torch.verify`): ``"strict"`` raises
+    :class:`~repro_torch.verify.VerificationError` on the first violated
+    invariant, so a violating plan never reaches the card; ``"warn"``
+    downgrades it to a :class:`~repro_torch.verify.VerificationWarning` and
+    runs anyway; the default ``"off"`` does not import the verifier."""
     if verify not in ("off", "warn", "strict"):
         raise ValueError(
             f"verify must be one of ('off', 'warn', 'strict'), got {verify!r}")
-    spec = get(spec_or_name) if isinstance(spec_or_name, str) else spec_or_name.validate()
-    dev = resolve_device(device)
-    mode = resolve_gossip_mode(spec.protocol)
-    if mode == "flooding" and spec.churn:
-        raise ValueError("the flooding collective (all-gather) cannot mask "
-                         "churned nodes; use an MST mode for churn scenarios")
-    codec = spec.codec_obj()
-    cache = plan_cache if plan_cache is not None else PlanCache()
+    spec = get(spec) if isinstance(spec, str) else spec
     if verify != "off":
         from ..verify import verify_scenario_plans  # lazy: nothing imported when off
 
-        verify_scenario_plans(spec, plan_cache=cache, mode=verify)
-    overlay = cache.overlay(spec)
-    payload_mb = spec.payload_mb()
-    elems = proxy_elems or int(round(payload_mb * 1e6 / 4))
-    w = _params(spec, elems, proxy_elems is not None, seed, dev)
-    bound = 0.0 if codec is None else codec.mean_atol(float(w.abs().max()))
-    run = ScenarioRun(spec.name, str(dev), payload_mb, elems)
-    epoch: Optional[Tuple[int, ...]] = None
-    plan: Optional[GossipPlan] = None
-    for counted in PlanExecutor().execute(spec, plan_cache=cache).rounds:
-        members = tuple(counted.members)
-        if members != epoch:
-            plan = plan_for_members(spec.n, members, n_segments=spec.n_segments,
-                                    full_graph=overlay)
-            plan.prepare(dev)  # index tensors on the card before the timed round
-            run.plans.append(plan)
-            epoch = members
-        out, device_ms = _timed_round(mode, plan, w, codec, dev)
-        numerics_ok, finite = check_fedavg(out, w, members, mode, bound, spec.n)
-        del out
-        n_slots, tx = counted.n_slots, counted.transmissions
-        bytes_mb, wire_mb = counted.bytes_mb, counted.bytes_on_wire_mb
-        if mode == "flooding":  # the all-gather: each live node receives the others' models
-            n_slots, tx = 1, len(members) * (len(members) - 1)
-            bytes_mb, wire_mb = tx * payload_mb, tx * per_send_wire_mb(codec, payload_mb)
-        run.rounds.append(DeviceRoundReport(
-            round=counted.round, members=list(members), n_slots=n_slots, transmissions=tx,
-            bytes_mb=bytes_mb, bytes_on_wire_mb=wire_mb,
-            numerics_ok=numerics_ok, finite=finite, device_ms=device_ms))
-    return run
-
-
-def _timed_round(mode: str, plan: GossipPlan, w: torch.Tensor, codec,
-                 dev: torch.device) -> Tuple[torch.Tensor, Optional[float]]:
-    if dev.type != "cuda":
-        return gossip_exchange(mode, plan, {"w": w}, codec=codec)["w"], None
-    torch.cuda.synchronize(dev)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = gossip_exchange(mode, plan, {"w": w}, codec=codec)["w"]
-    end.record()
-    torch.cuda.synchronize(dev)
-    return out, start.elapsed_time(end)
+        if plan_cache is None:
+            plan_cache = PlanCache()
+        verify_scenario_plans(spec, plan_cache=plan_cache, mode=verify)
+    return executors.get(executor).execute(spec, record_trace=record_trace,
+                                           plan_cache=plan_cache)
 
 
 def compare_protocols(

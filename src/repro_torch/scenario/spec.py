@@ -24,8 +24,7 @@ reads of it:
   fields and the totals' ``time_s``; the ``engine`` and ``event`` executors
   the link failures, and ``event`` the staleness window, the straggler
   compute and its jitter, and ``record_events``;
-* the device runner (:mod:`repro_torch.scenario.runner`) reads what the
-  session reads and the payload.
+* the ``device`` executor reads what the session reads and the payload.
 """
 from __future__ import annotations
 
@@ -336,10 +335,8 @@ class ScenarioSpec:
 @dataclass
 class RoundReport:
     """What one communication round counted and, on the ``plan``,
-    ``netsim`` and ``event`` executors, how long it took on the underlay
-    (the reference's fields but the jax executor's numerics, which the
-    port's card runner reports in its own
-    :class:`~repro_torch.scenario.runner.DeviceRoundReport`)."""
+    ``netsim`` and ``event`` executors, how long it took on the underlay;
+    on the ``device`` executor, whether the round held the FedAvg."""
 
     round: int
     protocol: str
@@ -361,6 +358,8 @@ class RoundReport:
     # churn entries carry ``applied_at_s``, the admission time
     admitted_at_s: Optional[float] = None
     completed_at_s: Optional[float] = None
+    # the device executor's: did the collective produce the FedAvg mean?
+    numerics_ok: Optional[bool] = None
 
     def to_dict(self) -> Dict[str, Any]:
         return {k: v for k, v in dataclasses.asdict(self).items() if v is not None}

@@ -3,7 +3,7 @@ conservation *before* anything runs (the port's copy of ``repro.verify``:
 the same checkers, in the same order, with the same certificates).
 
 The MST + coloring efficiency claim of the paper rests on the compiled
-schedule being conflict-free; with four host executors, the card runner,
+schedule being conflict-free; with four host executors, the card executor,
 an incremental replanner and an overlay optimizer all producing/consuming
 the same plan IR, that property deserves a proof at counting speed rather
 than a simulator run and a hopeful assertion. This package analyzes a
@@ -21,15 +21,13 @@ Entry points:
   use; a plan verified once is never re-verified (the cache's ``verified``
   stage).
 * :func:`verify_result` — recheck an executed scenario's byte accounting
-  against the static wire model: a host executor's
-  :class:`~repro_torch.scenario.spec.ScenarioResult` or the card runner's
-  :class:`~repro_torch.scenario.runner.ScenarioRun`.
-* ``run_scenario(spec, verify="strict"|"warn"|"off")`` — the card runner
+  against the static wire model: an executor's
+  :class:`~repro_torch.scenario.spec.ScenarioResult` or the device
+  executor's card view, :class:`~repro_torch.scenario.executors.ScenarioRun`.
+* ``run_scenario(spec, executor=..., verify="strict"|"warn"|"off")`` —
   calls :func:`verify_scenario_plans` on the run's own cache before the
-  first device round, so a violating plan never reaches the card.
-  ``"off"`` (the default) does not even import this package. A host
-  executor is verified the same way: :func:`verify_scenario_plans` on a
-  cache, then ``executors.get(name).execute(spec, plan_cache=cache)``.
+  first round, so a violating plan never reaches the card (or a host
+  executor). ``"off"`` (the default) does not even import this package.
 * ``python -m repro_torch.verify --all`` — the conformance gate over every
   registry scenario and gated sweep cell; ``--lint`` runs the determinism
   lint (:mod:`repro_torch.verify.lint`) over ``src/repro_torch``.

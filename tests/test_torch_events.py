@@ -15,6 +15,7 @@ reference's heap tie-breaking, seeded draw order and float operand order.
   its virtual spans and counters under a recorder; staleness 0 equal to
   the netsim executor's bytes; the capability errors.
 """
+import ast
 import dataclasses
 
 import numpy as np
@@ -262,4 +263,8 @@ def test_capability_errors_name_the_providers(ex, spec, flag, providers):
     runner = executors.EngineExecutor(device="cpu") if ex == "engine" else executors.get(ex)
     with pytest.raises(ValueError, match=f"executor '{ex}' lacks capability '{flag}'") as err:
         runner.execute(s)
-    assert str(err.value).endswith(f"executors providing it: {providers}")
+    # ``providers`` are the host executors with the flag; the card executor
+    # (``device``, the reference's ``jax``) provides numerics and moves payloads
+    want = sorted(ast.literal_eval(providers)
+                  + (["device"] if getattr(executors.DeviceExecutor, flag) else []))
+    assert str(err.value).endswith(f"executors providing it: {want}")

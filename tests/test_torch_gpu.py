@@ -318,11 +318,15 @@ def test_gossip_round_on_card_matches_cpu(cuda, mode, codec):
 
 
 def test_runner_proxy_on_card_matches_cpu(cuda):
-    from repro_torch.scenario import run_scenario
+    from repro_torch.scenario import DeviceExecutor, run_scenario
 
     for name in ("quantized_table3", "mesh_smoke", "topk_sweep"):
-        a = run_scenario(name, device="cuda", proxy_elems=4)
-        b = run_scenario(name, device="cpu", proxy_elems=4)
+        runs = []
+        for device in ("cuda", "cpu"):
+            ex = DeviceExecutor(device=device, proxy_elems=4)
+            run_scenario(name, executor=ex)
+            runs.append(ex.run)
+        a, b = runs
         for ra, rb in zip(a.rounds, b.rounds):
             assert (ra.n_slots, ra.transmissions, ra.bytes_on_wire_mb, ra.numerics_ok) == \
                 (rb.n_slots, rb.transmissions, rb.bytes_on_wire_mb, rb.numerics_ok)
@@ -1254,13 +1258,15 @@ def test_runner_plans_over_the_annealed_overlay_on_card(cuda, cell):
     device plan is the one over the plan cache's annealed overlay, every
     round holds the FedAvg, and the mix launched."""
     from repro_torch.dfl.session import plan_for_members
-    from repro_torch.scenario import run_scenario, scenarios
+    from repro_torch.scenario import DeviceExecutor, run_scenario, scenarios
     from repro_torch.scenario.cache import PlanCache
 
     spec = scenarios.get_sweep("optimized_vs_mst").cells()[cell].spec
     cache = PlanCache()
     reset_launches()
-    run = run_scenario(spec, device="cuda", proxy_elems=4096, plan_cache=cache)
+    ex = DeviceExecutor(device="cuda", proxy_elems=4096)
+    run_scenario(spec, executor=ex, plan_cache=cache)
+    run = ex.run
     want = plan_for_members(spec.n, range(spec.n), n_segments=spec.n_segments,
                             full_graph=cache.overlay(spec))
     (plan,) = run.plans
@@ -1269,3 +1275,40 @@ def test_runner_plans_over_the_annealed_overlay_on_card(cuda, cell):
     assert all(r.numerics_ok is True and r.finite and r.device_ms is not None
                for r in run.rounds)
     assert LAUNCHES["gossip_mix"] > 0 and cache.counters["opt_misses"] == 1
+
+
+def test_device_executor_sweep_on_card(cuda):
+    """``run_sweep`` through the card executor at a proxy width: every
+    cell's rounds equal the CPU run's, each round is timed, a traced sweep
+    counts the rounds' device time as ``device.round_ms``, and every gossip
+    kernel launched."""
+    from repro_torch import obs
+    from repro_torch.scenario import DeviceExecutor, run_sweep, scenarios
+
+    sweep = scenarios.get_sweep("codec_x_protocol")
+    ex = DeviceExecutor(proxy_elems=4096)
+    reset_launches()
+    with obs.recording(obs.Recorder()):
+        got = run_sweep(sweep, executor=ex)
+    want = run_sweep(sweep, executor=DeviceExecutor(device="cpu", proxy_elems=4096))
+    assert len(got.cells) == len(ex.runs) == 10
+    for cell, cpu, run in zip(got.cells, want.cells, ex.runs):
+        assert cell.result.to_dict()["rounds_detail"] == cpu.result.to_dict()["rounds_detail"]
+        assert all(r.finite and r.device_ms > 0 for r in run.rounds)
+        assert run.device.startswith("cuda") and run.peak_bytes > 0
+        traced = cell.result.report["counters"]["device.round_ms"]
+        assert traced == pytest.approx(sum(r.device_ms for r in run.rounds), rel=1e-9)
+    for name in ("quantize", "dequantize", "topk_select", "gossip_mix"):
+        assert LAUNCHES[name] > 0, name
+
+
+def test_device_executor_defaults_to_the_card(cuda):
+    """The registry's ``device`` (the reference's ``jax``) runs on the card
+    at the payload's full width."""
+    from repro_torch.scenario import executors, run_scenario
+
+    ex = executors.get("jax")
+    res = run_scenario("quantized_table3", executor=ex)
+    assert res.executor == "device" and ex.run.device.startswith("cuda")
+    assert ex.run.elems_per_node == 5_300_000 and res.rounds[0].numerics_ok is True
+    assert res.rounds[0].bytes_on_wire_mb == 478.86336

@@ -15,7 +15,7 @@ timing executors against the JAX package's, on the CPU.
   round times within 15% of its ``netsim`` ones on every registered
   scenario the fluid simulator runs, every round.
 * Underlays on a spec (a preset name, a ``NetworkSpec``, a ``TestbedSpec``)
-  validate and serialize as the reference's; the card runner runs the
+  validate and serialize as the reference's; the card executor runs the
   scenarios this slice registers (the all-gather for the flooding
   baseline) with the plan executor's counts.
 """
@@ -239,9 +239,10 @@ def test_underlays_on_a_spec_serialize_as_the_reference():
 
 
 def test_executor_registry_and_capabilities():
-    assert sorted(executors.EXECUTORS) == ["engine", "event", "netsim", "plan"]
-    with pytest.raises(ValueError, match="unknown executor 'jax'.*not ported"):
-        executors.get("jax")
+    assert sorted(executors.EXECUTORS) == ["device", "engine", "event", "netsim", "plan"]
+    assert isinstance(executors.get("jax"), executors.DeviceExecutor)
+    with pytest.raises(ValueError, match="unknown executor 'tpu'"):
+        executors.get("tpu")
     stragglers = scenarios.get("paper_table3").replace(compute_time_s=1.0)
     for ex in ("plan", "netsim"):
         with pytest.raises(ValueError, match=f"executor '{ex}' lacks capability "
@@ -255,13 +256,15 @@ def test_executor_registry_and_capabilities():
 @pytest.mark.parametrize("name", ("paper_flooding_baseline", "hetero_edge", "campus_wan",
                                   "segmented_sweep"))
 def test_card_runner_runs_the_new_scenarios(name):
-    """The device runner on the CPU at the JAX executor's proxy size: each
+    """The card executor on the CPU at the JAX executor's proxy size: each
     round's counts are the plan executor's, but the flooding baseline's,
     which the device runs as an all-gather (m (m - 1) sends, one slot),
     and every live node ends at the FedAvg mean."""
     spec = scenarios.get(name)
     counted = executors.get("plan").execute(spec).rounds
-    run = run_scenario(name, device="cpu", proxy_elems=4)
+    ex = executors.DeviceExecutor(device="cpu", proxy_elems=4)
+    run_scenario(name, executor=ex)
+    run = ex.run
     assert len(run.rounds) == len(counted) == spec.rounds
     for r, c in zip(run.rounds, counted):
         assert r.members == c.members and r.numerics_ok and r.finite

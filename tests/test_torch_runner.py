@@ -1,8 +1,8 @@
-"""The port's scenario runner against the JAX package's ``jax`` executor.
+"""The port's card executor against the JAX package's ``jax`` executor.
 
-``run_scenario(name, device="cpu", proxy_elems=4)`` must report, round for
-round, the same ``n_slots``, ``transmissions``, ``bytes_mb``,
-``bytes_on_wire_mb`` and ``numerics_ok``. The JAX side runs in one
+``run_scenario(name, executor=DeviceExecutor(device="cpu", proxy_elems=4))``
+must report, round for round, the same ``n_slots``, ``transmissions``,
+``bytes_mb``, ``bytes_on_wire_mb`` and ``numerics_ok``. The JAX side runs in one
 subprocess with 12 forced host devices, which also writes a stacked
 parameter tree (with a ``codec_ef`` residual tree and a bfloat16 leaf) for
 the ``convert`` round trip.
@@ -20,11 +20,19 @@ torch = pytest.importorskip("torch")
 
 from repro.scenario import scenarios  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.scenario import SCENARIOS, run_scenario  # noqa: E402
+from repro_torch.scenario import SCENARIOS, DeviceExecutor, run_scenario  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("paper_table3", "quantized_table3", "topk_sweep", "mesh_smoke", "churn_storm")
 FIELDS = ("n_slots", "transmissions", "bytes_mb", "bytes_on_wire_mb", "numerics_ok")
+
+
+def _cpu_run(spec):
+    """The card executor on the CPU at the JAX executor's proxy size: its
+    card view (:class:`~repro_torch.scenario.ScenarioRun`)."""
+    ex = DeviceExecutor(device="cpu", proxy_elems=4)
+    run_scenario(spec, executor=ex)
+    return ex.run
 
 JAX_SIDE = textwrap.dedent("""
     import json, sys
@@ -71,7 +79,7 @@ def jax_side(tmp_path_factory):
 @pytest.mark.parametrize("name", NAMES)
 def test_round_reports_match_jax_executor(name, jax_side):
     theirs = jax_side[0][name]
-    ours = run_scenario(name, device="cpu", proxy_elems=4)
+    ours = _cpu_run(name)
     assert len(ours.rounds) == len(theirs)
     for r, t in zip(ours.rounds, theirs):
         assert r.members == t["members"]
@@ -104,16 +112,15 @@ def test_membership_matches_jax_lifecycle():
                   for r, mod, m, _ in membership_rounds(reg, reg.overlay_graph())]
         assert [(r, mod.moderator_id, tuple(m))
                 for r, mod, m, _ in port_rounds(ours, ours.overlay_graph())] == theirs
-        assert [tuple(r.members) for r in run_scenario(name, device="cpu", proxy_elems=4).rounds
-                ] == [m for _, _, m in theirs]
+        assert [tuple(r.members) for r in _cpu_run(name).rounds] == [m for _, _, m in theirs]
 
 
 @pytest.mark.parametrize("protocol", ("dissemination", "segmented", "tree_allreduce",
                                       "flooding"))
 @pytest.mark.parametrize("name", NAMES)
 def test_round_counts_are_the_plan_executors(name, protocol):
-    """The runner's members, slots, transmissions and bytes are the plan
-    executor's, but for flooding, which the device runs as an all-gather:
+    """The card executor's members, slots, transmissions and bytes are the
+    plan executor's, but for flooding, which the device runs as an all-gather:
     m (m - 1) sends of the whole payload in one slot, m the live nodes."""
     from repro_torch.compress import per_send_wire_mb
     from repro_torch.scenario.executors import PlanExecutor
@@ -122,7 +129,7 @@ def test_round_counts_are_the_plan_executors(name, protocol):
     spec = base.replace(protocol=protocol, codec="int4",
                         churn=() if protocol == "flooding" else base.churn)
     counted = PlanExecutor().execute(spec).rounds
-    ours = run_scenario(spec, device="cpu", proxy_elems=4).rounds
+    ours = _cpu_run(spec).rounds
     assert [r.members for r in ours] == [c.members for c in counted]
     for r, c in zip(ours, counted):
         if protocol == "flooding":
@@ -164,7 +171,7 @@ def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        run_scenario("quantized_table3", proxy_elems=4)
+        run_scenario("quantized_table3", executor=DeviceExecutor(proxy_elems=4))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.from_numpy({"w": np.zeros((2, 3), np.float32)})
 

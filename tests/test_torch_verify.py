@@ -11,9 +11,9 @@ against the JAX package's (``repro.verify``), on the CPU.
 * **Rejection:** each of the reference test's 16 defects, built as the same
   hand-made plan in both packages, raises in both with the same invariant
   and the same message.
-* **Wiring:** the card runner's ``verify=`` modes on the CPU, the shared
+* **Wiring:** the card executor's ``verify=`` modes on the CPU, the shared
   cache, the ``verify`` span track, and ``verify_result`` over every host
-  executor's result and the card runner's rounds (flooding's all-gather and
+  executor's result and the card executor's rounds (flooding's all-gather and
   mesh_smoke's churn among them), with the reference's counts.
 * **CLI and lint:** ``python -m repro_torch.verify --all`` prints the
   reference's lines (timings stripped); the lint is clean over
@@ -304,7 +304,7 @@ def test_sixteen_defects_cover_every_class():
 
 
 # ---------------------------------------------------------------------------
-# wiring: the card runner's modes, the shared cache, verify_result
+# wiring: the card executor's modes, the shared cache, verify_result
 # ---------------------------------------------------------------------------
 
 # chip_smoke.py's phase-3 scenarios
@@ -322,7 +322,8 @@ PATH_SPECS = {
 
 
 def _cpu_run(spec, **kw):
-    return run_scenario(spec, device="cpu", proxy_elems=4, **kw)
+    return run_scenario(spec, executor=executors.DeviceExecutor(device="cpu", proxy_elems=4),
+                        **kw)
 
 
 @pytest.mark.parametrize("name", ["paper_table3", "mesh_smoke", "paper_flooding_baseline"])
@@ -345,8 +346,6 @@ def test_strict_verifies_on_the_runs_cache():
 
 def test_strict_rejects_before_the_first_round(monkeypatch):
     """A violating plan never reaches a gossip round."""
-    import repro_torch.scenario.runner as runner
-
     def boom(*a, **kw):
         raise verify.VerificationError("schedule/half-duplex", "injected")
 
@@ -354,7 +353,7 @@ def test_strict_rejects_before_the_first_round(monkeypatch):
         raise AssertionError("a round ran")
 
     monkeypatch.setattr(verify, "_epoch_certificate", boom)
-    monkeypatch.setattr(runner, "_timed_round", no_round)
+    monkeypatch.setattr(executors, "_timed_round", no_round)
     with pytest.raises(verify.VerificationError) as err:
         _cpu_run(scenarios.get("paper_table3"), verify="strict")
     assert err.value.invariant == "schedule/half-duplex"
@@ -390,8 +389,9 @@ def test_unknown_mode_raises():
 
 def test_off_does_not_import_the_verifier():
     code = ("import sys\n"
-            "from repro_torch.scenario import run_scenario\n"
-            "run = run_scenario('paper_table3', device='cpu', proxy_elems=4)\n"
+            "from repro_torch.scenario import DeviceExecutor, run_scenario\n"
+            "run = run_scenario('paper_table3', executor=DeviceExecutor(device='cpu', "
+            "proxy_elems=4))\n"
             "assert run.rounds[0].numerics_ok\n"
             "print(sorted(m for m in sys.modules if m.startswith('repro_torch.verify')))\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="2")
