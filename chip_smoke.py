@@ -32,11 +32,12 @@ Phases, each fatal on failure (exit code 1, no result line):
              shape the sweeps part launches them with (a dry run of its two
              sweeps at full width on the card: the segmented cells' segments
              of 1.325 M, top-k's B0 rows), and at every
-             shape phase 5's whisper-tiny int8 dissemination launches them
-             with (one round of its 4 nodes' seeded f32 masters on the card:
-             a quantize a leaf, a dequantize a group of leaves a hop; the
-             round must equal the same round leaf by leaf bit for bit, with
-             groups x steps dequantize launches); dequantize at each group
+             shape phase 5's int8 dissemination runs of whisper-tiny (full
+             depth) and granite-3-2b (4 layers) launch them with (one round
+             of each one's 4 nodes' seeded f32 masters on the card: a
+             quantize a leaf, a dequantize a group of leaves a hop; the round
+             must equal the same round leaf by leaf bit for bit, with groups
+             x steps dequantize launches); dequantize at each group
              as one launch, beside the same leaves in single launches, the
              bound of the group's bytes and, where one call computes the
              same values (int8, leaves of whole chunks or one row of one
@@ -45,7 +46,7 @@ Phases, each fatal on failure (exit code 1, no result line):
              the FedAvg mix at (10, 10,
              5.3 M), at the sweeps' shapes (each Table II payload's (10, 10,
              P) up to EfficientNet-B3's 12.0 M, the segmented cells') and at
-             whisper's leaf shapes; the codec kernels and the
+             whisper's and granite's leaf shapes; the codec kernels and the
              mix also at the engine phase's shapes (one row of 2.9 M or of
              1.325 M; the mix at (1, 10, each)). Quantize, dequantize and
              top-k must be bit-identical; the mix within rtol 1e-6 of
@@ -71,7 +72,12 @@ Phases, each fatal on failure (exit code 1, no result line):
              160) and zamba2-7b's (2, 2048, 32 / 32, 112) and at their
              training batch of 1, the head dims the kernels pad to whole
              slabs inside, causal bf16 timed beside SDPA, a bf16 case on fused-qkv views at hd 160 and f32 cases at
-             hd 160 and 112; whisper-tiny's attentions, non-causal over its
+             hd 160 and 112; granite-3-2b's prefill (4, 2048, 32 / 8, 64)
+             and training (2, 2048) shapes (GQA 4:1), causal bf16 timed
+             beside SDPA; gemma2-2b's global layer at its prefill (1, 8192,
+             8 / 4, 256) and its training shape (1, 2048), causal with
+             softcap 50 and no window (no library call has a softcap: no
+             library time); whisper-tiny's attentions, non-causal over its
              1500 frames (the last key tile ragged) in the encoder (8, 1500,
              6 / 6, 64) and from its 448 text positions in the
              cross-attention, and causal in the decoder (8, 448), with an f32
@@ -92,7 +98,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              training shape (2, 2048, 15 / 5, 64) causal in bf16 and f32,
              gemma2-2b's (1, 8192, 8 / 4, 256) with window 4096 and softcap
              50 in bf16, an hd-128 case (2, 2048, 16 / 8, 128) causal in
-             bf16, qwen3-moe's training shape (1, 2048, 32 / 4, 128) and
+             bf16, granite-3-2b's (2, 2048, 32 / 8, 64) causal and gemma2-2b's
+             (1, 2048, 8 / 4, 256) with softcap 50 in bf16, qwen3-moe's training shape (1, 2048, 32 / 4, 128) and
              stablelm-12b's (1, 2048, 32 / 8, 160) and zamba2-7b's (1, 2048,
              32 / 32, 112) causal in bf16, whisper-tiny's training shapes
              (encoder (8, 1500) and cross-attention 448 x 1500 non-causal,
@@ -233,28 +240,57 @@ Phases, each fatal on failure (exit code 1, no result line):
              d 4096), qwen3-moe-30b-a3b (48 layers, d 2048, 128 experts,
              60.4 GB), stablelm-12b (40 layers, d 5120, 23.3 GB) and
              zamba2-7b (81 layers: 13 super-blocks of 5 Mamba2 blocks and the
-             shared attention block, then 3 Mamba2 blocks; d 3584, 11.2 GB)
+             shared attention block, then 3 Mamba2 blocks; d 3584, 11.2 GB),
+             gemma2-2b (26 layers alternating local, window 4096, and global;
+             d 2304, 8 / 4 heads of 256, softcaps 50 and 30, vocab 256,000,
+             5.2 GB) and granite-3-2b (40 layers, d 2048, 32 / 8 heads of 64,
+             vocab 49,155, 5.1 GB)
              at full width and depth, and arctic-480b at full width
              and 1 of its 35 layers (26.8 GB of experts), in bf16, params
              from Model.init on the card (seed 0; stacked leaves filled in
              place), with the launch counts set to 0 just before and read
              just after: three prefill forwards over (4, 2048), (2, 2048),
-             (2, 2048) and (1, 2048) tokens (the first a warm-up), then the
+             (2, 2048) and (1, 2048) tokens, gemma2's over (1, 8192), where
+             the window masks keys, granite's over (4, 2048) (the first a
+             warm-up), then the
              serve loop at the reference CLI's defaults (batch 4, prompt 32,
              gen 16, cache 128) or, for arctic, 8 decode steps. Every logit
-             finite; flash_attention launched once a dense or moe layer or a
+             finite (gemma2's every |logit| within its final softcap of 30 +
+             1e-3; granite's padded vocab columns -1e9 and no argmax among
+             them); flash_attention launched once a dense or moe layer or a
              use of the hybrid's shared block and selective_scan once a
              Mamba1 layer per forward, the other model kernel never; zamba2's
              Mamba2 blocks' share of its prefill (one block timed alone at
-             the prefill shape, times the blocks). Prints prefill ms
+             the prefill shape, times the blocks). Prints each model
+             kernel's launches by shape, prefill ms
              and tok/s, decode ms/step and tok/s and peak memory, and the
              device time of one decode step replayed as a CUDA graph (not
-             arctic). Then, in f32 at full width, 4 layers (2 for qwen3-moe,
+             arctic); gemma2's local and global layers' flash device time
+             over its prefill apart (CUDA events around each call), beside
+             their share of (q, k) pairs. Then gemma2-2b and granite-3-2b
+             at full depth, bf16, batch 1, one ``long_500k`` decode step as
+             the dry run traces it (``build_model(cfg, "long_500k")``,
+             ``init_cache(1, 524288)``, position 524287: granite's cache a
+             ring of 4096 in all 40 layers, gemma2's a ring of 4096 and a
+             global cache of 524,288 in 13 layers each, 27.9 GB): finite
+             logits, no kernel launched (decode keeps the masked einsum),
+             its device time and peak, and counted for phase 7. Then, in
+             f32 at full width, 4 layers (2 for qwen3-moe,
              capacity factor 100 as tests/test_models.py decodes moe archs;
              13 for zamba2: two super-blocks and a tail block, so the shared
              block's decode cache is used twice),
              forward logits against teacher-forced decode logits over a
-             256-token prompt, within 5e-2 (the bound of tests/test_models.py).
+             256-token prompt, within 5e-2 (the bound of tests/test_models.py);
+             granite-3-2b at 4 layers the same way; gemma2-2b at 2 layers
+             (a local / global pair) and granite-3-2b's ``long_500k`` variant
+             at 2 layers (every layer windowed) over (1, 4352) tokens, the
+             window plus 256, so their rings of 4096 wrap: the decode within
+             5e-2 there too, and the windowed forward differs from full
+             attention on the same params by more than 10x the decode's
+             error past the ring. Each check's decode step replays as a CUDA
+             graph (its last step bit-identical to the eager step), the
+             error's maximum stays on the device and is read once a check,
+             and its wall time is printed.
              whisper-tiny (4 encoder and 4 decoder layers, d 384, 39 M
              params) and paligemma-3b (18 layers, d 2048, MQA 8 / 1 at hd
              256, 2.5 B params) at full width and depth the same way, from
@@ -287,7 +323,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              idle share of the step). Every loss and grad norm finite; every
              step launches flash_attention and flash_attention_bwd 32 x N
              times; every gossip kernel launches in the codec runs. Prints
-             each step's time by host clock, synchronized, split into the
+             each run's model kernels' launches by shape and each step's
+             time by host clock, synchronized, split into the
              nodes' forward + backward, the optimizer and the gossip, with
              tokens/s, the losses and the peak memory. Then, in f32 at 4
              layers and full width, every leaf's training gradient through
@@ -338,7 +375,19 @@ Phases, each fatal on failure (exit code 1, no result line):
              dissemination buffer of its 0.48 B params a node, 30.5 GB, is
              printed); the
              f32 gradient check at 1 layer over (1, 2048) tokens, the plain
-             scan differentiated by autograd as the reference.
+             scan differentiated by autograd as the reference. Then
+             granite-3-2b at full width and 4 of its 40 layers (0.344 B
+             params a node), 4 nodes x (2, 2048), lr 3e-4: int8
+             dissemination for 2 steps (its codec and mix shapes timed in
+             phase 2, their launches joining those rows), tree_allreduce for
+             4 (the fourth profiled), the f32 gradient check at 4 layers;
+             and gemma2-2b at full width and 2 of its 26 layers (a local /
+             global pair, 0.746 B params a node), 4 nodes x (1, 2048), lr
+             3e-4: tree_allreduce for 4 steps (the fourth profiled; its 47.7
+             GB dissemination buffer printed), the f32 gradient check over
+             (1, 4352) tokens, where the local layer's window masks keys in
+             the flash backward. Each launches the flash forward and
+             backward once a layer a node a step.
 6. sweep   — the launcher's sweep path (``repro_torch.launch.train``):
              ``--sweep codec_x_protocol`` prints its dry table, which must
              equal the reference launcher's lines; then each of its 10 cells
@@ -372,7 +421,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              int8, int4). Prints the worst |masters - FedAvg| of both.
 7. dryrun  — the one-card dry run (``repro_torch.launch.dryrun``) against
              the card. Each phase-5 run ends with one more steady step, and
-             each phase-4 arch with one more prefill, under the op counter,
+             each phase-4 arch with one more prefill, and gemma2-2b's and
+             granite-3-2b's ``long_500k`` decode steps, under the op counter,
              its peak from ``reset_peak_memory_stats`` on; the dry run of the
              same config (the ArchConfig, DFLConfig, node count, cut depth,
              batch and f32 frontends) must give the same FLOPs exactly, the
@@ -388,11 +438,14 @@ Phases, each fatal on failure (exit code 1, no result line):
              roofline share and MFU with the card's name and power limit;
              the card memory outside the allocator; then the dry run of every
              arch x INPUT_SHAPES entry (the ``--all`` table: 4 nodes, full
-             depth, each pair ok or skipped, fits_hbm against the card's
-             memory); the scan backward's workspace against the source's
-             count; and its own seconds. The dry runs trace in spawned
-             processes begun after phase 6, so no timed phase shares the
-             host with them.
+             depth but arctic-480b's train_4k at 4 of 35 layers, each pair
+             ok or skipped, fits_hbm against the card's
+             memory; a counted decode step is held to its ``long_500k`` pair,
+             traced once); the scan backward's workspace against the source's
+             count; and its own seconds. The dry runs trace in a pool of
+             spawned processes, one a CPU up to 8, begun after phase 6, so no
+             timed phase shares the host with them; the pool's size, the
+             host's CPU count and its wall time are printed.
 8. mesh    — the mesh (``launch/mesh.py``, ``dfl/sharding.py``). (a)
              smollm-360m and falcon-mamba-7b on a one-rank NCCL mesh: phase
              4's params (its seed) and tokens as DTensors split by
@@ -492,6 +545,20 @@ PLAN_N300_HOST_ELEMS = 4096
 # (sweep, repeats) whose plan-executor run_cells is timed batched and serial
 PLAN_RUN_CELLS = (("table3_full", 5), ("codec_x_protocol", 5), ("optimized_vs_mst", 1))
 PLAN_CODECS = ("fp32", "int8")
+# phase 5's int8 dissemination runs, (arch, cut depth or 0 for all layers):
+# phase 2 finds and times their codec and mix shapes from one round of each
+PHASE5_INT8 = (("whisper-tiny", 0), ("granite-3-2b", 4))
+# phase 4: the prefill's tokens a row where not 2048 (whisper's 448 text
+# positions, Whisper's text context, arXiv:2212.04356; gemma2-2b's 8192,
+# twice its local layers' window of 4096, so the window masks keys)
+SERVE_SEQ = {"whisper-tiny": 448, "gemma2-2b": 8192}
+# phase 4: the archs whose long_500k decode step runs at full depth
+LONG_DECODE = ("gemma2-2b", "granite-3-2b")
+# phase 7's --all pairs traced at a cut depth: arctic-480b's training step
+# at full depth (35 layers x 8 microbatches x 128 experts) traced for 289-391 s
+# on an H100's host, alone the length of the dry-run pool, and at any depth
+# it needs terabytes (16,050 GB at 35 layers)
+ALL_CUT = {("arctic-480b", "train_4k"): 4}
 # the sweeps part: the reference's sweeps run on the card executor, with their cell counts
 CARD_SWEEPS = {"codec_x_protocol": 10, "payload_latency_curve": 7}
 # P8: qwen3-moe's 16x16 prefill at 2 layers, traced on the card (its peak is
@@ -787,6 +854,113 @@ def frontend_inputs(cfg, rows, gen):
         return {"patch_embeddings": torch.randn((rows, cfg.n_patches, cfg.d_model),
                                                 generator=gen, device=gen.device)}
     return {}
+
+
+def check_logits(arch, cfg, logits):
+    """A final softcap bounds every logit (|logit| <= cap + 1e-3, as
+    tests/test_models.py holds gemma2's); a padded vocabulary's columns read
+    -1e9 and no row's argmax falls among them. Reductions only: no copy of
+    the logits is made."""
+    vocab = cfg.vocab
+    if cfg.final_logit_softcap:
+        top = max(float(logits[..., :vocab].amax()), -float(logits[..., :vocab].amin()))
+        if not top <= cfg.final_logit_softcap + 1e-3:
+            fail(f"{arch}: max |logit| {top} above the final softcap {cfg.final_logit_softcap}")
+    if logits.shape[-1] != vocab:
+        if not bool((logits[..., vocab:] == -1e9).all()):
+            fail(f"{arch}: a padded vocab column of the logits is not -1e9")
+        if not bool((logits.argmax(dim=-1) < vocab).all()):
+            fail(f"{arch}: a row's argmax falls in the padded vocab columns")
+
+
+def flash_ms_by_window(model, params, batch):
+    """One prefill forward with CUDA events around each flash call: the
+    device ms of the calls by their sliding window (0: a global layer), as
+    {window: [ms, ...]}."""
+    import torch
+
+    from repro_torch.models import attention as attn_model
+
+    inner, spans = attn_model.flash_attention_op, []
+
+    def timed(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kw)
+        end.record()
+        spans.append((kw["sliding_window"], start, end))
+        return out
+
+    attn_model.flash_attention_op = timed
+    try:
+        with torch.inference_mode():
+            model.forward(params, batch)
+    finally:
+        attn_model.flash_attention_op = inner
+    torch.cuda.synchronize()
+    by_window = {}
+    for window, start, end in spans:
+        by_window.setdefault(window, []).append(start.elapsed_time(end))
+    return by_window
+
+
+def decode_against_forward(model, params, tokens, frontend=None, wrap=False):
+    """Teacher-forced decode of ``tokens`` (b, s) from ``init_cache(b, s)``
+    (whisper's cross cache filled from its encoder), each step's logits
+    against the forward's at that position: the max |difference| over every
+    step and, with ``wrap``, over the steps at or past the first windowed
+    cache's ring length, kept on the device and read once. The step is
+    replayed as a CUDA graph (the token, position and cache copied into its
+    inputs); its last step must give the eager step's logits bit for bit.
+    Returns (max err, max err past the ring, ring length)."""
+    import torch
+
+    from repro_torch.models import Batch
+    from repro_torch.optim.optimizers import tree_leaves
+
+    cfg, vocab, dev = model.cfg, model.cfg.vocab, tokens.device
+    b, s = tokens.shape
+    frontend = frontend or {}
+    with torch.inference_mode():
+        full, _ = model.forward(params, Batch(tokens=tokens, **frontend))
+        cache = model.init_cache(b, s)
+        if cfg.family == "audio":
+            cache = fill_whisper_cross(model, params, frontend["encoder_frames"], cache)
+        ring = min((c["k"].shape[2] for c in cache.values() if isinstance(c, dict) and "k" in c),
+                   default=s)
+        tok, pos = tokens[:, :1].clone(), torch.zeros(b, dtype=torch.long, device=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.decode_step(params, tok, pos, cache)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step, new = model.decode_step(params, tok, pos, cache)
+        leaves, new_leaves = tree_leaves(cache), tree_leaves(new)
+        worst = torch.zeros((), device=dev)
+        late = torch.zeros((), device=dev)
+        for t in range(s):
+            tok.copy_(tokens[:, t:t + 1])
+            pos.fill_(t)
+            if t == s - 1:  # the last step's inputs, for the eager step
+                last = [x.clone() for x in leaves]
+            graph.replay()
+            err = (step[:, 0, :vocab] - full[:, t, :vocab]).abs().amax()
+            worst = torch.maximum(worst, err)
+            if wrap and t >= ring:
+                late = torch.maximum(late, err)
+            for x, y in zip(leaves, new_leaves):
+                if x is not y:
+                    x.copy_(y)
+        for x, y in zip(leaves, last):
+            x.copy_(y)
+        eager, _ = model.decode_step(params, tok, pos, cache)
+        if not torch.equal(eager, step):
+            fail(f"{cfg.name}: the decode step replayed as a CUDA graph differs from the eager "
+                 "step")
+        del graph
+    return float(worst), float(late), ring
 
 
 def fill_whisper_cross(model, params, frames, cache):
@@ -1853,7 +2027,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.compress import make_codec, per_send_wire_mb
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import INPUT_SHAPES, get_arch
     from repro_torch.kernels import (KERNEL_NAMES, _build, launch_counts, launch_shapes,
                                      reset_launches)
     from repro_torch.kernels.attention.flash import (flash_attention, flash_attention_bwd,
@@ -1887,7 +2061,7 @@ def main() -> int:
     from repro_torch.models import Batch, build_model
     from repro_torch.models import attention as attn_model
     from repro_torch.models import mamba as mamba_model
-    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.layers import padded_vocab, rms_norm
     from repro_torch.models.mamba import mamba2_forward
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.scenario import (SCENARIOS, DeviceExecutor, run_scenario, run_sweep,
@@ -2004,38 +2178,44 @@ def main() -> int:
     for name in GOSSIP_KERNELS:
         print(f"[kernel] {name}: the sweeps part's launch shapes "
               f"{sorted(card_sweep_shapes[name].items())} (dry run at full width)")
-    # phase 5's whisper-tiny int8 dissemination: one payload a leaf of the 4
+    # phase 5's int8 dissemination runs at their own widths (whisper-tiny
+    # at full depth, granite-3-2b at 4 layers): one payload a leaf of the 4
     # nodes' f32 masters, the leaves hopped in groups (one dequantize a group
     # a hop); a round at the real leaf sizes, on seeded masters, must equal
     # the same round leaf by leaf (the per-leaf hop), bit for bit
-    whisper_masters = tree_map(
-        lambda t: t.float().expand(4, *t.shape) + 0.01 * torch.randn(
-            (4, *t.shape), generator=gen, device=dev),
-        build_model(get_arch("whisper-tiny"), device="cuda").init(
-            torch.Generator(device=dev).manual_seed(0)))
-    whisper_plan, int8 = GossipPlan.build(4), make_codec("int8")
-    reset_launches()
-    grouped = gossip_exchange("dissemination", whisper_plan, whisper_masters, codec=int8)
-    whisper_shapes = launch_shapes()
-    leaves = tree_flatten(whisper_masters)[0]
-    groups = hop_groups("dissemination", whisper_plan, leaves, int8)
-    if sum(whisper_shapes["dequantize"].values()) != len(groups) * len(whisper_plan.diss_steps):
-        fail(f"whisper-tiny int8 round: {whisper_shapes['dequantize']} dequantize launches, "
-             f"expected {len(groups)} groups x {len(whisper_plan.diss_steps)} steps")
-    for got, leaf in zip(tree_flatten(grouped)[0], leaves):
-        alone = gossip_exchange("dissemination", whisper_plan, {"x": leaf}, codec=int8)["x"]
-        if not torch.equal(got, alone):
-            fail("whisper-tiny int8 round: the grouped hop differs from the leaf-by-leaf hop")
-    print(f"[kernel] whisper-tiny int8 dissemination round (4 nodes' f32 masters, {len(leaves)} "
-          f"leaves in {len(groups)} groups {[len(g) for g in groups]}, "
-          f"{len(whisper_plan.diss_steps)} steps): equal to the leaf-by-leaf round bit for bit; "
-          f"{sum(whisper_shapes['dequantize'].values())} dequantize launches (a launch a leaf a hop: "
-          f"{len(leaves) * len(whisper_plan.diss_steps)}); quantize "
-          f"{sorted(whisper_shapes['quantize'].items())}, gossip_mix "
-          f"{sorted(whisper_shapes['gossip_mix'].items())}")
-    del whisper_masters, grouped, leaves, got, alone
-    for name in ("quantize", "dequantize"):
-        path_shapes[name].update(whisper_shapes[name])
+    diss_plan, int8 = GossipPlan.build(4), make_codec("int8")
+    train_shapes = {}  # arch -> kernel -> the launch shapes of its round
+    for arch, layers in PHASE5_INT8:
+        cfg = get_arch(arch)
+        masters = tree_map(
+            lambda t: t.float().expand(4, *t.shape) + 0.01 * torch.randn(
+                (4, *t.shape), generator=gen, device=dev),
+            build_model(cfg.replace(n_layers=layers or cfg.n_layers), device="cuda").init(
+                torch.Generator(device=dev).manual_seed(0)))
+        reset_launches()
+        grouped = gossip_exchange("dissemination", diss_plan, masters, codec=int8)
+        shapes = train_shapes[arch] = launch_shapes()
+        leaves = tree_flatten(masters)[0]
+        groups = hop_groups("dissemination", diss_plan, leaves, int8)
+        if sum(shapes["dequantize"].values()) != len(groups) * len(diss_plan.diss_steps):
+            fail(f"{arch} int8 round: {shapes['dequantize']} dequantize launches, expected "
+                 f"{len(groups)} groups x {len(diss_plan.diss_steps)} steps")
+        for got, leaf in zip(tree_flatten(grouped)[0], leaves):
+            alone = gossip_exchange("dissemination", diss_plan, {"x": leaf}, codec=int8)["x"]
+            if not torch.equal(got, alone):
+                fail(f"{arch} int8 round: the grouped hop differs from the leaf-by-leaf hop")
+            del alone
+        print(f"[kernel] {arch} int8 dissemination round (4 nodes' f32 masters, {len(leaves)} "
+              f"leaves in {len(groups)} groups {[len(g) for g in groups]}, "
+              f"{len(diss_plan.diss_steps)} steps): equal to the leaf-by-leaf round bit for "
+              f"bit; {sum(shapes['dequantize'].values())} dequantize launches (a launch a leaf "
+              f"a hop: {len(leaves) * len(diss_plan.diss_steps)}); quantize "
+              f"{sorted(shapes['quantize'].items())}, gossip_mix "
+              f"{sorted(shapes['gossip_mix'].items())}")
+        del masters, grouped, leaves, got, leaf
+        for name in ("quantize", "dequantize"):
+            path_shapes[name].update(shapes[name])
+        torch.cuda.empty_cache()
     # phase 6's cells: one dry gossip round of each cell's trainer as the
     # launcher builds it (the session's plan over the cell's ER(10) overlay,
     # the masters the step gossips, top-k's error feedback) yields every
@@ -2059,7 +2239,8 @@ def main() -> int:
               f"{SWEEP_NODES} nodes)")
     for name in CODEC_KERNELS:
         path_shapes[name].update(sweep_shapes[name])
-    later = {k for name in ("quantize", "dequantize") for k in whisper_shapes[name]}
+    later = {k for shapes in train_shapes.values() for name in ("quantize", "dequantize")
+             for k in shapes[name]}
     later |= {k for name in CODEC_KERNELS for k in sweep_shapes[name]} | sweeps_later
     # the engine phase's shapes: one payload part a row (v3s's whole payload,
     # B0's segments) and the FedAvg of the n nodes' parts
@@ -2203,13 +2384,15 @@ def main() -> int:
            mix_cost(buf), library_ms=median_ms(lambda: torch.mean(buf, dim=1), 10, cold=False),
            shape=" (10, 10, 5.3 M)")
     del buf, mixed, plain
-    # the mix at whisper-tiny's leaf shapes (the FedAvg of its dissemination
-    # on 4 nodes, and of phase 6's protocols on 10), at the engine phase's
-    # FedAvg of 10 payload parts and at the sweeps part's: from a cold L2, as
-    # one leaf's mix follows the others' rounds
-    for batch, n, p in sorted(set(whisper_shapes["gossip_mix"]) | set(sweep_shapes["gossip_mix"])
-                              | engine_shapes["gossip_mix"]
-                              | set(card_sweep_shapes["gossip_mix"])):
+    # the mix at the leaf shapes of phase 5's int8 runs (the FedAvg of their
+    # dissemination on 4 nodes) and of phase 6's protocols on 10, at the
+    # engine phase's FedAvg of 10 payload parts and at the sweeps part's: from
+    # a cold L2, as one leaf's mix follows the others' rounds
+    mix_where = {key: arch for arch, shapes in train_shapes.items()
+                 for key in shapes["gossip_mix"]}
+    mix_where.update({key: "whisper-tiny" for key in sweep_shapes["gossip_mix"]})
+    mix_where.update({key: "engine" for key in engine_shapes["gossip_mix"]})
+    for batch, n, p in sorted(set(mix_where) | set(card_sweep_shapes["gossip_mix"])):
         buf = torch.randn((batch, n, p), generator=gen, device=dev)
         w = torch.full((n,), 1.0 / n, device=dev)
         mixed, plain = gossip_mix_op(buf, w), gossip_mix_ref(buf, w)
@@ -2219,10 +2402,7 @@ def main() -> int:
                1e-6 * float(buf.abs().max()), median_ms(lambda: gossip_mix_op(buf, w), iters),
                median_ms(lambda: gossip_mix_ref(buf, w), iters // 5),
                mix_cost(buf), library_ms=median_ms(lambda: torch.mean(buf, dim=1), iters),
-               shape=f" ({batch}, {n}, {p}) "
-               + ("engine" if (batch, n, p) in engine_shapes["gossip_mix"] else "whisper-tiny"
-                  if (batch, n, p) in whisper_shapes["gossip_mix"] | sweep_shapes["gossip_mix"]
-                  else "sweeps"),
+               shape=f" ({batch}, {n}, {p}) {mix_where.get((batch, n, p), 'sweeps')}",
                key=(batch, n, p))
         del buf, mixed, plain
 
@@ -2245,6 +2425,13 @@ def main() -> int:
         (2, 2048, 2048, 32, 32, 112, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # zamba2-7b
         (1, 2048, 2048, 32, 8, 160, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),  # their training
         (1, 2048, 2048, 32, 32, 112, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        # granite-3-2b's prefill and training (GQA 4:1 at hd 64), gemma2-2b's
+        # global layer at its prefill (softcap, no window) and its training
+        # shape (s under the window: every layer computes alike)
+        (4, 2048, 2048, 32, 8, 64, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (2, 2048, 2048, 32, 8, 64, True, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
+        (1, 8192, 8192, 8, 4, 256, True, 0, 50.0, torch.bfloat16, 2e-2, "timed"),
+        (1, 2048, 2048, 8, 4, 256, True, 0, 50.0, torch.bfloat16, 2e-2, "timed"),
         # whisper-tiny: the encoder over 1500 frames (the last key tile ragged),
         # the decoder's cross-attention and its causal self-attention
         (8, 1500, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16, 2e-2, "timed"),
@@ -2383,6 +2570,8 @@ def main() -> int:
         (1, 2048, 2048, 32, 4, 128, True, 0, 0.0, torch.bfloat16),  # qwen3-moe's training
         (1, 2048, 2048, 32, 8, 160, True, 0, 0.0, torch.bfloat16),  # stablelm-12b's training
         (1, 2048, 2048, 32, 32, 112, True, 0, 0.0, torch.bfloat16),  # zamba2-7b's training
+        (2, 2048, 2048, 32, 8, 64, True, 0, 0.0, torch.bfloat16),  # granite-3-2b's training
+        (1, 2048, 2048, 8, 4, 256, True, 0, 50.0, torch.bfloat16),  # gemma2-2b's training
         # whisper-tiny's encoder, cross-attention and decoder, 8 rows a node
         (8, 1500, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16),
         (8, 448, 1500, 6, 6, 64, False, 0, 0.0, torch.bfloat16),
@@ -2720,14 +2909,15 @@ def main() -> int:
                   ("stablelm-12b", 0, 2, "flash_attention", "cli"),
                   ("zamba2-7b", 0, 2, "flash_attention", "cli"),
                   ("whisper-tiny", 0, 8, "flash_attention", "cli"),
-                  ("paligemma-3b", 0, 2, "flash_attention", "cli")]
+                  ("paligemma-3b", 0, 2, "flash_attention", "cli"),
+                  ("gemma2-2b", 0, 1, "flash_attention", "cli"),
+                  ("granite-3-2b", 0, 4, "flash_attention", "cli")]
     n_prefill = 3
     reset_launches()
     serve_launches = Counter()
     phase4 = {}  # phase 8's references: the MESH_SERVE archs' logits and inputs
     for arch, layers, batch, kernel, decode in serve_runs:
-        # whisper's 448 text positions, Whisper's text context (arXiv:2212.04356)
-        seq = 448 if arch == "whisper-tiny" else 2048
+        seq = SERVE_SEQ.get(arch, 2048)
         full = get_arch(arch)
         cfg = full.replace(n_layers=layers) if layers else full
         depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full.n_layers
@@ -2755,6 +2945,7 @@ def main() -> int:
                 spans.append(time.perf_counter() - t0)
                 if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
                     fail(f"{arch}: non-finite prefill logits")
+                check_logits(arch, cfg, logits)
                 if arch in MESH_SERVE and arch not in phase4:
                     phase4[arch] = dict(logits=logits.cpu(), tokens=tokens.cpu(), batch=batch,
                                         seq=seq, kernel=kernel)
@@ -2773,12 +2964,31 @@ def main() -> int:
         prefill_peak = torch.cuda.max_memory_allocated() / 1e9
         prefill_ms = statistics.median(spans[1:]) * 1e3
         inputs = "".join(f" + {k} {tuple(t.shape)}" for k, t in frontend.items())
+        logit_note = (f", every |logit| <= {cfg.final_logit_softcap} + 1e-3 (the final softcap)"
+                      if cfg.final_logit_softcap else "")
+        if cfg.vocab != padded_vocab(cfg.vocab):
+            logit_note += (f", the {padded_vocab(cfg.vocab) - cfg.vocab} padded vocab columns "
+                           "-1e9 and no row's argmax among them")
         print(f"[serve] {arch}: {depth}, d {cfg.d_model}, {n_params / 1e9:.3f} B params bf16 "
               f"(init {init_s:.1f} s, peak {init_peak:.2f} GB); prefill ({batch}, {seq}){inputs}: "
               f"{prefill_ms:.3f} ms median of {n_prefill - 1} after a warm-up "
               f"[{', '.join(f'{1e3 * t:.3f}' for t in spans)}], "
               f"{batch * seq / prefill_ms * 1e3:.0f} tok/s, {per_fwd} {kernel} launches a "
-              f"forward, no {other}, peak {prefill_peak:.2f} GB on {card}")
+              f"forward, no {other}{logit_note}, peak {prefill_peak:.2f} GB on {card}")
+        if cfg.alt_local_global:  # the local layers' flash against the global layers'
+            by_window = flash_ms_by_window(model, params, Batch(tokens=tokens, **frontend))
+            serve_launches[kernel] += sum(len(v) for v in by_window.values())
+            local, glob = by_window[cfg.sliding_window], by_window[0]
+            w = cfg.sliding_window
+            pairs_local = w * (w + 1) // 2 + (seq - w) * w if seq > w else seq * (seq + 1) // 2
+            pairs_global = seq * (seq + 1) // 2
+            print(f"[serve] {arch}: flash device time over the prefill, {len(local)} local "
+                  f"layers (window {w}) {sum(local):.3f} ms (median "
+                  f"{statistics.median(local):.4f} ms a layer), {len(glob)} global layers "
+                  f"{sum(glob):.3f} ms (median {statistics.median(glob):.4f} ms a layer): local / "
+                  f"global {sum(local) / sum(glob):.3f} against {pairs_local / pairs_global:.3f} "
+                  f"of the (q, k) pairs ({pairs_local / 1e6:.1f} M / {pairs_global / 1e6:.1f} M) "
+                  f"on {card}")
         # one more prefill counted for phase 7 (FLOPs, launches, peak)
         _, counted, _ = count_call(
             f"prefill {arch} ({batch}, {seq})",
@@ -2853,10 +3063,49 @@ def main() -> int:
                   f"{graph_ms:.3f} ms on the device against {step_ms:.3f} ms eager (device idle ~"
                   f"{100 * (1 - graph_ms / step_ms):.1f}% of an eager step) on {card}")
             del graph, cache
+        if arch in LONG_DECODE:
+            # one long_500k decode step at full depth, built as the dry run
+            # traces it: init_cache(1, 524288), the token at its last position
+            long_model = build_model(cfg, "long_500k", device="cuda")
+            n_ctx = INPUT_SHAPES["long_500k"].seq_len
+            torch.cuda.empty_cache()
+            cache = long_model.init_cache(1, n_ctx)
+            cache_gb = sum(t.numel() * t.element_size() for t in tree_flatten(cache)[0]) / 1e9
+            rings = ", ".join(f"{name} {tuple(c['k'].shape)}" for name, c in cache.items())
+            tok = torch.randint(0, cfg.vocab, (1, 1), generator=g, device=dev)
+            pos = torch.full((1,), n_ctx - 1, dtype=torch.long, device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.inference_mode():
+                start.record()
+                out, new = long_model.decode_step(params, tok, pos, cache)
+                end.record()
+            torch.cuda.synchronize()
+            long_ms, long_peak = start.elapsed_time(end), torch.cuda.max_memory_allocated() / 1e9
+            if not bool(torch.isfinite(out[..., :cfg.vocab]).all()):
+                fail(f"{arch}: non-finite long_500k decode logits")
+            del out, new
+            print(f"[serve] {arch} long_500k: one decode step at position {n_ctx - 1}, batch 1, "
+                  f"{cfg.n_layers} layers, cache {cache_gb:.2f} GB ({rings}): {long_ms:.3f} ms "
+                  f"on the device (CUDA events), logits finite, peak {long_peak:.2f} GB on {card}")
+            # counted for phase 7 against the dry run's long_500k pair
+            _, counted, _ = count_call(
+                f"decode {arch} long_500k", lambda: infer(long_model.decode_step, params, tok,
+                                                          pos, cache),
+                (params, cache, tok, pos), long_ms, cfg, shape_name="long_500k")
+            if counted:
+                fail(f"{arch} long_500k: the decode step launched {counted}; decode keeps the "
+                     "masked einsum")
+            del long_model, cache, tok, pos
         del params, res, model
         torch.cuda.empty_cache()
     counts = launch_counts()
     print(f"[serve] launches: {json.dumps(counts)}")
+    for kernel, by_shape in launch_shapes().items():
+        if by_shape:
+            print(f"[serve] {kernel} launches by shape (b, s, s_kv, h, kv, hd or the scan's): "
+                  + ", ".join(f"{key} x {n}" for key, n in sorted(by_shape.items())))
     for kernel, want in serve_launches.items():
         if counts[kernel] != want:
             fail(f"{kernel}: {counts[kernel]} launches on the serving path, expected {want}")
@@ -2864,39 +3113,55 @@ def main() -> int:
 
     # forward (kernels) against teacher-forced decode (cache path) in f32;
     # qwen3-moe with capacity 100 tokens an expert, as tests/test_models.py
-    # decodes moe archs: no drops, so both paths route every token alike
-    f32_checks = [("smollm-360m", dict(n_layers=4)), ("falcon-mamba-7b", dict(n_layers=4)),
-                  ("qwen3-moe-30b-a3b", dict(n_layers=2, moe_capacity_factor=100.0)),
-                  ("stablelm-12b", dict(n_layers=4)),
+    # decodes moe archs: no drops, so both paths route every token alike.
+    # (arch, cut, shape name, rows, tokens): gemma2-2b's local / global pair
+    # and granite-3-2b's long_500k variant over the window plus 256, so their
+    # rings of 4096 wrap and the windowed flash differs from full attention
+    f32_checks = [("smollm-360m", dict(n_layers=4), "", 2, 256),
+                  ("falcon-mamba-7b", dict(n_layers=4), "", 2, 256),
+                  ("qwen3-moe-30b-a3b", dict(n_layers=2, moe_capacity_factor=100.0), "", 2, 256),
+                  ("stablelm-12b", dict(n_layers=4), "", 2, 256),
                   # two super-blocks and a tail block: the shared block's cache used twice
-                  ("zamba2-7b", dict(n_layers=13)),
+                  ("zamba2-7b", dict(n_layers=13), "", 2, 256),
                   # whisper at full depth, its cross cache filled from the encoder
                   # output; paligemma with no patches: pure gemma decoding
-                  ("whisper-tiny", {}), ("paligemma-3b", dict(n_layers=4))]
-    for arch, cut in f32_checks:
+                  ("whisper-tiny", {}, "", 2, 256), ("paligemma-3b", dict(n_layers=4), "", 2, 256),
+                  ("gemma2-2b", dict(n_layers=2), "", 1, 4352),
+                  ("granite-3-2b", dict(n_layers=4), "", 2, 256),
+                  ("granite-3-2b", dict(n_layers=2), "long_500k", 1, 4352)]
+    for arch, cut, shape_name, rows, seq in f32_checks:
         cfg = get_arch(arch).replace(dtype="float32", **cut)
-        model = build_model(cfg, device="cuda")
+        model = build_model(cfg, shape_name, device="cuda")
         g = torch.Generator(device=dev).manual_seed(1)
         params = model.init(g)
-        tokens = torch.randint(0, cfg.vocab, (2, 256), generator=g, device=dev)
-        frontend = frontend_inputs(cfg, 2, g) if cfg.family == "audio" else {}
-        with torch.inference_mode():
-            full, _ = model.forward(params, Batch(tokens=tokens, **frontend))
-            cache = model.init_cache(2, 256)
-            if cfg.family == "audio":
-                cache = fill_whisper_cross(model, params, frontend["encoder_frames"], cache)
-            err = 0.0
-            for t in range(256):
-                pos = torch.full((2,), t, dtype=torch.long, device=dev)
-                step, cache = model.decode_step(params, tokens[:, t:t + 1], pos, cache)
-                err = max(err, float((step[:, 0, :cfg.vocab] - full[:, t, :cfg.vocab])
-                                     .abs().max()))
+        tokens = torch.randint(0, cfg.vocab, (rows, seq), generator=g, device=dev)
+        frontend = frontend_inputs(cfg, rows, g) if cfg.family == "audio" else {}
+        wrap = seq > cfg.sliding_window > 0 and (cfg.alt_local_global or model.long_context)
+        t0 = time.perf_counter()
+        err, late, ring = decode_against_forward(model, params, tokens, frontend, wrap)
+        wall = time.perf_counter() - t0
         if not err < 5e-2:
-            fail(f"{arch}: f32 forward vs teacher-forced decode max |err| {err} >= 5e-2")
-        print(f"[serve] {arch} f32, {cfg.n_layers} layers, full width: forward vs "
-              f"teacher-forced decode over 256 tokens, max abs logit err {err:.3e} (bound "
-              f"5e-2) on {card}")
-        del params, full, cache, model
+            fail(f"{arch}{' ' + shape_name if shape_name else ''}: f32 forward vs teacher-forced "
+                 f"decode max |err| {err} >= 5e-2")
+        note = ""
+        if wrap:  # the same params with no window: full attention past the ring
+            plain = build_model(cfg.replace(sliding_window=0), device="cuda")
+            with torch.inference_mode():
+                windowed, _ = model.forward(params, Batch(tokens=tokens))
+                dense, _ = plain.forward(params, Batch(tokens=tokens))
+            gap = float((windowed[:, ring:] - dense[:, ring:]).abs().max())
+            if not gap > 10 * late:  # the decode follows the window, not full attention
+                fail(f"{arch}{' ' + shape_name if shape_name else ''}: past the ring of {ring} "
+                     f"the windowed forward is within {gap} of full attention, the decode "
+                     f"within {late} of the windowed forward")
+            note = (f"; the ring of {ring} wraps for the last {seq - ring} steps, max abs err "
+                    f"there {late:.3e}, where full attention differs by {gap:.3e}")
+            del plain, windowed, dense
+        print(f"[serve] {arch}{' ' + shape_name if shape_name else ''} f32, {cfg.n_layers} "
+              f"layers, full width: forward vs teacher-forced decode over ({rows}, {seq}) "
+              f"tokens, max abs logit err {err:.3e} (bound 5e-2){note}; {wall:.1f} s of wall "
+              f"on {card}")
+        del params, model
         torch.cuda.empty_cache()
 
     # -- 5. the training path: 4 stacked nodes -------------------------------------
@@ -2932,6 +3197,12 @@ def main() -> int:
         fwd_per_step = per_step * (2 if cfg.family == "moe" else 1)
         train_launches = Counter()
         for mode, codec, steps in train_runs:
+            # the run's state and steps in expandable segments (count_call
+            # turns them off after its step): what a step frees then goes back
+            # to the card on empty_cache, where holes among a run's live blocks
+            # (38.06 GiB of them after qwen3-moe's int8 steps) refused its
+            # counted step's 18.55 GiB round buffer
+            torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
             trainer = DFLTrainer(model, n_nodes, DFLConfig(gossip_mode=mode, codec=codec,
                                                            lr=lr, warmup=0),
                                  device="cuda", timed=True)
@@ -3068,7 +3339,9 @@ def main() -> int:
                 fail(f"train {run}: selective_scan launched {counts['selective_scan']} times")
             print(f"[train] {run}: lr {lr}, losses {[round(x, 4) for x in losses]}, peak "
                   f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, launches "
-                  f"{json.dumps(counts)}")
+                  f"{json.dumps(counts)}; model kernels by shape: " + "; ".join(
+                      f"{k} {sorted(v.items())}" for k, v in launch_shapes().items()
+                      if v and k not in GOSSIP_KERNELS))
             want = {"": (), "int8": ("quantize", "dequantize", "gossip_mix"),
                     "topk": ("topk_select", "gossip_mix")}[codec]
             missing = [k for k in want if counts[k] <= 0]
@@ -3124,6 +3397,7 @@ def main() -> int:
                   f"{statistics.median(spans[1:]):.3f} ms median of 3 after a warm-up "
                   f"[{', '.join(f'{t:.3f}' for t in spans)}] on {card}")
             del trainer, stacked
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:False")
         del model, batch
         torch.cuda.empty_cache()
         return data, frontend
@@ -3211,6 +3485,23 @@ def main() -> int:
     cfg = get_arch("falcon-mamba-7b").replace(n_layers=2, remat=False)
     data, _ = train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
     grad_check(cfg.replace(n_layers=1, dtype="float32"), data, 1)
+    # granite-3-2b at full width and 4 of its 40 layers, (2, 2048) a node,
+    # lr 3e-4: 0.344 B params a node, int8 dissemination (its codec and mix
+    # shapes timed in phase 2), then tree rounds
+    cfg = get_arch("granite-3-2b").replace(n_layers=4, remat=False)
+    data, _ = train_path(cfg, 2, [("dissemination", "int8", 2), ("tree_allreduce", "", 4)],
+                         lr=3e-4, timed=GOSSIP_KERNELS)
+    grad_check(cfg.replace(dtype="float32"), data, 2)
+    # gemma2-2b at full width and 2 of its 26 layers (one local / global
+    # pair), (1, 2048) a node, lr 3e-4: tree rounds only (0.746 B params a
+    # node, whose (N, N, P) f32 dissemination buffer is printed above the
+    # run). The gradient check runs over (1, 4352) tokens, the window plus
+    # 256, so the local layer's windowed, softcapped flash backward masks keys
+    cfg = get_arch("gemma2-2b").replace(n_layers=2, remat=False)
+    train_path(cfg, 1, [("tree_allreduce", "", 4)], lr=3e-4)
+    grad_check(cfg.replace(dtype="float32"), FederatedData(DataConfig(
+        vocab=cfg.vocab, seq_len=cfg.sliding_window + 256, batch_per_node=1, n_nodes=1,
+        seed=0)), 1)
 
     # -- 6. the sweep path: the codec x protocol grid through the launcher -------
     out = io.StringIO()
@@ -3327,7 +3618,7 @@ def main() -> int:
     # microbatches x 35 layers take minutes), then the counted runs' configs
     import multiprocessing
 
-    from repro_torch.configs import INPUT_SHAPES, list_archs
+    from repro_torch.configs import list_archs
     from repro_torch.kernels.scan.mamba_scan import scan_bwd_workspace
     from repro_torch.launch.roofline import Roofline
 
@@ -3345,14 +3636,29 @@ def main() -> int:
 
     all_pairs = sorted(((a, sh) for a in list_archs() for sh in INPUT_SHAPES),
                        key=trace_weight, reverse=True)
-    # arctic-480b's trace is the longest; the rest fit beside it in three
-    n_workers = max(1, min(4, (os.cpu_count() or 8) - 1))
+
+    def all_job(pair):  # an --all pair's dry run, at full depth but ALL_CUT's
+        return dict(arch=pair[0], shape_name=pair[1], layers=ALL_CUT.get(pair))
+
+    def all_pair(dry):  # a counted run that is an --all pair: its traced result
+        return (dry["arch"], dry["shape_name"]) if dry.keys() <= {"arch", "shape_name",
+                                                                  "arch_overrides"} \
+            and not dry.get("arch_overrides") else None
+
+    # the main process only waits from here on: a worker a CPU, up to 8
+    n_cpus = os.cpu_count() or 1
+    n_workers = max(1, min(8, n_cpus))
+    t_pool = time.perf_counter()
     with multiprocessing.get_context("spawn").Pool(n_workers) as pool:  # terminated on exit
-        all_futs = {p: pool.apply_async(dry_worker, (dict(arch=p[0], shape_name=p[1]),))
-                    for p in all_pairs[:4]}
-        dry_futs = [pool.apply_async(dry_worker, (run["dry"],)) for run in counted_runs]
-        all_futs.update({p: pool.apply_async(dry_worker, (dict(arch=p[0], shape_name=p[1]),))
-                         for p in all_pairs[4:]})
+        # the deepest stacks start first
+        all_futs = {p: pool.apply_async(dry_worker, (all_job(p),)) for p in all_pairs[:n_workers]}
+        dry_futs = [None if all_pair(run["dry"]) else pool.apply_async(dry_worker, (run["dry"],))
+                    for run in counted_runs]
+        all_futs.update({p: pool.apply_async(dry_worker, (all_job(p),))
+                         for p in all_pairs[n_workers:]})
+        # a counted long_500k decode step is held to its --all pair, traced once
+        dry_futs = [fut or all_futs[all_pair(run["dry"])]
+                    for run, fut in zip(counted_runs, dry_futs)]
         # phase 8's meshed dry runs, queued behind phase 7's (rank 0 of each
         # production layout, full depth; (b)'s pairs first)
         train_archs = {a for a, _, _ in MESH_TRAIN}
@@ -3460,9 +3766,12 @@ def main() -> int:
                   f"{json.dumps(dry['kernel_launches'])}; traced in {dry['trace_s']} s")
         print(f"[dryrun] phase 7: {time.perf_counter() - t7:.1f} s after phase 6")
         mesh_dry = {p: fut.get() for p, fut in mesh_futs.items()}
-    print(f"[dryrun] the dry runs ({len(dry_futs)} counted configs, {len(all_futs)} --all pairs, "
-          f"{len(mesh_dry)} meshed pairs for phase 8) in {n_workers} processes; card memory they "
-          f"allocated: {max([card_bytes] + [d.get('card_bytes', 0) for d in mesh_dry.values()])} B")
+    n_reused = sum(1 for run in counted_runs if all_pair(run["dry"]))
+    print(f"[dryrun] the dry runs ({len(dry_futs)} counted configs, {n_reused} of them --all "
+          f"pairs traced once; {len(all_futs)} --all pairs, {len(mesh_dry)} meshed pairs for "
+          f"phase 8) in a pool of {n_workers} processes on os.cpu_count() = {n_cpus}: "
+          f"{time.perf_counter() - t_pool:.1f} s of wall; card memory they allocated: "
+          f"{max([card_bytes] + [d.get('card_bytes', 0) for d in mesh_dry.values()])} B")
     print(f"[dryrun] phases 7 and 8 (c)'s dry runs: {time.perf_counter() - t7:.1f} s after phase 6")
 
     # -- 8. the mesh ------------------------------------------------------------------------

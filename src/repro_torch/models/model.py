@@ -141,6 +141,20 @@ def _tree_map(fn, tree: Params, *rest: Params) -> Params:
     return fn(tree, *rest)
 
 
+def _new_stack(like: Params) -> Params:
+    """An unfilled stacked tree shaped as ``like``, which a decode step fills
+    a layer at a time (:func:`_put_layer`): the new cache is allocated once,
+    and beside the old cache it holds one layer's new copy at most
+    (``torch.stack`` of the per-layer trees would hold every layer's twice:
+    a third cache, which gemma2-2b's 27.9 GB at long_500k does not fit)."""
+    return _tree_map(torch.empty_like, like)
+
+
+def _put_layer(stack: Params, i: int, tree: Params) -> None:
+    """Layer i's tree copied into ``stack`` (:func:`_stack` a layer at a time)."""
+    _tree_map(lambda o, t: o[i].copy_(t), stack, tree)
+
+
 def _stack_layers(n: int, make_block: Callable[[], Params]) -> Params:
     """The stacked tree of ``n`` blocks from ``make_block()``, drawn in layer
     order (the draws of ``_stack([make_block() for _ in range(n)])``) and
@@ -578,47 +592,36 @@ class Model:
                 return self._residual(x, y), c2
             return self._residual(x, mlp(block["mlp"], rms_norm(x, block["ln2"]))), c2
 
+        new_cache = _new_stack({k: c for k, c in cache.items() if not k.startswith("cross_")})
         if cfg.family in ("dense", "vlm") and cfg.alt_local_global:
-            local, glob = [], []
             for i in range(cfg.n_layers // 2):
                 x, lc = dense(_layer(params["local_blocks"], i), x, _layer(cache["local"], i),
                               cfg.sliding_window)
+                _put_layer(new_cache["local"], i, lc)
                 x, gc = dense(_layer(params["global_blocks"], i), x, _layer(cache["global"], i), 0)
-                local.append(lc)
-                glob.append(gc)
-            new_cache = {"local": _stack(local), "global": _stack(glob)}
+                _put_layer(new_cache["global"], i, gc)
         elif cfg.family in ("dense", "moe", "vlm"):
             window = cfg.sliding_window if self.long_context else 0
-            kvs = []
             for i in range(cfg.n_layers):
                 x, c2 = dense(_layer(params["blocks"], i), x, _layer(cache["kv"], i), window)
-                kvs.append(c2)
-            new_cache = {"kv": _stack(kvs)}
+                _put_layer(new_cache["kv"], i, c2)
         elif cfg.family == "hybrid":
             def mamba2(block: Params, x: torch.Tensor, c: Params):
                 y, c2 = mamba_lib.mamba2_decode(block["body"], rms_norm(x, block["ln"]), c,
                                                 cfg.ssm_state)
                 return self._residual(x, y), c2
 
-            supers, attns = [], []
             for i in range(self.n_super):
                 blocks, states = _layer(params["mamba_blocks"], i), _layer(cache["mamba"], i)
-                inner = []
                 for j in range(self.mamba_per_super):
                     x, c2 = mamba2(_layer(blocks, j), x, _layer(states, j))
-                    inner.append(c2)
-                supers.append(_stack(inner))
+                    _put_layer(_layer(new_cache["mamba"], i), j, c2)
                 x, a2 = dense(params["shared_attn"], x, _layer(cache["attn"], i), 0)
-                attns.append(a2)
-            new_cache = {"mamba": _stack(supers), "attn": _stack(attns)}
-            if self.n_tail:
-                tails = []
-                for i in range(self.n_tail):
-                    x, c2 = mamba2(_layer(params["tail_blocks"], i), x, _layer(cache["tail"], i))
-                    tails.append(c2)
-                new_cache["tail"] = _stack(tails)
+                _put_layer(new_cache["attn"], i, a2)
+            for i in range(self.n_tail):
+                x, c2 = mamba2(_layer(params["tail_blocks"], i), x, _layer(cache["tail"], i))
+                _put_layer(new_cache["tail"], i, c2)
         elif cfg.family == "audio":
-            kvs = []
             for i in range(cfg.n_layers):
                 block = _layer(params["blocks"], i)
                 h, c2 = attn_lib.decode_attention(
@@ -631,19 +634,16 @@ class Model:
                     causal=False, use_rope=False,
                     kv_override=(cache["cross_k"][i], cache["cross_v"][i]), kv_positions=None))
                 x = self._residual(x, mlp(block["mlp"], rms_norm(x, block["ln2"])))
-                kvs.append(c2)
-            new_cache = {"kv": _stack(kvs), "cross_k": cache["cross_k"],
-                         "cross_v": cache["cross_v"]}
+                _put_layer(new_cache["kv"], i, c2)
+            new_cache.update(cross_k=cache["cross_k"], cross_v=cache["cross_v"])
         else:
-            states = []
             for i in range(cfg.n_layers):
                 block = _layer(params["blocks"], i)
                 y, c2 = mamba_lib.mamba1_decode(block["body"], rms_norm(x, block["ln"]),
                                                 _layer(cache["mamba"], i), cfg.ssm_state,
                                                 cfg.dt_rank)
                 x = self._residual(x, y)
-                states.append(c2)
-            new_cache = {"mamba": _stack(states)}
+                _put_layer(new_cache["mamba"], i, c2)
 
         x = rms_norm(x, params["final_norm"])
         logits = logits_from_embedding(params["embed"], x, cfg.vocab, cfg.final_logit_softcap)

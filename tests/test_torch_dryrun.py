@@ -8,7 +8,8 @@ counts it rests on.
   launches equal the op counter's on a real CPU step of the same config,
   exactly; the trace reaches no kernel library and no plain version.
 * Prefill and decode trace for every family; ``long_500k`` is skipped for
-  whisper-tiny, as the reference's dry run skips it.
+  whisper-tiny, as the reference's dry run skips it. A decode step's peak
+  holds one new cache beside the old one (P13).
 * The dry run's CUDA device: ``resolve_device`` gives it only while the dry
   run's fake mode is active.
 * Total bytes (``bytes_per_device``) of the dry steps equal the real CPU
@@ -166,6 +167,22 @@ def test_dry_prefill_and_decode_trace(family):
         assert res["status"] == "ok", res.get("traceback")
         assert res["flops_per_device"] > 0 and res["peak_memory_bytes"] > 0
         assert res["model_flops"] > 0 and "gossip" not in res
+
+
+def test_decode_step_holds_one_new_cache_beside_the_old():
+    """P13: a decode step writes its new cache into one stacked tree a layer
+    at a time, so beside the old cache its peak holds one new cache and a
+    layer's work. Stacking the per-layer copies held two new caches: 2.0 x
+    the cache over the start here, and gemma2-2b's long_500k step at full
+    depth (a 27.9 GB cache) traced to 89.6 GB, more than the card holds.
+    gemma2's smoke variant at 16 layers over a 65536-token cache: 8 global
+    layers' caches of 65536 and 8 local rings of 128, f32."""
+    res = dryrun.dryrun_pair("gemma2-2b", "long_500k", smoke=True, layers=16, seq=65536,
+                             verbose=False)
+    assert res["status"] == "ok", res.get("traceback")
+    cache = 2 * (8 * 65536 + 8 * 128) * 4 * 64 * 4  # k and v, 4 kv heads of 64, f32
+    assert res["start_memory_bytes"] > cache
+    assert cache < res["peak_memory_bytes"] - res["start_memory_bytes"] < 1.5 * cache
 
 
 def test_long_500k_skipped_for_whisper():

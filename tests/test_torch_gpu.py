@@ -496,7 +496,7 @@ def test_scan_kernel_long_and_every_state_size(cuda, x_dtype, b, s, di, n):
     assert float((h - want_h).abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b", "granite-3-2b", "falcon-mamba-7b"])
 def test_model_forward_on_card_matches_cpu(cuda, arch):
     """The f32 smoke forward and a decode step through the kernels on the
     card against the plain path on the CPU, on the same params."""
@@ -520,6 +520,40 @@ def test_model_forward_on_card_matches_cpu(cuda, arch):
     step, _ = card.decode_step(params_card, tokens[:, :1].to(cuda),
                                torch.zeros(2, dtype=torch.long, device=cuda), cache)
     assert float((step[:, 0].cpu() - want[:, 0]).abs().max()) <= 5e-2
+
+
+def test_long_context_ring_decode_on_card_matches_cpu(cuda):
+    """granite-3-2b's ``long_500k`` smoke variant (every layer windowed at
+    128, each cache a ring of 128): 160 decode steps on the card, the ring
+    wrapping, against the same steps on the CPU's plain path on the same
+    params, and the card's last logits against its own windowed forward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Batch, build_model
+
+    cfg = get_arch("granite-3-2b").smoke_variant()
+    cpu = build_model(cfg, "long_500k", device="cpu")
+    card = build_model(cfg, "long_500k", device="cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    params_card = tree_map(lambda t: t.to(cuda), params)
+    b, steps = 2, 160
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (b, steps)))
+    c_cpu, c_card = cpu.init_cache(b, steps), card.init_cache(b, steps)
+    assert c_card["kv"]["k"].shape[2] == cfg.sliding_window == 128
+    worst = torch.zeros((), device=cuda)
+    for t in range(steps):
+        pos = torch.full((b,), t, dtype=torch.long)
+        want, c_cpu = cpu.decode_step(params, tokens[:, t:t + 1], pos, c_cpu)
+        got, c_card = card.decode_step(params_card, tokens[:, t:t + 1].to(cuda), pos.to(cuda),
+                                       c_card)
+        worst = torch.maximum(worst, (got - want.to(cuda)).abs().max())
+    assert float(worst) <= 1e-4
+    for name in ("k", "v"):
+        assert float((c_card["kv"][name].cpu() - c_cpu["kv"][name]).abs().max()) <= 1e-5
+    reset_launches()
+    full, _ = card.forward(params_card, Batch(tokens=tokens.to(cuda)))
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == cfg.n_layers
+    assert float((got[:, 0] - full[:, -1]).abs().max()) < 5e-2
 
 
 # -- the flash-attention backward and training through the kernels ----------------

@@ -14,9 +14,12 @@ an encoder and cross-attention) and paligemma-3b (vlm: a patch prefix):
   and scan sum in another order than XLA's einsum and associative scan),
   the moe aux loss within 1e-6 and ``train_loss`` within 1e-5;
 * ``decode_step`` logits within 1e-4 at every step and the caches within
-  1e-5, gemma2's local ring wrapping past its window; the moe archs at
-  ``moe_capacity_factor=100``, as ``tests/test_models.py`` decodes them (no
-  drops, so the forward and the decode route every token alike);
+  1e-5, gemma2's local ring wrapping past its window (and granite-3-2b's
+  ``long_500k`` variant, every layer's ring of 128 wrapping over 160
+  steps; its forward and gemma2's, smollm's and qwen3-moe's are held too);
+  the moe archs at ``moe_capacity_factor=100``, as ``tests/test_models.py``
+  decodes them (no drops, so the forward and the decode route every token
+  alike);
 * teacher-forced decode within 5e-2 of the port's own forward, the bound of
   ``tests/test_models.py::test_decode_matches_forward``; whisper's with the
   cross cache filled from the encoder output, as that test's
@@ -210,7 +213,8 @@ def _count_kernel_calls(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,shape_name", [(a, "") for a in ARCHS]
-                         + [("smollm-360m", "long_500k"), ("qwen3-moe-30b-a3b", "long_500k")])
+                         + [(a, "long_500k") for a in ("smollm-360m", "qwen3-moe-30b-a3b",
+                                                       "granite-3-2b", "gemma2-2b")])
 def test_forward_matches_jax(monkeypatch, arch, shape_name):
     mj, mt, params_j, params_t = _pair(arch, shape_name)
     cfg = mt.cfg
@@ -268,6 +272,38 @@ def test_decode_matches_jax_and_own_forward(arch):
     for (path, w), (_, g) in zip(_leaves(cj), _leaves(ct)):
         assert tuple(g.shape) == w.shape, path
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, err_msg=path)
+
+
+def test_long_context_ring_decode_matches_jax_and_own_forward():
+    """granite-3-2b's ``long_500k`` variant at smoke size: every layer
+    windowed (128) and its cache a ring of ``min(cache_len, window)``. Over
+    160 steps the ring wraps, and the decode must still match the JAX
+    package's ``decode_step`` and the port's own windowed forward."""
+    mj, mt, params_j, params_t = _pair("granite-3-2b", "long_500k")
+    cfg = mt.cfg
+    b, steps, cache_len = 2, 160, 160
+    window = cfg.sliding_window
+    assert mt.long_context and window == 128
+    tokens = _tokens(cfg, b, steps, seed=4)
+    cj, ct = mj.init_cache(b, cache_len), mt.init_cache(b, cache_len)
+    assert ct["kv"]["k"].shape[2] == window and cj["kv"]["k"].shape[2] == window
+    step_j = jax.jit(mj.decode_step)
+    full, _ = mt.forward(params_t, _batches(tokens)[1])
+    for t in range(steps):
+        pos = np.full((b,), t, np.int32)
+        lj, cj = step_j(params_j, jnp.asarray(tokens[:, t:t + 1]), jnp.asarray(pos), cj)
+        lt, ct = mt.decode_step(params_t, torch.from_numpy(tokens[:, t:t + 1]).long(),
+                                torch.from_numpy(pos).long(), ct)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4, err_msg=f"step {t}")
+        err = float((lt[:, 0, :cfg.vocab] - full[:, t, :cfg.vocab]).abs().max())
+        assert err < 5e-2, f"step {t}: decode vs forward {err}"
+    for (path, w), (_, g) in zip(_leaves(cj), _leaves(ct)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, err_msg=path)
+    # past the window the ring is the last 128 keys, not the first: the
+    # windowed forward differs from full attention there
+    dense = build_model(cfg, device="cpu")
+    full_attn, _ = dense.forward(params_t, _batches(tokens)[1])
+    assert float((full_attn[:, steps - 1] - full[:, steps - 1]).abs().max()) > 1e-3
 
 
 def test_whisper_decode_matches_forward_with_the_cross_cache_filled():
